@@ -13,6 +13,12 @@
 // layer per Pallas program): the stack wrappers in
 // ncnet_tpu_torch/ops/nc_fused_lane.py launch this kernel once per layer.
 //
+// Its transposed variant (nc_conv4d_transpose_bf16: no bias, no ReLU) is the
+// input gradient of the backward, the Γ lane of the TPU kernel
+// ncnet_tpu/ops/nc_fused_lane_vjp.py::_vjp_stage: conv4d_same of the masked
+// cotangent with the layer's weights flipped in all four tap dims and C_in,
+// C_out swapped (ncnet_tpu_torch/ops/nc_fused_lane_vjp.py flips them).
+//
 // Bound: operations.  The PF-Pascal stack, kernels (5, 5, 5) and channels
 // (16, 16, 1) on a 25^4 volume, counts 1.406e11 FLOP per volume at the full
 // k^4 tap count (1->16: 7.8e9, 16->16: 1.25e11, 16->1: 7.8e9), so 2.81e11 FLOP
@@ -103,7 +109,7 @@ __device__ __forceinline__ void store_cout(__nv_bfloat16* o, const float* v) {
   }
 }
 
-template <int K, int CIN, int COUT>
+template <int K, int CIN, int COUT, bool BIAS_RELU>
 __global__ void __launch_bounds__(kThreads)
 nc_conv4d_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
@@ -175,13 +181,15 @@ nc_conv4d_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
   if (!active) return;
+  if constexpr (BIAS_RELU) {
 #pragma unroll
-  for (int co = 0; co < COUT; ++co)
-    acc[co] = fmaxf(acc[co] + __bfloat162float(bias[co]), 0.f);
+    for (int co = 0; co < COUT; ++co)
+      acc[co] = fmaxf(acc[co] + __bfloat162float(bias[co]), 0.f);
+  }
   store_cout<COUT>(out + cell * COUT, acc);
 }
 
-template <int K, int CIN, int COUT>
+template <int K, int CIN, int COUT, bool BIAS_RELU>
 cudaError_t launch(const void* x, const void* w, const void* b, void* out,
                    int B, int hA, int wA, int hB, int wB,
                    cudaStream_t stream) {
@@ -189,8 +197,8 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
   if (n <= 0) return cudaSuccess;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  nc_conv4d_kernel<K, CIN, COUT><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                   stream>>>(
+  nc_conv4d_kernel<K, CIN, COUT, BIAS_RELU>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out),
@@ -203,7 +211,9 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
 // The (k, C_in, C_out) layer shapes compiled in: the PF-Pascal stack
 // (5: 1->16, 16->16, 16->1), the IVD/InLoc stack (3: 1->16, 16->1), the
 // default ModelConfig stack (3: 1->10, 10->10, 10->1), and the thin test
-// stacks (channels 1, 2 and 4 at k = 3 and 5).
+// stacks (channels 1, 2 and 4 at k = 3 and 5).  The transposed variant is
+// compiled for the transpose (k, C_out, C_in) of each, and
+// csrc/nc_conv4d_vjp.cu repeats this list.
 #define NC_CONV4D_SHAPES(X)                                                  \
   X(5, 1, 16) X(5, 16, 16) X(5, 16, 1)                                       \
   X(3, 1, 16) X(3, 16, 16) X(3, 16, 1)                                       \
@@ -231,10 +241,29 @@ int nc_conv4d_bf16(const void* x, const void* w, const void* b, void* out,
                    int c_out, void* stream) {
 #define NC_LAUNCH(K, CI, CO)                                              \
   if (k == K && c_in == CI && c_out == CO)                                \
-    return static_cast<int>(launch<K, CI, CO>(                            \
+    return static_cast<int>(launch<K, CI, CO, true>(                      \
         x, w, b, out, B, hA, wA, hB, wB, static_cast<cudaStream_t>(stream)));
   NC_CONV4D_SHAPES(NC_LAUNCH)
 #undef NC_LAUNCH
+  return -1;
+}
+
+// The input gradient of a forward layer (k, c_in, c_out): enqueues
+// out = bf16(conv4d_same(gz, wt)) with no bias and no ReLU, gz (B, hA, wA,
+// hB, wB, c_out) bf16, wt (k, k, k, k, c_out, c_in) the flipped, channel-
+// swapped weights, out (B, hA, wA, hB, wB, c_in).  Returns the cudaError_t
+// of the launch, or -1 for a shape that is not compiled in (the forward
+// shape (k, c_in, c_out) is, exactly when nc_conv4d_supported says so).
+int nc_conv4d_transpose_bf16(const void* gz, const void* wt, void* out, int B,
+                             int hA, int wA, int hB, int wB, int k, int c_in,
+                             int c_out, void* stream) {
+#define NC_LAUNCH_T(K, CI, CO)                                            \
+  if (k == K && c_in == CI && c_out == CO)                                \
+    return static_cast<int>(launch<K, CO, CI, false>(                     \
+        gz, wt, nullptr, out, B, hA, wA, hB, wB,                          \
+        static_cast<cudaStream_t>(stream)));
+  NC_CONV4D_SHAPES(NC_LAUNCH_T)
+#undef NC_LAUNCH_T
   return -1;
 }
 

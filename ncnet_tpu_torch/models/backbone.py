@@ -169,3 +169,40 @@ def backbone_apply(name: str, params, images: torch.Tensor,
                    last_layer: str = "") -> torch.Tensor:
     _check_name(name)
     return _APPLYS[name](params, images, last_layer)
+
+
+# ---------------------------------------------------------------------------
+# fine-tune partition (reference train.py:60-63 semantics)
+# ---------------------------------------------------------------------------
+
+
+def _label_tree(node, label_of, key=None):
+    if isinstance(node, dict):
+        return {k: _label_tree(v, label_of, k) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_label_tree(v, label_of, key) for v in node]
+    return label_of(key)
+
+
+def finetune_labels(name: str, params, n_finetune_blocks: int):
+    """The params tree with a ``'frozen'`` or ``'trainable'`` label at
+    every leaf (``ncnet_tpu/models/backbone.py:377``): all frozen, except
+    the last ``n_finetune_blocks`` residual blocks of the ResNet (conv
+    weights and BN affine; BN running stats never train) or, for ``tiny``,
+    the whole trunk."""
+    _check_name(name)
+
+    def unfreeze(subtree):
+        return _label_tree(subtree, lambda key: "frozen"
+                           if key in ("mean", "var") else "trainable")
+
+    labels = _label_tree(params, lambda key: "frozen")
+    if n_finetune_blocks <= 0:
+        return labels
+    if name == "resnet101":
+        blocks = [(s, i) for s in RESNET101_STAGES if s in params
+                  for i in range(len(params[s]))]
+        for s, i in blocks[-n_finetune_blocks:]:
+            labels[s][i] = unfreeze(params[s][i])
+        return labels
+    return unfreeze(params)  # tiny: the whole (non-pretrained) trunk

@@ -8,18 +8,21 @@ C_out)``), and the forward is a function of ``(config, params, images)``
 with the JAX package's channels-last layouts.
 
 Under ``half_precision`` the volume and the NC weights are bf16 and the NC
-stack runs through ``ops/nc_fused_lane.py::nc_stack_resident`` (the CUDA
-kernel on the card, its plain twin on the CPU), as the JAX package routes
-bf16 stacks to its resident Pallas kernel.  The fp32 stack runs the plain
-``ops/conv4d.py``, as the JAX package runs XLA there.
+stack runs through ``ops/nc_fused_lane.py`` (the CUDA kernels on the card,
+their plain twins on the CPU): ``nc_stack_resident`` for inference, and
+``nc_stack_fused`` (forward kernel, B3 backward kernels) when autograd
+records, as the JAX package routes bf16 stacks to its Pallas kernels.  The
+fp32 stack runs the plain ``ops/conv4d.py``, as the JAX package runs XLA
+there.
 
-This slice ports the dense serving path.  ``check_ported`` rejects, with
+The port runs the dense serving path and the training step
+(``training/``).  ``check_ported`` rejects, with
 ``NotImplementedError``, every ``ModelConfig`` option it does not run yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,14 +72,33 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (dicts and lists), with the
+    matching leaves of ``rest``; None leaves stay None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The non-None leaves of ``tree`` in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def params_to(params, target) -> Any:
     """The parameter tree with every tensor moved by ``.to(target)`` (a
     device or a dtype)."""
-    if isinstance(params, dict):
-        return {k: params_to(v, target) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [params_to(v, target) for v in params]
-    return params.to(target)
+    return tree_map(lambda t: t.to(target), params)
 
 
 class NCNetOutput(NamedTuple):
@@ -125,8 +147,20 @@ def _swap_ab(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 4, 1, 2, 5)
 
 
+def _check_training_args(remat_layers: bool, custom_grad) -> None:
+    for name, hit in (("remat_nc_layers", remat_layers),
+                      ("nc_custom_grad", custom_grad is not False)):
+        if hit:
+            raise NotImplementedError(
+                f"{name} is not ported to ncnet_tpu_torch yet (a memory knob "
+                "of the XLA backward; the port's bf16 backward is the B3 "
+                "kernels)")
+
+
 def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
-                    corr: torch.Tensor, *, symmetric: bool = True
+                    corr: torch.Tensor, *, symmetric: bool = True,
+                    remat_layers: bool = False, custom_grad=False,
+                    allow_pallas: bool = True, require_vjp: bool = False
                     ) -> torch.Tensor:
     """Neighbourhood-consensus filtering of the ``(B, hA, wA, hB, wB)``
     volume, with the reference's stack-level symmetry ``NC(x) + NC(xᵀ)ᵀ``
@@ -135,9 +169,18 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
     A square volume batch-folds ``[x, xᵀ]`` into one stack call
     (``ncnet_tpu/models/ncnet.py:615-624``); a rectangular one runs two
     passes (``:650-652``).  A bf16 volume with bf16 weights runs the stack
-    through ``nc_fused_lane.nc_stack_resident``; an fp32 one through the
-    plain ``conv4d``.
+    through the CUDA kernels: ``nc_fused_lane.nc_stack_fused`` (forward
+    and B3 backward) when autograd records, else
+    ``nc_fused_lane.nc_stack_resident``.  An fp32 one runs the plain
+    ``conv4d`` under autograd, as the JAX package runs XLA there.
+
+    ``allow_pallas=False`` on a bf16 stack raises ``NotImplementedError``:
+    the JAX package then runs XLA's formulation, and the port has no
+    counterpart but the kernel.  ``require_vjp`` (the JAX training gate)
+    needs no routing here: the kernel's backward always exists.
+    ``remat_layers`` and ``custom_grad`` raise ``NotImplementedError``.
     """
+    _check_training_args(remat_layers, custom_grad)
     x = corr[..., None]
     bf16 = x.dtype == torch.bfloat16
     if bf16 != all(layer["w"].dtype == torch.bfloat16 for layer in nc_params):
@@ -145,9 +188,17 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
             f"volume {x.dtype} and NC weights "
             f"{[layer['w'].dtype for layer in nc_params]} differ: cast both "
             "(ncnet_filter does under half_precision)")
+    if bf16 and not allow_pallas:
+        raise NotImplementedError(
+            "a bf16 NC stack with nc_pallas=False (XLA's formulation in the "
+            "JAX package) is not ported: the port's bf16 stack is the kernel")
 
     def stack(v: torch.Tensor) -> torch.Tensor:
         if bf16:
+            if torch.is_grad_enabled() and (v.requires_grad or any(
+                    t.requires_grad for layer in nc_params
+                    for t in layer.values())):
+                return nc_fused_lane.nc_stack_fused(nc_params, v)
             return nc_fused_lane.nc_stack_resident(nc_params, v)
         for layer in nc_params:
             v = torch.relu(conv4d(v, layer["w"], layer["b"]))
@@ -183,10 +234,15 @@ def extract_features(config: ModelConfig, params, images: torch.Tensor
     return feats
 
 
-def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor
+def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
+                 remat_nc_layers: bool = False, nc_custom_grad: bool = False,
+                 nc_pallas: bool = True, nc_pallas_vjp: bool = False
                  ) -> NCNetOutput:
     """MutualMatching → NeighConsensus → MutualMatching, in bf16 when
-    ``half_precision`` (volume and NC weights cast together)."""
+    ``half_precision`` (volume and NC weights cast together, differentiably:
+    the gradients of f32 weights come back in f32).  The training arguments
+    are :func:`neigh_consensus`'s (``nc_pallas`` is its ``allow_pallas``,
+    ``nc_pallas_vjp`` its ``require_vjp``)."""
     check_ported(config)
     nc_params = params["nc"]
     if config.half_precision:
@@ -194,7 +250,10 @@ def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor
                      for layer in nc_params]
         corr = corr.to(torch.bfloat16)
     corr = mutual_matching(corr)
-    corr = neigh_consensus(nc_params, corr, symmetric=config.symmetric_mode)
+    corr = neigh_consensus(nc_params, corr, symmetric=config.symmetric_mode,
+                           remat_layers=remat_nc_layers,
+                           custom_grad=nc_custom_grad, allow_pallas=nc_pallas,
+                           require_vjp=nc_pallas_vjp)
     corr = mutual_matching(corr)
     return NCNetOutput(corr, None)
 

@@ -9,12 +9,20 @@ layer, with bf16 activations between layers and f32 sums inside each layer.
 On a CPU tensor they run the plain twin :func:`nc_stack_reference`, and on a
 CUDA tensor they never do: a kernel that cannot build or launch raises.
 
+``nc_stack_fused`` is the differentiable stack (the JAX ``custom_vjp`` of
+the same name): a ``torch.autograd.Function`` whose forward is the same
+per-layer kernel and whose backward is ``ops/nc_fused_lane_vjp.py`` (the B3
+kernels on the card, their twin on the CPU).  Unlike the TPU kernel, which
+replays the forward in its backward, the Function saves the forward's bf16
+layer outputs.
+
 The TPU module's tier ladder (resident → per-layer → XLA), its real-compile
 probes, runtime demotion registry and persistent tier cache are TPU-compiler
 machinery and are not ported here (ROADMAP queue A).
 
-``launches`` counts the kernel launches of this process (one per layer per
-stack call), so a run can show that its path went through the kernel.
+``launches`` counts the forward kernel's launches in this process (one per
+layer per stack call), so a run can show that its path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -60,15 +68,22 @@ def _check_stack(nc_params: List[dict], x: torch.Tensor, name: str) -> None:
                          f"stack, got kernels={kernels}")
 
 
+def layer_reference(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """The plain twin of one kernel launch, with its rounding points: bf16
+    operands (input volume, weights, bias), an f32 same-padded conv4d
+    (``ops/conv4d.py``), f32 bias and ReLU, bf16 output."""
+    w = w.to(torch.bfloat16).to(torch.float32)
+    b = b.to(torch.bfloat16).to(torch.float32)
+    x = x.to(torch.bfloat16).to(torch.float32)
+    return torch.relu(conv4d(x, w, b)).to(torch.bfloat16)
+
+
 def nc_stack_reference(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
-    """The plain twin of the kernel, with its rounding points: bf16 operands
-    (input volume, weights, bias), an f32 same-padded conv4d
-    (``ops/conv4d.py``), f32 bias and ReLU, bf16 output per layer."""
+    """The plain twin of the stack: :func:`layer_reference` per layer."""
     x = x.to(torch.bfloat16)
     for layer in nc_params:
-        w = layer["w"].to(torch.bfloat16).to(torch.float32)
-        b = layer["b"].to(torch.bfloat16).to(torch.float32)
-        x = torch.relu(conv4d(x.to(torch.float32), w, b)).to(torch.bfloat16)
+        x = layer_reference(x, layer["w"], layer["b"])
     return x
 
 
@@ -78,11 +93,63 @@ def _library() -> ctypes.CDLL:
     lib.nc_conv4d_bf16.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.nc_conv4d_bf16.restype = ctypes.c_int
+    lib.nc_conv4d_transpose_bf16.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.nc_conv4d_transpose_bf16.restype = ctypes.c_int
     lib.nc_conv4d_supported.argtypes = [ctypes.c_int] * 3
     lib.nc_conv4d_supported.restype = ctypes.c_int
     lib.nc_conv4d_error_string.argtypes = [ctypes.c_int]
     lib.nc_conv4d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
+    """Launch one layer of ``csrc/nc_conv4d.cu``: with bias ``b`` the
+    forward (bias + ReLU), with ``b=None`` the transposed variant (``w``
+    the flipped, channel-swapped weights; no bias, no ReLU)."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on CUDA tensors, got {x.device}")
+    ts = (x, w) if b is None else (x, w, b)
+    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in ts):
+        raise TypeError(f"{name} takes bf16 tensors on one device, got "
+                        f"{[(t.dtype, str(t.device)) for t in ts]}")
+    k, c_in, c_out = int(w.shape[0]), int(w.shape[4]), int(w.shape[5])
+    if (x.dim() != 6 or w.dim() != 6 or tuple(w.shape[:4]) != (k,) * 4
+            or x.shape[5] != c_in
+            or (b is not None and tuple(b.shape) != (c_out,))):
+        raise ValueError(f"{name}: volume {tuple(x.shape)} and weights "
+                         f"{tuple(w.shape)} (bias "
+                         f"{None if b is None else tuple(b.shape)}) disagree")
+    # the library is compiled per forward layer shape; a transposed launch
+    # of forward shape (k, c_out, c_in) runs with these weights
+    fwd = (k, c_in, c_out) if b is not None else (k, c_out, c_in)
+    lib = _library()
+    if not lib.nc_conv4d_supported(*fwd):
+        raise NotImplementedError(
+            f"nc_conv4d is not compiled for k={fwd[0]}, {fwd[1]}->{fwd[2]} "
+            f"channels (add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel's vector loads need 16-byte alignment
+        x = x.clone()
+    w = w.contiguous()
+    out = torch.empty(x.shape[:5] + (c_out,), dtype=torch.bfloat16,
+                      device=x.device)
+    bsz, ha, wa, hb, wb = (int(d) for d in x.shape[:5])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if b is None:
+            rc = lib.nc_conv4d_transpose_bf16(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), bsz, ha, wa, hb,
+                wb, *fwd, stream)
+        else:
+            b = b.contiguous()
+            rc = lib.nc_conv4d_bf16(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz,
+                ha, wa, hb, wb, *fwd, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.nc_conv4d_error_string(rc).decode())
+    return out
 
 
 def nc_conv4d_layer(x: torch.Tensor, w: torch.Tensor,
@@ -92,36 +159,7 @@ def nc_conv4d_layer(x: torch.Tensor, w: torch.Tensor,
     returns bf16 (B, hA, wA, hB, wB, C_out).  Launches on the current
     stream and does not synchronise."""
     global launches
-    if x.device.type != "cuda":
-        raise RuntimeError(f"nc_conv4d_layer runs on CUDA tensors, got {x.device}")
-    if any(t.dtype != torch.bfloat16 or t.device != x.device for t in (x, w, b)):
-        raise TypeError("nc_conv4d_layer takes bf16 volume, weights and bias on "
-                        f"one device, got {[(t.dtype, str(t.device)) for t in (x, w, b)]}")
-    k, c_in, c_out = int(w.shape[0]), int(w.shape[4]), int(w.shape[5])
-    if (x.dim() != 6 or w.dim() != 6 or tuple(w.shape[:4]) != (k,) * 4
-            or x.shape[5] != c_in or tuple(b.shape) != (c_out,)):
-        raise ValueError(f"nc_conv4d_layer: volume {tuple(x.shape)}, weights "
-                         f"{tuple(w.shape)} and bias {tuple(b.shape)} disagree")
-    lib = _library()
-    if not lib.nc_conv4d_supported(k, c_in, c_out):
-        raise NotImplementedError(
-            f"nc_conv4d is not compiled for k={k}, {c_in}->{c_out} channels "
-            f"(add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel's vector loads need 16-byte alignment
-        x = x.clone()
-    w, b = w.contiguous(), b.contiguous()
-    out = torch.empty(x.shape[:5] + (c_out,), dtype=torch.bfloat16,
-                      device=x.device)
-    bsz, ha, wa, hb, wb = (int(d) for d in x.shape[:5])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.nc_conv4d_bf16(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), bsz, ha, wa, hb, wb, k, c_in,
-                                c_out, stream)
-    if rc != 0:
-        raise RuntimeError(
-            "nc_conv4d launch failed: " + lib.nc_conv4d_error_string(rc).decode())
+    out = _conv(x, w, b, "nc_conv4d_layer")
     launches += 1
     return out
 
@@ -157,3 +195,67 @@ def nc_stack_fused_lane(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
         raise ValueError("nc_stack_fused_lane requires a 1-channel final layer"
                          " (the NC-stack shape class)")
     return _run_stack(nc_params, x)
+
+
+def _check_fused(nc_params: List[dict], x: torch.Tensor) -> None:
+    _check_stack(nc_params, x, "nc_stack_fused")
+    channels = _stack_shape(nc_params)[1]
+    if channels[-1] > 4:
+        raise ValueError(f"nc_stack_fused does not support channels={channels}"
+                         " (the final layer is at most 4 channels wide)")
+
+
+def stack_activations(nc_params: List[dict],
+                      x: torch.Tensor) -> List[torch.Tensor]:
+    """``[x, y_0, …, y_{L-1}]``: the bf16 input and every layer's bf16
+    output (the kernel on a CUDA tensor, the twin on a CPU one)."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"the NC stack runs on CUDA or CPU tensors, got {x.device}")
+    layer = nc_conv4d_layer if x.device.type == "cuda" else layer_reference
+    acts = [x.to(torch.bfloat16)]
+    for p in nc_params:
+        acts.append(layer(acts[-1], p["w"], p["b"]))
+    return acts
+
+
+class NCStackFused(torch.autograd.Function):
+    """The differentiable NC stack on flat tensors ``(x, w_0, b_0, w_1,
+    b_1, …)`` (``Function.apply`` tracks tensors, not a list of dicts).
+
+    Forward: :func:`stack_activations`, saving every layer's bf16 output.
+    Backward: ``nc_fused_lane_vjp.stack_vjp`` on them, which launches the
+    B3 kernels on CUDA tensors and runs their twin on CPU tensors; the
+    input gradient of layer 0 is computed only when ``x`` needs one.
+    Gradients come back in the dtypes of ``x`` and the parameters."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        params = [{"w": flat[i], "b": flat[i + 1]}
+                  for i in range(0, len(flat), 2)]
+        _check_fused(params, x)
+        acts = stack_activations(params, x)
+        ctx.save_for_backward(*acts, *flat)
+        ctx.n_layers, ctx.x_dtype = len(params), x.dtype
+        return acts[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        from ncnet_tpu_torch.ops.nc_fused_lane_vjp import stack_vjp
+
+        saved = ctx.saved_tensors
+        acts, flat = saved[:ctx.n_layers + 1], saved[ctx.n_layers + 1:]
+        params = [{"w": flat[i], "b": flat[i + 1]}
+                  for i in range(0, len(flat), 2)]
+        d_params, dx = stack_vjp(params, acts, g,
+                                 need_dx=ctx.needs_input_grad[0])
+        if dx is not None:
+            dx = dx.to(ctx.x_dtype)
+        return (dx, *(t for d in d_params for t in (d["w"], d["b"])))
+
+
+def nc_stack_fused(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
+    """The differentiable stack (``ncnet_tpu/ops/nc_fused_lane.py:1014``):
+    ``x`` ``(B, hA, wA, hB, wB, 1)`` bf16 → ``(B, hA, wA, hB, wB, C_last)``
+    bf16, through :class:`NCStackFused`."""
+    flat = [t for layer in nc_params for t in (layer["w"], layer["b"])]
+    return NCStackFused.apply(x, *flat)

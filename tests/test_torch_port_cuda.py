@@ -1,24 +1,28 @@
-"""The port's CUDA kernel on a card, against its plain twin.
+"""The port's CUDA kernels on a card, against their plain twins.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: the
-kernel has no CPU mode.  This file imports neither JAX nor the JAX package,
-so it also runs where only PyTorch is installed:
+kernels have no CPU mode.  This file imports neither JAX nor the JAX
+package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerance: the kernel and the twin (``nc_stack_reference``) share every
-bf16 rounding point and differ only in the order of their f32 sums, so a
-few outputs round one bf16 ulp apart: normalized error within 1e-2.
+Tolerance: a kernel and its twin (``nc_stack_reference``,
+``layer_vjp_reference``) share every bf16 rounding point and differ only in
+the order of their f32 sums, so a few bf16 outputs (layer outputs, ``Γ``,
+dW cast to bf16) round one ulp apart: normalized error within 1e-2.  The
+backward kernels and the twin get the same saved activations, so their
+ReLU masks are the same cells.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ncnet_tpu_torch.config import ModelConfig
+from ncnet_tpu_torch.config import ModelConfig, TrainConfig
 from ncnet_tpu_torch.models.ncnet import init_ncnet
-from ncnet_tpu_torch.ops import nc_fused_lane
+from ncnet_tpu_torch.ops import nc_fused_lane, nc_fused_lane_vjp
 from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+from ncnet_tpu_torch.training import create_train_state, make_train_step
 
 SHAPES = [
     ((2, 7, 7, 7, 7), (3, 3), (4, 1)),
@@ -43,20 +47,25 @@ def normalized_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,kernels,channels", SHAPES)
-def test_kernel_matches_twin(cuda, shape, kernels, channels):
-    rng = np.random.default_rng(0)
+def random_stack(rng, shape, kernels, channels, device):
     params, c_in = [], 1
     for k, c_out in zip(kernels, channels):
         params.append({
             "w": torch.from_numpy(rng.normal(0, 0.1, (k,) * 4 + (c_in, c_out))
-                                  .astype(np.float32)).to(cuda, torch.bfloat16),
+                                  .astype(np.float32)).to(device, torch.bfloat16),
             "b": torch.from_numpy(rng.normal(0, 0.1, (c_out,)).astype(np.float32))
-            .to(cuda, torch.bfloat16)})
+            .to(device, torch.bfloat16)})
         c_in = c_out
     x = torch.from_numpy(rng.normal(0, 0.5, shape + (1,)).astype(np.float32)
-                         ).to(cuda, torch.bfloat16)
+                         ).to(device, torch.bfloat16)
+    return params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernels,channels", SHAPES)
+def test_kernel_matches_twin(cuda, shape, kernels, channels):
+    params, x = random_stack(np.random.default_rng(0), shape, kernels,
+                             channels, cuda)
     before = nc_fused_lane.launches
     got = nc_fused_lane.nc_stack_resident(params, x)
     torch.cuda.synchronize()
@@ -77,3 +86,59 @@ def test_engine_serves_through_the_kernel(cuda):
     table = engine.fetch(engine.dispatch(src, src[::-1].copy()))
     assert nc_fused_lane.launches == before + 2  # one folded stack, 2 layers
     assert table.shape == (2, 6, 36) and np.isfinite(table).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernels,channels", SHAPES)
+def test_backward_kernels_match_twin(cuda, shape, kernels, channels):
+    """dW, db and every ``Γ`` (``dx`` included) of the B3 kernels against
+    the twin on the same saved activations; one launch of each kernel per
+    layer; two runs bit-identical (no float atomics)."""
+    rng = np.random.default_rng(1)
+    params, x = random_stack(rng, shape, kernels, channels, cuda)
+    acts = nc_fused_lane.stack_activations(params, x)
+    g = torch.from_numpy(rng.normal(0, 0.5, acts[-1].shape).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    before = dict(nc_fused_lane_vjp.launches)
+    got = nc_fused_lane_vjp.stack_vjp(params, acts, g)
+    again = nc_fused_lane_vjp.stack_vjp(params, acts, g)
+    want = nc_fused_lane_vjp.stack_vjp(params, acts, g, twin=True)
+    torch.cuda.synchronize()
+    n = len(kernels)
+    assert nc_fused_lane_vjp.launches == {
+        k: v + 2 * n for k, v in before.items()}
+    flat = [t for d in got[0] for t in (d["w"], d["b"])] + [got[1]]
+    flat_again = [t for d in again[0] for t in (d["w"], d["b"])] + [again[1]]
+    flat_want = [t for d in want[0] for t in (d["w"], d["b"])] + [want[1]]
+    for a, a2, b in zip(flat, flat_again, flat_want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, a2)
+        assert normalized_err(a, b) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_train_step_runs_both_kernels(cuda):
+    """One bf16 step of a tiny configuration: 2 chunks of 2 folded volume
+    pairs, each chunk one forward (2 layers) and one backward through B3
+    (dx of layer 0 skipped: the volume needs no gradient)."""
+    cfg = TrainConfig(model=ModelConfig(
+        backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+        half_precision=True), batch_size=2)
+    state, optimizer, mc, _ = create_train_state(cfg, seed=0)
+    step = make_train_step(mc, optimizer, stop_backbone_grad=True,
+                           accum_chunks=2, nan_guard=True)
+    rng = np.random.default_rng(2)
+    batch = {k: rng.uniform(-1, 1, (2, 96, 96, 3)).astype(np.float32)
+             for k in ("source_image", "target_image")}
+    fwd, bwd = nc_fused_lane.launches, dict(nc_fused_lane_vjp.launches)
+    new_state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss)) and new_state.step == 1
+    assert nc_fused_lane.launches == fwd + 2 * 2
+    assert nc_fused_lane_vjp.launches == {
+        "nc_vjp_dw": bwd["nc_vjp_dw"] + 4,
+        "nc_vjp_reduce": bwd["nc_vjp_reduce"] + 4,
+        "nc_conv4d_transpose": bwd["nc_conv4d_transpose"] + 2}
+    changed = [not torch.equal(a["w"], b["w"]) for a, b in
+               zip(state.params["nc"], new_state.params["nc"])]
+    assert all(changed)
