@@ -36,6 +36,24 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      are held against their twin, and the step's loss and NC gradients
      against the same step with the twins routed in for both directions;
      a stage line splits a step's time;
+  A. the coarse-to-fine gather kernel (B4, ``csrc/gather_tile_corr.cu``)
+     against its plain twin on the card: the serving path's (4, 625, 4)
+     tiles at C = 1024, patch 6; a halo-3 case (patch 8, origins off the
+     factor's grid); a small odd-C case; two launches bit-identical; kernel,
+     plain, bound and library (one cuBLAS product on pre-gathered patches)
+     times;
+  B. coarse-to-fine serving at full width: ``BatchMatchEngine`` with the
+     PF-Pascal NCNet at ``sparse_topk=4`` (factor 2, halo 2), bf16, 800²
+     pairs (a 50² grid; trunk BatchNorm calibrated, NC kernels centre-
+     peaked, each target its source shifted by whole cells) answers a
+     warm-up and 3 requests of 4 pairs; 9 NC and 2 B4 launches per
+     request; B4 and the fine NC stack against their twins on the exact
+     inputs the path handed them, the fine pass against the plain fine
+     pass on the kernel path's candidates; candidate agreement, recall and
+     shift recovery (beside one dense 800² request) printed; a stage line;
+  C. tracked serving: the request's tables become priors, 3 frames through
+     ``dispatch_tracked`` (no coarse pass, sources memoized, 6 NC and 2 B4
+     launches a frame), one frame's fine pass against the plain one;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -75,6 +93,18 @@ STACK_SHAPES = (
 )
 SERVE_BATCH, SERVE_REQUESTS, SERVE_SIDE = 4, 3, 400
 TRAIN_STEPS = 3
+# coarse-to-fine serving (phases B, C): the 800² side bench.py measures the
+# coarse-to-fine path at (twice the dense 400²), top-4 candidates
+C2F_SIDE, C2F_REQUESTS, C2F_TOPK, TRACK_FRAMES = 800, 3, 4, 3
+# B4 against its twin (phase A): both sum in f32 and round once to bf16, so
+# an output lands at most one bf16 ulp apart: 2^-7 of the largest output
+GATHER_TOLERANCE = 2.0 ** -7
+# (name, batch, fine side, channels, factor, halo, candidates)
+GATHER_SHAPES = (
+    ("pf_pascal_c2f_800", 4, 50, 1024, 2, 2, 4),
+    ("halo3_patch8", 2, 16, 64, 2, 3, 3),
+    ("odd_channels", 2, 10, 13, 2, 2, 2),
+)
 # each training target is its source rolled by whole feature cells (16 px)
 TRAIN_SHIFT = (32, 48)
 # The training step, kernels vs twins in both directions (phase 5): the
@@ -170,25 +200,23 @@ def normalized_err(got, want) -> float:
 
 
 @contextlib.contextmanager
-def routed_nc_stack(stack_fn, calls=None):
-    """Route the model's NC stack through ``stack_fn`` and record each
-    call's ``(input, output)`` in ``calls`` (the comparison runs of phase
-    4; the port itself never routes its stack anywhere but the kernel)."""
-    from ncnet_tpu_torch.ops import nc_fused_lane
+def routed(module, name, fn, calls=None):
+    """Route ``module.name`` through ``fn`` and record each call's ``(args,
+    kwargs, output)`` in ``calls`` (the comparison runs of phases B and C;
+    the port itself never routes anything but its kernels)."""
+    real = getattr(module, name)
 
-    real = nc_fused_lane.nc_stack_resident
-
-    def routed(params, x):
-        y = stack_fn(params, x)
+    def wrapper(*args, **kw):
+        y = fn(*args, **kw)
         if calls is not None:
-            calls.append((params, x, y))
+            calls.append((args, kw, y))
         return y
 
-    nc_fused_lane.nc_stack_resident = routed
+    setattr(module, name, wrapper)
     try:
         yield
     finally:
-        nc_fused_lane.nc_stack_resident = real
+        setattr(module, name, real)
 
 
 def check_kernels(torch, nc_fused_lane, dev):
@@ -311,6 +339,25 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
     return main
 
 
+def check_tables(tables, n_cells, where):
+    """Every fetched ``(B, 6, N)`` table finite, scores and quality signals
+    in [0, 1]."""
+    import numpy as np
+
+    from ncnet_tpu_torch.observability.quality import split_quality_rows
+
+    for table in tables:
+        matches, quality = split_quality_rows(table)
+        if table.shape != (SERVE_BATCH, 6, n_cells) or not np.isfinite(table).all():
+            raise SystemExit(f"{where}: bad table {table.shape}")
+        score = matches[:, 4]
+        if score.min() < 0 or score.max() > 1:
+            raise SystemExit(f"{where}: scores outside [0, 1]")
+        for q in quality:
+            if not all(0.0 <= v <= 1.0 for v in q.values()):
+                raise SystemExit(f"{where}: quality signals outside [0, 1]: {q}")
+
+
 def serve(torch, nc_fused_lane, dev):
     """Phase 4: the full-width bf16 serving path through BatchMatchEngine."""
     import numpy as np
@@ -345,20 +392,12 @@ def serve(torch, nc_fused_lane, dev):
     print(f"serve: {SERVE_REQUESTS} requests of {SERVE_BATCH} pairs at "
           f"{SERVE_SIDE}x{SERVE_SIDE}, wall ms per request {walls}, peak "
           f"memory {peak} bytes, kernel launches {launches}", flush=True)
-    for table in tables:
-        matches, quality = engine.split(table)
-        if table.shape != (SERVE_BATCH, 6, n_cells) or not np.isfinite(table).all():
-            raise SystemExit(f"bad table {table.shape}")
-        score = matches[:, 4]
-        if score.min() < 0 or score.max() > 1:
-            raise SystemExit("scores outside [0, 1]")
-        for q in quality:
-            if not all(0.0 <= v <= 1.0 for v in q.values()):
-                raise SystemExit(f"quality signals outside [0, 1]: {q}")
+    check_tables(tables, n_cells, "serve")
     if launches != 3 * SERVE_REQUESTS:
         raise SystemExit(f"expected {3 * SERVE_REQUESTS} kernel launches, "
                          f"counted {launches}")
-    print(f"serve: tables ok; quality of pair 0: {quality[0]}", flush=True)
+    print(f"serve: tables ok; quality of pair 0: "
+          f"{engine.split(tables[-1])[1][0]}", flush=True)
 
     # one request again, its NC stack through the kernel and then through
     # the plain twin: the kernel on the exact volume the path hands it, and
@@ -367,11 +406,13 @@ def serve(torch, nc_fused_lane, dev):
                 for a in requests[0])
     calls = []
     with torch.no_grad():
-        with routed_nc_stack(nc_fused_lane.nc_stack_resident, calls):
+        with routed(nc_fused_lane, "nc_stack_resident",
+                    nc_fused_lane.nc_stack_resident, calls):
             got = ncnet_forward(cfg, engine._params, src, tgt).corr
-        with routed_nc_stack(nc_fused_lane.nc_stack_reference):
+        with routed(nc_fused_lane, "nc_stack_resident",
+                    nc_fused_lane.nc_stack_reference):
             want = ncnet_forward(cfg, engine._params, src, tgt).corr
-        (params, x, y_kernel), = calls
+        ((params, x), _, y_kernel), = calls
         y_plain = nc_fused_lane.nc_stack_reference(params, x)
     torch.cuda.synchronize()
     err = normalized_err(y_kernel, y_plain)
@@ -772,6 +813,484 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
     print("train stages ms per step: " + json.dumps(stages), flush=True)
 
 
+@contextlib.contextmanager
+def plain_path():
+    """The forward with the plain twins in place of the NC and B4 kernels."""
+    from ncnet_tpu_torch.ops import nc_fused_lane, sparse_corr
+
+    with routed(nc_fused_lane, "nc_stack_resident",
+                nc_fused_lane.nc_stack_reference), \
+            routed(sparse_corr, "gather_tile_corr_pallas",
+                   sparse_corr.gather_tile_corr_reference):
+        yield
+
+
+def gather_call(torch, sparse_corr, b, side, c, factor, halo, k, dev, seed):
+    """Phase A's kernel call at one shape, captured from ``sparse_fine_corr``
+    on unit-norm bf16 features and random candidates: ``(args, kwargs,
+    twin output, tiles)``, the arguments as the serving path builds them."""
+    g = torch.Generator().manual_seed(seed)
+    fa, fb = (torch.nn.functional.normalize(
+        torch.randn((b, side, side, c), generator=g), dim=-1).to(
+            dev, torch.bfloat16) for _ in range(2))
+    n_coarse = (side // factor) ** 2
+    cand = torch.randint(0, n_coarse, (b, n_coarse, k), generator=g,
+                         dtype=torch.int32).to(dev)
+    calls = []
+    with routed(sparse_corr, "gather_tile_corr_pallas",
+                sparse_corr.gather_tile_corr_reference, calls):
+        tiles = sparse_corr.sparse_fine_corr(fa, fb, cand, factor=factor,
+                                             halo=halo)
+    (args, kw, want), = calls
+    return args, kw, want, tiles
+
+
+def gather_work(fa_p2, fb, rows, k):
+    """(FLOP, bytes) of one B4 launch: every output's C multiply-adds;
+    fa_p2, fb, the two index arrays and the bf16 output once each."""
+    b, n, p2, c = (int(d) for d in fa_p2.shape)
+    flops = 2 * b * n * k * p2 * p2 * c
+    nbytes = (2 * fa_p2.numel() + 2 * fb.numel() + 2 * 4 * rows.numel()
+              + 2 * b * n * k * p2 * p2)
+    return flops, nbytes
+
+
+def check_gather(torch, sparse_corr, dev):
+    """Phase A: B4 against its twin at every shape, two launches
+    bit-identical; the serving shape's times."""
+    main = None
+    for name, b, side, c, factor, halo, k in GATHER_SHAPES:
+        args, kw, want, tiles = gather_call(torch, sparse_corr, b, side, c,
+                                            factor, halo, k, dev, seed=5)
+        got = sparse_corr.gather_tile_corr_pallas(*args, **kw)
+        again = sparse_corr.gather_tile_corr_pallas(*args, **kw)
+        torch.cuda.synchronize()
+        err = normalized_err(got, want)
+        max_abs = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, again)
+        print(f"check B4 {name}: tiles {tuple(got.shape)} from C={c}, patch "
+              f"{kw['patch']}, halo {halo}: max_abs_err {max_abs:.6g} "
+              f"normalized {err:.3e} (tolerance {GATHER_TOLERANCE:.3e}); two "
+              f"launches bit-identical: {same}", flush=True)
+        if not (err <= GATHER_TOLERANCE and same
+                and torch.isfinite(got.float()).all()):
+            raise SystemExit(f"the gather kernel disagrees with its twin at {name}")
+        if main is None:
+            iters = 10
+            run_k = lambda: sparse_corr.gather_tile_corr_pallas(*args, **kw)  # noqa: E731
+            run_p = lambda: sparse_corr.gather_tile_corr_reference(*args, **kw)  # noqa: E731
+            ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, iters)]
+            ms_k.append(cuda_ms(run_k, iters))
+            ms_p.append(cuda_ms(run_p, iters))
+            # the library yardstick: one cuBLAS batched product (einsum) on
+            # patches gathered beforehand, the gather not timed
+            fa_p2, fb, rows, _ = args
+            fb_p2 = sparse_corr.gather_target_patches(
+                fb, tiles.ib, tiles.jb).reshape(got.shape[:4] + (c,))
+            lib_ms = cuda_ms(lambda: torch.einsum("bnic,bnkjc->bnkij",
+                                                  fa_p2, fb_p2), iters)
+            flops, nbytes = gather_work(fa_p2, fb, rows, k)
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+            main = {
+                "max_abs_err": max_abs, "normalized_err": err,
+                "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib_ms,
+            }
+            print(f"timing B4 {name} (one launch): kernel {ms_k} ms, plain "
+                  f"{ms_p} ms, library (einsum on pre-gathered patches, "
+                  f"cuBLAS) {lib_ms:.4f} ms, {flops:.4g} FLOP, {nbytes:.4g} "
+                  f"bytes, bound {main['bound_ms']:.4f} ms "
+                  f"({main['bound_by']}), {flops / main['ms'] / 1e9:.2f} "
+                  "TFLOP/s", flush=True)
+    return main
+
+
+def check_path_calls(torch, nc_fused_lane, sparse_corr, forward, stacks,
+                     where):
+    """Run ``forward()`` with every B4 and NC-stack call recorded: 2 B4 calls
+    and ``stacks`` stack calls, the last two of them on the fine tiles.  Hold
+    each B4 call against its twin within ``GATHER_TOLERANCE`` and each fine
+    stack call against its twin within ``TOLERANCE``, on the exact inputs
+    the path handed them."""
+    g_calls, s_calls = [], []
+    with torch.no_grad(), \
+            routed(sparse_corr, "gather_tile_corr_pallas",
+                   sparse_corr.gather_tile_corr_pallas, g_calls), \
+            routed(nc_fused_lane, "nc_stack_resident",
+                   nc_fused_lane.nc_stack_resident, s_calls):
+        forward()
+        if len(g_calls) != 2 or len(s_calls) != stacks:
+            raise SystemExit(f"{where}: {len(g_calls)} B4 and {len(s_calls)} "
+                             f"NC stack calls in one forward, expected 2 and "
+                             f"{stacks}")
+        for i, (args, kw, y) in enumerate(g_calls):
+            err = normalized_err(
+                y, sparse_corr.gather_tile_corr_reference(*args, **kw))
+            print(f"{where}: B4 launch {i} on the path's inputs, tiles "
+                  f"{tuple(y.shape)}: kernel vs twin normalized error "
+                  f"{err:.3e} (tolerance {GATHER_TOLERANCE:.3e})", flush=True)
+            if not err <= GATHER_TOLERANCE:
+                raise SystemExit(f"{where}: B4 disagrees with its twin on the path")
+        for i, ((nc, x), _, y) in enumerate(s_calls[-2:]):
+            err = normalized_err(y, nc_fused_lane.nc_stack_reference(nc, x))
+            print(f"{where}: fine NC stack call {i} on the path's tiles "
+                  f"{tuple(x.shape)}: kernel vs twin normalized error "
+                  f"{err:.3e} (tolerance {TOLERANCE})", flush=True)
+            if not err <= TOLERANCE:
+                raise SystemExit(f"{where}: the NC kernel disagrees with its "
+                                 "twin on the fine tiles")
+
+
+def shift_recovery(table, side_cells, shift_cells) -> float:
+    """Share of target cells whose matched source cell is the target cell
+    moved back by the known circular shift (the trunk's zero padding breaks
+    the shift near the borders, so 1.0 is not expected)."""
+    import numpy as np
+
+    cell = lambda v: np.rint((v + 1) * (side_cells - 1) / 2).astype(int)  # noqa: E731
+    ia, ja, ib, jb = (cell(table[:, r]) for r in (1, 0, 3, 2))
+    dy, dx = shift_cells
+    ok = (ia == (ib - dy) % side_cells) & (ja == (jb - dx) % side_cells)
+    return float(ok.mean())
+
+
+def fine_pass_check(torch, cfg, params, fa, fb, cand_ab, cand_ba, where):
+    """The fine pass on the kernel path's candidates: kernels vs the plain
+    twins, within ``SERVE_TOLERANCE``."""
+    from ncnet_tpu_torch.models.ncnet import _sparse_dual_refine
+    from ncnet_tpu_torch.ops.sparse_topk import resolve_halo
+
+    nc = [{k: v.to(torch.bfloat16) for k, v in layer.items()}
+          for layer in params["nc"]]
+    kw = dict(factor=cfg.sparse_factor,
+              halo=resolve_halo(cfg.sparse_halo, cfg.sparse_factor))
+    with torch.no_grad():
+        got = _sparse_dual_refine(cfg, nc, fa, fb, cand_ab, cand_ba, **kw).corr
+        with plain_path():
+            want = _sparse_dual_refine(cfg, nc, fa, fb, cand_ab, cand_ba, **kw).corr
+    torch.cuda.synchronize()
+    err = normalized_err(got, want)
+    print(f"{where}: fine pass {tuple(got.shape)} on the kernel path's "
+          f"candidates, kernel path vs plain path normalized error {err:.3e} "
+          f"(tolerance {SERVE_TOLERANCE}), {int((got != 0).sum())} nonzero "
+          "cells", flush=True)
+    if not err <= SERVE_TOLERANCE:
+        raise SystemExit(f"{where}: the fine pass disagrees with the plain path")
+
+
+def c2f_requests(seed, shift):
+    """``C2F_REQUESTS + 1`` requests of uint8 pairs at ``C2F_SIDE``, each
+    target its source rolled by ``shift`` pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (SERVE_BATCH, C2F_SIDE, C2F_SIDE, 3)
+    out = []
+    for _ in range(C2F_REQUESTS + 1):
+        src = rng.integers(0, 256, shape, dtype=np.uint8)
+        out.append((src, np.roll(src, shift, axis=(1, 2))))
+    return out
+
+
+def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
+    """Phase B: coarse-to-fine serving at full width.  Returns the engine,
+    its parameters, the requests, their tables and the launches."""
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.models.ncnet import (
+        coarse2fine_filter,
+        extract_features,
+        init_ncnet,
+        ncnet_filter,
+        params_to,
+    )
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.ops.sparse_topk import (
+        candidate_recall,
+        pool_features,
+        topk_candidates,
+    )
+    from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1), half_precision=True,
+                      backbone_bf16=True, sparse_topk=C2F_TOPK, sparse_factor=2)
+    params = params_to(init_ncnet(cfg, seed=0), dev)
+    requests = c2f_requests(seed=2, shift=TRAIN_SHIFT)
+    # the BatchNorm statistics from one seeded batch, through the f32 trunk
+    # (the bf16 trunk runs on a cast copy of the parameters)
+    calib = np.random.default_rng(3).integers(
+        0, 256, (SERVE_BATCH, C2F_SIDE, C2F_SIDE, 3), dtype=np.uint8)
+    calibrate_trunk(cfg.replace(backbone_bf16=False), params,
+                    normalize_imagenet(torch.as_tensor(calib).to(dev)))
+    for layer in params["nc"]:  # centre-peaked, as in phase 5
+        d = layer["w"].shape[0] // 2
+        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
+        layer["b"] = layer["b"] + 0.05
+    engine = BatchMatchEngine(cfg, params)
+    n_cells = (C2F_SIDE // 16) ** 2
+
+    engine.fetch(engine.dispatch(*requests[-1]))  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    passes = engine.coarse_passes
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    walls, tables = [], []
+    for src, tgt in requests[:C2F_REQUESTS]:
+        t0 = time.perf_counter()
+        tables.append(engine.fetch(engine.dispatch(src, tgt)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "gather_tile_corr_bf16": sparse_corr.launches}
+    passes = engine.coarse_passes - passes
+    peak = torch.cuda.max_memory_allocated()
+    print(f"c2f serve: {C2F_REQUESTS} requests of {SERVE_BATCH} pairs at "
+          f"{C2F_SIDE}x{C2F_SIDE}, sparse_topk {cfg.sparse_topk}, wall ms per "
+          f"request {walls}, peak memory {peak} bytes, launches {launches}, "
+          f"coarse passes {passes}", flush=True)
+    check_tables(tables, n_cells, "c2f serve")
+    want = {"nc_conv4d_bf16": 9 * C2F_REQUESTS,
+            "gather_tile_corr_bf16": 2 * C2F_REQUESTS}
+    if launches != want or passes != C2F_REQUESTS:
+        raise SystemExit(f"c2f serve: expected launches {want} and "
+                         f"{C2F_REQUESTS} coarse passes")
+    print(f"c2f serve: tables ok; quality of pair 0: "
+          f"{engine.split(tables[0])[1][0]}", flush=True)
+
+    # one request again with every kernel call recorded: B4 and the fine NC
+    # stack against their twins on the exact inputs the path handed them
+    src, tgt = (normalize_imagenet(torch.as_tensor(a).to(dev))
+                for a in requests[0])
+    with torch.no_grad():
+        fa, fb = (extract_features(cfg, params, x).to(torch.bfloat16)
+                  for x in (src, tgt))
+    check_path_calls(torch, nc_fused_lane, sparse_corr,
+                     lambda: coarse2fine_filter(cfg, params, fa, fb), 3,
+                     "c2f serve")
+
+    # candidates: the kernel path's, the plain coarse pass's, the recall
+    k = cfg.sparse_topk
+    with torch.no_grad():
+        fac, fbc = (pool_features(f, cfg.sparse_factor) for f in (fa, fb))
+        coarse = ncnet_filter(cfg, params, correlation_4d(fac, fbc)).corr
+        cand = [topk_candidates(v, k)
+                for v in (coarse, coarse.permute(0, 3, 4, 1, 2))]
+        with plain_path():
+            coarse_p = ncnet_filter(cfg, params, correlation_4d(fac, fbc)).corr
+        rows = zip(cand[0].reshape(-1, k).tolist(),
+                   topk_candidates(coarse_p, k).reshape(-1, k).tolist())
+        agree = float(np.mean([len(set(a) & set(p)) / k for a, p in rows]))
+        recall = candidate_recall(cand[0], correlation_4d(fa, fb),
+                                  cfg.sparse_factor)
+    print(f"c2f serve: candidates, kernel vs plain coarse pass, share shared "
+          f"{agree:.4f}; recall against the dense raw correlation "
+          f"{recall:.4f} (printed, not gated)", flush=True)
+    fine_pass_check(torch, cfg, params, fa, fb, cand[0], cand[1], "c2f serve")
+
+    # the dense path at the same size: one request, its wall and recovery
+    dense = BatchMatchEngine(cfg.replace(sparse_topk=0), params)
+    dense.fetch(dense.dispatch(*requests[1]))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    with routed(nc_fused_lane, "nc_stack_resident",
+                nc_fused_lane.nc_stack_resident, calls):
+        t0 = time.perf_counter()
+        dense_table = dense.fetch(dense.dispatch(*requests[0]))
+        dense_wall = (time.perf_counter() - t0) * 1e3
+    (dense_nc, dense_x), _, _ = calls[0]
+    dense_nc_ms = cuda_ms(lambda: nc_fused_lane.nc_stack_resident(dense_nc, dense_x), 1)
+    cells = (TRAIN_SHIFT[0] // 16, TRAIN_SHIFT[1] // 16)
+    side_cells = C2F_SIDE // 16
+    print(f"c2f serve: shift recovery (share of target cells matched to the "
+          f"shifted source cell) sparse "
+          f"{shift_recovery(tables[0], side_cells, cells):.4f}, dense "
+          f"{shift_recovery(dense_table, side_cells, cells):.4f}; dense request "
+          f"at {C2F_SIDE}x{C2F_SIDE}: wall {dense_wall:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes, its NC stack on "
+          f"{tuple(dense_x.shape)} {dense_nc_ms:.2f} ms (3 launches; printed, "
+          "not gated)", flush=True)
+    c2f_stages(torch, sparse_corr, cfg, params, src, tgt)
+    return engine, params, requests, tables, launches
+
+
+def c2f_stages(torch, sparse_corr, cfg, params, src, tgt):
+    """CUDA-event ms of each stage of one coarse-to-fine request (warm, one
+    stage at a time, both candidate families where there are two)."""
+    from ncnet_tpu_torch.models.ncnet import (
+        extract_features,
+        ncnet_filter,
+        neigh_consensus,
+    )
+    from ncnet_tpu_torch.observability.quality import append_quality_rows
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import corr_to_matches, scatter_sparse_scores
+    from ncnet_tpu_torch.ops.sparse_topk import (
+        patch_side,
+        pool_features,
+        resolve_halo,
+        topk_candidates,
+    )
+
+    factor = cfg.sparse_factor
+    halo = resolve_halo(cfg.sparse_halo, factor)
+    patch = patch_side(factor, halo)
+    nc = [{k: v.to(torch.bfloat16) for k, v in layer.items()}
+          for layer in params["nc"]]
+
+    def trunk():
+        return (extract_features(cfg, params, src).to(torch.bfloat16),
+                extract_features(cfg, params, tgt).to(torch.bfloat16))
+
+    def coarse_pass():
+        fac, fbc = (pool_features(f, factor) for f in (fa, fb))
+        return ncnet_filter(cfg, params, correlation_4d(fac, fbc)).corr
+
+    def topk():
+        return (topk_candidates(coarse, cfg.sparse_topk),
+                topk_candidates(coarse.permute(0, 3, 4, 1, 2), cfg.sparse_topk))
+
+    def tiles():
+        return [sparse_corr.sparse_fine_corr(x, y, c, factor=factor, halo=halo)
+                for x, y, c in fams]
+
+    def gate(ts):
+        return [sparse_corr.sparse_mutual_matching(
+            t, grid_a=x.shape[1:3], grid_b=y.shape[1:3])
+            for t, (x, y, _) in zip(ts, fams)]
+
+    def fine_stack():
+        return [neigh_consensus(nc, t.values.reshape(-1, *(patch,) * 4))
+                for t in gated]
+
+    def readout():
+        vols = []
+        for t, f, (x, y, c) in zip(raw, filtered, fams):
+            v = f.reshape(t.values.shape) * sparse_corr.core_mask(
+                t, c, y.shape[2] // factor, x.shape[2] // factor,
+                factor).to(f.dtype)
+            t = sparse_corr.sparse_mutual_matching(
+                t._replace(values=v), grid_a=x.shape[1:3], grid_b=y.shape[1:3])
+            vols.append(scatter_sparse_scores(
+                t.values, t.ia, t.ja, t.ib, t.jb,
+                tuple(x.shape[1:3]) + tuple(y.shape[1:3])))
+        return torch.maximum(vols[0], vols[1].permute(0, 3, 4, 1, 2))
+
+    def tables():
+        m = corr_to_matches(corr, do_softmax=True)
+        return append_quality_rows(
+            torch.stack([v.to(torch.float32) for v in m], dim=1), corr)
+
+    with torch.no_grad():
+        fa, fb = trunk()
+        coarse = coarse_pass()
+        cand_ab, cand_ba = topk()
+        fams = [(fa, fb, cand_ab), (fb, fa, cand_ba)]
+        raw = tiles()
+        gated = gate(raw)
+        filtered = fine_stack()
+        corr = readout()
+        stages = {
+            "trunk, both sides": cuda_ms(trunk, 3),
+            "coarse pass (pool, correlation, filter: 3 NC launches)": cuda_ms(coarse_pass, 3),
+            "top-k, both families": cuda_ms(topk, 3),
+            "tiles: source gathers, origins, B4 (2 launches)": cuda_ms(tiles, 3),
+            "sparse gating before the stack, both families": cuda_ms(lambda: gate(raw), 3),
+            "fine NC stack (6 NC launches)": cuda_ms(fine_stack, 1),
+            "core readout, gating after the stack, scatter, merge": cuda_ms(readout, 3),
+            "matches and quality row": cuda_ms(tables, 3),
+        }
+    print(f"c2f serve stages ms per request ({C2F_SIDE}x{C2F_SIDE}, "
+          f"B={SERVE_BATCH}): " + json.dumps(stages), flush=True)
+
+
+def serve_tracked(torch, nc_fused_lane, sparse_corr, engine, params,
+                  requests, tables):
+    """Phase C: tracked frames through ``dispatch_tracked``, each frame the
+    request's sources against their targets rolled by one more cell."""
+    import numpy as np
+
+    from ncnet_tpu_torch.models.ncnet import (
+        coarse2fine_tracked_filter,
+        extract_features,
+    )
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.ops.temporal import (
+        prior_from_table,
+        temporal_candidates,
+        tracking_recall_proxy,
+    )
+
+    cfg = engine.config
+    grid = (C2F_SIDE // 16,) * 2
+    factor = cfg.sparse_factor
+    if not engine.tracking_feasible((C2F_SIDE,) * 2, (C2F_SIDE,) * 2):
+        raise SystemExit("tracked serve: the shape is not tracking-feasible")
+
+    def priors(batch_table):
+        pairs = [prior_from_table(t, grid, grid, factor) for t in batch_table]
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+    src = requests[0][0]
+    pab, pba = priors(tables[0])
+    passes, feats = engine.coarse_passes, engine.feature_extractions
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    walls, extractions, frames = [], [], []
+    for f in range(1, TRACK_FRAMES + 1):
+        shift = (TRAIN_SHIFT[0] + 16 * f, TRAIN_SHIFT[1] + 16 * f)
+        frame = np.roll(src, shift, axis=(1, 2))
+        t0 = time.perf_counter()
+        table = engine.fetch(engine.dispatch_tracked(src, frame, pab, pba))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        extractions.append(engine.feature_extractions - feats)
+        frames.append((frame, pab, pba, table))
+        proxy = [tracking_recall_proxy(p, t, grid, grid, factor, cfg.track_radius)
+                 for p, t in zip(pab, table)]
+        print(f"tracked frame {f}: wall {walls[-1]:.1f} ms, recall proxy per "
+              f"pair {proxy}", flush=True)
+        pab, pba = priors(table)
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "gather_tile_corr_bf16": sparse_corr.launches}
+    print(f"tracked serve: {TRACK_FRAMES} frames of {SERVE_BATCH} pairs at "
+          f"{C2F_SIDE}x{C2F_SIDE}, track_radius {cfg.track_radius}, launches "
+          f"{launches}, coarse passes {engine.coarse_passes - passes}, source "
+          f"extractions after each frame {extractions}", flush=True)
+    check_tables([t for *_, t in frames], grid[0] * grid[1], "tracked serve")
+    want = {"nc_conv4d_bf16": 6 * TRACK_FRAMES,
+            "gather_tile_corr_bf16": 2 * TRACK_FRAMES}
+    if (launches != want or engine.coarse_passes != passes
+            or extractions != [SERVE_BATCH] * TRACK_FRAMES):
+        raise SystemExit(f"tracked serve: expected launches {want}, no coarse "
+                         f"pass and {SERVE_BATCH} source extractions, once")
+
+    # the first frame again with every kernel call recorded, each against
+    # its twin; then its fine pass against the plain path, its candidates
+    frame, pab, pba, _ = frames[0]
+    with torch.no_grad():
+        fa = torch.stack([engine._resolve_src_features(r, None) for r in src])
+        fb = extract_features(cfg, params, normalize_imagenet(
+            torch.as_tensor(frame).to(fa.device)))
+        fa, fb = fa.to(torch.bfloat16), fb.to(torch.bfloat16)
+    check_path_calls(
+        torch, nc_fused_lane, sparse_corr,
+        lambda: coarse2fine_tracked_filter(cfg, params, fa, fb, pab, pba), 2,
+        "tracked serve")
+    with torch.no_grad():
+        hc = grid[0] // factor
+        cand_ab, cand_ba = (temporal_candidates(
+            torch.as_tensor(p).to(fa.device), hc, hc, cfg.track_radius)
+            for p in (pab, pba))
+    fine_pass_check(torch, cfg, params, fa, fb, cand_ab, cand_ba,
+                    "tracked serve")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -784,7 +1303,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    from ncnet_tpu_torch.ops import kernel_build, nc_fused_lane, nc_fused_lane_vjp
+    from ncnet_tpu_torch.ops import (
+        kernel_build,
+        nc_fused_lane,
+        nc_fused_lane_vjp,
+        sparse_corr,
+    )
 
     print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -810,8 +1334,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     main_numbers = check_kernels(torch, nc_fused_lane, dev)
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
+    gather_numbers = check_gather(torch, sparse_corr, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches = train(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
+    engine, params, requests, tables, c2f_launches = serve_c2f(
+        torch, nc_fused_lane, sparse_corr, dev)
+    tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
+                                     params, requests, tables)
+    nc_by_path = {"serve": serve_launches,
+                  "train": train_launches["nc_conv4d_bf16"],
+                  "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
+                  "serve_tracked": tracked_launches["nc_conv4d_bf16"]}
+    gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
+                      "serve_tracked": tracked_launches["gather_tile_corr_bf16"]}
 
     kernels = [{
         "name": "nc_conv4d_bf16",
@@ -822,9 +1357,8 @@ def main() -> int:
         "replaces": "ncnet_tpu/ops/nc_fused_lane.py:606",
         "also_replaces": "ncnet_tpu/ops/nc_fused_lane.py:121",
         # each path read with its counts set to 0 just before it
-        "launches": serve_launches + train_launches["nc_conv4d_bf16"],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["nc_conv4d_bf16"]},
+        "launches": sum(nc_by_path.values()),
+        "launches_by_path": nc_by_path,
         **main_numbers,
         # no single PyTorch call computes a 4D convolution
         "library_ms": None,
@@ -841,6 +1375,16 @@ def main() -> int:
         **backward_numbers,
         # no single PyTorch call computes a conv4d backward
         "library_ms": None,
+    }, {
+        "name": "gather_tile_corr_bf16",
+        "route": "cuda",
+        "source": "ncnet_tpu_torch/csrc/gather_tile_corr.cu",
+        "replaces": "ncnet_tpu/ops/sparse_corr.py:196",
+        "launches": sum(gather_by_path.values()),
+        "launches_by_path": gather_by_path,
+        # one launch at the serving shape; library_ms is one cuBLAS batched
+        # product (einsum) on target patches gathered beforehand
+        **gather_numbers,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

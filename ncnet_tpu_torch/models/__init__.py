@@ -5,6 +5,8 @@ from ncnet_tpu_torch.models.convert import params_from_numpy
 from ncnet_tpu_torch.models.ncnet import (
     NCNet,
     NCNetOutput,
+    coarse2fine_filter,
+    coarse2fine_tracked_filter,
     extract_features,
     init_ncnet,
     make_point_matcher,
@@ -12,6 +14,7 @@ from ncnet_tpu_torch.models.ncnet import (
     ncnet_forward,
     ncnet_forward_from_feature_pair,
     ncnet_forward_from_features,
+    ncnet_forward_tracked,
     ncnet_match_volume,
     neigh_consensus,
 )
@@ -21,6 +24,8 @@ __all__ = [
     "NCNetOutput",
     "backbone_apply",
     "backbone_init",
+    "coarse2fine_filter",
+    "coarse2fine_tracked_filter",
     "extract_features",
     "init_ncnet",
     "make_point_matcher",
@@ -28,6 +33,7 @@ __all__ = [
     "ncnet_forward",
     "ncnet_forward_from_feature_pair",
     "ncnet_forward_from_features",
+    "ncnet_forward_tracked",
     "ncnet_match_volume",
     "neigh_consensus",
     "params_from_numpy",

@@ -15,9 +15,13 @@ records, as the JAX package routes bf16 stacks to its Pallas kernels.  The
 fp32 stack runs the plain ``ops/conv4d.py``, as the JAX package runs XLA
 there.
 
-The port runs the dense serving path and the training step
-(``training/``).  ``check_ported`` rejects, with
-``NotImplementedError``, every ``ModelConfig`` option it does not run yet.
+The port runs the dense serving path, the training step (``training/``)
+and the coarse-to-fine and tracked match pipelines
+(``ModelConfig.sparse_topk`` > 0: :func:`coarse2fine_filter`,
+:func:`ncnet_forward_tracked`; the gathered tiles go through
+``ops/sparse_corr.py`` and its B4 kernel, then through the same NC stack).
+``check_ported`` rejects, with ``NotImplementedError``, every
+``ModelConfig`` option it does not run yet.
 """
 
 from __future__ import annotations
@@ -46,8 +50,6 @@ def check_ported(config: ModelConfig) -> None:
     that this slice of the port does not run."""
     unported = [
         ("relocalization_k_size", config.relocalization_k_size > 1),
-        ("sparse_topk", config.sparse_topk > 0),
-        ("track_radius", config.track_radius > 0),
         ("nc_tier", bool(config.nc_tier)),
         ("backbone", config.backbone not in ("resnet101", "tiny")),
         ("backbone_weights", bool(config.backbone_weights)),
@@ -260,10 +262,149 @@ def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
 
 def ncnet_match_volume(config: ModelConfig, params, fa: torch.Tensor,
                        fb: torch.Tensor) -> NCNetOutput:
-    """Correlation + filtering of a feature pair: the dense branch (the
-    coarse-to-fine branch is not ported)."""
+    """Correlation + filtering of a feature pair: the coarse-to-fine
+    pipeline (:func:`coarse2fine_filter`) where ``config.sparse_topk`` > 0
+    and ``sparse_corr.choose_match_pipeline`` admits the shape, else the
+    dense correlation and :func:`ncnet_filter`.  Every feature-pair
+    forward goes through here."""
+    from ncnet_tpu_torch.ops.sparse_corr import choose_match_pipeline
+    from ncnet_tpu_torch.ops.sparse_topk import resolve_halo
+
     check_ported(config)
+    tier = choose_match_pipeline(
+        fa.shape[1], fa.shape[2], fb.shape[1], fb.shape[2],
+        sparse_topk=config.sparse_topk, factor=config.sparse_factor,
+        halo=resolve_halo(config.sparse_halo, config.sparse_factor),
+        reloc_k=config.relocalization_k_size)
+    if tier == "coarse2fine":
+        return coarse2fine_filter(config, params, fa, fb)
     return ncnet_filter(config, params, correlation_4d(fa, fb))
+
+
+def _cast_for_sparse(config: ModelConfig, params, fa: torch.Tensor,
+                     fb: torch.Tensor):
+    nc_params = params["nc"]
+    if config.half_precision:
+        nc_params = [{k: v.to(torch.bfloat16) for k, v in layer.items()}
+                     for layer in nc_params]
+        fa, fb = fa.to(torch.bfloat16), fb.to(torch.bfloat16)
+    return nc_params, fa, fb
+
+
+def coarse2fine_filter(config: ModelConfig, params, fa: torch.Tensor,
+                       fb: torch.Tensor) -> NCNetOutput:
+    """The coarse-to-fine match pipeline
+    (``ncnet_tpu/models/ncnet.py::coarse2fine_filter``):
+
+      1. coarse pass: both feature grids pooled by ``config.sparse_factor``
+         and the coarse volume through the unchanged :func:`ncnet_filter`
+         (same weights);
+      2. symmetric candidate selection: top-k per coarse source cell over
+         the targets and per coarse target cell over the sources
+         (``sparse_topk.topk_candidates``);
+      3. the sparse fine pass of both families (:func:`_sparse_dual_refine`).
+
+    Returns the dense-shaped volume, zeros off the candidate support.
+    Callers gate eligibility through ``choose_match_pipeline``
+    (:func:`ncnet_match_volume` does)."""
+    from ncnet_tpu_torch.ops.sparse_topk import (
+        pool_features,
+        resolve_halo,
+        topk_candidates,
+    )
+
+    nc_params, fa, fb = _cast_for_sparse(config, params, fa, fb)
+    factor = config.sparse_factor
+    halo = resolve_halo(config.sparse_halo, factor)
+    fac = pool_features(fa, factor, renormalize=config.normalize_features)
+    fbc = pool_features(fb, factor, renormalize=config.normalize_features)
+    coarse = ncnet_filter(config, params, correlation_4d(fac, fbc))
+    cand_ab = topk_candidates(coarse.corr, config.sparse_topk)
+    cand_ba = topk_candidates(coarse.corr.permute(0, 3, 4, 1, 2),
+                              config.sparse_topk)
+    return _sparse_dual_refine(config, nc_params, fa, fb, cand_ab, cand_ba,
+                               factor=factor, halo=halo)
+
+
+def _sparse_dual_refine(config: ModelConfig, nc_params, fa: torch.Tensor,
+                        fb: torch.Tensor, cand_ab: torch.Tensor,
+                        cand_ba: torch.Tensor, *, factor: int,
+                        halo: int) -> NCNetOutput:
+    """The fine pass shared by :func:`coarse2fine_filter` and
+    :func:`coarse2fine_tracked_filter`: both candidate families through the
+    gathered-tile NC stack, merged on the dense frame by max.  Inputs are
+    already cast by the caller."""
+    from ncnet_tpu_torch.ops.sparse_corr import sparse_refine
+
+    def stack_fn(vol: torch.Tensor) -> torch.Tensor:
+        return neigh_consensus(nc_params, vol, symmetric=config.symmetric_mode)
+
+    def stack_fn_t(vol: torch.Tensor) -> torch.Tensor:
+        # the role-swapped family: the symmetric stack commutes with the
+        # A↔B transposition; an asymmetric one is conjugated by it
+        if config.symmetric_mode:
+            return stack_fn(vol)
+        vt = vol.permute(0, 3, 4, 1, 2).contiguous()
+        return stack_fn(vt).permute(0, 3, 4, 1, 2)
+
+    vol_ab = sparse_refine(fa, fb, cand_ab, factor=factor, halo=halo,
+                           stack_fn=stack_fn)
+    vol_ba = sparse_refine(fb, fa, cand_ba, factor=factor, halo=halo,
+                           stack_fn=stack_fn_t)
+    return NCNetOutput(torch.maximum(vol_ab, vol_ba.permute(0, 3, 4, 1, 2)),
+                       None)
+
+
+def coarse2fine_tracked_filter(config: ModelConfig, params, fa: torch.Tensor,
+                               fb: torch.Tensor, prior_ab, prior_ba
+                               ) -> NCNetOutput:
+    """The tracked pipeline: the coarse-to-fine fine pass with the coarse
+    pass replaced by the previous frame's priors (``(B, Nc)`` int32, from
+    ``ops/temporal.prior_from_table``), each dilated by the static
+    ``(2·track_radius+1)²`` window.  At full window coverage it is bitwise
+    :func:`coarse2fine_filter` at full k (the same
+    :func:`_sparse_dual_refine`)."""
+    from ncnet_tpu_torch.ops.sparse_topk import resolve_halo
+    from ncnet_tpu_torch.ops.temporal import temporal_candidates
+
+    nc_params, fa, fb = _cast_for_sparse(config, params, fa, fb)
+    factor = config.sparse_factor
+    halo = resolve_halo(config.sparse_halo, factor)
+    hac, wac = fa.shape[1] // factor, fa.shape[2] // factor
+    hbc, wbc = fb.shape[1] // factor, fb.shape[2] // factor
+    prior_ab = torch.as_tensor(prior_ab).to(fa.device)
+    prior_ba = torch.as_tensor(prior_ba).to(fa.device)
+    cand_ab = temporal_candidates(prior_ab, hbc, wbc, config.track_radius)
+    cand_ba = temporal_candidates(prior_ba, hac, wac, config.track_radius)
+    return _sparse_dual_refine(config, nc_params, fa, fb, cand_ab, cand_ba,
+                               factor=factor, halo=halo)
+
+
+def ncnet_forward_tracked(config: ModelConfig, params,
+                          source_features: torch.Tensor,
+                          target_images: torch.Tensor, prior_ab,
+                          prior_ba) -> NCNetOutput:
+    """Streaming forward: the source features precomputed (float32
+    ``extract_features`` outputs), the target frame extracted here, and the
+    volume built by the tracked pipeline where
+    ``sparse_corr.choose_tracked_pipeline`` admits the shape, else by
+    :func:`ncnet_match_volume`."""
+    from ncnet_tpu_torch.ops.sparse_corr import choose_tracked_pipeline
+    from ncnet_tpu_torch.ops.sparse_topk import resolve_halo
+
+    fa = source_features
+    fb = extract_features(config, params, target_images)
+    if config.half_precision:
+        fa, fb = fa.to(torch.bfloat16), fb.to(torch.bfloat16)
+    tier = choose_tracked_pipeline(
+        fa.shape[1], fa.shape[2], fb.shape[1], fb.shape[2],
+        factor=config.sparse_factor,
+        halo=resolve_halo(config.sparse_halo, config.sparse_factor),
+        radius=config.track_radius, reloc_k=config.relocalization_k_size)
+    if tier == "tracked":
+        return coarse2fine_tracked_filter(config, params, fa, fb, prior_ab,
+                                          prior_ba)
+    return ncnet_match_volume(config, params, fa, fb)
 
 
 def ncnet_forward_from_feature_pair(config: ModelConfig, params,

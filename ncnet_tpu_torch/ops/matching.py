@@ -4,6 +4,7 @@ Reference semantics (and ``ncnet_tpu/ops/matching.py``, which this mirrors):
   * MutualMatching         lib/model.py:155-175
   * corr_to_matches        lib/point_tnf.py:12-80
   * axis (un)normalization lib/point_tnf.py:6-10
+  * scatter_sparse_scores  the coarse-to-fine pipeline's dense readout
 """
 
 from __future__ import annotations
@@ -34,6 +35,33 @@ def mutual_argmax_agreement(corr: torch.Tensor) -> torch.Tensor:
     back = torch.gather(best_b, 1, best_a)
     agree = back == torch.arange(hb * wb, device=corr.device)[None, :]
     return agree.to(torch.float32).mean(dim=1)
+
+
+def scatter_sparse_scores(values: torch.Tensor, ia: torch.Tensor,
+                          ja: torch.Tensor, ib: torch.Tensor,
+                          jb: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Scatter sparse tile scores onto a zero-initialized dense
+    ``(B, hA, wA, hB, wB)`` volume, cells covered by several tiles resolved
+    by max (``ncnet_tpu/ops/matching.py::scatter_sparse_scores``).
+
+    ``values`` ``(B, N, K, p, p, p, p)`` (source rows, source cols, target
+    rows, target cols); ``ia``/``ja`` ``(N, p)`` fine source indices;
+    ``ib``/``jb`` ``(B, N, K, p)`` fine target indices.  The index is the
+    pair (source cell, target cell) linearized in int64, so it cannot wrap
+    at any resolution.  The max is taken in float32 and cast back, which is
+    exact for bf16 values."""
+    b = values.shape[0]
+    ha, wa, hb, wb = (int(d) for d in shape)
+    lin_a = (ia.long()[None, :, None, :, None, None, None] * wa
+             + ja.long()[None, :, None, None, :, None, None])
+    lin_b = (ib.long()[:, :, :, None, None, :, None] * wb
+             + jb.long()[:, :, :, None, None, None, :])
+    lin = (lin_a * (hb * wb) + lin_b).expand(values.shape).reshape(b, -1)
+    flat = torch.zeros((b, ha * wa * hb * wb), dtype=torch.float32,
+                       device=values.device)
+    flat.scatter_reduce_(1, lin, values.reshape(b, -1).to(torch.float32),
+                         reduce="amax", include_self=True)
+    return flat.to(values.dtype).reshape(b, ha, wa, hb, wb)
 
 
 def normalize_axis(x, length):

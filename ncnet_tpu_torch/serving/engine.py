@@ -1,17 +1,23 @@
 """Batched warm matcher: the device-facing half of the match service.
 
-The port of ``ncnet_tpu/serving/engine.py::BatchMatchEngine`` with the
-default pair program: raw uint8 pairs in, ImageNet-normalized on the
-device, the full forward, and compact per-pair match tables out with the
-pair's quality signals (``observability/quality.py``) as one extra row, so
-one device→host copy per batch carries matches and accuracy telemetry.
-The feature-store, tracked-stream and retrace paths of the JAX engine come
-in later slices.
+The port of ``ncnet_tpu/serving/engine.py::BatchMatchEngine``: raw uint8
+pairs in, ImageNet-normalized on the device, the forward, and compact
+per-pair match tables out with the pair's quality signals
+(``observability/quality.py``) as one extra row, so one device→host copy
+per batch carries matches and accuracy telemetry.
+
+Two programs: ``dispatch`` (the pair forward; with ``sparse_topk`` > 0 it
+runs the coarse-to-fine pipeline, coarse pass included) and
+``dispatch_tracked`` (a streaming frame: source features resolved once per
+stream through a digest memo, the target extracted per frame, candidates
+from the previous frame's priors, no coarse pass).  The feature-store path
+(``store=``) and the retrace/weight-swap seams come in later slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import collections
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +25,9 @@ import torch
 from ncnet_tpu_torch.config import ModelConfig
 from ncnet_tpu_torch.models.ncnet import (
     check_ported,
+    extract_features,
     ncnet_forward,
+    ncnet_forward_tracked,
     params_to,
     resolve_device,
 )
@@ -29,6 +37,10 @@ from ncnet_tpu_torch.observability.quality import (
 )
 from ncnet_tpu_torch.ops.image import normalize_imagenet
 from ncnet_tpu_torch.ops.matching import corr_to_matches
+
+# the digest→features memo of the tracked path: a stream re-matches one
+# reference image for many frames, so a few entries cover a replica's streams
+_TRACKED_FEATURE_CACHE_ENTRIES = 16
 
 
 class BatchMatchEngine:
@@ -41,29 +53,116 @@ class BatchMatchEngine:
     yA, xB, yB, score), row 5 carries the pair's quality signals in its
     first ``len(QUALITY_SIGNALS)`` slots (``(B, 5, N)`` when the grid is too
     narrow for the row; :meth:`split` detects which).
+
+    Spies: ``coarse_passes`` counts pair dispatches (each pays the coarse
+    or the dense filter), ``tracked_dispatches`` tracked ones, and
+    ``feature_extractions`` the source rows the tracked path extracted.
     """
 
     def __init__(self, config: ModelConfig, params, *,
                  do_softmax: bool = True, scale: str = "centered",
-                 device=None):
+                 device=None, store=None):
         check_ported(config)
+        if store is not None:
+            raise NotImplementedError(
+                "BatchMatchEngine(store=...): the feature store is not ported "
+                "to ncnet_tpu_torch yet")
         self.config = config
         self.device = resolve_device(device)
         self.do_softmax = do_softmax
         self.scale = scale
         self._params = params_to(params, self.device)  # staged once
+        self.feature_extractions = 0
+        self.coarse_passes = 0
+        self.tracked_dispatches = 0
+        self._feat_cache: "collections.OrderedDict[str, torch.Tensor]" = (
+            collections.OrderedDict())
+
+    def _upload(self, u8) -> torch.Tensor:
+        return normalize_imagenet(
+            torch.as_tensor(np.asarray(u8)).to(self.device))
+
+    def _tables(self, corr: torch.Tensor) -> torch.Tensor:
+        m = corr_to_matches(corr, do_softmax=self.do_softmax, scale=self.scale)
+        table = torch.stack([v.to(torch.float32) for v in m], dim=1)  # (B, 5, N)
+        return append_quality_rows(table, corr)
 
     @torch.no_grad()
     def dispatch(self, src_u8: np.ndarray, tgt_u8: np.ndarray) -> torch.Tensor:
         """Enqueue upload + forward + match extraction; returns the
         on-device table (the CUDA work runs asynchronously)."""
-        src = normalize_imagenet(torch.as_tensor(np.asarray(src_u8)).to(self.device))
-        tgt = normalize_imagenet(torch.as_tensor(np.asarray(tgt_u8)).to(self.device))
-        out = ncnet_forward(self.config, self._params, src, tgt)
-        m = corr_to_matches(out.corr, do_softmax=self.do_softmax,
-                            scale=self.scale)
-        table = torch.stack([v.to(torch.float32) for v in m], dim=1)  # (B, 5, N)
-        return append_quality_rows(table, out.corr)
+        self.coarse_passes += 1
+        out = ncnet_forward(self.config, self._params, self._upload(src_u8),
+                            self._upload(tgt_u8))
+        return self._tables(out.corr)
+
+    def _resolve_src_features(self, row: np.ndarray,
+                              digest: Optional[str]) -> torch.Tensor:
+        """One source row's float32 backbone features ``(h, w, C)`` on the
+        device, through the digest memo: a steady stream extracts its
+        reference trunk once, not per frame."""
+        from ncnet_tpu_torch.store import content_digest
+
+        row = np.ascontiguousarray(row)
+        if digest is None:
+            digest = content_digest(row)
+        hit = self._feat_cache.get(digest)
+        if hit is not None:
+            self._feat_cache.move_to_end(digest)
+            return hit
+        self.feature_extractions += 1
+        feats = extract_features(self.config, self._params,
+                                 self._upload(row[None]))[0]
+        self._feat_cache[digest] = feats
+        while len(self._feat_cache) > _TRACKED_FEATURE_CACHE_ENTRIES:
+            self._feat_cache.popitem(last=False)
+        return feats
+
+    @torch.no_grad()
+    def dispatch_tracked(self, src_u8: np.ndarray, tgt_u8: np.ndarray,
+                         prior_ab: np.ndarray, prior_ba: np.ndarray, *,
+                         src_digests: Optional[Sequence[Optional[str]]]
+                         = None) -> torch.Tensor:
+        """Enqueue a tracked batch: per-row source features from the memo,
+        target frames extracted here, candidates seeded from the rows'
+        ``(B, Nc)`` int32 priors (``ops/temporal.prior_from_table``); no
+        coarse pass (``coarse_passes`` stays flat).  Callers gate the shape
+        with :meth:`tracking_feasible`."""
+        self.tracked_dispatches += 1
+        fa = torch.stack([
+            self._resolve_src_features(
+                src_u8[i], src_digests[i] if src_digests is not None else None)
+            for i in range(src_u8.shape[0])])
+        out = ncnet_forward_tracked(
+            self.config, self._params, fa, self._upload(tgt_u8),
+            torch.as_tensor(np.asarray(prior_ab, dtype=np.int32)),
+            torch.as_tensor(np.asarray(prior_ba, dtype=np.int32)))
+        return self._tables(out.corr)
+
+    def tracking_feasible(self, src_hw: Tuple[int, int],
+                          tgt_hw: Tuple[int, int]) -> bool:
+        """Whether the tracked pipeline applies to an image shape (feature
+        grids follow from the stride-16 trunks)."""
+        from ncnet_tpu_torch.ops.sparse_corr import tracking_feasible
+        from ncnet_tpu_torch.ops.sparse_topk import resolve_halo
+        from ncnet_tpu_torch.ops.temporal import FEATURE_STRIDE
+
+        ha, wa = (d // FEATURE_STRIDE for d in src_hw)
+        hb, wb = (d // FEATURE_STRIDE for d in tgt_hw)
+        if min(ha, wa, hb, wb) <= 0:
+            return False
+        return tracking_feasible(
+            ha, wa, hb, wb, factor=self.config.sparse_factor,
+            halo=resolve_halo(self.config.sparse_halo,
+                              self.config.sparse_factor),
+            radius=self.config.track_radius,
+            reloc_k=self.config.relocalization_k_size)
+
+    @property
+    def feature_stride(self) -> int:
+        from ncnet_tpu_torch.ops.temporal import FEATURE_STRIDE
+
+        return FEATURE_STRIDE
 
     def fetch(self, handle: torch.Tensor) -> np.ndarray:
         """Wait for the device result; one copy per batch."""

@@ -6,7 +6,9 @@ package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerance: a kernel and its twin (``nc_stack_reference``,
+Tolerance: the gather kernel (B4) and its twin both sum in f32 and round
+once to bf16, so they agree within one bf16 ulp of the largest output
+(2^-7 normalized).  A kernel and its twin (``nc_stack_reference``,
 ``layer_vjp_reference``) share every bf16 rounding point and differ only in
 the order of their f32 sums, so a few bf16 outputs (layer outputs, ``Γ``,
 dW cast to bf16) round one ulp apart: normalized error within 1e-2.  The
@@ -20,7 +22,8 @@ import torch
 
 from ncnet_tpu_torch.config import ModelConfig, TrainConfig
 from ncnet_tpu_torch.models.ncnet import init_ncnet
-from ncnet_tpu_torch.ops import nc_fused_lane, nc_fused_lane_vjp
+from ncnet_tpu_torch.ops import nc_fused_lane, nc_fused_lane_vjp, sparse_corr
+from ncnet_tpu_torch.ops.sparse_topk import candidate_origins, patch_side
 from ncnet_tpu_torch.serving.engine import BatchMatchEngine
 from ncnet_tpu_torch.training import create_train_state, make_train_step
 
@@ -142,3 +145,60 @@ def test_train_step_runs_both_kernels(cuda):
     changed = [not torch.equal(a["w"], b["w"]) for a, b in
                zip(state.params["nc"], new_state.params["nc"])]
     assert all(changed)
+
+
+# (batch, fine side, channels, factor, halo, candidates): the serving
+# shape's patch, odd C, and halo 3 (patch 8, origins off the factor's grid)
+GATHER_SHAPES = [(2, 12, 64, 2, 2, 4), (2, 10, 13, 2, 2, 3), (1, 16, 32, 2, 3, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c,factor,halo,k", GATHER_SHAPES)
+def test_gather_kernel_matches_twin(cuda, b, side, c, factor, halo, k):
+    """B4 against its twin on the sparse path's own arguments; one launch
+    each; two launches bit-identical."""
+    g = torch.Generator().manual_seed(side + c)
+    fa, fb = (torch.nn.functional.normalize(torch.randn((b, side, side, c), generator=g),
+                                            dim=-1).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    n = (side // factor) ** 2
+    cand = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32).to(cuda)
+    patch = patch_side(factor, halo)
+    ia, ja = sparse_corr.source_patch_index(side, side, factor, patch)
+    oi, oj = candidate_origins(cand, side // factor, factor, patch, side, side)
+    fa_p2 = sparse_corr.gather_source_patches(fa, ia, ja).reshape(b, n, patch * patch, c)
+    rows, f = (oi // factor, factor) if halo % factor == 0 else (oi, 1)
+    before = sparse_corr.launches
+    got = sparse_corr.gather_tile_corr_pallas(fa_p2, fb, rows, oj, patch=patch, factor=f)
+    again = sparse_corr.gather_tile_corr_pallas(fa_p2, fb, rows, oj, patch=patch, factor=f)
+    want = sparse_corr.gather_tile_corr_reference(fa_p2, fb, rows, oj, patch=patch, factor=f)
+    torch.cuda.synchronize()
+    assert sparse_corr.launches == before + 2
+    assert got.shape == (b, n, k, patch * patch, patch * patch)
+    assert torch.equal(got, again)
+    assert normalized_err(got, want) <= 2.0 ** -7
+    tiles = sparse_corr.sparse_fine_corr(fa, fb, cand, factor=factor, halo=halo)
+    assert torch.equal(tiles.values.reshape(got.shape), got)
+
+
+@pytest.mark.cuda
+def test_coarse_to_fine_engine_launches_both_kernels(cuda):
+    """One coarse-to-fine request at a small width: the coarse stack (2
+    layers), the two families' fine stacks (2 layers each) and 2 B4
+    launches; then a tracked frame: no coarse pass, 4 NC and 2 B4."""
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+                      half_precision=True, sparse_topk=4)
+    engine = BatchMatchEngine(cfg, init_ncnet(cfg, seed=0))
+    rng = np.random.default_rng(3)
+    src = rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    tgt = np.roll(src, (32, 32), axis=(1, 2))
+    nc, b4 = nc_fused_lane.launches, sparse_corr.launches
+    table = engine.fetch(engine.dispatch(src, tgt))
+    assert (nc_fused_lane.launches - nc, sparse_corr.launches - b4) == (6, 2)
+    assert table.shape == (2, 6, 64) and np.isfinite(table).all()
+    prior = np.zeros((2, 16), np.int32)
+    nc, b4, passes = nc_fused_lane.launches, sparse_corr.launches, engine.coarse_passes
+    tracked = engine.fetch(engine.dispatch_tracked(src, tgt, prior, prior))
+    assert (nc_fused_lane.launches - nc, sparse_corr.launches - b4) == (4, 2)
+    assert engine.coarse_passes == passes
+    assert tracked.shape == (2, 6, 64) and np.isfinite(tracked).all()

@@ -253,7 +253,7 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(relocalization_k_size=2), dict(sparse_topk=4), dict(track_radius=2),
+    dict(relocalization_k_size=2),
     dict(nc_tier="cp"), dict(backbone="vgg"), dict(backbone="densenet201"),
     dict(checkpoint="model.pth.tar"), dict(backbone_weights="resnet101.pth"),
 ])
@@ -264,6 +264,22 @@ def test_unported_options_raise(option):
         BatchMatchEngine(tc, {"nc": [], "backbone": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         tnet.init_ncnet(tc)
+
+
+@pytest.mark.parametrize("option", [dict(sparse_topk=4), dict(track_radius=2)])
+def test_sparse_options_build_an_engine_and_run_on_cpu(option):
+    """The coarse-to-fine and tracking options, unported until their slice,
+    now build an engine and serve a CPU request (and a tracked frame)."""
+    _, tc = configs(backbone="tiny", ncons_kernel_sizes=(3,), ncons_channels=(1,),
+                    **option)
+    engine = BatchMatchEngine(tc, tnet.init_ncnet(tc, seed=0), device="cpu")
+    src, tgt = serving_pairs()
+    table = engine.fetch(engine.dispatch(src, tgt))
+    assert table.shape == (2, 6, 36) and np.isfinite(table).all()
+    prior = np.zeros((2, 9), np.int32)
+    tracked = engine.fetch(engine.dispatch_tracked(src, tgt, prior, prior))
+    assert tracked.shape == (2, 6, 36) and np.isfinite(tracked).all()
+    assert engine.coarse_passes == 1 and engine.tracked_dispatches == 1
 
 
 # ---------------------------------------------------------------------------
