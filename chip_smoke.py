@@ -11,19 +11,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      float32 matmuls and convolutions, so the plain versions are full f32;
   2. build every CUDA kernel from ``ncnet_tpu_torch/csrc`` with ``nvcc`` for
      ``sm_90a`` (one ``nvcc`` per source, all in parallel);
-  3. every kernel against its plain PyTorch version on the card, in bf16,
-     at the shape the serving and training paths give it and at the thin
-     test shapes, with CUDA-event times of both: the NC stack (B2) and its
-     backward (B3: dW/db partials, their reduction, the transposed conv),
-     the backward on the same saved activations as its twin;
+  3. every kernel against its plain PyTorch version on the card, at the
+     shape the paths give it and at the thin test shapes, with CUDA-event
+     times of both: the NC stack (B2, bf16; timed at the coarse-to-fine
+     fine tiles' folded (20000, 6⁴), its call on the paths that keep it)
+     and its backward (B3: dW/db partials, their reduction, the transposed
+     conv; timed at the training chunk's 8 × 25⁴), the backward on the
+     same saved activations as its twin; the small-C_out conv4d (B5,
+     ``csrc/conv4d_small_cout.cu``) at the fp32 800² path's (4, 50⁴, 16)
+     → 1, the coarse-to-fine tiles' (20000, 6⁴, 16) → 1, a k = 3 10 → 1
+     case and a bf16 2-channel case, two launches bit-identical, with its
+     bound and the cuDNN ``coutfold`` formulation's time as context;
   4. the serving path at full width: ``BatchMatchEngine`` with the
      PF-Pascal NCNet (ResNet-101 to layer3, NC kernels (5, 5, 5) with
      channels (16, 16, 1), bf16, 400×400 pairs, random weights from a
-     seed) answers 3 requests of 4 pairs; the kernel launch counter,
-     reset just before, proves the path went through the kernel; one
-     request runs again, and the kernel is held against its plain version
-     on the exact volume the path hands it, and the filtered volume
-     against the same forward with the plain NC stack;
+     seed) answers 3 requests of 4 pairs; the tier chooser sends the 25⁴
+     stack to the FFT tier, as the JAX package does, so B2's counter,
+     reset just before, must read 0; one request runs again, and the FFT
+     stack is held against the plain direct stack on the exact volume the
+     path hands it, and the filtered volume against the same forward with
+     the plain stack;
   5. the training path at full width: ``create_train_state`` and
      ``make_train_step`` with the published PF-Pascal recipe (batch 16 of
      400² pairs, lr 5e-4, bf16 NC stack, fp32 frozen trunk, automatic
@@ -31,9 +38,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      BatchNorm statistics set from one seeded batch, NC kernels
      centre-peaked with biases off zero; each target its source shifted
      by whole feature cells) take a warm-up step and 3 timed steps; the
-     launch counters, reset just before, must read the per-step formula;
-     on the last chunk's exact volume and cotangent the backward kernels
-     are held against their twin, and the step's loss and NC gradients
+     stack's forward takes the FFT tier (no B2 launch) and its backward
+     B3, so the launch counters, reset just before, must read B3's
+     per-step formula; on the last chunk's exact volume and cotangent the
+     FFT stack is held against the plain direct stack and the backward
+     kernels against their twin, and the step's loss and NC gradients
      against the same step with the twins routed in for both directions;
      a stage line splits a step's time;
   A. the coarse-to-fine gather kernel (B4, ``csrc/gather_tile_corr.cu``)
@@ -46,14 +55,24 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      PF-Pascal NCNet at ``sparse_topk=4`` (factor 2, halo 2), bf16, 800²
      pairs (a 50² grid; trunk BatchNorm calibrated, NC kernels centre-
      peaked, each target its source shifted by whole cells) answers a
-     warm-up and 3 requests of 4 pairs; 9 NC and 2 B4 launches per
-     request; B4 and the fine NC stack against their twins on the exact
-     inputs the path handed them, the fine pass against the plain fine
-     pass on the kernel path's candidates; candidate agreement, recall and
+     warm-up and 3 requests of 4 pairs; the coarse 25⁴ pass takes the FFT
+     tier, so 6 NC (the fine tiles) and 2 B4 launches per request; B4, the
+     fine NC stack and the coarse FFT stack against their plain versions
+     on the exact inputs the path handed them, the fine pass against the
+     plain fine pass on the kernel path's candidates; candidate agreement, recall and
      shift recovery (beside one dense 800² request) printed; a stage line;
   C. tracked serving: the request's tables become priors, 3 frames through
      ``dispatch_tracked`` (no coarse pass, sources memoized, 6 NC and 2 B4
      launches a frame), one frame's fine pass against the plain one;
+  D. fp32 serving at full width: ``BatchMatchEngine`` with the PF-Pascal
+     NCNet in fp32 (the JAX default) answers a warm-up and 3 requests of 4
+     pairs at 400² (the FFT tier: no B2 or B5 launch; the FFT stack held
+     against the plain direct stack on the path's volume) and at 800² (a
+     50⁴ volume no tier takes: per layer tapfold, unroll and B5, the two
+     symmetric passes one after the other, so 2 B5 launches per request;
+     each B5 call held against its twin on the path's input, the filtered
+     volume against the forward with the twin); a stage line and the peak
+     memory;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +91,7 @@ import time
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12    # float32 outside the tensor cores
 PEAK_HBM_BYTES_PER_S = 3.35e12
 TOLERANCE = 1e-2          # max|kernel − plain| / max|plain|, bf16 outputs
 # The filtered volume of the whole forward, kernel path vs plain path.  The
@@ -82,10 +102,33 @@ TOLERANCE = 1e-2          # max|kernel − plain| / max|plain|, bf16 outputs
 # near-maximal cell.  The kernel itself is held to TOLERANCE on the exact
 # volume the path hands it.
 SERVE_TOLERANCE = 7 * 2.0 ** -7
+# B5 against its twin (max|kernel − twin| / max|twin|): f32 sums in another
+# order, 2e-4 as the JAX suite holds the TPU kernel (tests/test_ops_basic.py);
+# in bf16 both round an f32 sum once, so at most one bf16 ulp, 2^-7
+B5_TOLERANCE = {"float32": 2e-4, "bfloat16": 2.0 ** -7}
+# an fp32 stack or filtered volume, FFT tier or B5 path vs the plain direct
+# path: f32 round-off of the transforms (tests/test_torch_port_tiers.py)
+FP32_TOLERANCE = 1e-4
+# (name, volume (B, hA, wA, hB, wB), k, C_in, C_out, dtype)
+B5_SHAPES = (
+    # the fp32 800² path's launch: the 16→1 layer on one symmetric pass
+    ("pf_pascal_800_fp32", (4, 50, 50, 50, 50), 5, 16, 1, "float32"),
+    # the coarse-to-fine tiles' volume, had they run in fp32
+    ("c2f_tiles_fp32", (20000, 6, 6, 6, 6), 5, 16, 1, "float32"),
+    ("k3_10ch_fp32", (8, 25, 25, 25, 25), 3, 10, 1, "float32"),
+    ("two_channel_bf16", (2, 9, 7, 11, 13), 5, 16, 2, "bfloat16"),
+)
+FP32_SIDES = (400, 800)
 
 # (name, volume shape (B, hA, wA, hB, wB), kernel sizes, channels)
+# B2's call on its paths: the coarse-to-fine and tracked fine tiles, 4 pairs
+# x 625 coarse cells x 4 candidates, batch-folded with their transposes
+# (the dense 25^4 stacks take the FFT tier)
+B2_PATH_SHAPE = ("c2f_fine_tiles_20000x6^4", (20000, 6, 6, 6, 6), (5, 5, 5),
+                 (16, 16, 1))
 STACK_SHAPES = (
-    # the serving path's call: 4 pairs, batch-folded with their transposes
+    # B3's call on the training path: a chunk of 4 pairs, batch-folded with
+    # their transposes
     ("pf_pascal_25^4_B8", (8, 25, 25, 25, 25), (5, 5, 5), (16, 16, 1)),
     ("rectangular_3layer", (1, 6, 5, 7, 6), (3, 3, 3), (4, 4, 1)),
     ("two_channel_final", (2, 6, 7, 5, 8), (3, 3), (4, 2)),
@@ -220,10 +263,10 @@ def routed(module, name, fn, calls=None):
 
 
 def check_kernels(torch, nc_fused_lane, dev):
-    """Phase 3: kernel vs plain twin at every shape; returns the main-path
-    shape's numbers."""
+    """Phase 3: kernel vs plain twin at every shape; returns the numbers of
+    B2's path shape (``B2_PATH_SHAPE``)."""
     main = None
-    for name, shape, kernels, channels in STACK_SHAPES:
+    for name, shape, kernels, channels in (B2_PATH_SHAPE,) + STACK_SHAPES:
         params = stack_params(kernels, channels, seed=1, device=dev)
         g = torch.Generator().manual_seed(2)
         x = (torch.randn(shape + (1,), generator=g) * 0.5).to(dev, torch.bfloat16)
@@ -238,7 +281,7 @@ def check_kernels(torch, nc_fused_lane, dev):
         if not (err <= TOLERANCE and torch.isfinite(got.float()).all()):
             raise SystemExit(f"kernel disagrees with its plain twin at {name}")
         if main is None:
-            iters = 5
+            iters = 3
             # in turns: kernel, plain, kernel, plain
             ms_k = [cuda_ms(lambda: nc_fused_lane.nc_stack_resident(params, x), iters)]
             ms_p = [cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), iters)]
@@ -339,6 +382,104 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
     return main
 
 
+def b5_work(shape, k, c_in, c_out, dtype):
+    """(FLOP, bytes, peak FLOP/s) of one B5 launch: multiply-adds only at
+    taps inside the volume; the volume, weights and output once each."""
+    b, *dims = shape
+    cells = _prod(dims)
+    d = k // 2
+    taps = _prod(sum(min(n - 1, x + d) - max(0, x - d) + 1 for x in range(n))
+                 for n in dims)
+    size = 4 if dtype == "float32" else 2
+    flops = 2 * b * taps * c_in * c_out
+    nbytes = size * (b * cells * c_in + k ** 4 * c_in * c_out
+                     + b * cells * c_out)
+    return flops, nbytes, PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+
+
+def check_b5(torch, conv4d_pallas, dev):
+    """Phase 3, B5: the kernel against its twin at every shape, two
+    launches bit-identical; the main shape's kernel, plain, bound and cuDNN
+    ``coutfold`` (context) times."""
+    from ncnet_tpu_torch.ops.conv4d import conv4d
+
+    main = None
+    for name, shape, k, c_in, c_out, dtype in B5_SHAPES:
+        g = torch.Generator().manual_seed(6)
+        x = torch.randn(shape + (c_in,), generator=g).to(dev, getattr(torch, dtype))
+        w = (torch.randn((k,) * 4 + (c_in, c_out), generator=g) * 0.05).to(dev)
+        got = conv4d_pallas.conv4d_small_cout_cuda(x, w)
+        again = conv4d_pallas.conv4d_small_cout_cuda(x, w)
+        want = conv4d_pallas.conv4d_small_cout_reference(x, w)
+        torch.cuda.synchronize()
+        err = normalized_err(got, want)
+        max_abs = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, again)
+        tol = B5_TOLERANCE[dtype]
+        print(f"check B5 {name}: x {tuple(x.shape)} {dtype}, k {k}, {c_in} -> "
+              f"{c_out}: max_abs_err {max_abs:.6g} normalized {err:.3e} "
+              f"(tolerance {tol:.3e}); two launches bit-identical: {same}",
+              flush=True)
+        if not (err <= tol and same and torch.isfinite(got.float()).all()):
+            raise SystemExit(f"B5 disagrees with its twin at {name}")
+        if main is None:
+            iters = 5
+            run_k = lambda: conv4d_pallas.conv4d_small_cout_cuda(x, w)  # noqa: E731
+            run_p = lambda: conv4d_pallas.conv4d_small_cout_reference(x, w)  # noqa: E731
+            ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, iters)]
+            ms_k.append(cuda_ms(run_k, iters))
+            ms_p.append(cuda_ms(run_p, iters))
+            fold_ms = cuda_ms(lambda: conv4d(x, w, variant="coutfold"), iters)
+            flops, nbytes, peak = b5_work(shape, k, c_in, c_out, dtype)
+            t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_PER_S
+            main = {
+                "max_abs_err": max_abs, "normalized_err": err,
+                "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "coutfold_ms": fold_ms,
+            }
+            print(f"timing B5 {name} (one launch): kernel {ms_k} ms, plain "
+                  f"(unroll, cuDNN f32) {ms_p} ms, context: the coutfold "
+                  f"formulation (cuDNN f32) {fold_ms:.4f} ms; {flops:.4g} "
+                  f"FLOP, {nbytes:.4g} bytes, bound {main['bound_ms']:.4f} "
+                  f"ms ({main['bound_by']}), {flops / main['ms'] / 1e9:.2f} "
+                  "TFLOP/s", flush=True)
+    return main
+
+
+def plain_stack(params, x):
+    """The plain direct NC stack on ``x``: B2's twin in bf16, the f32
+    ``unroll`` formulation layer by layer otherwise."""
+    import torch
+
+    from ncnet_tpu_torch.ops import nc_fused_lane
+    from ncnet_tpu_torch.ops.conv4d import conv4d
+
+    if x.dtype == torch.bfloat16:
+        return nc_fused_lane.nc_stack_reference(params, x)
+    for layer in params:
+        x = torch.relu(conv4d(x, layer["w"], layer["b"], variant="unroll"))
+    return x
+
+
+def check_fft_calls(calls, where):
+    """Hold each recorded FFT-tier stack call ``((params, x), kw, y)``
+    against the plain direct stack on the same volume."""
+    import torch
+
+    for i, ((params, x), _, y) in enumerate(calls):
+        tol = TOLERANCE if x.dtype.itemsize == 2 else FP32_TOLERANCE
+        with torch.no_grad():
+            err = normalized_err(y, plain_stack(params, x))
+        print(f"{where}: FFT stack call {i} on the path's volume "
+              f"{tuple(x.shape)} {x.dtype}: FFT vs plain direct stack "
+              f"normalized error {err:.3e} (tolerance {tol})", flush=True)
+        if not err <= tol:
+            raise SystemExit(f"{where}: the FFT stack disagrees with the plain "
+                             "direct stack")
+
+
 def check_tables(tables, n_cells, where):
     """Every fetched ``(B, 6, N)`` table finite, scores and quality signals
     in [0, 1]."""
@@ -363,6 +504,7 @@ def serve(torch, nc_fused_lane, dev):
     import numpy as np
 
     from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
     from ncnet_tpu_torch.models.ncnet import init_ncnet, ncnet_forward
     from ncnet_tpu_torch.ops.image import normalize_imagenet
     from ncnet_tpu_torch.serving.engine import BatchMatchEngine
@@ -388,43 +530,35 @@ def serve(torch, nc_fused_lane, dev):
         tables.append(engine.fetch(engine.dispatch(src, tgt)))
         walls.append((time.perf_counter() - t0) * 1e3)
     launches = nc_fused_lane.launches
+    tier = nc_fused_lane.last_selected_tier()
     peak = torch.cuda.max_memory_allocated()
     print(f"serve: {SERVE_REQUESTS} requests of {SERVE_BATCH} pairs at "
           f"{SERVE_SIDE}x{SERVE_SIDE}, wall ms per request {walls}, peak "
-          f"memory {peak} bytes, kernel launches {launches}", flush=True)
+          f"memory {peak} bytes, NC stack tier {tier!r}, B2 launches "
+          f"{launches}", flush=True)
     check_tables(tables, n_cells, "serve")
-    if launches != 3 * SERVE_REQUESTS:
-        raise SystemExit(f"expected {3 * SERVE_REQUESTS} kernel launches, "
-                         f"counted {launches}")
+    if launches != 0 or tier != "fft":
+        raise SystemExit(f"serve: expected the fft tier and no B2 launch, got "
+                         f"{tier!r} and {launches}")
     print(f"serve: tables ok; quality of pair 0: "
           f"{engine.split(tables[-1])[1][0]}", flush=True)
 
-    # one request again, its NC stack through the kernel and then through
-    # the plain twin: the kernel on the exact volume the path hands it, and
-    # the filtered volume that comes out of each
+    # one request again, its NC stack through the FFT tier and then through
+    # the plain direct stack: the FFT stack on the exact volume the path
+    # hands it, and the filtered volume that comes out of each
     src, tgt = (normalize_imagenet(torch.as_tensor(a).to(dev))
                 for a in requests[0])
     calls = []
     with torch.no_grad():
-        with routed(nc_fused_lane, "nc_stack_resident",
-                    nc_fused_lane.nc_stack_resident, calls):
+        with routed(ncnet_mod, "nc_stack_fft", ncnet_mod.nc_stack_fft, calls):
             got = ncnet_forward(cfg, engine._params, src, tgt).corr
-        with routed(nc_fused_lane, "nc_stack_resident",
-                    nc_fused_lane.nc_stack_reference):
+        with routed(ncnet_mod, "nc_stack_fft", plain_stack):
             want = ncnet_forward(cfg, engine._params, src, tgt).corr
-        ((params, x), _, y_kernel), = calls
-        y_plain = nc_fused_lane.nc_stack_reference(params, x)
     torch.cuda.synchronize()
-    err = normalized_err(y_kernel, y_plain)
-    print(f"serve: NC stack on the served volume {tuple(x.shape)}: kernel vs "
-          f"plain normalized error {err:.3e} (tolerance {TOLERANCE}), "
-          f"{float((y_kernel != y_plain).float().mean()):.3e} of the cells "
-          "differ", flush=True)
-    if not err <= TOLERANCE:
-        raise SystemExit("the kernel disagrees with its plain twin on the "
-                         "served volume")
+    check_fft_calls(calls, "serve")
+    (_, x), _, _ = calls[0]
     err = normalized_err(got, want)
-    print(f"serve: filtered volume {tuple(got.shape)} kernel path vs plain "
+    print(f"serve: filtered volume {tuple(got.shape)} FFT path vs plain "
           f"path normalized error {err:.3e} (tolerance {SERVE_TOLERANCE})",
           flush=True)
     if not err <= SERVE_TOLERANCE:
@@ -438,6 +572,7 @@ def stage_breakdown(torch, nc_fused_lane, cfg, params, src, tgt, nc_input):
     stage at a time, so the sum is an upper bound on the device time)."""
     from ncnet_tpu_torch.models.ncnet import extract_features, ncnet_filter
     from ncnet_tpu_torch.observability.quality import append_quality_rows
+    from ncnet_tpu_torch.ops.conv4d_fft import nc_stack_fft
     from ncnet_tpu_torch.ops.correlation import correlation_4d
     from ncnet_tpu_torch.ops.matching import corr_to_matches
 
@@ -462,8 +597,8 @@ def stage_breakdown(torch, nc_fused_lane, cfg, params, src, tgt, nc_input):
             "correlation": cuda_ms(lambda: correlation_4d(fa, fb), 3),
             "filter (mutual, NC stack, mutual)": cuda_ms(
                 lambda: ncnet_filter(cfg, params, corr), 3),
-            "of which the NC stack kernel": cuda_ms(
-                lambda: nc_fused_lane.nc_stack_resident(nc_bf16, nc_input), 3),
+            "of which the NC stack (FFT tier)": cuda_ms(
+                lambda: nc_stack_fft(nc_bf16, nc_input), 3),
             "matches and quality row": cuda_ms(lambda: tables(filtered), 3),
         }
     print("serve stages ms per request: " + json.dumps(stages), flush=True)
@@ -643,6 +778,7 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
     import numpy as np
 
     from ncnet_tpu_torch.config import ModelConfig, TrainConfig
+    from ncnet_tpu_torch.ops.conv4d_fft import fft_stack_activations
     from ncnet_tpu_torch.ops.image import normalize_imagenet
     from ncnet_tpu_torch.training import (
         auto_accum_chunks,
@@ -704,18 +840,19 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
         if not np.isfinite(loss):
             raise SystemExit(f"train step {i + 1}: non-finite loss")
     launches = {"nc_conv4d_bf16": nc_fused_lane.launches, **vjp.launches}
-    # per step: each chunk runs the folded stack once forward (one launch
-    # per layer) and once backward (dW/db and its reduction per layer, the
-    # transposed conv for every layer but the first: the volume needs no
-    # gradient)
-    want = {"nc_conv4d_bf16": TRAIN_STEPS * chunks * n_layers,
+    tier = nc_fused_lane.last_selected_tier()
+    # per step: each chunk runs the folded stack once forward (the FFT
+    # tier at 25⁴: no B2 launch) and once backward (dW/db and its
+    # reduction per layer, the transposed conv for every layer but the
+    # first: the volume needs no gradient)
+    want = {"nc_conv4d_bf16": 0,
             "nc_vjp_dw": TRAIN_STEPS * chunks * n_layers,
             "nc_vjp_reduce": TRAIN_STEPS * chunks * n_layers,
             "nc_conv4d_transpose": TRAIN_STEPS * chunks * (n_layers - 1)}
     print(f"train: launches in {TRAIN_STEPS} steps {launches}, expected "
           f"{want} ({chunks} chunks of {2 * cfg.batch_size // chunks} "
-          "volumes a step)", flush=True)
-    if launches != want:
+          f"volumes a step); the forward's tier {tier!r}", flush=True)
+    if launches != want or tier != "fft":
         raise SystemExit("the training path did not launch the kernels as expected")
 
     # the step's loss and NC gradients, kernels vs twins in both directions
@@ -734,9 +871,10 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
         scores = pair_scores(mc, state.params, batch, chunks)
     torch.cuda.synchronize()
     step_check(loss_k, grads_k, loss_t, grads_t, control, scores)
-    params, x, _, g = calls[-1]
+    params, x, y, g = calls[-1]
     params = [{k: v.detach() for k, v in p.items()} for p in params]
-    acts = nc_fused_lane.stack_activations(params, x)
+    check_fft_calls([((params, x), {}, y.detach())], "train")
+    acts = fft_stack_activations(params, x.to(torch.bfloat16))
     err, max_abs = grads_err(vjp.stack_vjp(params, acts, g, need_dx=False),
                              vjp.stack_vjp(params, acts, g, need_dx=False,
                                            twin=True))
@@ -759,6 +897,7 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
     mutual matching, scores; times the chunks), and Adam with the NaN
     guard's check."""
     from ncnet_tpu_torch.models.ncnet import extract_features, ncnet_filter
+    from ncnet_tpu_torch.ops.conv4d_fft import fft_stack_activations
     from ncnet_tpu_torch.ops.correlation import correlation_4d
     from ncnet_tpu_torch.training import match_score_per_pair
     from ncnet_tpu_torch.training.train import (
@@ -771,14 +910,16 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
         fa = extract_features(mc, state.params, batch["source_image"]).to(torch.bfloat16)
         fb = extract_features(mc, state.params, batch["target_image"]).to(torch.bfloat16)
     c = x.shape[0] // 2  # pairs per chunk (the stack folds their transposes)
-    acts = nc_fused_lane.stack_activations(params, x)
+    acts = fft_stack_activations(params, x.to(torch.bfloat16))
 
     def chunk():
         leaves = [{k: v.detach().requires_grad_() for k, v in layer.items()}
                   for layer in state.params["nc"]]
         with torch.enable_grad():
+            # the step's route: the training gate, as weak_loss sets it
             vol = ncnet_filter(mc, {**state.params, "nc": leaves},
-                               correlation_4d(fa[:c], fb[:c])).corr
+                               correlation_4d(fa[:c], fb[:c]),
+                               nc_pallas_vjp=True).corr
             val = match_score_per_pair(vol).sum()
         return torch.autograd.grad(val, [t for p in leaves for t in p.values()])
 
@@ -798,13 +939,13 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
             ok = ok & torch.isfinite(u).all()
         return new, ok
 
-    nc_fwd = cuda_ms(lambda: nc_fused_lane.stack_activations(params, x), 3)
+    nc_fwd = cuda_ms(lambda: fft_stack_activations(params, x.to(torch.bfloat16)), 3)
     nc_bwd = cuda_ms(lambda: vjp.stack_vjp(params, acts, g, need_dx=False), 3)
     chunk_ms = cuda_ms(chunk, 3)
     stages = {
         f"trunk, both sides, batch {batch['source_image'].shape[0]}":
             cuda_ms(trunk, 3),
-        f"NC stack forward (B2), {chunks} chunks": nc_fwd * chunks,
+        f"NC stack forward (FFT tier), {chunks} chunks": nc_fwd * chunks,
         f"NC stack backward (B3), {chunks} chunks": nc_bwd * chunks,
         f"correlation, mutual matching, loss; forward and backward, {chunks} "
         "chunks": (chunk_ms - nc_fwd - nc_bwd) * chunks,
@@ -815,11 +956,14 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
 
 @contextlib.contextmanager
 def plain_path():
-    """The forward with the plain twins in place of the NC and B4 kernels."""
+    """The forward with the plain versions in place of the NC and B4
+    kernels and of the FFT tier (the plain direct stack)."""
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
     from ncnet_tpu_torch.ops import nc_fused_lane, sparse_corr
 
     with routed(nc_fused_lane, "nc_stack_resident",
                 nc_fused_lane.nc_stack_reference), \
+            routed(ncnet_mod, "nc_stack_fft", plain_stack), \
             routed(sparse_corr, "gather_tile_corr_pallas",
                    sparse_corr.gather_tile_corr_reference):
         yield
@@ -907,24 +1051,29 @@ def check_gather(torch, sparse_corr, dev):
     return main
 
 
-def check_path_calls(torch, nc_fused_lane, sparse_corr, forward, stacks,
+def check_path_calls(torch, nc_fused_lane, sparse_corr, forward, fft_stacks,
                      where):
-    """Run ``forward()`` with every B4 and NC-stack call recorded: 2 B4 calls
-    and ``stacks`` stack calls, the last two of them on the fine tiles.  Hold
-    each B4 call against its twin within ``GATHER_TOLERANCE`` and each fine
-    stack call against its twin within ``TOLERANCE``, on the exact inputs
-    the path handed them."""
-    g_calls, s_calls = [], []
+    """Run ``forward()`` with every B4, NC-stack and FFT-stack call
+    recorded: 2 B4 calls, 2 B2 stack calls on the fine tiles and
+    ``fft_stacks`` FFT-tier calls (the coarse pass).  Hold each B4 call
+    against its twin within ``GATHER_TOLERANCE``, each fine stack call
+    against its twin within ``TOLERANCE`` and each FFT call against the
+    plain direct stack, on the exact inputs the path handed them."""
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
+
+    g_calls, s_calls, f_calls = [], [], []
     with torch.no_grad(), \
             routed(sparse_corr, "gather_tile_corr_pallas",
                    sparse_corr.gather_tile_corr_pallas, g_calls), \
             routed(nc_fused_lane, "nc_stack_resident",
-                   nc_fused_lane.nc_stack_resident, s_calls):
+                   nc_fused_lane.nc_stack_resident, s_calls), \
+            routed(ncnet_mod, "nc_stack_fft", ncnet_mod.nc_stack_fft, f_calls):
         forward()
-        if len(g_calls) != 2 or len(s_calls) != stacks:
-            raise SystemExit(f"{where}: {len(g_calls)} B4 and {len(s_calls)} "
-                             f"NC stack calls in one forward, expected 2 and "
-                             f"{stacks}")
+        if (len(g_calls), len(s_calls), len(f_calls)) != (2, 2, fft_stacks):
+            raise SystemExit(f"{where}: {len(g_calls)} B4, {len(s_calls)} NC "
+                             f"stack and {len(f_calls)} FFT stack calls in one "
+                             f"forward, expected 2, 2 and {fft_stacks}")
+        check_fft_calls(f_calls, where)
         for i, (args, kw, y) in enumerate(g_calls):
             err = normalized_err(
                 y, sparse_corr.gather_tile_corr_reference(*args, **kw))
@@ -1054,7 +1203,9 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
           f"request {walls}, peak memory {peak} bytes, launches {launches}, "
           f"coarse passes {passes}", flush=True)
     check_tables(tables, n_cells, "c2f serve")
-    want = {"nc_conv4d_bf16": 9 * C2F_REQUESTS,
+    # the coarse 25⁴ pass takes the FFT tier; the fine tiles 3 launches a
+    # family
+    want = {"nc_conv4d_bf16": 6 * C2F_REQUESTS,
             "gather_tile_corr_bf16": 2 * C2F_REQUESTS}
     if launches != want or passes != C2F_REQUESTS:
         raise SystemExit(f"c2f serve: expected launches {want} and "
@@ -1070,7 +1221,7 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
         fa, fb = (extract_features(cfg, params, x).to(torch.bfloat16)
                   for x in (src, tgt))
     check_path_calls(torch, nc_fused_lane, sparse_corr,
-                     lambda: coarse2fine_filter(cfg, params, fa, fb), 3,
+                     lambda: coarse2fine_filter(cfg, params, fa, fb), 1,
                      "c2f serve")
 
     # candidates: the kernel path's, the plain coarse pass's, the recall
@@ -1197,7 +1348,7 @@ def c2f_stages(torch, sparse_corr, cfg, params, src, tgt):
         corr = readout()
         stages = {
             "trunk, both sides": cuda_ms(trunk, 3),
-            "coarse pass (pool, correlation, filter: 3 NC launches)": cuda_ms(coarse_pass, 3),
+            "coarse pass (pool, correlation, filter: FFT tier)": cuda_ms(coarse_pass, 3),
             "top-k, both families": cuda_ms(topk, 3),
             "tiles: source gathers, origins, B4 (2 launches)": cuda_ms(tiles, 3),
             "sparse gating before the stack, both families": cuda_ms(lambda: gate(raw), 3),
@@ -1279,7 +1430,7 @@ def serve_tracked(torch, nc_fused_lane, sparse_corr, engine, params,
         fa, fb = fa.to(torch.bfloat16), fb.to(torch.bfloat16)
     check_path_calls(
         torch, nc_fused_lane, sparse_corr,
-        lambda: coarse2fine_tracked_filter(cfg, params, fa, fb, pab, pba), 2,
+        lambda: coarse2fine_tracked_filter(cfg, params, fa, fb, pab, pba), 0,
         "tracked serve")
     with torch.no_grad():
         hc = grid[0] // factor
@@ -1289,6 +1440,150 @@ def serve_tracked(torch, nc_fused_lane, sparse_corr, engine, params,
     fine_pass_check(torch, cfg, params, fa, fb, cand_ab, cand_ba,
                     "tracked serve")
     return launches
+
+
+def serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev):
+    """Phase D: fp32 serving at full width, ``FP32_SIDES``: 400² (the FFT
+    tier) and 800² (per layer: tapfold, unroll, B5, two sequential
+    symmetric passes).
+    Returns the B5 launches by side and the largest B5 error on the path."""
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
+    from ncnet_tpu_torch.models.ncnet import init_ncnet, ncnet_forward, params_to
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1))
+    params = params_to(init_ncnet(cfg, seed=0), dev)
+    engine = BatchMatchEngine(cfg, params)
+    rng = np.random.default_rng(4)
+    b5_by_side, b5_err = {}, 0.0
+    for side in FP32_SIDES:
+        shape = (SERVE_BATCH, side, side, 3)
+        requests = [(rng.integers(0, 256, shape, dtype=np.uint8),
+                     rng.integers(0, 256, shape, dtype=np.uint8))
+                    for _ in range(SERVE_REQUESTS + 1)]
+        engine.fetch(engine.dispatch(*requests[-1]))  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nc_fused_lane.launches = 0
+        conv4d_pallas.launches = 0
+        walls, tables = [], []
+        for src, tgt in requests[:SERVE_REQUESTS]:
+            t0 = time.perf_counter()
+            tables.append(engine.fetch(engine.dispatch(src, tgt)))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                    "conv4d_small_cout": conv4d_pallas.launches}
+        tier = nc_fused_lane.last_selected_tier()
+        peak = torch.cuda.max_memory_allocated()
+        where = f"fp32 serve {side}"
+        print(f"{where}: {SERVE_REQUESTS} requests of {SERVE_BATCH} pairs at "
+              f"{side}x{side}, wall ms per request {walls}, peak memory {peak} "
+              f"bytes, NC stack tier {tier!r}, launches {launches}", flush=True)
+        check_tables(tables, (side // 16) ** 2, where)
+        fft_side = side == FP32_SIDES[0]
+        n_b5 = 0 if fft_side else 2 * SERVE_REQUESTS
+        want_tier = "fft" if fft_side else "xla"
+        if launches != {"nc_conv4d_bf16": 0, "conv4d_small_cout": n_b5} \
+                or tier != want_tier:
+            raise SystemExit(f"{where}: expected the {want_tier!r} tier, no B2 "
+                             f"launch and {n_b5} B5 launches")
+        b5_by_side[f"serve_fp32_{side}"] = launches["conv4d_small_cout"]
+
+        # one request again with its FFT or B5 calls recorded, each held
+        # against its plain version; the filtered volume against the same
+        # forward with the plain versions routed in
+        src, tgt = (normalize_imagenet(torch.as_tensor(a).to(dev))
+                    for a in requests[0])
+        calls = []
+        if fft_side:
+            module, name, plain = ncnet_mod, "nc_stack_fft", plain_stack
+        else:
+            module, name = conv4d_pallas, "conv4d_small_cout_cuda"
+            plain = conv4d_pallas.conv4d_small_cout_reference
+        with torch.no_grad():
+            with routed(module, name, getattr(module, name), calls):
+                got = ncnet_forward(cfg, engine._params, src, tgt).corr
+            with routed(module, name, plain):
+                want = ncnet_forward(cfg, engine._params, src, tgt).corr
+        torch.cuda.synchronize()
+        if fft_side:
+            check_fft_calls(calls, where)
+        else:
+            if len(calls) != 2:
+                raise SystemExit(f"{where}: {len(calls)} B5 calls in one "
+                                 "forward, expected 2")
+            for i, ((x, w), _, y) in enumerate(calls):
+                with torch.no_grad():
+                    ref = conv4d_pallas.conv4d_small_cout_reference(x, w)
+                err = normalized_err(y, ref)
+                b5_err = max(b5_err, float((y - ref).abs().max()))
+                print(f"{where}: B5 launch {i} on the path's input "
+                      f"{tuple(x.shape)} {x.dtype}: kernel vs twin normalized "
+                      f"error {err:.3e} (tolerance "
+                      f"{B5_TOLERANCE['float32']:.1e})", flush=True)
+                if not err <= B5_TOLERANCE["float32"]:
+                    raise SystemExit(f"{where}: B5 disagrees with its twin on "
+                                     "the path")
+        err = normalized_err(got, want)
+        print(f"{where}: filtered volume {tuple(got.shape)} vs the plain path "
+              f"normalized error {err:.3e} (tolerance {FP32_TOLERANCE})",
+              flush=True)
+        if not err <= FP32_TOLERANCE:
+            raise SystemExit(f"{where}: the filtered volume disagrees with the "
+                             "plain path")
+        if not fft_side:
+            fp32_stages(torch, cfg, engine._params, src, tgt)
+    return b5_by_side, b5_err
+
+
+def fp32_stages(torch, cfg, params, src, tgt):
+    """CUDA-event ms of each stage of one fp32 800² request, and of each NC
+    layer of one symmetric pass (warm, one at a time)."""
+    from ncnet_tpu_torch.models.ncnet import extract_features, ncnet_filter
+    from ncnet_tpu_torch.observability.quality import append_quality_rows
+    from ncnet_tpu_torch.ops.conv4d import conv4d
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import corr_to_matches, mutual_matching
+
+    nc = params["nc"]
+
+    def trunk():
+        return (extract_features(cfg, params, src),
+                extract_features(cfg, params, tgt))
+
+    def tables(corr):
+        m = corr_to_matches(corr, do_softmax=True)
+        return append_quality_rows(
+            torch.stack([v.to(torch.float32) for v in m], dim=1), corr)
+
+    with torch.no_grad():
+        fa, fb = trunk()
+        corr = correlation_4d(fa, fb)
+        filtered = ncnet_filter(cfg, params, corr).corr
+        x = mutual_matching(corr)[..., None]
+        h1 = torch.relu(conv4d(x, nc[0]["w"], nc[0]["b"]))
+        h2 = torch.relu(conv4d(h1, nc[1]["w"], nc[1]["b"]))
+        stages = {
+            "trunk, both sides (fp32)": cuda_ms(trunk, 2),
+            "correlation": cuda_ms(lambda: correlation_4d(fa, fb), 2),
+            "filter (mutual, NC stack: 2 passes, mutual)": cuda_ms(
+                lambda: ncnet_filter(cfg, params, corr), 1),
+            "of which, per pass, layer 1 (1->16, tapfold)": cuda_ms(
+                lambda: conv4d(x, nc[0]["w"], nc[0]["b"]), 2),
+            "of which, per pass, layer 2 (16->16, unroll)": cuda_ms(
+                lambda: conv4d(h1, nc[1]["w"], nc[1]["b"]), 1),
+            "of which, per pass, layer 3 (16->1, B5)": cuda_ms(
+                lambda: conv4d(h2, nc[2]["w"], nc[2]["b"]), 2),
+            "matches and quality row": cuda_ms(lambda: tables(filtered), 2),
+        }
+    print(f"fp32 serve stages ms per request ({FP32_SIDES[-1]}x"
+          f"{FP32_SIDES[-1]}, B={SERVE_BATCH}): " + json.dumps(stages),
+          flush=True)
 
 
 def main() -> int:
@@ -1304,6 +1599,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     from ncnet_tpu_torch.ops import (
+        conv4d_pallas,
         kernel_build,
         nc_fused_lane,
         nc_fused_lane_vjp,
@@ -1334,6 +1630,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     main_numbers = check_kernels(torch, nc_fused_lane, dev)
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
+    b5_numbers = check_b5(torch, conv4d_pallas, dev)
     gather_numbers = check_gather(torch, sparse_corr, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches = train(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
@@ -1341,6 +1638,7 @@ def main() -> int:
         torch, nc_fused_lane, sparse_corr, dev)
     tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
                                      params, requests, tables)
+    b5_by_path, b5_path_err = serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev)
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -1385,6 +1683,21 @@ def main() -> int:
         # one launch at the serving shape; library_ms is one cuBLAS batched
         # product (einsum) on target patches gathered beforehand
         **gather_numbers,
+    }, {
+        "name": "conv4d_small_cout",
+        "route": "cuda",
+        "source": "ncnet_tpu_torch/csrc/conv4d_small_cout.cu",
+        # _fwd_impl, the pallas_call behind conv4d_small_cout (:133)
+        "replaces": "ncnet_tpu/ops/conv4d_pallas.py:146",
+        "launches": sum(b5_by_path.values()),
+        "launches_by_path": b5_by_path,
+        # one launch at the fp32 800² path's shape (4, 50⁴, 16) -> 1; the
+        # largest error of the path's own launches beside it
+        **b5_numbers,
+        "path_max_abs_err": b5_path_err,
+        # no single PyTorch call computes a conv4d; coutfold_ms (above) is
+        # the cuDNN formulation's time, context only
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

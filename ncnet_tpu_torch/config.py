@@ -66,10 +66,10 @@ class TrainConfig:
     log_interval: int = 1
     data_parallel: bool = True           # shard the pair batch over devices
     donate_state: bool = True            # no counterpart in eager PyTorch
-    remat_nc_layers: bool = False        # True not ported (an XLA memory knob)
-    nc_custom_grad: bool = False         # True not ported (an XLA memory knob)
+    remat_nc_layers: bool = False        # True refused by the recipe (the steps take it)
+    nc_custom_grad: bool = False         # True refused by the recipe (the steps take it)
     fold_pos_neg: bool = False           # one 2B-volume filter call (accum_chunks=0)
-    nc_pallas_vjp: bool = True           # False not ported: XLA's bf16 stack
+    nc_pallas_vjp: bool = True           # False refused by the recipe (the steps take it)
     remat_filter: bool = True            # recompute the filter in the backward
     accum_chunks: int = -1               # -1 auto, 0 whole batch, >1 chunks
     val_drop_last: bool = True

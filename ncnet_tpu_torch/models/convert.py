@@ -9,7 +9,8 @@ the same tree with three layout rules:
     HWIO to PyTorch's OIHW;
   * BatchNorm dicts and biases are kept as they are;
   * NC weights keep the JAX layout ``(k, k, k, k, C_in, C_out)``, which is
-    the port's own.
+    the port's own, and a layer's ``"cp"`` factor dict (the CP tier's) is
+    carried as it is.
 """
 
 from __future__ import annotations
@@ -37,11 +38,17 @@ def _convert_trunk(node: Any) -> Any:
     return _tensor(node)
 
 
+def _convert_nc_layer(layer: dict) -> dict:
+    out = {"w": _tensor(layer["w"]), "b": _tensor(layer["b"])}
+    if "cp" in layer:  # the CP tier's factor dict, kept as it is
+        out["cp"] = {k: _tensor(v) for k, v in layer["cp"].items()}
+    return out
+
+
 def params_from_numpy(tree: dict) -> dict:
     """The port's parameter tree (CPU tensors) from the JAX params as
     numpy arrays."""
-    out = {"nc": [{"w": _tensor(layer["w"]), "b": _tensor(layer["b"])}
-                  for layer in tree["nc"]]}
+    out = {"nc": [_convert_nc_layer(layer) for layer in tree["nc"]]}
     if "backbone" in tree:
         out["backbone"] = _convert_trunk(tree["backbone"])
     return out

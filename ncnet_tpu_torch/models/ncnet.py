@@ -7,13 +7,13 @@ matching.  Parameters are a plain tree ``{"backbone": {...}, "nc": [{"w",
 C_out)``), and the forward is a function of ``(config, params, images)``
 with the JAX package's channels-last layouts.
 
-Under ``half_precision`` the volume and the NC weights are bf16 and the NC
-stack runs through ``ops/nc_fused_lane.py`` (the CUDA kernels on the card,
-their plain twins on the CPU): ``nc_stack_resident`` for inference, and
-``nc_stack_fused`` (forward kernel, B3 backward kernels) when autograd
-records, as the JAX package routes bf16 stacks to its Pallas kernels.  The
-fp32 stack runs the plain ``ops/conv4d.py``, as the JAX package runs XLA
-there.
+The NC stack goes where the JAX package sends it (:func:`neigh_consensus`):
+the tier chooser ``ops/nc_fused_lane.py::choose_fused_stack`` ranks the
+arithmetic tiers (CP, FFT; any dtype) above the bf16 kernel B2, and a stack
+no tier takes runs layer by layer through ``ops/conv4d.py``'s formulations,
+whose chooser sends a small-C_out layer to the B5 kernel
+(``ops/conv4d_pallas.py``).  The CUDA kernels run on the card, their plain
+twins on the CPU.
 
 The port runs the dense serving path, the training step (``training/``)
 and the coarse-to-fine and tracked match pipelines
@@ -30,11 +30,19 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ncnet_tpu_torch.config import ModelConfig
 from ncnet_tpu_torch.models import backbone as bb
 from ncnet_tpu_torch.ops import nc_fused_lane
-from ncnet_tpu_torch.ops.conv4d import conv4d, conv4d_init
+from ncnet_tpu_torch.ops.conv4d import (
+    choose_conv4d_variant,
+    conv4d,
+    conv4d_init,
+    conv4d_same,
+)
+from ncnet_tpu_torch.ops.conv4d_cp import cp_stack_ranks, nc_stack_cp
+from ncnet_tpu_torch.ops.conv4d_fft import nc_stack_fft
 from ncnet_tpu_torch.ops.correlation import correlation_4d
 from ncnet_tpu_torch.ops.image import normalize_imagenet
 from ncnet_tpu_torch.ops.matching import (
@@ -50,7 +58,6 @@ def check_ported(config: ModelConfig) -> None:
     that this slice of the port does not run."""
     unported = [
         ("relocalization_k_size", config.relocalization_k_size > 1),
-        ("nc_tier", bool(config.nc_tier)),
         ("backbone", config.backbone not in ("resnet101", "tiny")),
         ("backbone_weights", bool(config.backbone_weights)),
         ("checkpoint", bool(config.checkpoint)),
@@ -149,40 +156,47 @@ def _swap_ab(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 4, 1, 2, 5)
 
 
-def _check_training_args(remat_layers: bool, custom_grad) -> None:
-    for name, hit in (("remat_nc_layers", remat_layers),
-                      ("nc_custom_grad", custom_grad is not False)):
-        if hit:
-            raise NotImplementedError(
-                f"{name} is not ported to ncnet_tpu_torch yet (a memory knob "
-                "of the XLA backward; the port's bf16 backward is the B3 "
-                "kernels)")
-
-
 def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
                     corr: torch.Tensor, *, symmetric: bool = True,
-                    remat_layers: bool = False, custom_grad=False,
-                    allow_pallas: bool = True, require_vjp: bool = False
-                    ) -> torch.Tensor:
+                    remat_layers: bool = False, custom_grad: bool = False,
+                    allow_pallas: bool = True, require_vjp: bool = False,
+                    force_tier: Optional[str] = None) -> torch.Tensor:
     """Neighbourhood-consensus filtering of the ``(B, hA, wA, hB, wB)``
     volume, with the reference's stack-level symmetry ``NC(x) + NC(xᵀ)ᵀ``
-    (not a per-layer one: the ReLUs interleave).
+    (not a per-layer one: the ReLUs interleave).  The routing of
+    ``ncnet_tpu/models/ncnet.py:442-652``:
 
-    A square volume batch-folds ``[x, xᵀ]`` into one stack call
-    (``ncnet_tpu/models/ncnet.py:615-624``); a rectangular one runs two
-    passes (``:650-652``).  A bf16 volume with bf16 weights runs the stack
-    through the CUDA kernels: ``nc_fused_lane.nc_stack_fused`` (forward
-    and B3 backward) when autograd records, else
-    ``nc_fused_lane.nc_stack_resident``.  An fp32 one runs the plain
-    ``conv4d`` under autograd, as the JAX package runs XLA there.
+    * ``force_tier`` (``'cp'`` or ``'fft'``, ``ModelConfig.nc_tier``) runs
+      that arithmetic tier unconditionally; ``'cp'`` needs factors on every
+      layer.
+    * ``require_vjp`` (the training gate, with ``allow_pallas``): a bf16
+      stack in B2's shape class runs ``nc_fused_lane.nc_stack_fused``,
+      whose forward asks the tier chooser (the FFT tier at the PF-Pascal
+      25⁴ volume) and whose backward is B3.
+    * Otherwise, with ``allow_pallas`` and neither ``remat_layers`` nor
+      ``custom_grad``, ``nc_fused_lane.choose_fused_stack`` decides for
+      every orientation the call runs: an arithmetic tier that wins them
+      all runs the whole stack; a bf16 stack whose decisions are all
+      kernel tiers runs B2 (``nc_stack_fused`` when autograd records).
+    * Everything else runs layer by layer through ``conv4d``'s formulation
+      chooser (``"pallas"``, B5, for a small-C_out layer): through
+      :func:`~ncnet_tpu_torch.ops.conv4d.conv4d_same` when ``custom_grad``,
+      one ``torch.utils.checkpoint`` per layer under ``remat_layers``.
 
-    ``allow_pallas=False`` on a bf16 stack raises ``NotImplementedError``:
-    the JAX package then runs XLA's formulation, and the port has no
-    counterpart but the kernel.  ``require_vjp`` (the JAX training gate)
-    needs no routing here: the kernel's backward always exists.
-    ``remat_layers`` and ``custom_grad`` raise ``NotImplementedError``.
+    A square volume batch-folds ``[x, xᵀ]`` into one stack call when a
+    tier runs the stack or every layer keeps a channel-folding formulation
+    at the doubled batch (``:607-624``); otherwise the two passes run one
+    after the other.  The JAX package's tap-swap form of the rectangular
+    symmetric pass is not ported (ROADMAP A4): the port runs the two passes.
     """
-    _check_training_args(remat_layers, custom_grad)
+    conv = conv4d_same if custom_grad else conv4d
+
+    def one_layer(w, b, v):
+        if remat_layers:
+            return checkpoint(lambda w, b, v: torch.relu(conv(v, w, b)),
+                              w, b, v, use_reentrant=False)
+        return torch.relu(conv(v, w, b))
+
     x = corr[..., None]
     bf16 = x.dtype == torch.bfloat16
     if bf16 != all(layer["w"].dtype == torch.bfloat16 for layer in nc_params):
@@ -190,26 +204,70 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
             f"volume {x.dtype} and NC weights "
             f"{[layer['w'].dtype for layer in nc_params]} differ: cast both "
             "(ncnet_filter does under half_precision)")
-    if bf16 and not allow_pallas:
-        raise NotImplementedError(
-            "a bf16 NC stack with nc_pallas=False (XLA's formulation in the "
-            "JAX package) is not ported: the port's bf16 stack is the kernel")
+    tier_eligible = allow_pallas and not remat_layers and not custom_grad
+    use_fused = False
+    arith_tier = None
+    b, ha, wa, hb, wb = corr.shape
+    kernels = tuple(int(layer["w"].shape[0]) for layer in nc_params)
+    channels = tuple(int(layer["w"].shape[5]) for layer in nc_params)
+    shapes = [(ha, wa, hb, wb)]
+    if symmetric and (ha, wa) != (hb, wb):
+        # the rectangular two-pass form also runs the transposed volume
+        shapes.append((hb, wb, ha, wa))
+    if force_tier:
+        if force_tier not in ("cp", "fft"):
+            raise ValueError(
+                f"force_tier must be 'cp' or 'fft', got {force_tier!r}")
+        if force_tier == "cp" and cp_stack_ranks(nc_params) is None:
+            raise ValueError(
+                "force_tier='cp' needs CP factors on every NC layer "
+                "(ops/cp_als.py::decompose_stack attaches them)")
+        arith_tier = force_tier
+        nc_fused_lane.note_forced_tier(force_tier)
+    elif tier_eligible and require_vjp:
+        # the training gate fuses only where the B3 backward exists: B2's
+        # shape class (the arithmetic tiers are never auto-selected here;
+        # the fused stack's own forward may still take one)
+        use_fused = bf16 and nc_fused_lane.fused_shape_class(
+            kernels, channels)
+    elif tier_eligible:
+        cp_ranks = cp_stack_ranks(nc_params)
+        decisions = [nc_fused_lane.choose_fused_stack(
+            *s, kernels, channels, cp_ranks=cp_ranks, pallas_ok=bf16)
+            for s in shapes]
+        if decisions[0] in ("cp", "fft") \
+                and all(d == decisions[0] for d in decisions):
+            arith_tier = decisions[0]
+        else:
+            use_fused = bf16 and all(d is not None for d in decisions)
 
     def stack(v: torch.Tensor) -> torch.Tensor:
-        if bf16:
+        if arith_tier == "cp":
+            return nc_stack_cp(nc_params, v)
+        if arith_tier == "fft":
+            return nc_stack_fft(nc_params, v)
+        if use_fused:
             if torch.is_grad_enabled() and (v.requires_grad or any(
                     t.requires_grad for layer in nc_params
-                    for t in layer.values())):
+                    for t in (layer["w"], layer["b"]))):
                 return nc_fused_lane.nc_stack_fused(nc_params, v)
-            return nc_fused_lane.nc_stack_resident(nc_params, v)
+            return nc_fused_lane.fused_stack_forward(nc_params, v)
         for layer in nc_params:
-            v = torch.relu(conv4d(v, layer["w"], layer["b"]))
+            v = one_layer(layer["w"], layer["b"], v)
         return v
 
     if not symmetric:
-        out = stack(x)
-    elif x.shape[1:3] == x.shape[3:5]:
-        b = x.shape[0]
+        return stack(x)[..., 0]
+    # folding the two passes into the batch doubles every intermediate; ask
+    # the formulation chooser whether every layer keeps a channel fold at
+    # the doubled batch (the tiers never build a folded copy)
+    fold_ok = use_fused or arith_tier is not None or all(
+        choose_conv4d_variant(
+            int(layer["w"].shape[4]), int(layer["w"].shape[5]), hb, wb,
+            shape_a=(ha, wa), kernel=tuple(layer["w"].shape[:4]),
+            dtype=x.dtype, batch=2 * b) != "unroll"
+        for layer in nc_params)
+    if (ha, wa) == (hb, wb) and fold_ok:
         y = stack(torch.cat([x, _swap_ab(x)], dim=0))
         out = y[:b] + _swap_ab(y[b:])
     else:
@@ -248,14 +306,14 @@ def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
     check_ported(config)
     nc_params = params["nc"]
     if config.half_precision:
-        nc_params = [{k: v.to(torch.bfloat16) for k, v in layer.items()}
-                     for layer in nc_params]
+        nc_params = params_to(nc_params, torch.bfloat16)
         corr = corr.to(torch.bfloat16)
     corr = mutual_matching(corr)
     corr = neigh_consensus(nc_params, corr, symmetric=config.symmetric_mode,
                            remat_layers=remat_nc_layers,
                            custom_grad=nc_custom_grad, allow_pallas=nc_pallas,
-                           require_vjp=nc_pallas_vjp)
+                           require_vjp=nc_pallas_vjp,
+                           force_tier=config.nc_tier or None)
     corr = mutual_matching(corr)
     return NCNetOutput(corr, None)
 
@@ -285,8 +343,7 @@ def _cast_for_sparse(config: ModelConfig, params, fa: torch.Tensor,
                      fb: torch.Tensor):
     nc_params = params["nc"]
     if config.half_precision:
-        nc_params = [{k: v.to(torch.bfloat16) for k, v in layer.items()}
-                     for layer in nc_params]
+        nc_params = params_to(nc_params, torch.bfloat16)
         fa, fb = fa.to(torch.bfloat16), fb.to(torch.bfloat16)
     return nc_params, fa, fb
 
@@ -337,7 +394,10 @@ def _sparse_dual_refine(config: ModelConfig, nc_params, fa: torch.Tensor,
     from ncnet_tpu_torch.ops.sparse_corr import sparse_refine
 
     def stack_fn(vol: torch.Tensor) -> torch.Tensor:
-        return neigh_consensus(nc_params, vol, symmetric=config.symmetric_mode)
+        # the folded tiles consult the same tier chooser as the dense
+        # volume; config.nc_tier forces the arithmetic tier here too
+        return neigh_consensus(nc_params, vol, symmetric=config.symmetric_mode,
+                               force_tier=config.nc_tier or None)
 
     def stack_fn_t(vol: torch.Tensor) -> torch.Tensor:
         # the role-swapped family: the symmetric stack commutes with the

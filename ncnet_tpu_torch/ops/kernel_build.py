@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("nc_conv4d.cu", "nc_conv4d_vjp.cu", "gather_tile_corr.cu")
+SOURCES = ("nc_conv4d.cu", "nc_conv4d_vjp.cu", "gather_tile_corr.cu",
+           "conv4d_small_cout.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",

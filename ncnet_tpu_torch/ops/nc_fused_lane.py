@@ -10,15 +10,21 @@ On a CPU tensor they run the plain twin :func:`nc_stack_reference`, and on a
 CUDA tensor they never do: a kernel that cannot build or launch raises.
 
 ``nc_stack_fused`` is the differentiable stack (the JAX ``custom_vjp`` of
-the same name): a ``torch.autograd.Function`` whose forward is the same
-per-layer kernel and whose backward is ``ops/nc_fused_lane_vjp.py`` (the B3
+the same name): a ``torch.autograd.Function`` whose forward asks the tier
+chooser as the JAX ``_fused_stack_impl`` does (the FFT tier, or the
+per-layer kernel) and whose backward is ``ops/nc_fused_lane_vjp.py`` (the B3
 kernels on the card, their twin on the CPU).  Unlike the TPU kernel, which
 replays the forward in its backward, the Function saves the forward's bf16
 layer outputs.
 
-The TPU module's tier ladder (resident → per-layer → XLA), its real-compile
-probes, runtime demotion registry and persistent tier cache are TPU-compiler
-machinery and are not ported here (ROADMAP queue A).
+:func:`choose_fused_stack` is the tier authority
+(``ncnet_tpu/ops/nc_fused_lane.py:838-976``): the arithmetic tiers first
+(``"cp"``, ``"fft"``; any device, any dtype), then, for bf16 volumes and
+weights, ``"resident"`` (B2's shape class), else None (the conv4d
+formulations).  The TPU's VMEM gates and compile probes bind no CUDA
+kernel and are not carried; the runtime demotion registry, the persistent
+tier cache and the tier events wait in ROADMAP queue A.
+:func:`last_selected_tier` reads the most recent decision per stage.
 
 ``launches`` counts the forward kernel's launches in this process (one per
 layer per stack call), so a run can show that its path went through the
@@ -35,6 +41,16 @@ import torch
 
 from ncnet_tpu_torch.ops import kernel_build
 from ncnet_tpu_torch.ops.conv4d import conv4d
+from ncnet_tpu_torch.ops.conv4d_cp import (
+    cp_feasible,
+    cp_stack_ranks,
+    nc_stack_cp,
+)
+from ncnet_tpu_torch.ops.conv4d_fft import (
+    fft_feasible,
+    fft_stack_activations,
+    nc_stack_fft,
+)
 
 SOURCE = "nc_conv4d.cu"
 
@@ -68,15 +84,65 @@ def _check_stack(nc_params: List[dict], x: torch.Tensor, name: str) -> None:
                          f"stack, got kernels={kernels}")
 
 
+# the most recent decision per stage ("forward"): the tier name, or "xla"
+# when the chooser sent the stack to the conv4d formulations
+_last_selected: dict = {}
+
+
+def last_selected_tier(stage: str = "forward"):
+    """The tier the stage's chooser (or a forced tier) most recently
+    decided on for any shape ('cp' / 'fft' / 'resident' / 'xla'), or None
+    when it has not run in this process."""
+    return _last_selected.get(stage)
+
+
+def note_forced_tier(tier) -> None:
+    """Record an explicitly forced forward tier (``ModelConfig.nc_tier``)
+    as the stage's active decision, bypassing the chooser."""
+    _last_selected["forward"] = tier
+
+
+def fused_shape_class(kernels, channels) -> bool:
+    """B2's shape class, from the stack's kernel sizes and channels: one
+    odd kernel size for the whole stack, a final layer of at most 4
+    channels (the whole-volume checks are ``_check_stack``'s).  B3, the
+    backward, serves the same class."""
+    return (len(set(kernels)) == 1 and kernels[0] % 2 == 1
+            and channels[-1] <= 4)
+
+
+def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
+                       pallas_ok: bool = True):
+    """The stack's tier at a shape class, the first that applies: ``"cp"``
+    (every layer carries factors and ``conv4d_cp.cp_feasible`` passes),
+    ``"fft"`` (``conv4d_fft.fft_feasible``), then, only when ``pallas_ok``
+    (a bf16 volume and weights), ``"resident"`` (B2's shape class); else
+    None (the conv4d formulations layer by layer).  The JAX ladder's
+    ``"perlayer"`` (a 1-channel final layer) lies inside B2's shape class,
+    so without the VMEM gates it is never reached."""
+    kernels, channels = tuple(kernels), tuple(channels)
+    tier = None
+    if cp_ranks and cp_feasible(ha, wa, hb, wb, kernels, channels,
+                                tuple(cp_ranks)):
+        tier = "cp"
+    elif fft_feasible(ha, wa, hb, wb, kernels, channels):
+        tier = "fft"
+    elif pallas_ok and fused_shape_class(kernels, channels):
+        tier = "resident"
+    _last_selected["forward"] = tier or "xla"
+    return tier
+
+
 def layer_reference(x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """The plain twin of one kernel launch, with its rounding points: bf16
     operands (input volume, weights, bias), an f32 same-padded conv4d
-    (``ops/conv4d.py``), f32 bias and ReLU, bf16 output."""
+    (``ops/conv4d.py``, the ``unroll`` formulation), f32 bias and ReLU,
+    bf16 output."""
     w = w.to(torch.bfloat16).to(torch.float32)
     b = b.to(torch.bfloat16).to(torch.float32)
     x = x.to(torch.bfloat16).to(torch.float32)
-    return torch.relu(conv4d(x, w, b)).to(torch.bfloat16)
+    return torch.relu(conv4d(x, w, b, variant="unroll")).to(torch.bfloat16)
 
 
 def nc_stack_reference(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
@@ -219,24 +285,41 @@ def stack_activations(nc_params: List[dict],
 
 
 class NCStackFused(torch.autograd.Function):
-    """The differentiable NC stack on flat tensors ``(x, w_0, b_0, w_1,
-    b_1, …)`` (``Function.apply`` tracks tensors, not a list of dicts).
+    """The differentiable NC stack on ``(x, cp, w_0, b_0, w_1, b_1, …)``
+    (``Function.apply`` tracks tensors, not a list of dicts; ``cp`` is the
+    layers' CP factors or None).
 
-    Forward: :func:`stack_activations`, saving every layer's bf16 output.
+    Forward: the tier :func:`choose_fused_stack` picks, as the JAX
+    ``_fused_stack_impl``: ``"fft"`` runs ``fft_stack_activations``,
+    ``"resident"`` :func:`stack_activations` (one kernel launch per layer),
+    saving every layer's bf16 output either way.
     Backward: ``nc_fused_lane_vjp.stack_vjp`` on them, which launches the
     B3 kernels on CUDA tensors and runs their twin on CPU tensors; the
     input gradient of layer 0 is computed only when ``x`` needs one.
     Gradients come back in the dtypes of ``x`` and the parameters."""
 
     @staticmethod
-    def forward(ctx, x, *flat):
+    def forward(ctx, x, cp, *flat):
         params = [{"w": flat[i], "b": flat[i + 1]}
                   for i in range(0, len(flat), 2)]
         _check_fused(params, x)
-        acts = stack_activations(params, x)
+        kernels, channels = _stack_shape(params)
+        tier = choose_fused_stack(*x.shape[1:5], kernels, channels,
+                                  cp_ranks=cp_stack_ranks(cp or []))
+        if tier == "fft":
+            acts = fft_stack_activations(params, x.to(torch.bfloat16))
+            y = acts[-1]
+        else:
+            acts = stack_activations(params, x)
+            y = acts[-1]
+            if tier == "cp":
+                # the JAX backward replays the dense stack: B3 takes the
+                # dense activations, the value is the CP chain's
+                y = nc_stack_cp([{**p, "cp": c["cp"]}
+                                 for p, c in zip(params, cp)], acts[0])
         ctx.save_for_backward(*acts, *flat)
         ctx.n_layers, ctx.x_dtype = len(params), x.dtype
-        return acts[-1]
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -250,12 +333,36 @@ class NCStackFused(torch.autograd.Function):
                                  need_dx=ctx.needs_input_grad[0])
         if dx is not None:
             dx = dx.to(ctx.x_dtype)
-        return (dx, *(t for d in d_params for t in (d["w"], d["b"])))
+        return (dx, None, *(t for d in d_params for t in (d["w"], d["b"])))
 
 
 def nc_stack_fused(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
     """The differentiable stack (``ncnet_tpu/ops/nc_fused_lane.py:1014``):
     ``x`` ``(B, hA, wA, hB, wB, 1)`` bf16 → ``(B, hA, wA, hB, wB, C_last)``
-    bf16, through :class:`NCStackFused`."""
+    bf16, through :class:`NCStackFused`.  CP factors ride along (not
+    differentiated: the JAX backward is the dense stack's)."""
     flat = [t for layer in nc_params for t in (layer["w"], layer["b"])]
-    return NCStackFused.apply(x, *flat)
+    cp = ([{"cp": layer["cp"]} for layer in nc_params]
+          if cp_stack_ranks(nc_params) else None)
+    return NCStackFused.apply(x, cp, *flat)
+
+
+def fused_stack_forward(nc_params: List[dict], x: torch.Tensor
+                        ) -> torch.Tensor:
+    """The forward of :func:`nc_stack_fused` with no gradient recorded: the
+    tier :func:`choose_fused_stack` picks for the volume (the JAX
+    ``_fused_stack_impl``).  A stack no tier takes raises: the caller
+    (``models/ncnet.py::neigh_consensus``) runs it layer by layer."""
+    kernels, channels = _stack_shape(nc_params)
+    tier = choose_fused_stack(*x.shape[1:5], kernels, channels,
+                              cp_ranks=cp_stack_ranks(nc_params),
+                              pallas_ok=x.dtype == torch.bfloat16)
+    if tier == "cp":
+        return nc_stack_cp(nc_params, x)
+    if tier == "fft":
+        return nc_stack_fft(nc_params, x)
+    if tier is None:
+        raise ValueError(
+            f"no tier of choose_fused_stack takes the {x.dtype} stack "
+            f"{kernels}/{channels} on {tuple(x.shape[1:5])}")
+    return nc_stack_resident(nc_params, x)

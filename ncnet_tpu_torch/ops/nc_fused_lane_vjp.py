@@ -73,7 +73,8 @@ def layer_vjp_reference(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Optional[torch.Tensor]]:
     """One layer's backward with the kernels' rounding points: bf16 ``gz``,
-    f32 sums for dW (autograd of the f32 ``conv4d`` on the bf16 operands),
+    f32 sums for dW (autograd of the f32 ``conv4d``, its ``unroll``
+    formulation, on the bf16 operands),
     db and ``Γ_{l−1}``, and bf16 ``Γ_{l−1}``.  Returns ``(dW f32, db f32,
     Γ_{l−1} bf16 or None)``."""
     gz = torch.where(y > 0, g.to(torch.bfloat16),
@@ -81,12 +82,14 @@ def layer_vjp_reference(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     w32 = w.to(torch.bfloat16).to(torch.float32)
     with torch.enable_grad():
         wv = w32.detach().requires_grad_()
-        z = conv4d(x.to(torch.bfloat16).to(torch.float32), wv)
+        z = conv4d(x.to(torch.bfloat16).to(torch.float32), wv,
+                   variant="unroll")
         (dw,) = torch.autograd.grad(z, [wv], gz.to(torch.float32))
     db = gz.to(torch.float32).sum(dim=(0, 1, 2, 3, 4))
     dx = None
     if need_dx:
-        dx = conv4d(gz.to(torch.float32), flip_transpose(w32)).to(torch.bfloat16)
+        dx = conv4d(gz.to(torch.float32), flip_transpose(w32),
+                    variant="unroll").to(torch.bfloat16)
     return dw, db, dx
 
 

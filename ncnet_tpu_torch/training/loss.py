@@ -90,7 +90,8 @@ def weak_loss(config: ModelConfig, params, batch: Dict[str, torch.Tensor],
     (``torch.utils.checkpoint``, non-reentrant) when autograd records;
     ``nc_pallas_vjp`` is passed to ``ncnet_filter`` as both ``nc_pallas``
     and ``nc_pallas_vjp``, as the JAX package does.  ``remat_nc_layers``
-    and ``nc_custom_grad`` raise ``NotImplementedError``."""
+    (a checkpoint per NC layer) and ``nc_custom_grad`` (the routed
+    ``conv4d_same`` backward) are :func:`neigh_consensus`'s memory knobs."""
     fa, fb = _features(config, params, batch, stop_backbone_grad)
 
     def filt(corr):

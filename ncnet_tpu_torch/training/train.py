@@ -51,10 +51,11 @@ def check_train_ported(config: TrainConfig) -> None:
     unported = [
         ("fe_finetune_params", config.fe_finetune_params > 0),
         ("finetune_cp_rank", config.finetune_cp_rank > 0),
+        # the step functions take these NC-stack knobs (neigh_consensus
+        # runs them); the recipe keeps them at their defaults until the
+        # fit slice ports the rest of the recipe
         ("remat_nc_layers", config.remat_nc_layers),
         ("nc_custom_grad", config.nc_custom_grad),
-        # in JAX this pins XLA's formulation; here it would put the plain
-        # twin on the card's main path
         ("nc_pallas_vjp", not config.nc_pallas_vjp),
         ("distributed", config.distributed),
     ]

@@ -8,7 +8,11 @@ package, so it also runs where only PyTorch is installed:
 
 Tolerance: the gather kernel (B4) and its twin both sum in f32 and round
 once to bf16, so they agree within one bf16 ulp of the largest output
-(2^-7 normalized).  A kernel and its twin (``nc_stack_reference``,
+(2^-7 normalized); so do B5 (the small-C_out conv4d) and its twin in bf16,
+and in f32 they agree within 2e-4 normalized (the JAX suite's tolerance
+for the TPU kernel).  The FFT tier against the plain direct stack: 1e-2
+in bf16 (one-ulp flips of bf16 layer outputs), 1e-4 in f32 (round-off of
+the transforms).  A kernel and its twin (``nc_stack_reference``,
 ``layer_vjp_reference``) share every bf16 rounding point and differ only in
 the order of their f32 sums, so a few bf16 outputs (layer outputs, ``Γ``,
 dW cast to bf16) round one ulp apart: normalized error within 1e-2.  The
@@ -22,7 +26,14 @@ import torch
 
 from ncnet_tpu_torch.config import ModelConfig, TrainConfig
 from ncnet_tpu_torch.models.ncnet import init_ncnet
-from ncnet_tpu_torch.ops import nc_fused_lane, nc_fused_lane_vjp, sparse_corr
+from ncnet_tpu_torch.ops import (
+    conv4d_pallas,
+    nc_fused_lane,
+    nc_fused_lane_vjp,
+    sparse_corr,
+)
+from ncnet_tpu_torch.ops.conv4d import conv4d
+from ncnet_tpu_torch.ops.conv4d_fft import nc_stack_fft
 from ncnet_tpu_torch.ops.sparse_topk import candidate_origins, patch_side
 from ncnet_tpu_torch.serving.engine import BatchMatchEngine
 from ncnet_tpu_torch.training import create_train_state, make_train_step
@@ -39,9 +50,13 @@ SHAPES = [
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, with TF32 off so that the plain f32 versions (cuDNN
+    convolutions, cuBLAS products) are full f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -202,3 +217,100 @@ def test_coarse_to_fine_engine_launches_both_kernels(cuda):
     assert (nc_fused_lane.launches - nc, sparse_corr.launches - b4) == (4, 2)
     assert engine.coarse_passes == passes
     assert tracked.shape == (2, 6, 64) and np.isfinite(tracked).all()
+
+
+# (volume, k, C_in, C_out, dtype): odd sides, C_out 1-4 (and 6: two chunks
+# of the kernel's 4 output channels), k 3 and 5, small planes and a wB the
+# kernel tiles; C_in wider than one shared-memory chunk (64 and 66 at wB =
+# 50, k = 5: two chunks; 66 leaves a partial channel group), k = 9 (the
+# uncompiled sizes' loop) and k = MAX_K at the widest tile
+B5_CASES = [
+    ((2, 7, 5, 9, 11), 3, 16, 1, "float32"),
+    ((1, 5, 7, 9, 5), 5, 16, 2, "bfloat16"),
+    ((2, 9, 7, 5, 11), 3, 8, 3, "float32"),
+    ((1, 7, 9, 5, 7), 5, 6, 4, "bfloat16"),
+    ((1, 5, 5, 7, 9), 5, 16, 1, "bfloat16"),
+    ((2, 5, 9, 7, 5), 3, 5, 4, "float32"),
+    ((1, 5, 7, 5, 9), 3, 12, 6, "float32"),
+    ((64, 6, 6, 6, 6), 5, 16, 1, "float32"),     # small planes, many blocks
+    ((1, 3, 4, 9, 300), 3, 8, 1, "float32"),     # wB past one block's strips
+    ((1, 3, 3, 50, 50), 5, 64, 4, "float32"),
+    ((1, 3, 2, 50, 50), 5, 66, 1, "bfloat16"),
+    ((1, 3, 5, 11, 13), 9, 8, 1, "float32"),
+    ((1, 2, 2, 4, 256), conv4d_pallas.MAX_K, 4, 4, "float32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,c_in,c_out,dtype", B5_CASES)
+def test_b5_matches_twin(cuda, shape, k, c_in, c_out, dtype):
+    """B5 against its twin, one launch per call, two launches bit-identical."""
+    g = torch.Generator().manual_seed(c_in * 10 + c_out)
+    x = torch.randn(shape + (c_in,), generator=g).to(cuda, getattr(torch, dtype))
+    w = (torch.randn((k,) * 4 + (c_in, c_out), generator=g) * 0.1).to(cuda)
+    before = conv4d_pallas.launches
+    got = conv4d_pallas.conv4d_small_cout(x, w)
+    again = conv4d_pallas.conv4d_small_cout(x, w)
+    want = conv4d_pallas.conv4d_small_cout_reference(x, w)
+    torch.cuda.synchronize()
+    assert conv4d_pallas.launches == before + 2
+    assert got.shape == shape + (c_out,) and got.dtype == x.dtype
+    assert torch.equal(got, again)
+    tol = 2e-4 if dtype == "float32" else 2.0 ** -7
+    assert normalized_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_b5_backward_through_the_function(cuda, monkeypatch):
+    """The Function's forward is the kernel, its backward the ``coutfold``
+    formulation's autograd (as the JAX ``_bwd_rule``); cuDNN's
+    deterministic algorithms make the two backward runs comparable bit for
+    bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 5, 7, 5, 9, 16), generator=g).to(cuda).requires_grad_()
+    w = (torch.randn((5, 5, 5, 5, 16, 1), generator=g) * 0.05).to(cuda).requires_grad_()
+    cot = torch.randn((2, 5, 7, 5, 9, 1), generator=g).to(cuda)
+    before = conv4d_pallas.launches
+    conv4d_pallas.conv4d_small_cout(x, w).backward(cot)
+    assert conv4d_pallas.launches == before + 1
+    xx, ww = (t.detach().clone().requires_grad_() for t in (x, w))
+    conv4d(xx, ww, variant="coutfold").backward(cot)
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, xx.grad) and torch.equal(w.grad, ww.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fft_stack_matches_reference(cuda, dtype):
+    """The FFT tier (cuFFT) at the PF-Pascal arch against the plain direct
+    stack: B2's twin in bf16, the f32 ``unroll`` formulation in f32."""
+    params, x = random_stack(np.random.default_rng(4), (1, 8, 7, 9, 8),
+                             (5, 5, 5), (16, 16, 1), cuda)
+    td = getattr(torch, dtype)
+    params = [{k: v.to(td) for k, v in p.items()} for p in params]
+    x = x.to(td)
+    got = nc_stack_fft(params, x)
+    if dtype == "bfloat16":
+        want, tol = nc_fused_lane.nc_stack_reference(params, x), 1e-2
+    else:
+        want, tol = x, 1e-4
+        for p in params:
+            want = torch.relu(conv4d(want, p["w"], p["b"], variant="unroll"))
+    torch.cuda.synchronize()
+    assert got.dtype == td and normalized_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_fp32_engine_launches_b5(cuda):
+    """An fp32 stack no tier takes runs per layer: one B5 launch on the
+    batch-folded volume (the 8→1 layer), no B2 launch."""
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(8, 1))
+    engine = BatchMatchEngine(cfg, init_ncnet(cfg, seed=0))
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
+    b2, b5 = nc_fused_lane.launches, conv4d_pallas.launches
+    table = engine.fetch(engine.dispatch(src, src[::-1].copy()))
+    assert (nc_fused_lane.launches - b2, conv4d_pallas.launches - b5) == (0, 1)
+    assert nc_fused_lane.last_selected_tier() == "xla"
+    assert table.shape == (2, 6, 36) and np.isfinite(table).all()

@@ -254,7 +254,7 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch):
 
 @pytest.mark.parametrize("option", [
     dict(relocalization_k_size=2),
-    dict(nc_tier="cp"), dict(backbone="vgg"), dict(backbone="densenet201"),
+    dict(backbone="vgg"), dict(backbone="densenet201"),
     dict(checkpoint="model.pth.tar"), dict(backbone_weights="resnet101.pth"),
 ])
 def test_unported_options_raise(option):
@@ -264,6 +264,31 @@ def test_unported_options_raise(option):
         BatchMatchEngine(tc, {"nc": [], "backbone": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         tnet.init_ncnet(tc)
+
+
+@pytest.mark.parametrize("tier", ["fft", "cp"])
+def test_nc_tier_runs(tier):
+    """``ModelConfig.nc_tier`` forces the arithmetic tier through the whole
+    forward, as the JAX package does, on params that carry CP factors
+    (``params_from_numpy`` keeps them); fp32 forward tolerance."""
+    from ncnet_tpu.ops.cp_als import decompose_stack as jdecompose
+    from ncnet_tpu_torch.ops.nc_fused_lane import last_selected_tier
+
+    case = FORWARD_CASES[0]
+    jc, tc = configs(backbone="tiny", ncons_kernel_sizes=case["kernels"],
+                     ncons_channels=case["channels"], nc_tier=tier)
+    jp = jnet.init_ncnet(jc, jax.random.key(3))
+    jp["nc"] = jdecompose(jax.tree.map(np.asarray, jp["nc"]), 2, iters=5)[0]
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert all("cp" in layer for layer in tp["nc"])
+    xa, xb = images(4, (2, 96, 96, 3)), images(5, (2, 96, 96, 3))
+    want = jnet.ncnet_forward(jc, jp, jnp.asarray(xa), jnp.asarray(xb)).corr
+    with torch.no_grad():
+        got = tnet.ncnet_forward(tc, tp, torch.from_numpy(xa),
+                                 torch.from_numpy(xb)).corr
+    assert last_selected_tier("forward") == tier
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
 
 
 @pytest.mark.parametrize("option", [dict(sparse_topk=4), dict(track_radius=2)])
@@ -308,6 +333,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "ncnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    assert {f"ncnet_tpu_torch/ops/{m}.py" for m in (
+        "conv4d", "conv4d_pallas", "conv4d_fft", "conv4d_cp", "cp_als",
+        "nc_fused_lane")} <= names
     bad = []
     for path in files:
         for name in _imported_modules(path):

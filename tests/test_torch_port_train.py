@@ -430,9 +430,29 @@ def test_finetune_labels_match_jax(name, n):
 
 
 def test_unported_loss_knobs_raise():
-    _, tc = configs(half_precision=True)
-    _, tp = shared_params(configs()[0])
-    with pytest.raises(NotImplementedError, match="remat_nc_layers"):
-        ttrain.weak_loss(tc, tp, tbatch(batch(0)), remat_nc_layers=True)
-    with pytest.raises(NotImplementedError, match="nc_pallas=False"):
-        ttrain.weak_loss(tc, tp, tbatch(batch(0)), nc_pallas_vjp=False)
+    """The NC-stack knobs of the loss, once refused, now run as the JAX
+    package runs them: ``remat_nc_layers`` and ``nc_custom_grad`` (fp32,
+    value and NC gradients at the fp32 tolerances) and ``nc_pallas_vjp=False``
+    (bf16 through the conv4d formulations, the bf16 loss tolerance)."""
+    jc, tc = configs()
+    jp, tp = shared_params(jc)
+    nb = batch(0)
+    for knob in (dict(remat_nc_layers=True), dict(nc_custom_grad=True)):
+        kw = dict(stop_backbone_grad=True, **knob)
+        jloss, jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jtrain.weak_loss(jc, p, jbatch(nb), **kw)))(jp)
+        leaves = [{k: v.clone().requires_grad_() for k, v in layer.items()}
+                  for layer in tp["nc"]]
+        tloss = ttrain.weak_loss(tc, {**tp, "nc": leaves}, tbatch(nb), **kw)
+        tloss.backward()
+        assert_loss_close(tloss.detach(), jloss)
+        assert_nc_close([{k: v.grad for k, v in layer.items()}
+                         for layer in leaves], jgrads["nc"], 1e-4)
+    jc, tc = configs(half_precision=True)
+    jp, tp = peaked_params(jc)
+    nb = shifted_batch(0)
+    want = jtrain.weak_loss(jc, jp, jbatch(nb), nc_pallas_vjp=False)
+    before = nc_fused_lane.launches
+    got = ttrain.weak_loss(tc, tp, tbatch(nb), nc_pallas_vjp=False)
+    assert nc_fused_lane.launches == before
+    assert_loss_close(got.float(), want, atol=2.0 ** -8)
