@@ -73,6 +73,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      each B5 call held against its twin on the path's input, the filtered
      volume against the forward with the twin); a stage line and the peak
      memory;
+  T. (run right after phase A) the two probe tools' entry points, each
+     with its counts set to 0 just before and read just after:
+     ``tools.mosaic_probes.run()`` builds the toolchain
+     probes (one source each in ``csrc/probes/``, all at once, with every
+     port source built anew beside them), launches each on seeded inputs
+     against its plain twin, and prints a ``probes`` line (any FAIL ends
+     the run); ``tools.pallas_l2_probe.main`` runs T1 (``csrc/
+     conv_l2_fused_lane.cu``, the 16→16 k = 5 layer at 25⁴ in the padded
+     fused-lane frame) at B = 8 with bf16 and f32 Y terms (its check at
+     B = 2, then ms per volume for the layout, the kernel and the cuDNN
+     ``coutfold`` context).  Then T1 at B = 8 against its twin (1e-2
+     normalized with bf16 Y, 2⁻⁷ with f32 Y), against relu(unroll conv4d +
+     bias) (5 %, the JAX tool's check), two launches bit-identical, and
+     kernel, plain, bound and ``coutfold`` times; each probe once more
+     against its twin, timed;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -148,6 +163,15 @@ GATHER_SHAPES = (
     ("halo3_patch8", 2, 16, 64, 2, 3, 3),
     ("odd_channels", 2, 10, 13, 2, 2, 2),
 )
+# phase T: T1 at the JAX tool's default batch (8 volumes of 25^4); against
+# its twin with bf16 Y terms each of the 25 rounded terms may flip one bf16
+# ulp where the f32 sums' order differs, then the output rounds once: 1e-2
+# normalized, as for the NC kernels; with f32 Y only the output's rounding,
+# one bf16 ulp (2^-7 normalized); against relu(unroll conv4d + bias) the
+# JAX tool's 5 % relative
+L2_BATCH = 8
+L2_TOLERANCE = {"bf16": 1e-2, "f32": 2.0 ** -7}
+L2_CONV_TOLERANCE = 0.05
 # each training target is its source rolled by whole feature cells (16 px)
 TRAIN_SHIFT = (32, 48)
 # The training step, kernels vs twins in both directions (phase 5): the
@@ -1051,6 +1075,145 @@ def check_gather(torch, sparse_corr, dev):
     return main
 
 
+def l2_work(batch):
+    """(FLOP, bytes, GEMM FLOP) of one T1 launch: multiply-adds only at taps
+    inside the 25⁴ volume (16 → 16, k = 5); the padded fused-lane input,
+    the weights, bias, mask and the output once each; and, as context, the
+    GEMM formulation's count (400 × 400 per 841-lane row)."""
+    from ncnet_tpu_torch.tools.pallas_l2_probe import C, K, KL, S, SP
+
+    taps = _prod(sum(min(S - 1, x + K // 2) - max(0, x - K // 2) + 1
+                     for x in range(S)) for _ in range(4))
+    flops = 2 * batch * taps * C * C
+    nbytes = (2 * batch * SP * SP * C * KL + 2 * (K * K * C) ** 2 + 2 * C
+              + 2 * KL + 2 * batch * S * S * C * KL)
+    gemm = 2 * batch * S * S * (K * K * C) ** 2 * KL
+    return flops, nbytes, gemm
+
+
+def probe_tools(torch, dev):
+    """Phase T: the two tool entry points with their counts reset just
+    before and read just after, then T1 at B = 8 against its twin and the
+    unroll conv, and each probe once more against its twin; returns the
+    ``kernels`` line's T1 and T2 numbers."""
+    from ncnet_tpu_torch.ops.conv4d import conv4d
+    from ncnet_tpu_torch.tools import mosaic_probes
+    from ncnet_tpu_torch.tools import pallas_l2_probe as l2
+
+    mosaic_probes.launches = 0
+    t0 = time.perf_counter()
+    results = mosaic_probes.run()
+    probe_launches = mosaic_probes.launches
+    mosaic_probes.report(results)
+    print("probes " + json.dumps(results), flush=True)
+    print(f"phase T: probe battery (built and run) in "
+          f"{time.perf_counter() - t0:.1f} s, {probe_launches} launches",
+          flush=True)
+    failed = sorted(n for n, v in results.items() if v != "PASS")
+    if failed:
+        raise SystemExit(f"probes failed: {failed}")
+
+    l2.launches = 0
+    tool = {ydt: l2.main([str(L2_BATCH), ydt], device=dev)
+            for ydt in ("bf16", "f32")}
+    l2_launches = l2.launches
+    print(f"phase T: pallas_l2_probe at B = {L2_BATCH}, {l2_launches} kernel "
+          f"launches", flush=True)
+
+    g = torch.Generator().manual_seed(8)
+    x = (torch.randn((L2_BATCH,) + (l2.S,) * 4 + (l2.C,), generator=g) * 0.1
+         ).to(dev, torch.bfloat16)
+    w = (torch.randn((l2.K,) * 4 + (l2.C, l2.C), generator=g) * 0.05
+         ).to(dev, torch.bfloat16)
+    bias = (torch.randn((l2.C,), generator=g) * 0.1).to(dev, torch.bfloat16)
+    args = (l2.to_fused_layout(x), l2.pack_weight(w), bias.reshape(1, l2.C, 1),
+            l2.make_mask(dev))
+    conv = torch.relu(conv4d(x, w, bias, variant="unroll"))
+    t1 = {}
+    for ydt_name, ydt in l2.YDTS.items():
+        got = l2.conv_l2_cuda(*args, ydt=ydt)
+        again = l2.conv_l2_cuda(*args, ydt=ydt)
+        want = l2.conv_l2_reference(*args, ydt=ydt)
+        torch.cuda.synchronize()
+        err = normalized_err(got, want)
+        max_abs = float((got.float() - want.float()).abs().max())
+        conv_err = normalized_err(l2.from_fused_layout(got), conv)
+        same = torch.equal(got, again)
+        tol = L2_TOLERANCE[ydt_name]
+        print(f"check T1 {ydt_name} Y: xp {tuple(args[0].shape)}: max_abs_err "
+              f"{max_abs:.6g} normalized {err:.3e} (tolerance {tol:.3e}); vs "
+              f"relu(unroll conv4d + bias) rel {conv_err:.3e} (tolerance "
+              f"{L2_CONV_TOLERANCE}); two launches bit-identical: {same}",
+              flush=True)
+        if not (err <= tol and conv_err < L2_CONV_TOLERANCE and same
+                and torch.isfinite(got.float()).all()):
+            raise SystemExit(f"T1 disagrees with its twin or the conv ({ydt_name} Y)")
+        iters = 3
+        run_k = lambda: l2.conv_l2_cuda(*args, ydt=ydt)  # noqa: E731
+        run_p = lambda: l2.conv_l2_reference(*args, ydt=ydt)  # noqa: E731
+        ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, 1)]
+        ms_k.append(cuda_ms(run_k, iters))
+        ms_p.append(cuda_ms(run_p, 1))
+        t1[ydt_name] = {"max_abs_err": max_abs, "normalized_err": err,
+                        "conv_rel_err": conv_err, "ms": sum(ms_k) / 2,
+                        "plain_ms": sum(ms_p) / 2, "kernel_ms_runs": ms_k,
+                        "plain_ms_runs": ms_p}
+    coutfold_ms = cuda_ms(
+        lambda: torch.relu(conv4d(x, w, bias, variant="coutfold")), 3)
+    flops, nbytes, gemm = l2_work(L2_BATCH)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    main = dict(t1["bf16"])
+    main.update({
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes, "gemm_flops": gemm,
+        "gemm_bound_ms": gemm / PEAK_BF16_FLOPS * 1e3,
+        "coutfold_ms": coutfold_ms, "f32_y": t1["f32"],
+        "tool_ms_per_volume": {k: {m: v[m] for m in ("layout_ms", "kernel_ms",
+                                                     "coutfold_ms")}
+                               for k, v in tool.items()},
+        "launches": l2_launches,
+    })
+    print(f"timing T1 (one launch, B = {L2_BATCH}): kernel bf16 Y "
+          f"{t1['bf16']['kernel_ms_runs']} ms, f32 Y {t1['f32']['kernel_ms_runs']} "
+          f"ms; plain {t1['bf16']['plain_ms_runs']} ms; context: coutfold + relu "
+          f"(cuDNN bf16) {coutfold_ms:.4f} ms; {flops:.4g} FLOP at taps "
+          f"inside the volume, {nbytes:.4g} bytes, bound {main['bound_ms']:.4f} "
+          f"ms ({main['bound_by']}); GEMM formulation {gemm:.4g} FLOP "
+          f"({main['gemm_bound_ms']:.4f} ms at peak); "
+          f"{flops / main['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+
+    # T2: each probe once more against its twin, timed (host clock: the C
+    # entry synchronises); these launches are not the path's
+    ms_k = ms_p = max_abs = 0.0
+    for name, probe in mosaic_probes.PROBES.items():
+        if probe is None:
+            continue
+        xs = probe.inputs(torch.Generator().manual_seed(mosaic_probes.SEED))
+        t0 = time.perf_counter()
+        want = probe.twin(*xs)
+        ms_p += (time.perf_counter() - t0) * 1e3
+        ins = [x.to(dev).contiguous() for x in xs]
+        out = torch.zeros(want.shape, dtype=want.dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = mosaic_probes._launch(name, ins, out)
+        ms_k += (time.perf_counter() - t0) * 1e3
+        verdict = mosaic_probes._compare(out.cpu(), want, probe.exact)
+        if rc != 0 or verdict != "PASS":
+            raise SystemExit(f"probe {name} on its second launch: rc {rc}, {verdict}")
+        max_abs = max(max_abs, float((out.cpu().double() - want.double()).abs().max()))
+    spills = mosaic_probes.port_kernel_spills()
+    print(f"phase T: every probe again vs its twin: max_abs_err {max_abs}; "
+          f"launches {ms_k:.3f} ms in all (host clock, each synchronised), "
+          f"twins {ms_p:.3f} ms (CPU); port sources' spills {spills}",
+          flush=True)
+    probes = {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+              "launches": probe_launches, "results": results,
+              "port_kernel_spills": spills}
+    return main, probes
+
+
 def check_path_calls(torch, nc_fused_lane, sparse_corr, forward, fft_stacks,
                      where):
     """Run ``forward()`` with every B4, NC-stack and FFT-stack call
@@ -1632,6 +1795,7 @@ def main() -> int:
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
     b5_numbers = check_b5(torch, conv4d_pallas, dev)
     gather_numbers = check_gather(torch, sparse_corr, dev)
+    l2_numbers, probe_numbers = probe_tools(torch, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches = train(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
     engine, params, requests, tables, c2f_launches = serve_c2f(
@@ -1697,6 +1861,30 @@ def main() -> int:
         "path_max_abs_err": b5_path_err,
         # no single PyTorch call computes a conv4d; coutfold_ms (above) is
         # the cuDNN formulation's time, context only
+        "library_ms": None,
+    }, {
+        "name": "conv_l2_fused_lane",
+        "route": "cuda",
+        "source": "ncnet_tpu_torch/csrc/conv_l2_fused_lane.cu",
+        # conv_l2_pallas, whose pallas_call is at :114
+        "replaces": "tools/pallas_l2_probe.py:101",
+        "launches_by_path": {"l2_probe": l2_numbers["launches"]},
+        # one launch at B = 8 with bf16 Y terms (f32_y: the f32 ones);
+        # coutfold_ms is the cuDNN formulation + relu, context only
+        **l2_numbers,
+        "library_ms": None,
+    }, {
+        "name": "mosaic_probes",
+        "route": "cuda",
+        "source": "ncnet_tpu_torch/csrc/probes/",
+        # _compile, whose pallas_call is at :28
+        "replaces": "tools/mosaic_probes.py:26",
+        "launches_by_path": {"mosaic_probes": probe_numbers["launches"]},
+        # a toolchain probe carries no workload: no bound, no library call;
+        # ms and plain_ms are the probes' launches and twins summed
+        **probe_numbers,
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

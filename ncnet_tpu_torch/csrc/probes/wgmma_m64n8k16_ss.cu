@@ -1,0 +1,55 @@
+// wgmma m64n8k16, bf16 in, f32 out, A and B from shared memory (no
+// swizzle): D (64, 8) = A (64, 16) @ Bt (8, 16)^T, one warpgroup.  N = 8 is
+// the smallest tile the NC stack's 16 -> 1 layer can pad to.  Operands in
+// core matrices as in wgmma_m64n16k16_ss (leading byte offset 128, stride
+// byte offset 256; B has a single 8-row group).
+#include "probe.cuh"
+
+namespace {
+
+constexpr int kM = 64, kN = 8, kK = 16;
+
+__device__ __forceinline__ int core_offset(int r, int k) {
+  return (r % 8) * 8 + k % 8 + (k / 8) * 64 + (r / 8) * 128;
+}
+
+__global__ void kernel(const __nv_bfloat16* a, const __nv_bfloat16* bt,
+                       float* d) {
+  __shared__ __align__(128) __nv_bfloat16 sa[kM * kK];
+  __shared__ __align__(128) __nv_bfloat16 sb[kN * kK];
+  for (int e = threadIdx.x; e < kM * kK; e += blockDim.x) {
+    sa[core_offset(e / kK, e % kK)] = a[e];
+  }
+  for (int e = threadIdx.x; e < kN * kK; e += blockDim.x) {
+    sb[core_offset(e / kK, e % kK)] = bt[e];
+  }
+  probe::fence_proxy_async();
+  __syncthreads();
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint64_t da = probe::wgmma_desc(sa, 128, 256, 0);
+  const uint64_t db = probe::wgmma_desc(sb, 128, 256, 0);
+  probe::wgmma_fence();
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "l"(da), "l"(db), "r"(0));
+  probe::wgmma_commit();
+  probe::wgmma_wait_all();
+  probe::store_accumulators<kN>(acc, d);
+}
+
+}  // namespace
+
+extern "C" int probe_run(const void* in0, const void* in1, void* out,
+                         void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  kernel<<<1, 128, 0, s>>>(static_cast<const __nv_bfloat16*>(in0),
+                           static_cast<const __nv_bfloat16*>(in1),
+                           static_cast<float*>(out));
+  return probe::finish(s);
+}

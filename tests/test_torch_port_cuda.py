@@ -17,7 +17,11 @@ the transforms).  A kernel and its twin (``nc_stack_reference``,
 the order of their f32 sums, so a few bf16 outputs (layer outputs, ``Γ``,
 dW cast to bf16) round one ulp apart: normalized error within 1e-2.  The
 backward kernels and the twin get the same saved activations, so their
-ReLU masks are the same cells.
+ReLU masks are the same cells.  T1 (the L2 layer probe's kernel) against
+its twin: 1e-2 normalized with bf16 Y terms (each rounded term may flip one
+ulp where the f32 sums' order differs), 2^-7 with f32 Y (the output's one
+rounding).  Every T2 probe reports PASS: its kernel launched and matched
+its twin.
 """
 
 import numpy as np
@@ -36,6 +40,7 @@ from ncnet_tpu_torch.ops.conv4d import conv4d
 from ncnet_tpu_torch.ops.conv4d_fft import nc_stack_fft
 from ncnet_tpu_torch.ops.sparse_topk import candidate_origins, patch_side
 from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+from ncnet_tpu_torch.tools import mosaic_probes, pallas_l2_probe
 from ncnet_tpu_torch.training import create_train_state, make_train_step
 
 SHAPES = [
@@ -314,3 +319,41 @@ def test_fp32_engine_launches_b5(cuda):
     assert (nc_fused_lane.launches - b2, conv4d_pallas.launches - b5) == (0, 1)
     assert nc_fused_lane.last_selected_tier() == "xla"
     assert table.shape == (2, 6, 36) and np.isfinite(table).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ydt_name", ["bf16", "f32"])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_l2_probe_kernel_matches_twin(cuda, batch, ydt_name):
+    """T1 on the card against its twin; one launch per call; the halo lanes
+    zero; two launches bit-identical."""
+    l2 = pallas_l2_probe
+    g = torch.Generator().manual_seed(batch)
+    x = (torch.randn((batch,) + (l2.S,) * 4 + (l2.C,), generator=g) * 0.1
+         ).to(cuda, torch.bfloat16)
+    w = (torch.randn((l2.K,) * 4 + (l2.C, l2.C), generator=g) * 0.05
+         ).to(cuda, torch.bfloat16)
+    bias = (torch.randn((1, l2.C, 1), generator=g) * 0.1).to(cuda, torch.bfloat16)
+    args = (l2.to_fused_layout(x), l2.pack_weight(w), bias, l2.make_mask(cuda))
+    ydt = l2.YDTS[ydt_name]
+    before = l2.launches
+    got = l2.conv_l2_pallas(*args, ydt=ydt)
+    again = l2.conv_l2_pallas(*args, ydt=ydt)
+    torch.cuda.synchronize()
+    assert l2.launches == before + 2
+    assert got.shape == (batch, l2.S, l2.S, l2.C, l2.KL) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert not got[..., :l2.LO].any() and not got[..., l2.LO + l2.NT:].any()
+    tol = 1e-2 if ydt_name == "bf16" else 2.0 ** -7
+    assert normalized_err(got, l2.conv_l2_reference(*args, ydt=ydt)) <= tol
+
+
+@pytest.mark.cuda
+def test_every_probe_passes(cuda):
+    """The T2 battery on the card: every probe builds, launches once and
+    matches its twin."""
+    before = mosaic_probes.launches
+    results = mosaic_probes.run()
+    assert results == {name: "PASS" for name in mosaic_probes.PROBES}
+    kernels = [n for n, p in mosaic_probes.PROBES.items() if p is not None]
+    assert mosaic_probes.launches == before + len(kernels)

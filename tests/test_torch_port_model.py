@@ -330,6 +330,24 @@ def _imported_modules(path):
     return names
 
 
+def _edits_sys_path(path):
+    """Lines of ``path`` that change ``sys.path`` (how the JAX tools reach
+    ``tools/_timing.py``)."""
+    hits = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        target = None
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            target = node.func.value
+        elif isinstance(node, (ast.Assign, ast.AugAssign)):
+            target = (node.targets[0] if isinstance(node, ast.Assign)
+                      else node.target)
+        if (isinstance(target, ast.Attribute) and target.attr == "path"
+                and isinstance(target.value, ast.Name)
+                and target.value.id == "sys"):
+            hits.append(node.lineno)
+    return hits
+
+
 def test_port_imports_no_jax():
     files = sorted((REPO / "ncnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -337,10 +355,20 @@ def test_port_imports_no_jax():
     assert {f"ncnet_tpu_torch/ops/{m}.py" for m in (
         "conv4d", "conv4d_pallas", "conv4d_fft", "conv4d_cp", "cp_als",
         "nc_fused_lane")} <= names
+    assert {f"ncnet_tpu_torch/tools/{m}.py" for m in (
+        "_timing", "pallas_l2_probe", "mosaic_probes")} <= names
     bad = []
     for path in files:
         for name in _imported_modules(path):
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "ncnet_tpu") or root.startswith("jax_"):
+            if (root in ("jax", "jaxlib", "ncnet_tpu", "tools", "_timing")
+                    or root.startswith("jax_")):
                 bad.append(f"{path.relative_to(REPO)}: {name}")
+        if path.name != "chip_smoke.py":  # it puts its checkout on the path
+            bad += [f"{path.relative_to(REPO)}:{line}: edits sys.path"
+                    for line in _edits_sys_path(path)]
     assert not bad, bad
+    # the checks see what they look for
+    jax_tool = REPO / "tools" / "pallas_l2_probe.py"
+    assert "_timing" in _imported_modules(jax_tool)
+    assert _edits_sys_path(jax_tool)
