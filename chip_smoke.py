@@ -13,11 +13,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      ``sm_90a`` (one ``nvcc`` per source, all in parallel);
   3. every kernel against its plain PyTorch version on the card, at the
      shape the paths give it and at the thin test shapes, with CUDA-event
-     times of both: the NC stack (B2, bf16; timed at the coarse-to-fine
-     fine tiles' folded (20000, 6⁴), its call on the paths that keep it)
-     and its backward (B3: dW/db partials, their reduction, the transposed
-     conv; timed at the training chunk's 8 × 25⁴), the backward on the
-     same saved activations as its twin; the small-C_out conv4d (B5,
+     times of both: the NC stack (B2, bf16, the tensor-core kernel; two
+     launches bit-identical at every shape; timed at the coarse-to-fine
+     fine tiles' folded (20000, 6⁴), its call on the paths that keep it,
+     then stack and per-layer ms and TFLOP/s at the tracked tiles' (5000,
+     6⁴) and the dense 800² request's 8 × 50⁴, and at 8 × 25⁴ beside the
+     FFT tier's stack on the same volume, the route the chooser takes
+     there) and its backward (B3: dW/db partials, their reduction, the
+     transposed conv; timed at the training chunk's 8 × 25⁴), the backward
+     on the same saved activations as its twin; the small-C_out conv4d (B5,
      ``csrc/conv4d_small_cout.cu``) at the fp32 800² path's (4, 50⁴, 16)
      → 1, the coarse-to-fine tiles' (20000, 6⁴, 16) → 1, a k = 3 10 → 1
      case and a bf16 2-channel case, two launches bit-identical, with its
@@ -45,7 +49,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      kernels against their twin, and the step's loss and NC gradients
      against the same step with the twins routed in for both directions;
      a stage line splits a step's time;
-  A. the coarse-to-fine gather kernel (B4, ``csrc/gather_tile_corr.cu``)
+  A. the coarse-to-fine gather kernel (B4, ``csrc/gather_tile_corr.cu``,
+     the tensor-core kernel)
      against its plain twin on the card: the serving path's (4, 625, 4)
      tiles at C = 1024, patch 6; a halo-3 case (patch 8, origins off the
      factor's grid); a small odd-C case; two launches bit-identical; kernel,
@@ -141,6 +146,21 @@ FP32_SIDES = (400, 800)
 # (the dense 25^4 stacks take the FFT tier)
 B2_PATH_SHAPE = ("c2f_fine_tiles_20000x6^4", (20000, 6, 6, 6, 6), (5, 5, 5),
                  (16, 16, 1))
+# B2's other path shapes, held against the twin and timed per layer beside
+# B2_PATH_SHAPE: the tracked
+# fine tiles (track_radius=0: one candidate, a quarter of the tiles) and the
+# dense bf16 800² request's stack (4 pairs folded with their transposes)
+B2_TIMED_SHAPES = (
+    ("tracked_fine_tiles_5000x6^4", (5000, 6, 6, 6, 6), (5, 5, 5), (16, 16, 1)),
+    ("dense_800_8x50^4", (8, 50, 50, 50, 50), (5, 5, 5), (16, 16, 1)),
+)
+# B2 at 25⁴, where the tier chooser takes FFT: timed beside the FFT stack
+# (context; the route stays FFT)
+B2_FFT_CONTEXT_SHAPE = (8, 25, 25, 25, 25)
+# the first, CUDA-core designs' times (PR 5, run 4 of chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W): the B2 stack on B2_PATH_SHAPE and B4 at
+# GATHER_SHAPES[0]
+FIRST_DESIGN_MS = {"nc_conv4d_bf16": 266.37, "gather_tile_corr_bf16": 3.015}
 STACK_SHAPES = (
     # B3's call on the training path: a chunk of 4 pairs, batch-folded with
     # their transposes
@@ -286,24 +306,52 @@ def routed(module, name, fn, calls=None):
         setattr(module, name, real)
 
 
+def layer_times(torch, nc_fused_lane, name, shape, kernels, channels,
+                params, x, iters):
+    """Print each layer's kernel ms and TFLOP/s (at in-volume taps) on
+    ``x``; returns the per-layer ms."""
+    times, v = [], x
+    for li, layer in enumerate(params):
+        ms = cuda_ms(lambda: nc_fused_lane.nc_conv4d_layer(
+            v, layer["w"], layer["b"]), iters)
+        f, _ = stack_work(shape, kernels[li:li + 1], channels[li:li + 1],
+                          c_in=int(v.shape[-1]))
+        print(f"{name} layer {li} {tuple(layer['w'].shape)}: {ms:.3f} ms, "
+              f"{f / ms / 1e9:.2f} TFLOP/s", flush=True)
+        times.append(ms)
+        v = nc_fused_lane.nc_conv4d_layer(v, layer["w"], layer["b"])
+    return times
+
+
 def check_kernels(torch, nc_fused_lane, dev):
-    """Phase 3: kernel vs plain twin at every shape; returns the numbers of
-    B2's path shape (``B2_PATH_SHAPE``)."""
+    """Phase 3: kernel vs plain twin at every shape, two launches
+    bit-identical; B2's stack and layers timed at its path shapes
+    (``B2_PATH_SHAPE``, ``B2_TIMED_SHAPES``) and at 25⁴ beside the FFT
+    tier's stack on the same volume (context: the chooser routes 25⁴ to
+    FFT).  Returns the numbers of ``B2_PATH_SHAPE``."""
+    from ncnet_tpu_torch.ops.conv4d_fft import nc_stack_fft
+
+    timed = [s for _, s, _, _ in B2_TIMED_SHAPES] + [B2_FFT_CONTEXT_SHAPE]
     main = None
-    for name, shape, kernels, channels in (B2_PATH_SHAPE,) + STACK_SHAPES:
+    for name, shape, kernels, channels in ((B2_PATH_SHAPE,) + B2_TIMED_SHAPES
+                                           + STACK_SHAPES):
         params = stack_params(kernels, channels, seed=1, device=dev)
         g = torch.Generator().manual_seed(2)
         x = (torch.randn(shape + (1,), generator=g) * 0.5).to(dev, torch.bfloat16)
         got = nc_fused_lane.nc_stack_resident(params, x)
+        again = nc_fused_lane.nc_stack_resident(params, x)
         want = nc_fused_lane.nc_stack_reference(params, x)
         torch.cuda.synchronize()
         err = normalized_err(got, want)
         max_abs = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, again)
         print(f"check {name}: shape {shape} kernels {kernels} channels "
               f"{channels} max_abs_err {max_abs:.6g} normalized {err:.3e} "
-              f"(tolerance {TOLERANCE})", flush=True)
-        if not (err <= TOLERANCE and torch.isfinite(got.float()).all()):
+              f"(tolerance {TOLERANCE}); two launches bit-identical: {same}",
+              flush=True)
+        if not (err <= TOLERANCE and same and torch.isfinite(got.float()).all()):
             raise SystemExit(f"kernel disagrees with its plain twin at {name}")
+        flops, nbytes = stack_work(shape, kernels, channels)
         if main is None:
             iters = 3
             # in turns: kernel, plain, kernel, plain
@@ -311,16 +359,8 @@ def check_kernels(torch, nc_fused_lane, dev):
             ms_p = [cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), iters)]
             ms_k.append(cuda_ms(lambda: nc_fused_lane.nc_stack_resident(params, x), iters))
             ms_p.append(cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), iters))
-            v = x
-            for li, layer in enumerate(params):
-                layer_ms = cuda_ms(lambda: nc_fused_lane.nc_conv4d_layer(
-                    v, layer["w"], layer["b"]), iters)
-                f, _ = stack_work(shape, kernels[li:li + 1],
-                                  channels[li:li + 1], c_in=int(v.shape[-1]))
-                print(f"layer {li} {tuple(layer['w'].shape)}: {layer_ms:.3f} ms, "
-                      f"{f / layer_ms / 1e9:.2f} TFLOP/s", flush=True)
-                v = nc_fused_lane.nc_conv4d_layer(v, layer["w"], layer["b"])
-            flops, nbytes = stack_work(shape, kernels, channels)
+            layer_times(torch, nc_fused_lane, name, shape, kernels, channels,
+                        params, x, iters)
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
             main = {
                 "max_abs_err": max_abs, "normalized_err": err,
@@ -329,7 +369,22 @@ def check_kernels(torch, nc_fused_lane, dev):
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             }
             print(f"timing {name}: kernel {ms_k} ms, plain {ms_p} ms, "
-                  f"{flops:.4g} FLOP, {nbytes:.4g} bytes", flush=True)
+                  f"{flops:.4g} FLOP, {nbytes:.4g} bytes, "
+                  f"{flops / main['ms'] / 1e9:.2f} TFLOP/s (first design "
+                  f"{FIRST_DESIGN_MS['nc_conv4d_bf16']} ms)", flush=True)
+        elif shape in timed:
+            ms = cuda_ms(lambda: nc_fused_lane.nc_stack_resident(params, x), 3)
+            layers = layer_times(torch, nc_fused_lane, name, shape, kernels,
+                                 channels, params, x, 3)
+            line = (f"timing {name}: stack {ms:.3f} ms (layers "
+                    f"{sum(layers):.3f}), {flops:.4g} FLOP, "
+                    f"{flops / ms / 1e9:.2f} TFLOP/s")
+            if shape == B2_FFT_CONTEXT_SHAPE:
+                fft_ms = cuda_ms(lambda: nc_stack_fft(params, x), 3)
+                line += (f"; the FFT tier's stack on the same volume "
+                         f"{fft_ms:.3f} ms (context: the chooser routes 25⁴ "
+                         "to FFT)")
+            print(line, flush=True)
     return main
 
 
@@ -1071,7 +1126,8 @@ def check_gather(torch, sparse_corr, dev):
                   f"cuBLAS) {lib_ms:.4f} ms, {flops:.4g} FLOP, {nbytes:.4g} "
                   f"bytes, bound {main['bound_ms']:.4f} ms "
                   f"({main['bound_by']}), {flops / main['ms'] / 1e9:.2f} "
-                  "TFLOP/s", flush=True)
+                  f"TFLOP/s (first design "
+                  f"{FIRST_DESIGN_MS['gather_tile_corr_bf16']} ms)", flush=True)
     return main
 
 
@@ -1307,8 +1363,10 @@ def c2f_requests(seed, shift):
 
 
 def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
-    """Phase B: coarse-to-fine serving at full width.  Returns the engine,
-    its parameters, the requests, their tables and the launches."""
+    """Phase B: coarse-to-fine serving at full width, and one dense request
+    beside it.  Returns the engine, its parameters, the requests, their
+    tables, the coarse-to-fine launches and the dense request's B2
+    launches."""
     import numpy as np
 
     from ncnet_tpu_torch.config import ModelConfig
@@ -1412,12 +1470,23 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     calls = []
+    nc_fused_lane.launches = 0
     with routed(nc_fused_lane, "nc_stack_resident",
                 nc_fused_lane.nc_stack_resident, calls):
         t0 = time.perf_counter()
         dense_table = dense.fetch(dense.dispatch(*requests[0]))
         dense_wall = (time.perf_counter() - t0) * 1e3
-    (dense_nc, dense_x), _, _ = calls[0]
+    dense_launches = nc_fused_lane.launches
+    peak = torch.cuda.max_memory_allocated()
+    (dense_nc, dense_x), _, dense_y = calls[0]
+    dense_err = normalized_err(
+        dense_y, nc_fused_lane.nc_stack_reference(dense_nc, dense_x))
+    print(f"c2f serve: dense request's NC stack on {tuple(dense_x.shape)} vs "
+          f"its twin: normalized {dense_err:.3e} (tolerance {TOLERANCE}); "
+          f"launches {dense_launches}", flush=True)
+    if len(calls) != 1 or dense_launches != 3 or not dense_err <= TOLERANCE:
+        raise SystemExit("c2f serve: the dense request's NC stack disagrees "
+                         "with its twin or did not run one 3-layer B2 call")
     dense_nc_ms = cuda_ms(lambda: nc_fused_lane.nc_stack_resident(dense_nc, dense_x), 1)
     cells = (TRAIN_SHIFT[0] // 16, TRAIN_SHIFT[1] // 16)
     side_cells = C2F_SIDE // 16
@@ -1426,11 +1495,10 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
           f"{shift_recovery(tables[0], side_cells, cells):.4f}, dense "
           f"{shift_recovery(dense_table, side_cells, cells):.4f}; dense request "
           f"at {C2F_SIDE}x{C2F_SIDE}: wall {dense_wall:.1f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated()} bytes, its NC stack on "
-          f"{tuple(dense_x.shape)} {dense_nc_ms:.2f} ms (3 launches; printed, "
-          "not gated)", flush=True)
+          f"{peak} bytes, its NC stack on {tuple(dense_x.shape)} "
+          f"{dense_nc_ms:.2f} ms", flush=True)
     c2f_stages(torch, sparse_corr, cfg, params, src, tgt)
-    return engine, params, requests, tables, launches
+    return engine, params, requests, tables, launches, dense_launches
 
 
 def c2f_stages(torch, sparse_corr, cfg, params, src, tgt):
@@ -1798,7 +1866,7 @@ def main() -> int:
     l2_numbers, probe_numbers = probe_tools(torch, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches = train(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
-    engine, params, requests, tables, c2f_launches = serve_c2f(
+    engine, params, requests, tables, c2f_launches, dense_launches = serve_c2f(
         torch, nc_fused_lane, sparse_corr, dev)
     tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
                                      params, requests, tables)
@@ -1806,7 +1874,8 @@ def main() -> int:
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
-                  "serve_tracked": tracked_launches["nc_conv4d_bf16"]}
+                  "serve_tracked": tracked_launches["nc_conv4d_bf16"],
+                  "dense_800": dense_launches}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"]}
 
@@ -1821,6 +1890,8 @@ def main() -> int:
         # each path read with its counts set to 0 just before it
         "launches": sum(nc_by_path.values()),
         "launches_by_path": nc_by_path,
+        "design": "tensor-core, PR 6",
+        "first_design_ms": FIRST_DESIGN_MS["nc_conv4d_bf16"],
         **main_numbers,
         # no single PyTorch call computes a 4D convolution
         "library_ms": None,
@@ -1844,6 +1915,8 @@ def main() -> int:
         "replaces": "ncnet_tpu/ops/sparse_corr.py:196",
         "launches": sum(gather_by_path.values()),
         "launches_by_path": gather_by_path,
+        "design": "tensor-core, PR 6",
+        "first_design_ms": FIRST_DESIGN_MS["gather_tile_corr_bf16"],
         # one launch at the serving shape; library_ms is one cuBLAS batched
         # product (einsum) on target patches gathered beforehand
         **gather_numbers,

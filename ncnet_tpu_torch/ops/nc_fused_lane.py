@@ -194,10 +194,9 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
         raise NotImplementedError(
             f"nc_conv4d is not compiled for k={fwd[0]}, {fwd[1]}->{fwd[2]} "
             f"channels (add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel's vector loads need 16-byte alignment
-        x = x.clone()
-    w = w.contiguous()
+    # the kernel's 16-byte copies need both to start on 16 bytes
+    x, w = (t.contiguous() for t in (x, w))
+    x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
     out = torch.empty(x.shape[:5] + (c_out,), dtype=torch.bfloat16,
                       device=x.device)
     bsz, ha, wa, hb, wb = (int(d) for d in x.shape[:5])

@@ -52,6 +52,16 @@ SHAPES = [
     ((1, 5, 5, 5, 5), (5, 5, 5), (2, 2, 1)),
     ((2, 9, 8, 7, 9), (5, 5, 5), (16, 16, 1)),   # the PF-Pascal layer shapes
 ]
+# the forward kernel (B2) also at: every border class of a 6^4 tile at k = 5
+# with 3 tiles, so that planes pack across tiles in one block; a 50^4 plane,
+# wider than one block's band of rows; channels 10 (the default ModelConfig
+# stack) and 4 -> 4
+FORWARD_SHAPES = SHAPES + [
+    ((3, 6, 6, 6, 6), (5, 5, 5), (16, 16, 1)),
+    ((1, 50, 50, 50, 50), (5, 5, 5), (16, 16, 1)),
+    ((2, 7, 6, 5, 8), (3, 3, 3), (10, 10, 1)),
+    ((2, 5, 6, 7, 6), (5, 5, 5), (4, 4, 4)),
+]
 
 
 @pytest.fixture
@@ -85,15 +95,19 @@ def random_stack(rng, shape, kernels, channels, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,kernels,channels", SHAPES)
+@pytest.mark.parametrize("shape,kernels,channels", FORWARD_SHAPES)
 def test_kernel_matches_twin(cuda, shape, kernels, channels):
+    """The stack against its twin; one launch a layer; two launches
+    bit-identical (no float atomics, no split contraction)."""
     params, x = random_stack(np.random.default_rng(0), shape, kernels,
                              channels, cuda)
     before = nc_fused_lane.launches
     got = nc_fused_lane.nc_stack_resident(params, x)
+    again = nc_fused_lane.nc_stack_resident(params, x)
     torch.cuda.synchronize()
-    assert nc_fused_lane.launches == before + len(kernels)
+    assert nc_fused_lane.launches == before + 2 * len(kernels)
     assert got.shape == shape + (channels[-1],) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     assert normalized_err(got, nc_fused_lane.nc_stack_reference(params, x)) <= 1e-2
 
 
@@ -168,8 +182,13 @@ def test_train_step_runs_both_kernels(cuda):
 
 
 # (batch, fine side, channels, factor, halo, candidates): the serving
-# shape's patch, odd C, and halo 3 (patch 8, origins off the factor's grid)
-GATHER_SHAPES = [(2, 12, 64, 2, 2, 4), (2, 10, 13, 2, 2, 3), (1, 16, 32, 2, 3, 2)]
+# shape's patch, odd C, and halo 3 (patch 8, origins off the factor's grid);
+# patch 8 at C = 1024 (K p^2 = 256 columns: two blocks along N), odd C at
+# halo 3, the tracked shape (K = 1, C = 1024), and halo 4 (patch 10: p^2 =
+# 100 rows, two blocks along M)
+GATHER_SHAPES = [(2, 12, 64, 2, 2, 4), (2, 10, 13, 2, 2, 3), (1, 16, 32, 2, 3, 2),
+                 (2, 16, 1024, 2, 3, 4), (2, 10, 13, 2, 3, 2),
+                 (2, 12, 1024, 2, 2, 1), (1, 20, 32, 2, 4, 2)]
 
 
 @pytest.mark.cuda

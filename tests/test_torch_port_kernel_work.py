@@ -1,0 +1,121 @@
+"""The work the port's kernel bounds rest on, checked on the CPU.
+
+``chip_smoke.py`` reads each kernel's time against a bound computed from
+``stack_work`` (the NC stack, B2) and ``gather_work`` (the tile
+correlation, B4); a redesigned kernel must be read against the same work,
+so these counts are pinned here to the numbers PERF.md's bounds use.  The
+layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
+its list and the backward's (``csrc/nc_conv4d_vjp.cu``) must agree, and
+every stack a ``ModelConfig`` of the repository builds must be in them.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke
+from ncnet_tpu_torch.config import ModelConfig
+
+CSRC = Path(__file__).resolve().parent.parent / "ncnet_tpu_torch" / "csrc"
+
+
+def compiled_shapes(source, macro):
+    """The (k, C_in, C_out) triples of the X-macro list ``macro``."""
+    text = (CSRC / source).read_text()
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", text, re.S).group(1)
+    return [tuple(int(v) for v in m)
+            for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+
+
+def test_forward_and_backward_compile_the_same_shapes():
+    fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
+    bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
+    assert len(fwd) == len(set(fwd)) == 25
+    assert fwd == bwd
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("pf_pascal", ModelConfig(ncons_kernel_sizes=(5, 5, 5),
+                              ncons_channels=(16, 16, 1))),
+    # the InLoc (IVD) arch of bench.py:1616
+    ("ivd", ModelConfig(ncons_kernel_sizes=(3, 3), ncons_channels=(16, 1))),
+    ("default", ModelConfig()),
+])
+def test_model_stacks_are_compiled(name, cfg):
+    shapes = set(compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES"))
+    c_in = 1
+    for k, c_out in zip(cfg.ncons_kernel_sizes, cfg.ncons_channels):
+        # the forward launch, and the transposed one of the backward, which
+        # the kernel serves under the same forward shape
+        assert (k, c_in, c_out) in shapes, (name, k, c_in, c_out)
+        c_in = c_out
+
+
+def taps_in_volume(n, k):
+    """Multiply-adds a same-padded dim of n cells does at kernel k."""
+    d = k // 2
+    return sum(min(n - 1, x + d) - max(0, x - d) + 1 for x in range(n))
+
+
+PF = ((5, 5, 5), (16, 16, 1))
+WEIGHT_BYTES_PF = 2 * ((625 * 16 + 16) + (625 * 256 + 16) + (625 * 16 + 1))
+
+
+@pytest.mark.parametrize("shape,flops,nbytes", [
+    # B2's coarse-to-fine call: the figure PERF.md's 3.865 ms bound rests on
+    ((20000, 6, 6, 6, 6), 2 * 20000 * 24 ** 4 * 288,
+     2 * 2 * 20000 * 6 ** 4 + WEIGHT_BYTES_PF),
+    # the tracked call, a quarter of the tiles
+    ((5000, 6, 6, 6, 6), 2 * 5000 * 24 ** 4 * 288,
+     2 * 2 * 5000 * 6 ** 4 + WEIGHT_BYTES_PF),
+    # the dense 800² request's stack
+    ((8, 50, 50, 50, 50), 2 * 8 * taps_in_volume(50, 5) ** 4 * 288,
+     2 * 2 * 8 * 50 ** 4 + WEIGHT_BYTES_PF),
+])
+def test_stack_work(shape, flops, nbytes):
+    assert chip_smoke.stack_work(shape, *PF) == (flops, nbytes)
+
+
+def test_stack_work_pins_the_bound():
+    flops, nbytes = chip_smoke.stack_work((20000, 6, 6, 6, 6), *PF)
+    assert taps_in_volume(6, 5) == 24
+    assert flops == pytest.approx(3.82e12, rel=1e-3)
+    bound_ms = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    assert bound_ms == pytest.approx(3.865, abs=1e-3)
+    assert nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
+
+
+@pytest.mark.parametrize("li,flops", [
+    # per layer on the coarse-to-fine tiles: 1 -> 16, 16 -> 16, 16 -> 1
+    (0, 2 * 20000 * 24 ** 4 * 16),
+    (1, 2 * 20000 * 24 ** 4 * 256),
+    (2, 2 * 20000 * 24 ** 4 * 16),
+])
+def test_layer_work(li, flops):
+    c_in = (1, 16, 16)[li]
+    got, _ = chip_smoke.stack_work((20000, 6, 6, 6, 6), PF[0][li:li + 1],
+                                   PF[1][li:li + 1], c_in=c_in)
+    assert got == flops
+
+
+@pytest.mark.parametrize("b,n,k,p,c,side,flops,nbytes", [
+    # B4 at the serving shape: the 0.0689 ms bytes bound of PERF.md
+    (4, 625, 4, 6, 1024, 50, 2.65e10, 2.30e8),
+    # the tracked shape: one candidate
+    (4, 625, 1, 6, 1024, 50, 6.64e9, 2.113e8),
+])
+def test_gather_work(b, n, k, p, c, side, flops, nbytes):
+    fa_p2 = torch.empty((b, n, p * p, c), dtype=torch.bfloat16, device="meta")
+    fb = torch.empty((b, side, side, c), dtype=torch.bfloat16, device="meta")
+    rows = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    got_flops, got_bytes = chip_smoke.gather_work(fa_p2, fb, rows, k)
+    assert got_flops == 2 * b * n * k * p ** 4 * c
+    assert got_bytes == (2 * b * n * p * p * c + 2 * b * side * side * c
+                         + 2 * 4 * b * n * k + 2 * b * n * k * p ** 4)
+    assert got_flops == pytest.approx(flops, rel=5e-3)
+    assert got_bytes == pytest.approx(nbytes, rel=5e-3)
+    if k == 4:
+        bound_ms = got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3
+        assert bound_ms == pytest.approx(0.0689, abs=1e-4)
