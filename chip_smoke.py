@@ -19,8 +19,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      then stack and per-layer ms and TFLOP/s at the tracked tiles' (5000,
      6⁴) and the dense 800² request's 8 × 50⁴, and at 8 × 25⁴ beside the
      FFT tier's stack on the same volume, the route the chooser takes
-     there) and its backward (B3: dW/db partials, their reduction, the
-     transposed conv; timed at the training chunk's 8 × 25⁴), the backward
+     there) and its backward (B3: the dW/db partials on tensor cores, B7,
+     their reduction, the transposed conv; timed at the training chunk's
+     8 × 25⁴, each layer's dW/db with its FLOP, bound and TFLOP/s beside
+     the first design's ms; also held at a 50 × 50 plane), the backward
      on the same saved activations as its twin; the small-C_out conv4d (B5,
      ``csrc/conv4d_small_cout.cu``) at the fp32 800² path's (4, 50⁴, 16)
      → 1, the coarse-to-fine tiles' (20000, 6⁴, 16) → 1, a k = 3 10 → 1
@@ -161,6 +163,11 @@ B2_FFT_CONTEXT_SHAPE = (8, 25, 25, 25, 25)
 # NVIDIA H100 80GB HBM3 at 700 W): the B2 stack on B2_PATH_SHAPE and B4 at
 # GATHER_SHAPES[0]
 FIRST_DESIGN_MS = {"nc_conv4d_bf16": 266.37, "gather_tile_corr_bf16": 3.015}
+# the first, CUDA-core dW/db kernel of B3 (chip_smoke.py on an NVIDIA H100
+# 80GB HBM3 at 700 W) per layer 0, 1, 2 on a training chunk (8 × 25⁴), and
+# the chunk's backward (no dx) with it
+FIRST_DESIGN_DW_MS = (13.18, 36.96, 11.28)
+FIRST_DESIGN_BACKWARD_MS = 68.73
 STACK_SHAPES = (
     # B3's call on the training path: a chunk of 4 pairs, batch-folded with
     # their transposes
@@ -168,6 +175,12 @@ STACK_SHAPES = (
     ("rectangular_3layer", (1, 6, 5, 7, 6), (3, 3, 3), (4, 4, 1)),
     ("two_channel_final", (2, 6, 7, 5, 8), (3, 3), (4, 2)),
     ("k3_single_layer", (1, 7, 7, 7, 7), (3,), (1,)),
+)
+# the backward (B3) also at a plane wider than 40 cells with the PF-Pascal
+# stack, more than one block's shared memory holds at 16 → 16 (B7 tiles
+# it in bands)
+BACKWARD_SHAPES = STACK_SHAPES + (
+    ("pf_pascal_wide_plane_50x50", (1, 4, 5, 50, 50), (5, 5, 5), (16, 16, 1)),
 )
 SERVE_BATCH, SERVE_REQUESTS, SERVE_SIDE = 4, 3, 400
 TRAIN_STEPS = 3
@@ -256,10 +269,7 @@ def stack_work(shape, kernels, channels, c_in=1, backward=False,
     cells = _prod(dims)
     flops, nbytes = 0, 2 * b * cells * c_in
     for li, (k, c_out) in enumerate(zip(kernels, channels)):
-        d = k // 2
-        taps = _prod(sum(min(n - 1, x + d) - max(0, x - d) + 1
-                         for x in range(n)) for n in dims)
-        layer = 2 * b * taps * c_in * c_out
+        layer = 2 * b * _taps(dims, k) * c_in * c_out
         if backward:
             flops += layer * (2 if li > 0 or need_dx else 1)
             nbytes += 2 * 2 * (k ** 4 * c_in * c_out + c_out)
@@ -272,6 +282,26 @@ def stack_work(shape, kernels, channels, c_in=1, backward=False,
     if backward and need_dx:
         nbytes += 2 * b * cells
     return flops, nbytes
+
+
+def dw_work(shape, k, c_in, c_out):
+    """(FLOP, bytes) of one layer's dW and db (``nc_vjp_dw``): the
+    forward's multiply-adds at taps inside the volume; it reads the input,
+    the saved output and the cotangent (bf16) once and writes ``gz`` (bf16)
+    and dW, db (f32) once."""
+    b, *dims = shape
+    cells = b * _prod(dims)
+    flops = 2 * b * _taps(dims, k) * c_in * c_out
+    nbytes = 2 * cells * (c_in + 3 * c_out) + 4 * (k ** 4 * c_in * c_out + c_out)
+    return flops, nbytes
+
+
+def _taps(dims, k) -> int:
+    """(cell, tap) pairs of a same-padded size-``k`` conv on a volume of
+    ``dims`` whose tap lies inside the volume."""
+    d = k // 2
+    return _prod(sum(min(n - 1, x + d) - max(0, x - d) + 1 for x in range(n))
+                 for n in dims)
 
 
 def _prod(xs) -> int:
@@ -400,12 +430,14 @@ def grads_err(got, want):
 
 
 def check_backward(torch, nc_fused_lane, vjp, dev):
-    """Phase 3, B3: the backward kernels against the twin on the same saved
-    activations (so the ReLU masks are the same cells), ``dx`` included,
-    at every shape; two kernel runs bit-identical.  Returns the training
-    shape's numbers, timed as the training path runs it (no ``dx``)."""
+    """Phase 3, B3: the backward kernels (B7's dW/db and their reduction,
+    B6's transposed conv) against the twin on the same saved activations
+    (so the ReLU masks are the same cells), ``dx`` included, at every shape
+    of ``BACKWARD_SHAPES``; two kernel runs bit-identical.  Returns the
+    training shape's numbers, timed as the training path runs it (no
+    ``dx``), with each layer's dW/db time beside the first design's."""
     main = None
-    for name, shape, kernels, channels in STACK_SHAPES:
+    for name, shape, kernels, channels in BACKWARD_SHAPES:
         params = stack_params(kernels, channels, seed=3, device=dev)
         g = torch.Generator().manual_seed(4)
         x = (torch.randn(shape + (1,), generator=g) * 0.5).to(dev, torch.bfloat16)
@@ -420,7 +452,8 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
         same = grads_err(got, again)[1] == 0.0
         finite = all(torch.isfinite(t.float()).all() for d in got[0]
                      for t in d.values()) and torch.isfinite(got[1].float()).all()
-        print(f"check backward {name}: dW, db, dx max_abs_err {max_abs:.6g} "
+        print(f"check backward {name}: shape {shape} kernels {kernels} "
+              f"channels {channels} dW, db, dx max_abs_err {max_abs:.6g} "
               f"normalized {err:.3e} (tolerance {TOLERANCE}); two runs "
               f"bit-identical: {same}", flush=True)
         if not (err <= TOLERANCE and same and finite):
@@ -433,15 +466,21 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
             ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, iters)]
             ms_k.append(cuda_ms(run_k, iters))
             ms_p.append(cuda_ms(run_p, iters))
-            gamma = cot
+            gamma, dw_ms = cot, [0.0] * len(params)
             for li in reversed(range(len(params))):
                 w, k = params[li]["w"], int(params[li]["w"].shape[0])
                 gz, part = vjp.nc_vjp_dw(acts[li], acts[li + 1], gamma, k)
-                dw_ms = cuda_ms(lambda: vjp.nc_vjp_dw(
+                dw_ms[li] = cuda_ms(lambda: vjp.nc_vjp_dw(
                     acts[li], acts[li + 1], gamma, k), iters)
                 red_ms = cuda_ms(lambda: vjp.nc_vjp_reduce(part), iters)
+                f, nb = dw_work(shape, k, int(w.shape[4]), int(w.shape[5]))
+                t_ops, t_bytes = f / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES_PER_S
                 line = (f"backward layer {li} {tuple(w.shape)}: dW/db "
-                        f"{dw_ms:.3f} ms, reduce {red_ms:.3f} ms")
+                        f"{dw_ms[li]:.3f} ms ({f:.5g} FLOP, {nb:.4g} bytes, "
+                        f"bound {max(t_ops, t_bytes) * 1e3:.4f} ms by "
+                        f"{'operations' if t_ops >= t_bytes else 'bytes'}, "
+                        f"{f / dw_ms[li] / 1e9:.2f} TFLOP/s; first design "
+                        f"{FIRST_DESIGN_DW_MS[li]} ms), reduce {red_ms:.3f} ms")
                 if li > 0:
                     t_ms = cuda_ms(lambda: vjp.nc_conv4d_transpose(gz, w), iters)
                     line += f", transposed conv {t_ms:.3f} ms"
@@ -454,10 +493,12 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
                 "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "dw_ms": dw_ms,
             }
             print(f"timing backward {name} (no dx): kernels {ms_k} ms, plain "
                   f"{ms_p} ms, {flops:.4g} FLOP, {nbytes:.4g} bytes, "
-                  f"{flops / main['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+                  f"{flops / main['ms'] / 1e9:.2f} TFLOP/s (first design "
+                  f"{FIRST_DESIGN_BACKWARD_MS} ms)", flush=True)
     return main
 
 
@@ -1025,7 +1066,8 @@ def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
         f"trunk, both sides, batch {batch['source_image'].shape[0]}":
             cuda_ms(trunk, 3),
         f"NC stack forward (FFT tier), {chunks} chunks": nc_fwd * chunks,
-        f"NC stack backward (B3), {chunks} chunks": nc_bwd * chunks,
+        f"NC stack backward (B3: B7 dW/db, B6 transposed), {chunks} chunks":
+            nc_bwd * chunks,
         f"correlation, mutual matching, loss; forward and backward, {chunks} "
         "chunks": (chunk_ms - nc_fwd - nc_bwd) * chunks,
         "Adam and the NaN guard's check": cuda_ms(adam, 3),
@@ -1891,7 +1933,6 @@ def main() -> int:
         "launches": sum(nc_by_path.values()),
         "launches_by_path": nc_by_path,
         "design": "tensor-core, PR 6",
-        "first_design_ms": FIRST_DESIGN_MS["nc_conv4d_bf16"],
         **main_numbers,
         # no single PyTorch call computes a 4D convolution
         "library_ms": None,
@@ -1905,6 +1946,9 @@ def main() -> int:
         "launches": sum(train_launches[k] for k in nc_fused_lane_vjp.launches),
         "launches_by_kernel": {k: train_launches[k]
                                for k in nc_fused_lane_vjp.launches},
+        # dW/db (nc_vjp_dw_bf16) redesigned as B7; the transposed conv is
+        # B6's kernel
+        "design": "tensor-core, PR 7",
         **backward_numbers,
         # no single PyTorch call computes a conv4d backward
         "library_ms": None,
@@ -1916,7 +1960,6 @@ def main() -> int:
         "launches": sum(gather_by_path.values()),
         "launches_by_path": gather_by_path,
         "design": "tensor-core, PR 6",
-        "first_design_ms": FIRST_DESIGN_MS["gather_tile_corr_bf16"],
         # one launch at the serving shape; library_ms is one cuBLAS batched
         # product (einsum) on target patches gathered beforehand
         **gather_numbers,

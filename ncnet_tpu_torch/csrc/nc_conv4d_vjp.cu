@@ -20,199 +20,576 @@
 // pallas_call per layer), driven by nc_stack_fused_vjp.  The wrappers are in
 // ncnet_tpu_torch/ops/nc_fused_lane_vjp.py.
 //
-// Bound: operations.  For the PF-Pascal stack (k = 5, channels 16, 16, 1)
-// on the 8 volumes of 25^4 of one training chunk, dW of all layers counts
-// 9.24e11 FLOP and the input gradients of layers 2 and 1 8.73e11, so the
-// backward is ~1.80e12 FLOP against ~1.3e7 bytes of bf16 volumes: ~1e5
-// FLOP per byte, far above the card's ~295 FLOP/byte ridge.
+// Bound: operations.  dW is a product whose contraction is the cells and
+// whose output is small: for the PF-Pascal stack (k = 5, channels 16, 16,
+// 1) on the 8 volumes of 25^4 of one training chunk (3.1e6 cells), the
+// 16->16 layer's dW counts 8.21e11 FLOP at in-volume taps (0.830 ms at 989
+// TFLOP/s) for 160,000 outputs, the 1->16 and 16->1 layers' 5.13e10 each
+// (0.052 ms), against ~1e8 bytes of bf16 volumes a layer.
 //
-// Design (simple first).  The TPU kernel replays the forward in VMEM rings
-// and carries dW in one resident accumulator across its sequential grid.
-// Neither carries over: the port's autograd Function saves the forward's
-// bf16 layer outputs (the mask is y > 0, the same cells as the TPU's
-// bf16(z) > 0), and blocks on Hopper run in no order.  So:
+// Design (tensor cores: mma.sync m16n8k16, bf16 operands, f32 sums, fed by
+// ldmatrix.trans from shared memory).  Grid (k^2, P): block ((p, q), part)
+// walks the items part, part + P, ... of the (b, i, j, row band, column
+// band) list, the bands of R rows and Wc columns tiling the (hB, wB) plane
+// (at 25^4 whole planes for the thin layers, two bands for 16->16; any
+// plane size fits, 50 x 50 included).  The k^2 blocks of one part run
+// together, so they read an item's cotangent and input from L2.  Items
+// whose shifted input plane (i + p - d, j + q - d) lies outside the volume
+// are skipped whole (a test uniform in the block).  An item's operands are
+// staged as bf16, double-buffered: 16-channel cells of 32 bytes (the two
+// 8-channel halves swapped in every other group of 4 cells, so ldmatrix
+// rows of consecutive cells hit distinct banks) with cp.async, zero-filled
+// outside the volume; thinner ones with plain loads; the expanded boxes
+// below from registers loaded before the previous item's product and
+// stored after it.  Where y and g are staged, one pass masks g in place
+// once an item (a second barrier), not once a warp and k-step.  Three
+// layer shapes, as the forward's three modes (padding C_in or C_out to 16
+// would multiply a thin layer's FLOP by 16):
+//   - channels (C_in > 1, C_out > 4; the 16->16 layer): per (r, s) tap,
+//     dW_rs (ci x co) = x at the tap's constant offset in the zero-haloed
+//     box (cells x ci, ldmatrix.trans at lane-computed rows, so a k-step's
+//     16 cells may cross a row) times gz (cells x co), loaded once a
+//     k-step and reused for the warp's k taps (one tap row r a warp; two
+//     warps a row split the k-steps);
+//   - taps in M (C_in = 1; the 1->16 layer): dW[(r, s), co] = sum_c
+//     x[c + (r, s)] gz[c, co]; an expanded box holds each cell's 8
+//     horizontal shifts as one 16-byte row, so a 16-row M tile (two tap
+//     rows of 8 s slots) is one ldmatrix.trans;
+//   - taps in N (C_out <= 4; the 16->1 layer): with c' = c + (r, s),
+//     dW[(r, s), ci] = sum_c' x[c', ci] gz[c' - (r, s)]: A is the unshifted
+//     x, B an expanded box of gz with its 8 horizontal shifts (one n-tile
+//     of 8 a tap row r).
+// Thinner channel counts (1, 2, 4, 10) take the same modes, zero-padded by
+// the staging.  The centre (p, q) block of each part also writes gz (for
+// the input gradient) and sums db.
 //
-//   * nc_vjp_dw_kernel: grid (P, k*k).  Block (part, (p, q)) walks the
-//     (b, i, j) planes part, part + P, ...; for each it stages the masked
-//     cotangent plane gz[b, i, j] (hB x wB x C_out) and the input plane
-//     x[b, i + p - k/2, j + q - k/2] with a zero halo of k/2 cells in
-//     shared memory as f32, and each thread keeps a C_in-tile x C_out-tile
-//     register block of dW for one (r, s) tap: per cell one vector load of
-//     x, one of gz, then TCI * TCO FMAs on the CUDA cores in f32.  Planes
-//     whose shifted input plane lies outside the volume are skipped (their
-//     taps add nothing).  The centre-tap block of each part also writes gz
-//     to device memory (for the input gradient) and sums db.  Each block
-//     writes its f32 partial dW slab (and db) to partial row `part`.
-//   * nc_vjp_reduce_kernel: out[e] = sum over part = 0..P-1 of partial[part][e]
-//     in that fixed order.
-//
-// No float atomics: every sum has one order, so two runs give bit-identical
-// gradients.  The partial buffer is P * (k^4 * C_in * C_out + C_out) f32:
-// 41 MB for the 16->16 layer at P = 64.  The tensor-core design (wgmma with
-// the cells as the contraction) is later work.
+// No float atomics: each block sums its items in a fixed order, combines
+// its warps in a fixed order and writes its f32 partial slab (and db) to
+// partial row `part`; nc_vjp_reduce_kernel sums the rows in part order.
+// So two runs give bit-identical gradients.
 
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-// the largest dynamic shared memory a block may ask for on Hopper
-constexpr int kMaxSmemBytes = 232448;
+constexpr int kCell = 16;                   // bf16 a staged cell: 16 channels
+constexpr int kShifts = 8;                  // s slots of an expanded cell
+constexpr size_t kSmemBudget = 113 * 1024;  // two blocks an SM
 
-template <int C>
-struct TileOf {
-  static constexpr int value = (C % 4 == 0) ? 4 : (C % 2 == 0) ? 2 : 1;
-};
-
-// N consecutive f32 values of shared memory (16- or 8-byte aligned for N = 4, 2)
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float* v) {
-  if constexpr (N == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-    v[2] = u.z;
-    v[3] = u.w;
-  } else if constexpr (N == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-  } else {
-    v[0] = p[0];
-  }
-}
+enum Mode { kChannels, kTapsM, kTapsN };
 
 template <int K, int CIN, int COUT>
-struct DwShape {
+struct Layer {
   static constexpr int D = K / 2;
-  static constexpr int TCI = TileOf<CIN>::value;
-  static constexpr int TCO = TileOf<COUT>::value;
-  static constexpr int NCI = CIN / TCI;
-  static constexpr int NCO = COUT / TCO;
-  static constexpr int ITEMS = K * K * NCI * NCO;  // (r, s, ci tile, co tile)
-  static constexpr int THREADS = (ITEMS + 31) / 32 * 32;
+  static constexpr Mode kMode =
+      CIN == 1 ? kTapsM : (COUT <= 4 ? kTapsN : kChannels);
+  static constexpr int NT = COUT > 8 ? 2 : 1;  // n-tiles of C_out
+  static constexpr int KS = (K + 1) / 2;       // pairs of tap rows r
+  static constexpr int kWarps = kMode == kChannels ? 2 * K : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  // f32 accumulators a lane: channels, the k taps (r, s) of its row x NT;
+  // taps in M, KS m-tiles x NT; taps in N, C_out x k n-tiles
+  static constexpr int kAcc =
+      4 * (kMode == kChannels ? K * NT : kMode == kTapsM ? KS * NT : COUT * K);
+  // warps whose accumulators the combine stages in shared memory
+  static constexpr int kCombineWarps = kMode == kChannels ? K : kWarps;
+  // row segments of an expanded box a thread
+  static constexpr int kSegs = (kMode == kTapsN && COUT > 1) ? 1 : 2;
+  static constexpr int kMinBlocks = (kMode == kTapsN && COUT > 1) ? 1 : 2;
+  static constexpr int kWin = K + kShifts - 1;  // raw values a segment
   static constexpr int NW = K * K * K * K * CIN * COUT;
 };
 
-__host__ __device__ inline int xs_floats(int k, int c_in, int hB, int wB) {
-  // the padded input plane, rounded up to 4 floats so the cotangent plane
-  // after it stays 16-byte aligned
-  return ((hB + k - 1) * (wB + k - 1) * c_in + 3) / 4 * 4;
+// the tiling of one launch (host-chosen, uniform in the grid)
+struct Geo {
+  int B, hA, wA, hB, wB;
+  int R, Wc, n_rb, n_cb;  // bands of R rows x Wc columns
+  int n_items;            // B * hA * wA * n_rb * n_cb
+  int yoff, xoff;         // the x box's halo rows and columns (d, or 0 for
+                          // the taps in N where the band spans the plane)
+  int Hx, Wb;             // the x box: R + 2 yoff rows, Wc + 2 xoff columns
+  int n_band, n_box;      // cells of a band, of the x box
+  int n_k;                // contraction cells an item, padded to 16
+  int spr, n_segs;        // expanded-box row segments a row, an item
+  int eg_plane;           // taps in N: bf16 of one channel's expanded gz
+  // byte offsets into dynamic shared memory, and within a stage
+  int tbl_box, dbs, stages, x_bytes, y_off, g_off, stage_bytes;
+};
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// The element offset of the 8-channel half h of staged cell c: the halves
+// swap in every other group of 4 cells, so the same half of any 8
+// consecutive cells falls on 8 distinct groups of 4 banks (conflict-free
+// ldmatrix rows at a 32-byte pitch).
+__device__ __forceinline__ int cell_at(int c, int h) {
+  return c * kCell + 8 * (h ^ ((c >> 2) & 1));
+}
+
+// One item for the block of tap pair (p, q): the first cells of its
+// cotangent plane (b, i, j) and input plane (b, i + p - d, j + q - d), and
+// its band's first row and column.
+struct Item {
+  long long gcell, xcell;
+  int k0, c0;
+};
+
+// false when the item's input plane lies outside the volume
+__device__ __forceinline__ bool item_of(const Geo& g, int it, int p, int q,
+                                        int d, Item& o) {
+  const int cb = it % g.n_cb;
+  it /= g.n_cb;
+  const int rb = it % g.n_rb;
+  it /= g.n_rb;
+  const int j = it % g.wA;
+  it /= g.wA;
+  const int i = it % g.hA;
+  const int b = it / g.hA;
+  const int ii = i + p - d, jj = j + q - d;
+  if (ii < 0 || ii >= g.hA || jj < 0 || jj >= g.wA) return false;
+  const long long plane = static_cast<long long>(g.hB) * g.wB;
+  o.gcell = ((static_cast<long long>(b) * g.hA + i) * g.wA + j) * plane;
+  o.xcell = ((static_cast<long long>(b) * g.hA + ii) * g.wA + jj) * plane;
+  o.k0 = rb * g.R;
+  o.c0 = cb * g.Wc;
+  return true;
+}
+
+// g where y > 0 (not NaN), else +0, on two bf16 values a word
+__device__ __forceinline__ uint32_t relu_mask2(uint32_t y, uint32_t g) {
+  return g & __vcmpgts2(y, 0u) & __vcmplts2(y, 0x7F817F81u);
+}
+
+__device__ __forceinline__ __nv_bfloat16 relu_mask1(__nv_bfloat16 y,
+                                                    __nv_bfloat16 g) {
+  const short v = static_cast<short>(__bfloat16_as_ushort(y));
+  return (v > 0 && v < 0x7F81) ? g : __float2bfloat16_rn(0.f);
+}
+
+// Stage n cells of C channels (channels past C zero): cell c is the cell
+// cell_of(c) of the plane at src, or zeros where cell_of gives -1.  16-byte
+// cp.async copies for C = 16, plain loads otherwise.
+template <int C, int T, typename F>
+__device__ __forceinline__ void stage_cells(__nv_bfloat16* dst,
+                                            const __nv_bfloat16* __restrict__ src,
+                                            int n, F cell_of) {
+  if constexpr (C == 16) {
+    for (int e = threadIdx.x; e < 2 * n; e += T) {
+      const int c = e >> 1, h = e & 1;
+      const int o = cell_of(c);
+      tc::cp_async16(dst + cell_at(c, h),
+                     o >= 0 ? src + static_cast<long long>(o) * 16 + 8 * h : src,
+                     o >= 0 ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 16 * n; e += T) {
+      const int c = e >> 4, ch = e & 15;
+      __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+      if (ch < C) {
+        const int o = cell_of(c);
+        if (o >= 0) v = src[static_cast<long long>(o) * C + ch];
+      }
+      dst[cell_at(c, ch >> 3) + (ch & 7)] = v;
+    }
+  }
 }
 
 template <int K, int CIN, int COUT>
-__global__ void __launch_bounds__(DwShape<K, CIN, COUT>::THREADS)
+__global__ void __launch_bounds__(Layer<K, CIN, COUT>::kThreads,
+                                  Layer<K, CIN, COUT>::kMinBlocks)
 nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ y,
-                 const __nv_bfloat16* __restrict__ g,
-                 __nv_bfloat16* __restrict__ gz,
-                 float* __restrict__ partial, int B, int hA, int wA, int hB,
-                 int wB) {
-  using S = DwShape<K, CIN, COUT>;
-  constexpr int D = S::D, TCI = S::TCI, TCO = S::TCO;
-  extern __shared__ __align__(16) float smem[];
-  const int wp = wB + 2 * D;
-  const int n_cells = hB * wB;
-  float* xs = smem;                                // (hB + 2D, wB + 2D, CIN)
-  float* gs = smem + xs_floats(K, CIN, hB, wB);    // (hB, wB, COUT)
+                 const __nv_bfloat16* __restrict__ gr,
+                 __nv_bfloat16* __restrict__ gz, float* __restrict__ partial,
+                 const Geo g) {
+  using L = Layer<K, CIN, COUT>;
+  constexpr int D = L::D, T = L::kThreads, NT = L::NT, KS = L::KS;
+  constexpr Mode kMode = L::kMode;
+  constexpr bool kSegMode = kMode != kChannels;
+  constexpr int kSegCh = kMode == kTapsN ? COUT : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* tbl_band = reinterpret_cast<int*>(smem);  // band cell -> (row, col)
+  int* tbl_box = reinterpret_cast<int*>(smem + g.tbl_box);  // x box cell
+  float* dbs = reinterpret_cast<float*>(smem + g.dbs);
+  unsigned char* stages = smem + g.stages;
 
-  const int part = blockIdx.x;
-  const int n_parts = gridDim.x;
-  const int p = blockIdx.y / K, q = blockIdx.y % K;
+  const int pq = blockIdx.x, part = blockIdx.y, n_parts = gridDim.y;
+  const int p = pq / K, q = pq % K;
   const bool centre = p == D && q == D;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, t4 = lane & 3;
 
-  // the halo stays zero: plane staging below writes only the interior
-  for (int e = tid; e < (hB + 2 * D) * wp * CIN; e += blockDim.x) xs[e] = 0.f;
+  for (int m = tid; m < g.n_band; m += T)
+    tbl_band[m] = ((m / g.Wc) << 16) | (m % g.Wc);
+  if constexpr (kMode != kTapsM)
+    for (int c = tid; c < g.n_box; c += T)
+      tbl_box[c] = ((c / g.Wb) << 16) | (c % g.Wb);
+  // both stages start zero: the padding cells past a band or box and the
+  // expanded gz rows outside the band are never written
+  for (int e = tid; e < 2 * g.stage_bytes / 16; e += T)
+    reinterpret_cast<uint4*>(stages)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
 
-  const bool worker = tid < S::ITEMS;
-  int item = worker ? tid : 0;
-  const int cot = item % S::NCO;
-  item /= S::NCO;
-  const int cit = item % S::NCI;
-  item /= S::NCI;
-  const int s = item % K;
-  const int r = item / K;
-  const bool db_thread = centre && worker && r == 0 && s == 0 && cit == 0;
+  auto slot_base = [&](int slot) { return stages + slot * g.stage_bytes; };
+  auto bf = [](unsigned char* ptr) {
+    return reinterpret_cast<__nv_bfloat16*>(ptr);
+  };
+  // the cell in its plane of band cell m, or -1 past the volume
+  auto band_cell = [&](const Item& it, int m) {
+    const int v = tbl_band[m];
+    const int kk = it.k0 + (v >> 16), ll = it.c0 + (v & 0xFFFF);
+    return (kk < g.hB && ll < g.wB) ? kk * g.wB + ll : -1;
+  };
+  // the cell in its plane of x box cell c, or -1 outside the volume
+  auto box_cell = [&](const Item& it, int c) {
+    const int v = tbl_box[c];
+    const int kk = it.k0 - g.yoff + (v >> 16), ll = it.c0 - g.xoff + (v & 0xFFFF);
+    return (kk >= 0 && kk < g.hB && ll >= 0 && ll < g.wB) ? kk * g.wB + ll : -1;
+  };
 
-  float acc[TCI][TCO];
-#pragma unroll
-  for (int a = 0; a < TCI; ++a)
-#pragma unroll
-    for (int c = 0; c < TCO; ++c) acc[a][c] = 0.f;
-  float dbacc[TCO];
-#pragma unroll
-  for (int c = 0; c < TCO; ++c) dbacc[c] = 0.f;
-
-  const int64_t n_planes = static_cast<int64_t>(B) * hA * wA;
-  for (int64_t plane = part; plane < n_planes; plane += n_parts) {
-    const int j = static_cast<int>(plane % wA);
-    const int i = static_cast<int>((plane / wA) % hA);
-    const int64_t b = plane / (static_cast<int64_t>(hA) * wA);
-    const int ii = i + p - D, jj = j + q - D;
-    // the same test in every thread of the block: all skip, or none does
-    if (ii < 0 || ii >= hA || jj < 0 || jj >= wA) continue;
-    __syncthreads();  // the previous plane is no longer read
-
-    const int64_t gbase = plane * n_cells * COUT;
-    for (int e = tid; e < n_cells * COUT; e += blockDim.x) {
-      const float v = __bfloat162float(y[gbase + e]) > 0.f
-                          ? __bfloat162float(g[gbase + e])
-                          : 0.f;
-      gs[e] = v;
-      if (centre) gz[gbase + e] = __float2bfloat16_rn(v);
+  // the copies of an item into stage `slot` (the expanded boxes come from
+  // the segments)
+  auto stage_async = [&](const Item& it, int slot) {
+    unsigned char* base = slot_base(slot);
+    if constexpr (kMode != kTapsM)
+      stage_cells<CIN, T>(bf(base), x + it.xcell * CIN, g.n_box,
+                          [&](int c) { return box_cell(it, c); });
+    if constexpr (kMode != kTapsN) {
+      auto cell = [&](int m) { return band_cell(it, m); };
+      stage_cells<COUT, T>(bf(base + g.y_off), y + it.gcell * COUT, g.n_band, cell);
+      stage_cells<COUT, T>(bf(base + g.g_off), gr + it.gcell * COUT, g.n_band, cell);
     }
-    const int64_t xbase =
-        ((b * hA + ii) * static_cast<int64_t>(wA) + jj) * n_cells * CIN;
-    for (int e = tid; e < n_cells * CIN; e += blockDim.x) {
-      const int c = e % CIN;
-      const int cell = e / CIN;
-      xs[((cell / wB + D) * wp + cell % wB + D) * CIN + c] =
-          __bfloat162float(x[xbase + e]);
-    }
-    __syncthreads();
+  };
 
-    if (worker) {
-      for (int kk = 0; kk < hB; ++kk) {
-        const float* xrow = xs + ((kk + r) * wp + s) * CIN + cit * TCI;
-        const float* grow = gs + kk * wB * COUT + cot * TCO;
-        for (int l = 0; l < wB; ++l) {
-          float xv[TCI], gv[TCO];
-          lds<TCI>(xrow + l * CIN, xv);
-          lds<TCO>(grow + l * COUT, gv);
+  // Expanded-box row segments, 8 expanded cells each: taps in M, row y of
+  // the x box (E[(y, c)][s] = x box (y, c + s)); taps in N, band row kr
+  // (EG[(kr + d + yoff, c)][s] = gz band (kr, c - s + d - xoff), c a
+  // column of the x box).
+  __nv_bfloat16 raw[L::kSegs][kSegCh][L::kWin];
+  float dbacc[kMode == kTapsN ? COUT : 1];
 #pragma unroll
-          for (int a = 0; a < TCI; ++a)
+  for (int c = 0; c < (kMode == kTapsN ? COUT : 1); ++c) dbacc[c] = 0.f;
+
+  auto seg_load = [&](const Item& it) {
 #pragma unroll
-            for (int c = 0; c < TCO; ++c)
-              acc[a][c] = fmaf(xv[a], gv[c], acc[a][c]);
+    for (int z = 0; z < L::kSegs; ++z) {
+      const int sg = tid + T * z;
+      if (sg >= g.n_segs) continue;
+      const int row = sg / g.spr, c8 = (sg % g.spr) * kShifts;
+      if constexpr (kMode == kTapsM) {
+        const int kk = it.k0 - D + row;
+        const bool rok = kk >= 0 && kk < g.hB;
+#pragma unroll
+        for (int u = 0; u < L::kWin; ++u) {
+          const int ll = it.c0 - D + c8 + u;
+          raw[z][0][u] = (rok && ll >= 0 && ll < g.wB)
+                             ? x[it.xcell + static_cast<long long>(kk) * g.wB + ll]
+                             : __float2bfloat16_rn(0.f);
+        }
+      } else if constexpr (kMode == kTapsN) {
+        const int kk = it.k0 + row;
+#pragma unroll
+        for (int u = 0; u < L::kWin; ++u) {
+          const int bc = c8 - D - g.xoff + u, ll = it.c0 + bc;
+          const bool ok = kk < g.hB && bc >= 0 && bc < g.Wc && ll < g.wB;
+          const long long o =
+              (it.gcell + static_cast<long long>(kk) * g.wB + ll) * COUT;
+#pragma unroll
+          for (int co = 0; co < COUT; ++co)
+            raw[z][co][u] = ok ? relu_mask1(y[o + co], gr[o + co])
+                               : __float2bfloat16_rn(0.f);
         }
       }
-      if (db_thread) {
-        for (int cell = 0; cell < n_cells; ++cell) {
-          float gv[TCO];
-          lds<TCO>(gs + cell * COUT + cot * TCO, gv);
+    }
+  };
+  auto seg_store = [&](const Item& it, int slot) {
+    unsigned char* base = slot_base(slot);
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 #pragma unroll
-          for (int c = 0; c < TCO; ++c) dbacc[c] += gv[c];
+    for (int z = 0; z < L::kSegs; ++z) {
+      const int sg = tid + T * z;
+      if (sg >= g.n_segs) continue;
+      const int row = sg / g.spr, c8 = (sg % g.spr) * kShifts;
+      if constexpr (kMode == kTapsM) {
+        __nv_bfloat16* e = bf(base) + (row * g.Wc + c8) * kShifts;
+#pragma unroll
+        for (int v = 0; v < kShifts; ++v) {
+          if (c8 + v >= g.Wc) break;
+          uint32_t w4[kShifts / 2];
+#pragma unroll
+          for (int c = 0; c < kShifts / 2; ++c)
+            w4[c] = tc::pack_bf16(2 * c < K ? raw[z][0][v + 2 * c] : zero,
+                                  2 * c + 1 < K ? raw[z][0][v + 2 * c + 1] : zero);
+          *reinterpret_cast<uint4*>(e + v * kShifts) =
+              make_uint4(w4[0], w4[1], w4[2], w4[3]);
         }
+      } else if constexpr (kMode == kTapsN) {
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) {
+          __nv_bfloat16* e = bf(base + g.x_bytes) + co * g.eg_plane +
+                             ((row + D + g.yoff) * g.Wb + c8) * kShifts;
+#pragma unroll
+          for (int v = 0; v < kShifts; ++v) {
+            if (c8 + v >= g.Wb) break;
+            uint32_t w4[kShifts / 2];
+#pragma unroll
+            for (int c = 0; c < kShifts / 2; ++c) {
+              const int s0 = 2 * c, s1 = 2 * c + 1;
+              w4[c] = tc::pack_bf16(s0 < K ? raw[z][co][v + 2 * D - s0] : zero,
+                                    s1 < K ? raw[z][co][v + 2 * D - s1] : zero);
+            }
+            *reinterpret_cast<uint4*>(e + v * kShifts) =
+                make_uint4(w4[0], w4[1], w4[2], w4[3]);
+          }
+        }
+        if (centre) {
+          // this segment's own band cells: gz out, db summed
+          const int kk = it.k0 + row;
+#pragma unroll
+          for (int v = 0; v < kShifts; ++v) {
+            const int bc = c8 + v, ll = it.c0 + bc;
+            if (bc >= g.Wc || kk >= g.hB || ll >= g.wB) continue;
+            const long long o =
+                (it.gcell + static_cast<long long>(kk) * g.wB + ll) * COUT;
+#pragma unroll
+            for (int co = 0; co < COUT; ++co) {
+              // raw[z][co][u] is band column c8 - d - xoff + u
+              const __nv_bfloat16 val =
+                  g.xoff == 0 ? raw[z][co][v + D] : raw[z][co][v + 2 * D];
+              gz[o + co] = val;
+              dbacc[co] += __bfloat162float(val);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  // channels and taps in M: the staged g becomes gz in place, 16 bytes a
+  // thread, once an item (not once a warp and k-step)
+  auto mask_pass = [&](int slot) {
+    unsigned char* base = slot_base(slot);
+    const uint4* ys = reinterpret_cast<const uint4*>(base + g.y_off);
+    uint4* gs = reinterpret_cast<uint4*>(base + g.g_off);
+    for (int e = tid; e < 2 * g.n_band; e += T) {
+      const uint4 yv = ys[e];
+      uint4 gv = gs[e];
+      gv.x = relu_mask2(yv.x, gv.x);
+      gv.y = relu_mask2(yv.y, gv.y);
+      gv.z = relu_mask2(yv.z, gv.z);
+      gv.w = relu_mask2(yv.w, gv.w);
+      gs[e] = gv;
+    }
+  };
+  // ... and the centre block writes it out and sums db (thread t always
+  // holds channel t % 16)
+  auto gz_pass = [&](const Item& it, int slot) {
+    const auto* gs =
+        reinterpret_cast<const __nv_bfloat16*>(slot_base(slot) + g.g_off);
+    for (int e = tid; e < 16 * g.n_band; e += T) {
+      const int m = e >> 4, co = e & 15;
+      if (co >= COUT) continue;
+      const int o = band_cell(it, m);
+      if (o < 0) continue;
+      const __nv_bfloat16 val = gs[cell_at(m, co >> 3) + (co & 7)];
+      gz[(it.gcell + o) * COUT + co] = val;
+      dbacc[0] += __bfloat162float(val);
+    }
+  };
+
+  float acc[L::kAcc];
+#pragma unroll
+  for (int v = 0; v < L::kAcc; ++v) acc[v] = 0.f;
+
+  // B fragments of gz, cells ks * 16 .. + 15 x C_out (channels and taps
+  // in M)
+  auto load_gz = [&](const __nv_bfloat16* gs, int ks, uint32_t* gb) {
+    const int cell = ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    if constexpr (NT == 2)
+      tc::ldmatrix_x4_trans(gb, gs + cell_at(cell, lane >> 4));
+    else
+      tc::ldmatrix_x2_trans(gb, gs + cell_at(cell, 0));
+  };
+
+  auto compute = [&](int slot) {
+    const unsigned char* base = slot_base(slot);
+    const auto* xs = reinterpret_cast<const __nv_bfloat16*>(base);
+    const int n_ks = g.n_k / 16;
+    if constexpr (kMode == kChannels) {
+      // warp: tap row r, k-steps of parity `half`
+      const int r = warp % K, half = warp / K;
+      const auto* gs = reinterpret_cast<const __nv_bfloat16*>(base + g.g_off);
+      for (int ks = half; ks < n_ks; ks += 2) {
+        uint32_t gb[2 * NT];
+        load_gz(gs, ks, gb);
+        const int m = min(ks * 16 + (lane & 7) + 8 * (lane >> 4), g.n_band - 1);
+        const int v = tbl_band[m];
+        const int at = ((v >> 16) + r) * g.Wb + (v & 0xFFFF), h = (lane >> 3) & 1;
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          uint32_t a[4];
+          tc::ldmatrix_x4_trans(a, xs + cell_at(at + s, h));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tc::mma_bf16(acc + (s * NT + nt) * 4, a, gb + 2 * nt);
+        }
+      }
+    } else if constexpr (kMode == kTapsM) {
+      const auto* gs = reinterpret_cast<const __nv_bfloat16*>(base + g.g_off);
+      const int rr = (lane >> 3) & 1;
+      for (int ks = warp; ks < n_ks; ks += L::kWarps) {
+        uint32_t gb[2 * NT];
+        load_gz(gs, ks, gb);
+        const int m = min(ks * 16 + (lane & 7) + 8 * (lane >> 4), g.n_band - 1);
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          const int r = min(2 * j + rr, K - 1);
+          uint32_t a[4];
+          tc::ldmatrix_x4_trans(a, xs + (m + r * g.Wc) * kShifts);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tc::mma_bf16(acc + (j * NT + nt) * 4, a, gb + 2 * nt);
+        }
+      }
+    } else {
+      const auto* eg = reinterpret_cast<const __nv_bfloat16*>(base + g.x_bytes);
+      const int roff = lane >> 4;
+      for (int ks = warp; ks < n_ks; ks += L::kWarps) {
+        uint32_t a[4];
+        tc::ldmatrix_x4_trans(
+            a, xs + cell_at(ks * 16 + (lane & 7) + 8 * (lane >> 4), (lane >> 3) & 1));
+        const int cell = ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) {
+#pragma unroll
+          for (int j = 0; j < KS; ++j) {
+            const int r = min(2 * j + roff, K - 1);
+            uint32_t b[4];
+            tc::ldmatrix_x4_trans(
+                b, eg + co * g.eg_plane + (cell + (2 * D - r) * g.Wb) * kShifts);
+            tc::mma_bf16(acc + (co * K + 2 * j) * 4, a, b);
+            if (2 * j + 1 < K) tc::mma_bf16(acc + (co * K + 2 * j + 1) * 4, a, b + 2);
+          }
+        }
+      }
+    }
+  };
+
+  // the items, software-pipelined: item t + 1's copies (and segment loads)
+  // are in flight while item t is masked and multiplied
+  int it = part;
+  Item cur, nxt;
+  auto next_valid = [&](Item& o) {
+    for (; it < g.n_items; it += n_parts)
+      if (item_of(g, it, p, q, D, o)) return true;
+    return false;
+  };
+  bool have = next_valid(cur);
+  if (have) {
+    stage_async(cur, 0);
+    tc::cp_async_commit();
+    if constexpr (kSegMode) {
+      seg_load(cur);
+      seg_store(cur, 0);
+    }
+  }
+  int slot = 0;
+  while (have) {
+    tc::cp_async_wait_all();
+    __syncthreads();  // item landed; the other stage is no longer read
+    it += n_parts;
+    const bool more = next_valid(nxt);
+    if (more) {
+      stage_async(nxt, slot ^ 1);
+      if constexpr (kSegMode) seg_load(nxt);
+    }
+    tc::cp_async_commit();
+    if constexpr (kMode != kTapsN) {
+      mask_pass(slot);
+      __syncthreads();  // gz staged
+      if (centre) gz_pass(cur, slot);
+    }
+    compute(slot);
+    if constexpr (kSegMode)
+      if (more) seg_store(nxt, slot ^ 1);
+    cur = nxt;
+    have = more;
+    slot ^= 1;
+  }
+  __syncthreads();  // the stages are free for the combine
+
+  // the warps' sums combined in a fixed order, then this block's partial row
+  float* out = partial + static_cast<long long>(part) * (L::NW + COUT);
+  float* red = reinterpret_cast<float*>(stages);
+  auto w_at = [&](int r, int s, int ci, int co) {
+    return ((((p * K + q) * K + r) * K + s) * CIN + ci) * COUT + co;
+  };
+  if constexpr (kMode == kChannels) {
+    const int r = warp % K, half = warp / K;
+    if (half == 1) {
+#pragma unroll
+      for (int v = 0; v < L::kAcc; ++v) red[(r * L::kAcc + v) * 32 + lane] = acc[v];
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int s = 0; s < K; ++s)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) {
+            const int v = (s * NT + nt) * 4 + c4;
+            const int ci = gq + 8 * (c4 >> 1), co = nt * 8 + 2 * t4 + (c4 & 1);
+            if (ci < CIN && co < COUT)
+              out[w_at(r, s, ci, co)] = acc[v] + red[(r * L::kAcc + v) * 32 + lane];
+          }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < L::kAcc; ++v) red[(warp * L::kAcc + v) * 32 + lane] = acc[v];
+    __syncthreads();
+    for (int e = tid; e < L::kAcc * 32; e += T) {
+      const int v = e >> 5, ln = e & 31;
+      float sum = 0.f;
+      for (int w = 0; w < L::kWarps; ++w) sum += red[(w * L::kAcc + v) * 32 + ln];
+      const int c4 = v & 3, tile = v >> 2, lg = ln >> 2, lt = ln & 3;
+      if constexpr (kMode == kTapsM) {
+        // m = (r % 2, s), n = co
+        const int nt = tile % NT, r = 2 * (tile / NT) + (c4 >> 1), s = lg;
+        const int co = nt * 8 + 2 * lt + (c4 & 1);
+        if (r < K && s < K && co < COUT) out[w_at(r, s, 0, co)] = sum;
+      } else {
+        // m = ci, n = s of tap row r, channel co
+        const int r = tile % K, co = tile / K;
+        const int ci = lg + 8 * (c4 >> 1), s = 2 * lt + (c4 & 1);
+        if (ci < CIN && s < K) out[w_at(r, s, ci, co)] = sum;
       }
     }
   }
-
-  if (!worker) return;
-  float* out = partial + static_cast<int64_t>(part) * (S::NW + COUT);
+  if (centre) {
+    if constexpr (kMode == kTapsN) {
 #pragma unroll
-  for (int a = 0; a < TCI; ++a)
-#pragma unroll
-    for (int c = 0; c < TCO; ++c) {
-      const int ci = cit * TCI + a, co = cot * TCO + c;
-      out[((((p * K + q) * K + r) * K + s) * CIN + ci) * COUT + co] = acc[a][c];
+      for (int co = 0; co < COUT; ++co) dbs[tid * COUT + co] = dbacc[co];
+    } else {
+      dbs[tid] = dbacc[0];
     }
-  if (db_thread) {
-#pragma unroll
-    for (int c = 0; c < TCO; ++c) out[S::NW + cot * TCO + c] = dbacc[c];
+    __syncthreads();
+    if (tid < COUT) {
+      float sum = 0.f;
+      if constexpr (kMode == kTapsN) {
+        for (int t = 0; t < T; ++t) sum += dbs[t * COUT + tid];
+      } else {
+        for (int u = 0; u < T / 16; ++u) sum += dbs[tid + 16 * u];
+      }
+      out[L::NW + tid] = sum;
+    }
   }
 }
 
@@ -227,29 +604,102 @@ __global__ void nc_vjp_reduce_kernel(const float* __restrict__ partial,
   out[e] = sum;
 }
 
+// Shared memory of a tiling (filling in its sizes and offsets): the band
+// and box tables, the db partials, then two stages (the combine reuses
+// them); SIZE_MAX where the segments would not cover the expanded box.
+template <int K, int CIN, int COUT>
+size_t smem_bytes(Geo& g) {
+  using L = Layer<K, CIN, COUT>;
+  constexpr int d = L::D;
+  // the taps in N read the unshifted x: a band that spans the plane's
+  // rows (columns) needs no halo there, the volume's zeros add nothing
+  const bool n_mode = L::kMode == kTapsN;
+  g.yoff = n_mode && g.R >= g.hB ? 0 : d;
+  g.xoff = n_mode && g.Wc >= g.wB ? 0 : d;
+  g.Hx = g.R + 2 * g.yoff;
+  g.Wb = g.Wc + 2 * g.xoff;
+  g.n_band = g.R * g.Wc;
+  g.n_box = L::kMode == kTapsM ? 0 : g.Hx * g.Wb;
+  size_t off = round16(4 * g.n_band);
+  g.tbl_box = static_cast<int>(off);
+  off += round16(4 * g.n_box);
+  g.dbs = static_cast<int>(off);
+  off += round16(4 * L::kThreads * (n_mode ? COUT : 1));
+  g.stages = static_cast<int>(off);
+  g.n_segs = 0;
+  g.spr = 1;
+  g.eg_plane = 0;
+  if (L::kMode == kTapsN) {
+    g.n_k = round16(g.n_box);
+    g.x_bytes = g.n_k * kCell * 2;
+    g.spr = (g.Wb + kShifts - 1) / kShifts;
+    g.n_segs = g.R * g.spr;
+    // rows d + yoff .. d + yoff + R - 1 hold the band; the rest (and 16
+    // cells past the end, read by the padding cells of the last k-step)
+    // stay zero
+    g.eg_plane = ((g.Hx + 2 * d) * g.Wb + 16) * kShifts;
+    g.y_off = g.g_off = 0;
+    g.stage_bytes = g.x_bytes + COUT * g.eg_plane * 2;
+  } else {
+    g.n_k = round16(g.n_band);
+    if (L::kMode == kTapsM) {
+      g.x_bytes = round16(g.Hx * g.Wc * kShifts * 2);
+      g.spr = (g.Wc + kShifts - 1) / kShifts;
+      g.n_segs = g.Hx * g.spr;
+    } else {
+      g.x_bytes = round16(g.n_box * kCell * 2);
+    }
+    g.y_off = g.x_bytes;
+    g.g_off = g.y_off + g.n_k * kCell * 2;
+    g.stage_bytes = g.g_off + g.n_k * kCell * 2;
+  }
+  if (g.n_segs > L::kThreads * L::kSegs) return SIZE_MAX;
+  const size_t red = static_cast<size_t>(L::kCombineWarps) * L::kAcc * 32 * 4;
+  const size_t stages = 2 * static_cast<size_t>(g.stage_bytes);
+  return off + (stages > red ? stages : red);
+}
+
 template <int K, int CIN, int COUT>
 cudaError_t launch_dw(const void* x, const void* y, const void* g, void* gz,
                       void* partial, int B, int hA, int wA, int hB, int wB,
                       int n_parts, cudaStream_t stream) {
-  using S = DwShape<K, CIN, COUT>;
-  if (static_cast<int64_t>(B) * hA * wA * hB * wB <= 0 || n_parts <= 0)
+  using L = Layer<K, CIN, COUT>;
+  if (static_cast<int64_t>(B) * hA * wA * hB * wB <= 0 || n_parts <= 0 ||
+      n_parts > 65535)
     return cudaErrorInvalidValue;
-  const int64_t smem =
-      4 * (static_cast<int64_t>(xs_floats(K, CIN, hB, wB)) + hB * wB * COUT);
-  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  auto kernel = nc_vjp_dw_kernel<K, CIN, COUT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  // the band: whole planes where they fit, else fewer rows, else fewer
+  // columns; then the bands evened out
+  Geo geo{B, hA, wA, hB, wB};
+  geo.R = hB;
+  geo.Wc = wB;
+  while (smem_bytes<K, CIN, COUT>(geo) > kSmemBudget) {
+    if (geo.R > 1)
+      --geo.R;
+    else if (geo.Wc > 1)
+      geo.Wc = (geo.Wc + 1) / 2;
+    else
+      return cudaErrorInvalidValue;
   }
-  kernel<<<dim3(n_parts, K * K), S::THREADS, static_cast<size_t>(smem),
-           stream>>>(
+  geo.n_rb = (hB + geo.R - 1) / geo.R;
+  geo.R = (hB + geo.n_rb - 1) / geo.n_rb;
+  geo.n_cb = (wB + geo.Wc - 1) / geo.Wc;
+  geo.Wc = (wB + geo.n_cb - 1) / geo.n_cb;
+  const size_t smem = smem_bytes<K, CIN, COUT>(geo);
+  const long long n_items =
+      static_cast<long long>(B) * hA * wA * geo.n_rb * geo.n_cb;
+  if (n_items > INT_MAX || static_cast<long long>(hB) * wB > INT_MAX)
+    return cudaErrorInvalidValue;
+  geo.n_items = static_cast<int>(n_items);
+  auto kernel = nc_vjp_dw_kernel<K, CIN, COUT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(K * K, n_parts), L::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(y),
       static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(gz),
-      static_cast<float*>(partial), B, hA, wA, hB, wB);
+      static_cast<float*>(partial), geo);
   return cudaGetLastError();
 }
 
@@ -277,16 +727,10 @@ int nc_vjp_supported(int k, int c_in, int c_out) {
   return 0;
 }
 
-// Shared memory one dW block needs, in bytes (the launch refuses more than
-// 232448)
-long long nc_vjp_dw_smem_bytes(int k, int c_in, int c_out, int hB, int wB) {
-  return 4LL * (xs_floats(k, c_in, hB, wB) + static_cast<long long>(hB) * wB * c_out);
-}
-
 // Enqueues the mask + dW/db partials of one layer on `stream`: writes gz
 // (B, hA, wA, hB, wB, C_out) bf16 and partial (n_parts, k^4*C_in*C_out +
-// C_out) f32.  Returns the launch's cudaError_t (0 on success), or -1 for a
-// shape that is not compiled in.
+// C_out) f32.  x, y and g must start on 16 bytes.  Returns the launch's
+// cudaError_t (0 on success), or -1 for a shape that is not compiled in.
 int nc_vjp_dw_bf16(const void* x, const void* y, const void* g, void* gz,
                    void* partial, int B, int hA, int wA, int hB, int wB, int k,
                    int c_in, int c_out, int n_parts, void* stream) {

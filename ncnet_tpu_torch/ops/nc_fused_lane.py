@@ -169,6 +169,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if it does not start on 16 bytes: the port's CUDA
+    kernels stage their inputs with 16-byte ``cp.async`` copies."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
     """Launch one layer of ``csrc/nc_conv4d.cu``: with bias ``b`` the
     forward (bias + ReLU), with ``b=None`` the transposed variant (``w``
@@ -194,9 +200,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
         raise NotImplementedError(
             f"nc_conv4d is not compiled for k={fwd[0]}, {fwd[1]}->{fwd[2]} "
             f"channels (add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
-    # the kernel's 16-byte copies need both to start on 16 bytes
-    x, w = (t.contiguous() for t in (x, w))
-    x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
+    x, w = (_aligned16(t.contiguous()) for t in (x, w))
     out = torch.empty(x.shape[:5] + (c_out,), dtype=torch.bfloat16,
                       device=x.device)
     bsz, ha, wa, hb, wb = (int(d) for d in x.shape[:5])

@@ -17,8 +17,9 @@ cotangent ``Γ_l`` of ``y_l``:
 On CUDA tensors three hand-written kernels do this, each with its own
 launch count in ``launches``:
 
-  * ``nc_vjp_dw`` (``csrc/nc_conv4d_vjp.cu``): the mask, ``gz``, and f32
-    per-block partials of dW and db;
+  * ``nc_vjp_dw`` (``csrc/nc_conv4d_vjp.cu``, on the tensor cores): the
+    mask, ``gz``, and f32 per-block partials of dW and db, over bands of
+    the (hB, wB) plane, so any plane size runs;
   * ``nc_vjp_reduce`` (same source): the partials summed in a fixed order,
     so two runs give bit-identical gradients (no float atomics);
   * ``nc_conv4d_transpose`` (``csrc/nc_conv4d.cu``, the forward kernel's
@@ -109,8 +110,6 @@ def _library() -> ctypes.CDLL:
     lib.nc_vjp_reduce_f32.restype = ctypes.c_int
     lib.nc_vjp_supported.argtypes = [ctypes.c_int] * 3
     lib.nc_vjp_supported.restype = ctypes.c_int
-    lib.nc_vjp_dw_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.nc_vjp_dw_smem_bytes.restype = ctypes.c_longlong
     lib.nc_vjp_error_string.argtypes = [ctypes.c_int]
     lib.nc_vjp_error_string.restype = ctypes.c_char_p
     return lib
@@ -149,11 +148,7 @@ def nc_vjp_dw(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
         raise NotImplementedError(
             f"nc_vjp_dw is not compiled for k={k}, {c_in}->{c_out} channels "
             f"(add the shape to NC_VJP_SHAPES in csrc/{SOURCE})")
-    smem = lib.nc_vjp_dw_smem_bytes(k, c_in, c_out, hb, wb)
-    if smem > 232448:
-        raise NotImplementedError(
-            f"nc_vjp_dw stages one (hB, wB) = ({hb}, {wb}) plane in shared "
-            f"memory: {smem} bytes, over the 232448 a block may use")
+    x, y, g = (nc_fused_lane._aligned16(t) for t in (x, y, g))
     n_parts = min(DW_PARTIALS, bsz * ha * wa)
     gz = torch.empty_like(y)
     partial = torch.empty((n_parts, k ** 4 * c_in * c_out + c_out),

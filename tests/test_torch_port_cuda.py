@@ -62,6 +62,18 @@ FORWARD_SHAPES = SHAPES + [
     ((2, 7, 6, 5, 8), (3, 3, 3), (10, 10, 1)),
     ((2, 5, 6, 7, 6), (5, 5, 5), (4, 4, 4)),
 ]
+# the backward kernels (B7) also at: a plane wider than 40 cells with the
+# PF-Pascal stack, more than one block's shared memory holds at 16 -> 16
+# (images past ~640 px); every border class of a 6^4 tile at k = 5, 3
+# tiles; a wB wider than one band's columns; channels 10 (the default
+# ModelConfig stack) and 4 -> 4
+BACKWARD_SHAPES = SHAPES + [
+    ((1, 4, 5, 50, 50), (5, 5, 5), (16, 16, 1)),
+    ((3, 6, 6, 6, 6), (5, 5, 5), (16, 16, 1)),
+    ((1, 3, 2, 4, 300), (5, 5, 5), (16, 16, 1)),
+    ((2, 7, 6, 5, 8), (3, 3, 3), (10, 10, 1)),
+    ((2, 5, 6, 7, 6), (5, 5, 5), (4, 4, 4)),
+]
 
 
 @pytest.fixture
@@ -126,7 +138,7 @@ def test_engine_serves_through_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,kernels,channels", SHAPES)
+@pytest.mark.parametrize("shape,kernels,channels", BACKWARD_SHAPES)
 def test_backward_kernels_match_twin(cuda, shape, kernels, channels):
     """dW, db and every ``Γ`` (``dx`` included) of the B3 kernels against
     the twin on the same saved activations; one launch of each kernel per

@@ -1,8 +1,9 @@
 """The work the port's kernel bounds rest on, checked on the CPU.
 
 ``chip_smoke.py`` reads each kernel's time against a bound computed from
-``stack_work`` (the NC stack, B2) and ``gather_work`` (the tile
-correlation, B4); a redesigned kernel must be read against the same work,
+``stack_work`` (the NC stack, B2, and its backward, B3), ``dw_work`` (one
+layer's dW/db, B7) and ``gather_work`` (the tile correlation, B4); a
+redesigned kernel must be read against the same work,
 so these counts are pinned here to the numbers PERF.md's bounds use.  The
 layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
 its list and the backward's (``csrc/nc_conv4d_vjp.cu``) must agree, and
@@ -119,3 +120,35 @@ def test_gather_work(b, n, k, p, c, side, flops, nbytes):
     if k == 4:
         bound_ms = got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3
         assert bound_ms == pytest.approx(0.0689, abs=1e-4)
+
+
+CHUNK = (8, 25, 25, 25, 25)  # a training chunk: 4 pairs folded with their transposes
+
+
+@pytest.mark.parametrize("c_in,c_out,flops,nbytes,bound_by", [
+    # B7's three layers on a training chunk: PERF.md's per-layer bounds;
+    # bytes: x, y and g read once, gz written once (bf16), dW and db once
+    # (f32)
+    (1, 16, 5.1337e10, 306_290_064, "bytes"),
+    (16, 16, 8.2137e11, 400_640_064, "operations"),
+    (16, 1, 5.1337e10, 118_790_004, "operations"),
+])
+def test_dw_work(c_in, c_out, flops, nbytes, bound_by):
+    got, got_bytes = chip_smoke.dw_work(CHUNK, 5, c_in, c_out)
+    assert got == 2 * 8 * taps_in_volume(25, 5) ** 4 * c_in * c_out
+    assert got == pytest.approx(flops, rel=1e-4)
+    assert got_bytes == nbytes
+    t_ops = got / chip_smoke.PEAK_BF16_FLOPS
+    t_bytes = got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    assert ("operations" if t_ops >= t_bytes else "bytes") == bound_by
+
+
+def test_backward_work_pins_the_bound():
+    """The chunk's backward without dx: the three dW and the input
+    gradients of layers 2 and 1 (the forward's count each)."""
+    flops, _ = chip_smoke.stack_work(CHUNK, *PF, backward=True)
+    dw = [chip_smoke.dw_work(CHUNK, 5, c_in, c_out)[0]
+          for c_in, c_out in ((1, 16), (16, 16), (16, 1))]
+    assert flops == sum(dw) + dw[1] + dw[2]
+    assert flops == pytest.approx(1.797e12, rel=1e-3)
+    assert flops / chip_smoke.PEAK_BF16_FLOPS * 1e3 == pytest.approx(1.817, abs=1e-3)
