@@ -24,10 +24,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      8 × 25⁴, each layer's dW/db with its FLOP, bound and TFLOP/s beside
      the first design's ms; also held at a 50 × 50 plane), the backward
      on the same saved activations as its twin; the small-C_out conv4d (B5,
-     ``csrc/conv4d_small_cout.cu``) at the fp32 800² path's (4, 50⁴, 16)
+     ``csrc/conv4d_small_cout.cu``, the tensor-core kernel for k = 3 and
+     5, f32 as three bf16 products) at the fp32 800² path's (4, 50⁴, 16)
      → 1, the coarse-to-fine tiles' (20000, 6⁴, 16) → 1, a k = 3 10 → 1
-     case and a bf16 2-channel case, two launches bit-identical, with its
-     bound and the cuDNN ``coutfold`` formulation's time as context;
+     case and a bf16 2-channel case, two launches bit-identical, each shape
+     timed beside the first design (the CUDA-core kernel) on the same
+     inputs, with its bound, TFLOP/s and the cuDNN ``coutfold``
+     formulation's time as context; the main shape again with all-positive
+     inputs against the twin and the three products' emulation
+     (``split_products_reference``);
   4. the serving path at full width: ``BatchMatchEngine`` with the
      PF-Pascal NCNet (ResNet-101 to layer3, NC kernels (5, 5, 5) with
      channels (16, 16, 1), bf16, 400×400 pairs, random weights from a
@@ -76,8 +81,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      pairs at 400² (the FFT tier: no B2 or B5 launch; the FFT stack held
      against the plain direct stack on the path's volume) and at 800² (a
      50⁴ volume no tier takes: per layer tapfold, unroll and B5, the two
-     symmetric passes one after the other, so 2 B5 launches per request;
-     each B5 call held against its twin on the path's input, the filtered
+     symmetric passes one after the other, so 2 B5 launches per request,
+     all on the tensor-core kernel; each B5 call held against its twin on
+     the path's input, the filtered
      volume against the forward with the twin); a stage line and the peak
      memory;
   T. (run right after phase A) the two probe tools' entry points, each
@@ -128,6 +134,9 @@ SERVE_TOLERANCE = 7 * 2.0 ** -7
 # order, 2e-4 as the JAX suite holds the TPU kernel (tests/test_ops_basic.py);
 # in bf16 both round an f32 sum once, so at most one bf16 ulp, 2^-7
 B5_TOLERANCE = {"float32": 2e-4, "bfloat16": 2.0 ** -7}
+# the tensor-core B5 against split_products_reference, its rounding points
+# emulated: the same three bf16 products summed in f32 in another order
+B5_SPLIT_TOLERANCE = 1e-5
 # an fp32 stack or filtered volume, FFT tier or B5 path vs the plain direct
 # path: f32 round-off of the transforms (tests/test_torch_port_tiers.py)
 FP32_TOLERANCE = 1e-4
@@ -503,69 +512,155 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
 
 
 def b5_work(shape, k, c_in, c_out, dtype):
-    """(FLOP, bytes, peak FLOP/s) of one B5 launch: multiply-adds only at
-    taps inside the volume; the volume, weights and output once each."""
+    """(FLOP, bytes, bf16 products) of one B5 launch: multiply-adds only at
+    taps inside the volume; the volume, weights and output once each; the
+    tensor-core kernel computes an f32 volume as three bf16 products (each
+    at the bf16 peak), a bf16 volume as one."""
     b, *dims = shape
     cells = _prod(dims)
-    d = k // 2
-    taps = _prod(sum(min(n - 1, x + d) - max(0, x - d) + 1 for x in range(n))
-                 for n in dims)
     size = 4 if dtype == "float32" else 2
-    flops = 2 * b * taps * c_in * c_out
+    flops = 2 * b * _taps(dims, k) * c_in * c_out
     nbytes = size * (b * cells * c_in + k ** 4 * c_in * c_out
                      + b * cells * c_out)
-    return flops, nbytes, PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    return flops, nbytes, 3 if dtype == "float32" else 1
+
+
+def b5_inputs(torch, shape, k, c_in, c_out, dtype, dev, positive=False):
+    """Seeded B5 inputs.  ``positive``: every x and w just above a bf16
+    rounding midpoint (``conv4d_pallas.near_bf16_midpoints``), where one
+    bf16 product would miss the f32 sum by ~2e-3 of it and the three
+    products do not."""
+    import numpy as np
+
+    from ncnet_tpu_torch.ops.conv4d_pallas import near_bf16_midpoints
+
+    g = torch.Generator().manual_seed(6)
+    if positive:
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(near_bf16_midpoints(rng, shape + (c_in,), 0))
+        w = torch.from_numpy(near_bf16_midpoints(rng, (k,) * 4 + (c_in, c_out), -4))
+    else:
+        x = torch.randn(shape + (c_in,), generator=g)
+        w = torch.randn((k,) * 4 + (c_in, c_out), generator=g) * 0.05
+    return x.to(dev, getattr(torch, dtype)), w.to(dev)
 
 
 def check_b5(torch, conv4d_pallas, dev):
-    """Phase 3, B5: the kernel against its twin at every shape, two
-    launches bit-identical; the main shape's kernel, plain, bound and cuDNN
-    ``coutfold`` (context) times."""
+    """Phase 3, B5: at every shape both kernels, the one the wrapper picks
+    (the tensor-core one for k = 3 and 5) and the first design (the CUDA-
+    core kernel, which takes every other odd k), against the twin, two
+    launches of each bit-identical; then their times, the plain twin's and
+    the cuDNN ``coutfold`` formulation's (context), the bound and TFLOP/s.
+    At the main shape: an all-positive f32 volume against the twin and
+    ``split_products_reference``, and the control of the f32 tolerance (one
+    bf16 product a term, emulated, misses it).  Returns the main shape's
+    numbers and every shape's times."""
     from ncnet_tpu_torch.ops.conv4d import conv4d
 
-    main = None
+    main, by_shape = None, {}
     for name, shape, k, c_in, c_out, dtype in B5_SHAPES:
-        g = torch.Generator().manual_seed(6)
-        x = torch.randn(shape + (c_in,), generator=g).to(dev, getattr(torch, dtype))
-        w = (torch.randn((k,) * 4 + (c_in, c_out), generator=g) * 0.05).to(dev)
-        got = conv4d_pallas.conv4d_small_cout_cuda(x, w)
-        again = conv4d_pallas.conv4d_small_cout_cuda(x, w)
+        x, w = b5_inputs(torch, shape, k, c_in, c_out, dtype, dev)
         want = conv4d_pallas.conv4d_small_cout_reference(x, w)
-        torch.cuda.synchronize()
-        err = normalized_err(got, want)
-        max_abs = float((got.float() - want.float()).abs().max())
-        same = torch.equal(got, again)
         tol = B5_TOLERANCE[dtype]
-        print(f"check B5 {name}: x {tuple(x.shape)} {dtype}, k {k}, {c_in} -> "
-              f"{c_out}: max_abs_err {max_abs:.6g} normalized {err:.3e} "
-              f"(tolerance {tol:.3e}); two launches bit-identical: {same}",
-              flush=True)
-        if not (err <= tol and same and torch.isfinite(got.float()).all()):
-            raise SystemExit(f"B5 disagrees with its twin at {name}")
+        errs = {}
+        for kernel, launch in (
+                ("kernel", lambda: conv4d_pallas.conv4d_small_cout_cuda(x, w)),
+                ("first design", lambda: conv4d_pallas._launch(
+                    x, w, tensor_core=False))):
+            got, again = launch(), launch()
+            torch.cuda.synchronize()
+            errs[kernel] = (float((got.float() - want.float()).abs().max()),
+                            normalized_err(got, want))
+            same = torch.equal(got, again)
+            print(f"check B5 {name} ({kernel}): x {tuple(x.shape)} {dtype}, k "
+                  f"{k}, {c_in} -> {c_out}: max_abs_err {errs[kernel][0]:.6g} "
+                  f"normalized {errs[kernel][1]:.3e} (tolerance {tol:.3e}); "
+                  f"two launches bit-identical: {same}", flush=True)
+            if not (errs[kernel][1] <= tol and same
+                    and torch.isfinite(got.float()).all()):
+                raise SystemExit(f"B5 ({kernel}) disagrees with its twin at {name}")
+            del got, again
+        del want
+        iters = 5
+        run_k = lambda: conv4d_pallas.conv4d_small_cout_cuda(x, w)  # noqa: E731
+        run_c = lambda: conv4d_pallas._launch(x, w, tensor_core=False)  # noqa: E731
+        run_p = lambda: conv4d_pallas.conv4d_small_cout_reference(x, w)  # noqa: E731
+        # in turns: plain, kernel, first design, first design, kernel, plain
+        ms_p = [cuda_ms(run_p, iters)]
+        ms_k = [cuda_ms(run_k, iters)]
+        ms_c = [cuda_ms(run_c, iters), cuda_ms(run_c, iters)]
+        ms_k.append(cuda_ms(run_k, iters))
+        ms_p.append(cuda_ms(run_p, iters))
+        w_x = w.to(x.dtype)
+        fold_ms = cuda_ms(lambda: conv4d(x, w_x, variant="coutfold"), iters)
+        flops, nbytes, products = b5_work(shape, k, c_in, c_out, dtype)
+        t_ops = products * flops / PEAK_BF16_FLOPS
+        t_bytes = nbytes / PEAK_HBM_BYTES_PER_S
+        numbers = {
+            "max_abs_err": errs["kernel"][0], "normalized_err": errs["kernel"][1],
+            "cuda_core_normalized_err": errs["first design"][1],
+            "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
+            "cuda_core_ms": sum(ms_c) / 2,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "coutfold_ms": fold_ms,
+        }
+        # the FLOP at the CUDA cores' f32 peak: context, printed only
+        cuda_core_bound_ms = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
+        print(f"timing B5 {name} (one launch): kernel {ms_k} ms, first design "
+              f"(CUDA cores) {ms_c} ms, plain (unroll, cuDNN f32) {ms_p} ms, "
+              f"context: the coutfold formulation (cuDNN f32) {fold_ms:.4f} "
+              f"ms; {flops:.4g} FLOP as {products} bf16 product(s), "
+              f"{nbytes:.4g} bytes, bound {numbers['bound_ms']:.4f} ms "
+              f"({numbers['bound_by']}; on the CUDA cores "
+              f"{cuda_core_bound_ms:.4f}); kernel "
+              f"{flops / numbers['ms'] / 1e9:.2f} TFLOP/s, first design "
+              f"{flops / numbers['cuda_core_ms'] / 1e9:.2f}", flush=True)
+        by_shape[name] = {key: numbers[key] for key in (
+            "ms", "cuda_core_ms", "plain_ms", "bound_ms")}
         if main is None:
-            iters = 5
-            run_k = lambda: conv4d_pallas.conv4d_small_cout_cuda(x, w)  # noqa: E731
-            run_p = lambda: conv4d_pallas.conv4d_small_cout_reference(x, w)  # noqa: E731
-            ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, iters)]
-            ms_k.append(cuda_ms(run_k, iters))
-            ms_p.append(cuda_ms(run_p, iters))
-            fold_ms = cuda_ms(lambda: conv4d(x, w, variant="coutfold"), iters)
-            flops, nbytes, peak = b5_work(shape, k, c_in, c_out, dtype)
-            t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_PER_S
-            main = {
-                "max_abs_err": max_abs, "normalized_err": err,
-                "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "coutfold_ms": fold_ms,
-            }
-            print(f"timing B5 {name} (one launch): kernel {ms_k} ms, plain "
-                  f"(unroll, cuDNN f32) {ms_p} ms, context: the coutfold "
-                  f"formulation (cuDNN f32) {fold_ms:.4f} ms; {flops:.4g} "
-                  f"FLOP, {nbytes:.4g} bytes, bound {main['bound_ms']:.4f} "
-                  f"ms ({main['bound_by']}), {flops / main['ms'] / 1e9:.2f} "
-                  "TFLOP/s", flush=True)
-    return main
+            main = numbers
+
+            def one_product_err(x, w, twin):
+                # the control of the f32 tolerance: one bf16 product a term
+                # (x and w rounded to bf16, f32 sums), what a kernel that
+                # dropped the lo products computes, must miss it
+                one = conv4d(x.to(torch.bfloat16).float(),
+                             w.to(torch.bfloat16).float(), variant="unroll")
+                err = normalized_err(one, twin)
+                print(f"control B5 {name}: one bf16 product a term vs twin "
+                      f"normalized {err:.3e} (must miss {tol:.1e})", flush=True)
+                if not err > tol:
+                    raise SystemExit(f"the f32 tolerance at {name} does not "
+                                     "catch one bf16 product a term")
+                return err
+
+            err_one = one_product_err(
+                x, w, conv4d_pallas.conv4d_small_cout_reference(x, w))
+            # the main shape with all-positive inputs: the twin, and the
+            # three products' emulation (the same terms, only the f32 sums'
+            # order differs)
+            x, w = b5_inputs(torch, shape, k, c_in, c_out, dtype, dev,
+                             positive=True)
+            got = conv4d_pallas.conv4d_small_cout_cuda(x, w)
+            twin = conv4d_pallas.conv4d_small_cout_reference(x, w)
+            err_twin = normalized_err(got, twin)
+            err_split = normalized_err(
+                got, conv4d_pallas.split_products_reference(x, w))
+            print(f"check B5 {name}, all-positive inputs: kernel vs twin "
+                  f"normalized {err_twin:.3e} (tolerance {tol:.3e}), vs the "
+                  f"three-product emulation {err_split:.3e} (tolerance "
+                  f"{B5_SPLIT_TOLERANCE:.1e})", flush=True)
+            if not (err_twin <= tol and err_split <= B5_SPLIT_TOLERANCE):
+                raise SystemExit(f"B5 disagrees on all-positive inputs at {name}")
+            main.update(positive_normalized_err=err_twin,
+                        positive_split_normalized_err=err_split,
+                        one_product_normalized_err=err_one,
+                        positive_one_product_normalized_err=one_product_err(
+                            x, w, twin))
+            del got, twin
+        del x, w
+    return main, by_shape
 
 
 def plain_stack(params, x):
@@ -1743,7 +1838,7 @@ def serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         nc_fused_lane.launches = 0
-        conv4d_pallas.launches = 0
+        conv4d_pallas.launches_by_kernel.update(tensor_core=0, cuda_core=0)
         walls, tables = [], []
         for src, tgt in requests[:SERVE_REQUESTS]:
             t0 = time.perf_counter()
@@ -1751,20 +1846,24 @@ def serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev):
             walls.append((time.perf_counter() - t0) * 1e3)
         launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
                     "conv4d_small_cout": conv4d_pallas.launches}
+        b5_kernels = dict(conv4d_pallas.launches_by_kernel)
         tier = nc_fused_lane.last_selected_tier()
         peak = torch.cuda.max_memory_allocated()
         where = f"fp32 serve {side}"
         print(f"{where}: {SERVE_REQUESTS} requests of {SERVE_BATCH} pairs at "
               f"{side}x{side}, wall ms per request {walls}, peak memory {peak} "
-              f"bytes, NC stack tier {tier!r}, launches {launches}", flush=True)
+              f"bytes, NC stack tier {tier!r}, launches {launches}, B5 by "
+              f"kernel {b5_kernels}", flush=True)
         check_tables(tables, (side // 16) ** 2, where)
         fft_side = side == FP32_SIDES[0]
         n_b5 = 0 if fft_side else 2 * SERVE_REQUESTS
         want_tier = "fft" if fft_side else "xla"
         if launches != {"nc_conv4d_bf16": 0, "conv4d_small_cout": n_b5} \
+                or b5_kernels != {"tensor_core": n_b5, "cuda_core": 0} \
                 or tier != want_tier:
             raise SystemExit(f"{where}: expected the {want_tier!r} tier, no B2 "
-                             f"launch and {n_b5} B5 launches")
+                             f"launch and {n_b5} B5 launches, all on the "
+                             "tensor-core kernel")
         b5_by_side[f"serve_fp32_{side}"] = launches["conv4d_small_cout"]
 
         # one request again with its FFT or B5 calls recorded, each held
@@ -1903,7 +2002,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     main_numbers = check_kernels(torch, nc_fused_lane, dev)
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
-    b5_numbers = check_b5(torch, conv4d_pallas, dev)
+    b5_numbers, b5_by_shape = check_b5(torch, conv4d_pallas, dev)
     gather_numbers = check_gather(torch, sparse_corr, dev)
     l2_numbers, probe_numbers = probe_tools(torch, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
@@ -1971,10 +2070,14 @@ def main() -> int:
         "replaces": "ncnet_tpu/ops/conv4d_pallas.py:146",
         "launches": sum(b5_by_path.values()),
         "launches_by_path": b5_by_path,
-        # one launch at the fp32 800² path's shape (4, 50⁴, 16) -> 1; the
-        # largest error of the path's own launches beside it
+        # k = 3, 5 on the tensor cores (f32 as three bf16 products)
+        "design": "tensor-core, PR 8",
+        # one launch at the fp32 800² path's shape (4, 50⁴, 16) -> 1 (its
+        # cuda_core_ms and cuda_core_normalized_err: the first design on the
+        # same inputs); the largest error of the path's own launches beside it
         **b5_numbers,
         "path_max_abs_err": b5_path_err,
+        "ms_by_shape": b5_by_shape,
         # no single PyTorch call computes a conv4d; coutfold_ms (above) is
         # the cuDNN formulation's time, context only
         "library_ms": None,

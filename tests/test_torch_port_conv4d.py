@@ -263,3 +263,81 @@ def test_b5_twin_takes_any_cout_and_f64():
     want = tconv.conv4d(tx, tw, variant="unroll")
     assert got.dtype == torch.float64
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# B5's tensor-core kernel: f32 as three bf16 products, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# (b, ha, wa, hb, wb, cin, cout, k): k 3 and 5, C_in 10 (a partial
+# 16-channel chunk) and 16, C_out 1 and 3
+SPLIT_SHAPES = [(1, 5, 4, 6, 5, 10, 1, 3), (1, 5, 5, 4, 6, 16, 1, 5),
+                (2, 4, 5, 5, 4, 16, 3, 3), (1, 4, 6, 5, 5, 10, 3, 5)]
+
+
+def split_inputs(shape, kind, seed=21):
+    """``randn``: x standard normal, w 0.1 x standard normal.  ``positive``:
+    every x and w just above a bf16 rounding midpoint
+    (``near_bf16_midpoints``): bf16 rounds every one up, to a different
+    grid point, so one bf16 product per term misses the f32 sum by ~2e-3 of
+    it (the control below) while the f32 sums' own round-off stays
+    random."""
+    b, ha, wa, hb, wb, cin, cout, k = shape
+    if kind == "randn":
+        return b5_inputs(shape, seed)
+    r = rng(seed)
+    return (tpallas.near_bf16_midpoints(r, (b, ha, wa, hb, wb, cin), 0),
+            tpallas.near_bf16_midpoints(r, (k,) * 4 + (cin, cout), -4))
+
+
+def normalized(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["randn", "positive"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_products_match_f64(shape, kind):
+    """The three products (x_hi w_hi + x_hi w_lo + x_lo w_hi) are within
+    2e-5 of the f64 conv4d: each term's relative error is at most ~2^-15
+    (the dropped x_lo w_lo under 2^-16, the lo roundings ~2^-18), whatever
+    the terms' signs."""
+    x, w = split_inputs(shape, kind)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    got = tpallas.split_products_reference(tx, tw)
+    want = tconv.conv4d(tx.double(), tw.double(), variant="unroll")
+    assert got.dtype == torch.float32
+    assert normalized(got.numpy(), want.numpy()) <= 2e-5
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_one_bf16_product_misses_positive_inputs(shape):
+    """The control of the positive inputs: a single bf16 product a term (x
+    and w rounded to bf16, f32 sums) misses the f32 bound of 2e-4 there,
+    so a kernel that dropped the lo products would fail the card's check."""
+    x, w = split_inputs(shape, "positive")
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    one = tconv.conv4d(tx.to(torch.bfloat16).float(),
+                       tw.to(torch.bfloat16).float(), variant="unroll")
+    want = tconv.conv4d(tx.double(), tw.double(), variant="unroll")
+    assert normalized(one.numpy(), want.numpy()) > 2e-4
+
+
+@pytest.mark.parametrize("kind", ["randn", "positive"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_products_match_jax_kernel(shape, kind):
+    """The emulation against the Pallas kernel in interpret mode, at the
+    JAX suite's f32 tolerance (2e-4 normalized)."""
+    x, w = split_inputs(shape, kind)
+    want = jpallas._fwd_impl(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    got = tpallas.split_products_reference(torch.from_numpy(x), torch.from_numpy(w))
+    assert normalized(got.numpy(), np.asarray(want)) <= 2e-4
+
+
+def test_split_products_of_a_bf16_volume_is_the_twin():
+    """A bf16 volume is one product: the emulation is the twin, bit for bit."""
+    x, w = b5_inputs((1, 4, 5, 4, 6, 16, 2, 3), seed=22)
+    tx, tw = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w)
+    got = tpallas.split_products_reference(tx, tw)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, tpallas.conv4d_small_cout_reference(tx, tw))

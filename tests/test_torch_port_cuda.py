@@ -10,7 +10,9 @@ Tolerance: the gather kernel (B4) and its twin both sum in f32 and round
 once to bf16, so they agree within one bf16 ulp of the largest output
 (2^-7 normalized); so do B5 (the small-C_out conv4d) and its twin in bf16,
 and in f32 they agree within 2e-4 normalized (the JAX suite's tolerance
-for the TPU kernel).  The FFT tier against the plain direct stack: 1e-2
+for the TPU kernel); B5's tensor-core kernel computes f32 as three bf16
+products, within 1e-5 of their emulation, which sums the same products
+in another order.  The FFT tier against the plain direct stack: 1e-2
 in bf16 (one-ulp flips of bf16 layer outputs), 1e-4 in f32 (round-off of
 the transforms).  A kernel and its twin (``nc_stack_reference``,
 ``layer_vjp_reference``) share every bf16 rounding point and differ only in
@@ -256,10 +258,12 @@ def test_coarse_to_fine_engine_launches_both_kernels(cuda):
 
 
 # (volume, k, C_in, C_out, dtype): odd sides, C_out 1-4 (and 6: two chunks
-# of the kernel's 4 output channels), k 3 and 5, small planes and a wB the
-# kernel tiles; C_in wider than one shared-memory chunk (64 and 66 at wB =
-# 50, k = 5: two chunks; 66 leaves a partial channel group), k = 9 (the
-# uncompiled sizes' loop) and k = MAX_K at the widest tile
+# of the kernels' 4 output channels), k 3 and 5 (the tensor-core kernel) in
+# both dtypes, small planes and a wB the kernels tile; C_in wider than one
+# chunk (64 and 66 at wB = 50, k = 5; 66 and 10 leave a partial 16-channel
+# chunk), whole tiny planes packed several volumes a block (6^4 and 1 x 1),
+# k = 9 (the CUDA-core kernel's uncompiled sizes) and k = MAX_K at its
+# widest tile
 B5_CASES = [
     ((2, 7, 5, 9, 11), 3, 16, 1, "float32"),
     ((1, 5, 7, 9, 5), 5, 16, 2, "bfloat16"),
@@ -274,26 +278,61 @@ B5_CASES = [
     ((1, 3, 2, 50, 50), 5, 66, 1, "bfloat16"),
     ((1, 3, 5, 11, 13), 9, 8, 1, "float32"),
     ((1, 2, 2, 4, 256), conv4d_pallas.MAX_K, 4, 4, "float32"),
+    ((24, 6, 6, 6, 6), 5, 16, 1, "bfloat16"),
+    ((40, 3, 2, 1, 1), 5, 16, 1, "float32"),     # 1 x 1 planes
+    ((33, 2, 3, 1, 1), 3, 10, 2, "bfloat16"),
+    ((2, 7, 6, 12, 11), 3, 10, 1, "float32"),    # the default ModelConfig's
+    ((2, 6, 7, 11, 12), 3, 10, 1, "bfloat16"),
+    ((1, 4, 5, 50, 50), 5, 66, 3, "float32"),
+    ((2, 5, 6, 7, 9), 5, 10, 3, "bfloat16"),
+    ((1, 5, 6, 9, 8), 5, 16, 6, "float32"),
+    ((1, 6, 5, 8, 9), 3, 16, 6, "bfloat16"),
+    ((1, 2, 3, 5, 230), 5, 16, 1, "float32"),    # two column bands
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,k,c_in,c_out,dtype", B5_CASES)
 def test_b5_matches_twin(cuda, shape, k, c_in, c_out, dtype):
-    """B5 against its twin, one launch per call, two launches bit-identical."""
+    """B5 against its twin, one launch per call, on the kernel its kernel
+    size picks; two launches bit-identical."""
     g = torch.Generator().manual_seed(c_in * 10 + c_out)
     x = torch.randn(shape + (c_in,), generator=g).to(cuda, getattr(torch, dtype))
     w = (torch.randn((k,) * 4 + (c_in, c_out), generator=g) * 0.1).to(cuda)
     before = conv4d_pallas.launches
+    kind = "tensor_core" if k in conv4d_pallas.TC_KERNEL_SIZES else "cuda_core"
+    before_kind = conv4d_pallas.launches_by_kernel[kind]
     got = conv4d_pallas.conv4d_small_cout(x, w)
     again = conv4d_pallas.conv4d_small_cout(x, w)
     want = conv4d_pallas.conv4d_small_cout_reference(x, w)
     torch.cuda.synchronize()
     assert conv4d_pallas.launches == before + 2
+    assert conv4d_pallas.launches_by_kernel[kind] == before_kind + 2
     assert got.shape == shape + (c_out,) and got.dtype == x.dtype
     assert torch.equal(got, again)
     tol = 2e-4 if dtype == "float32" else 2.0 ** -7
     assert normalized_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,c_in,c_out", [
+    ((2, 9, 8, 12, 10), 5, 16, 1), ((2, 7, 6, 9, 11), 3, 10, 3)])
+def test_b5_all_positive_f32(cuda, shape, k, c_in, c_out):
+    """The tensor-core kernel's three bf16 products on all-positive f32
+    inputs: within 2e-4 of the f32 twin and 1e-5 of their emulation
+    ``split_products_reference`` (the same products summed in f32 in
+    another order)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(
+        conv4d_pallas.near_bf16_midpoints(rng, shape + (c_in,), 0)).to(cuda)
+    w = torch.from_numpy(conv4d_pallas.near_bf16_midpoints(
+        rng, (k,) * 4 + (c_in, c_out), -4)).to(cuda)
+    got = conv4d_pallas.conv4d_small_cout(x, w)
+    twin = conv4d_pallas.conv4d_small_cout_reference(x, w)
+    split = conv4d_pallas.split_products_reference(x, w)
+    torch.cuda.synchronize()
+    assert normalized_err(got, twin) <= 2e-4
+    assert normalized_err(got, split) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -346,8 +385,10 @@ def test_fp32_engine_launches_b5(cuda):
     rng = np.random.default_rng(5)
     src = rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
     b2, b5 = nc_fused_lane.launches, conv4d_pallas.launches
+    tc = conv4d_pallas.launches_by_kernel["tensor_core"]
     table = engine.fetch(engine.dispatch(src, src[::-1].copy()))
     assert (nc_fused_lane.launches - b2, conv4d_pallas.launches - b5) == (0, 1)
+    assert conv4d_pallas.launches_by_kernel["tensor_core"] == tc + 1
     assert nc_fused_lane.last_selected_tier() == "xla"
     assert table.shape == (2, 6, 36) and np.isfinite(table).all()
 

@@ -2,7 +2,8 @@
 
 ``chip_smoke.py`` reads each kernel's time against a bound computed from
 ``stack_work`` (the NC stack, B2, and its backward, B3), ``dw_work`` (one
-layer's dW/db, B7) and ``gather_work`` (the tile correlation, B4); a
+layer's dW/db, B7), ``gather_work`` (the tile correlation, B4) and
+``b5_work`` (the small-C_out conv4d, B5); a
 redesigned kernel must be read against the same work,
 so these counts are pinned here to the numbers PERF.md's bounds use.  The
 layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
@@ -152,3 +153,32 @@ def test_backward_work_pins_the_bound():
     assert flops == sum(dw) + dw[1] + dw[2]
     assert flops == pytest.approx(1.797e12, rel=1e-3)
     assert flops / chip_smoke.PEAK_BF16_FLOPS * 1e3 == pytest.approx(1.817, abs=1e-3)
+
+
+@pytest.mark.parametrize("shape,k,c_in,c_out,dtype,flops,nbytes,bound_ms,cuda_core_ms", [
+    # the fp32 800² path's launch: f32 as three bf16 products on the tensor
+    # cores (1.376 ms), beside the same FLOP at the CUDA cores' f32 peak
+    ((4, 50, 50, 50, 50), 5, 16, 1, "float32", 4.5370e11, 1_700_040_000,
+     1.3762, 6.7716),
+    # a bf16 volume is one product
+    ((2, 9, 7, 11, 13), 5, 16, 2, "bfloat16", 4.1852e8, 688_648, 4.232e-4,
+     6.247e-3),
+])
+def test_b5_work(shape, k, c_in, c_out, dtype, flops, nbytes, bound_ms,
+                 cuda_core_ms):
+    """B5's work and bound (PERF.md): the in-volume taps' multiply-adds, the
+    volume, weights and output once each, the tensor-core kernel's bf16
+    products at the bf16 peak."""
+    got, got_bytes, products = chip_smoke.b5_work(shape, k, c_in, c_out, dtype)
+    b, *dims = shape
+    taps = 1
+    for n in dims:
+        taps *= taps_in_volume(n, k)
+    assert got == 2 * b * taps * c_in * c_out
+    assert got == pytest.approx(flops, rel=1e-4)
+    assert got_bytes == nbytes
+    assert products == (3 if dtype == "float32" else 1)
+    t_ops = products * got / chip_smoke.PEAK_BF16_FLOPS
+    assert t_ops >= got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    assert t_ops * 1e3 == pytest.approx(bound_ms, rel=1e-3)
+    assert got / chip_smoke.PEAK_F32_FLOPS * 1e3 == pytest.approx(cuda_core_ms, rel=1e-3)
