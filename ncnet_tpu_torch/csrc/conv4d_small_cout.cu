@@ -544,48 +544,6 @@ conv4d_weight_tiles_kernel(const T* __restrict__ w,
   }
 }
 
-// bulk copies completed on mbarriers
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   tc::smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  uint64_t state;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
-               : "=l"(state)
-               : "r"(tc::smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-// wait for phase `parity` of `bar`; copies that never land end the kernel
-// with an error instead of hanging it
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(tc::smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1u << 22)) __trap();
-  }
-}
-
-// `bytes` (a multiple of 16) global -> shared, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(tc::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
-      : "memory");
-}
-
 // Z (g, kr, m; jo, s) over the whole contraction in registers, then out
 // (g, kr, l) of output plane j0 + jo = sum over s of Z (g, kr, l + s; jo,
 // s); one output channel a block (blockIdx.y).  See the header.
@@ -645,8 +603,8 @@ conv4d_small_cout_tc_kernel(const unsigned char* __restrict__ xs,
     }
   }
   if (threadIdx.x == 0) {
-    mbar_init(bars);
-    mbar_init(bars + 1);
+    tc::mbar_init(bars);
+    tc::mbar_init(bars + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the box rows inside the volume: its volumes' rows inside the plane
@@ -669,10 +627,10 @@ conv4d_small_cout_tc_kernel(const unsigned char* __restrict__ xs,
     // the stage was last read by the generic proxy (ldmatrix)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     if (lane == 0) {
-      mbar_expect(bars + slot, ok_rows * (x_hi - x_lo) * CB + tile_bytes);
+      tc::mbar_expect(bars + slot, ok_rows * (x_hi - x_lo) * CB + tile_bytes);
       const int64_t tile =
           ((static_cast<int64_t>(co) * g.nch + cc) * K + p) * S::DJ + jj - j0 + D;
-      bulk_copy(dst + g.box_bytes, xs + g.wt_offset + tile * tile_bytes,
+      tc::bulk_copy(dst + g.box_bytes, xs + g.wt_offset + tile * tile_bytes,
                 tile_bytes, bars + slot);
     }
     __syncwarp();
@@ -682,7 +640,7 @@ conv4d_small_cout_tc_kernel(const unsigned char* __restrict__ xs,
       const int64_t cell =
           base + static_cast<int64_t>(b0 + gg) * g.hA * g.wA * plane_cells +
           static_cast<int64_t>(k0 - D + y) * g.wB + l0 - D + x_lo;
-      bulk_copy(dst + (row * g.Wp + x_lo) * CB, xs + cell * CB,
+      tc::bulk_copy(dst + (row * g.Wp + x_lo) * CB, xs + cell * CB,
                 (x_hi - x_lo) * CB, bars + slot);
     }
   };
@@ -788,7 +746,7 @@ conv4d_small_cout_tc_kernel(const unsigned char* __restrict__ xs,
   if (n_steps > 1) issue(1, 1);
   for (int step = 0; step < n_steps; ++step) {
     const int slot = step & 1;
-    mbar_wait(bars + slot, (step >> 1) & 1);  // the step is staged
+    tc::mbar_wait(bars + slot, (step >> 1) & 1);  // the step is staged
     compute(slot);
     __syncthreads();  // the stage is no longer read
     if (step + 2 < n_steps) issue(step + 2, slot);

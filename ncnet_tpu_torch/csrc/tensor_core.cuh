@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy primitives shared by the port's
-// mma.sync kernels (gather_tile_corr.cu, nc_conv4d.cu), for sm_90a.
+// mma.sync kernels (gather_tile_corr.cu, nc_conv4d.cu, nc_conv4d_vjp.cu,
+// conv4d_small_cout.cu, conv_l2_fused_lane.cu), for sm_90a.
 //
 // Each is one PTX instruction that the toolchain probes of csrc/probes/
 // checked on the H100 at these kernels' shapes (mma_sync_m16n8k16_bf16,
@@ -43,11 +44,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+// at a shared-state-space address (smem_addr), or at a generic pointer
+// into shared memory
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  ldmatrix_x4(r, smem_addr(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
@@ -56,12 +63,16 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  ldmatrix_x4_trans(r, smem_addr(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
@@ -90,6 +101,75 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// 1-D bulk copies (cp.async.bulk) completing on an mbarrier (probes
+// cp_async_bulk, mbarrier_parity): one thread arms the barrier with the
+// bytes of a stage and issues its copies; every thread waits on the phase.
+// Barriers and destinations at shared-state-space addresses (smem_addr) or
+// generic pointers into shared memory.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  uint64_t state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
+               : "=l"(state)
+               : "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  mbar_expect(smem_addr(bar), bytes);
+}
+
+// wait for phase `parity` of `bar`; a phase that has not completed after
+// two seconds (copies that never land, a wait that never gets its phase)
+// ends the kernel with an error instead of hanging it.  A try_wait may
+// suspend the thread for a time of the hardware's choosing, so the bound
+// is on the clock, not on the number of tries.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (start == 0) {
+      start = now;
+    } else if (now - start > 2000000000ull) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_addr(bar), parity);
+}
+
+// `bytes` (a multiple of 16) global -> shared, completing on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  bulk_copy(smem_addr(dst), src, bytes, smem_addr(bar));
 }
 
 }  // namespace tc

@@ -7,8 +7,10 @@ designed: the layer in a padded fused-lane frame ``(B, 29, 29, 16, 841)``
 contraction against N = (r, s, o) = 400 for each lane row, then the B-side
 taps as lane-offset shift-adds.  Here the same function, under the same
 module and function names so that a reader finds the counterpart, is the
-CUDA kernel ``csrc/conv_l2_fused_lane.cu`` (CUDA cores, f32 sums, only the
-Y terms an output uses; its header says why).
+CUDA kernel ``csrc/conv_l2_fused_lane.cu`` (an implicit GEMM on the tensor
+cores, bf16 operands and f32 sums, over the interior cells of a plane;
+its header says how).  The wrapper hands it the weights as bf16 B tiles
+(:func:`pack_b_tiles`) and a scratch for its cell-major copy of ``xp``.
 
 :func:`conv_l2_pallas` launches the kernel on a CUDA tensor and runs the
 plain twin :func:`conv_l2_reference` on a CPU tensor, never the twin on a
@@ -77,6 +79,16 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 1, 4, 2, 3, 5).reshape(K * K * C, K * K * C).contiguous()
 
 
+def pack_b_tiles(w2: torch.Tensor) -> torch.Tensor:
+    """(400, 400) [(p, q, c), (r, s, o)] -> (25, 25, 4, 8, 8) [(p, q),
+    (r, s), 2 (o // 8) + c // 8, c % 8, o % 8], contiguous: the kernel's B
+    tiles, one (p, q)'s 25 taps a run, each tap the four 8 x 8 matrices of
+    an ``ldmatrix.trans`` one after the other, so lane l reads the 16 bytes
+    at 16 l."""
+    t = w2.reshape(K * K, 2, 8, K * K, 2, 8)      # (pq, ch, c8, rs, oh, o8)
+    return t.permute(0, 3, 4, 1, 2, 5).reshape(K * K, K * K, 4, 8, 8).contiguous()
+
+
 def make_mask(device=None) -> torch.Tensor:
     """(1, 1, 841) bf16: 1 on the interior (hB, wB) lanes, 0 on the halo."""
     m = np.zeros((SP, SP), np.float32)
@@ -133,8 +145,10 @@ def conv_l2_reference(xp: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load(SOURCE)
     lib.conv_l2_fused_lane.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.conv_l2_fused_lane.restype = ctypes.c_int
+    lib.conv_l2_fused_lane_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.conv_l2_fused_lane_scratch_bytes.restype = ctypes.c_longlong
     lib.conv_l2_fused_lane_error_string.argtypes = [ctypes.c_int]
     lib.conv_l2_fused_lane_error_string.restype = ctypes.c_char_p
     return lib
@@ -145,7 +159,10 @@ def conv_l2_cuda(xp: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     """One launch of ``csrc/conv_l2_fused_lane.cu`` on the current stream (no
     synchronisation).  ``xp`` and ``w2`` bf16 and contiguous on the card;
     ``bias`` and ``mask`` any float dtype (the kernel reads them as f32,
-    as the TPU kernel casts them)."""
+    as the TPU kernel casts them).  The kernel reads only xp's interior
+    planes and writes only the interior lanes: the frame's padding planes
+    and the mask's halo lanes are zero, as :func:`to_fused_layout` and
+    :func:`make_mask` make them."""
     global launches
     _check(xp, w2, bias, mask, ydt)
     if xp.device.type != "cuda" or any(t.device != xp.device
@@ -158,19 +175,20 @@ def conv_l2_cuda(xp: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     if not 0 < xp.shape[0] < 2 ** 16:
         raise ValueError(f"batch must be in [1, 65535], got {xp.shape[0]}")
     lib = _library()
-    # [r][p][(q, c)][s][o]: each kernel stage's weights are one run of f32
-    wr = (w2.float().reshape(K, K * C, K, K * C).permute(2, 0, 1, 3)
-          .contiguous())
+    batch = int(xp.shape[0])
+    wt = pack_b_tiles(w2)
     bias_f = bias.float().reshape(C).contiguous()
     mask_f = mask.float().reshape(KL).contiguous()
-    out = torch.empty((xp.shape[0], S, S, C, KL), dtype=torch.bfloat16,
+    scratch = torch.empty(lib.conv_l2_fused_lane_scratch_bytes(batch),
+                          dtype=torch.uint8, device=xp.device)
+    out = torch.empty((batch, S, S, C, KL), dtype=torch.bfloat16,
                       device=xp.device)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         rc = lib.conv_l2_fused_lane(
-            xp.data_ptr(), wr.data_ptr(), bias_f.data_ptr(), mask_f.data_ptr(),
-            out.data_ptr(), int(xp.shape[0]), int(ydt == torch.bfloat16),
-            stream)
+            xp.data_ptr(), wt.data_ptr(), bias_f.data_ptr(), mask_f.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), batch,
+            int(ydt == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("conv_l2_fused_lane launch failed: "
                            + lib.conv_l2_fused_lane_error_string(rc).decode())
@@ -195,6 +213,19 @@ def conv_l2_pallas(xp: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
     if xp.device.type == "cpu":
         return conv_l2_reference(xp, w2, bias, mask, ydt)
     return conv_l2_cuda(xp, w2, bias, mask, ydt)
+
+
+def bit_equal_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of ``got``'s nonzero interior outputs that equal ``want``'s
+    bit for bit (0 if none is nonzero).  With bf16 Y terms a term rounded
+    at another point moves its output by a bf16 ulp of the term, far more
+    than f32 sums in another order do, so this share tells the Y dtypes
+    apart where the normalized error cannot."""
+    interior = make_mask(got.device).reshape(KL) != 0
+    got, want = got[..., interior], want[..., interior]
+    nonzero = got != 0
+    n = int(nonzero.sum())
+    return float((got == want)[nonzero].sum()) / n if n else 0.0
 
 
 def _normalized(got: torch.Tensor, want: torch.Tensor):

@@ -2,8 +2,9 @@
 
 ``chip_smoke.py`` reads each kernel's time against a bound computed from
 ``stack_work`` (the NC stack, B2, and its backward, B3), ``dw_work`` (one
-layer's dW/db, B7), ``gather_work`` (the tile correlation, B4) and
-``b5_work`` (the small-C_out conv4d, B5); a
+layer's dW/db, B7), ``gather_work`` (the tile correlation, B4),
+``b5_work`` (the small-C_out conv4d, B5) and ``l2_work`` (the L2 layer
+probe, T1: its 0.830 ms bound at B = 8); a
 redesigned kernel must be read against the same work,
 so these counts are pinned here to the numbers PERF.md's bounds use.  The
 layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
@@ -182,3 +183,17 @@ def test_b5_work(shape, k, c_in, c_out, dtype, flops, nbytes, bound_ms,
     assert t_ops >= got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S
     assert t_ops * 1e3 == pytest.approx(bound_ms, rel=1e-3)
     assert got / chip_smoke.PEAK_F32_FLOPS * 1e3 == pytest.approx(cuda_core_ms, rel=1e-3)
+
+
+def test_l2_work():
+    """T1 at B = 8: the in-volume taps' multiply-adds of the 16 → 16, k = 5
+    layer at 25⁴ (PERF.md's 0.830 ms bound), the padded frame in, the
+    weights, bias and mask and the output once each, and, as context, the
+    GEMM formulation's 400 × 400 product for each 841-lane row."""
+    flops, nbytes, gemm = chip_smoke.l2_work(8)
+    assert flops == 2 * 8 * taps_in_volume(25, 5) ** 4 * 16 * 16
+    assert (flops, nbytes, gemm) == (821_386_940_416, 315_945_650,
+                                     1_345_600_000_000)
+    t_ops = flops / chip_smoke.PEAK_BF16_FLOPS
+    assert t_ops > nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    assert t_ops * 1e3 == pytest.approx(0.830, abs=1e-3)

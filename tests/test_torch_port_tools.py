@@ -12,7 +12,12 @@ Tolerances:
   * T1's twin against relu(``conv4d(variant="unroll")`` + bias): the JAX
     tool's own check, relative error < 5 %;
   * each T2 twin against its numpy reference: copies bit for bit, the
-    products (small integers, exact in f32 and f64) exactly.
+    products (small integers, exact in f32 and f64) exactly;
+  * the Y rounding: the twins of the two Y dtypes lie within both of the
+    card's normalized tolerances of each other, so only the share of
+    outputs that agree bit for bit tells them apart: a twin whose Y sums
+    are formed in another order (float64, then f32) keeps at least 0.999 of
+    the nonzero interior outputs, the other Y dtype's twin under 0.9.
 
 The JAX tool reads ``sys.argv`` when it is imported (batch, j-chunk, Y
 dtype) and imports ``_timing`` from ``tools/``, so the loader sets both.
@@ -30,6 +35,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ncnet_tpu_torch.ops import kernel_build
 from ncnet_tpu_torch.tools import _timing
+from ncnet_tpu_torch.tools import l2_variants as tvar
 from ncnet_tpu_torch.tools import mosaic_probes as tprobes
 from ncnet_tpu_torch.tools import pallas_l2_probe as tl2
 
@@ -138,6 +144,110 @@ def test_l2_wrapper_checks_its_arguments():
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         tl2.conv_l2_cuda(xp, w2, bias, mask)
     assert tl2.conv_l2_pallas(xp, w2, bias, mask).abs().max() == 0
+
+
+def test_l2_b_tiles_are_a_permutation_of_the_packed_weight():
+    """The kernel's B tiles hold w2[(p, q, c), (r, s, o)] at [(p, q), (r, s),
+    2 (o // 8) + c // 8, c % 8, o % 8]: a permutation, and it round-trips."""
+    _, w, _ = seeded_layer(seed=5)
+    w2 = tl2.pack_weight(to_torch(w))
+    wt = tl2.pack_b_tiles(w2)
+    assert wt.shape == (25, 25, 4, 8, 8) and wt.dtype == torch.bfloat16
+    assert wt.is_contiguous()
+    pq, rs, c, o = np.meshgrid(*(np.arange(n) for n in (25, 25, 16, 16)),
+                               indexing="ij")
+    got = wt.float().numpy()[pq, rs, 2 * (o // 8) + c // 8, c % 8, o % 8]
+    want = w2.float().numpy()[pq * 16 + c, rs * 16 + o]
+    np.testing.assert_array_equal(got, want)
+    # back to w2: each index appears once
+    back = np.empty((400, 400), np.float32)
+    back[pq * 16 + c, rs * 16 + o] = got
+    np.testing.assert_array_equal(back, w2.float().numpy())
+
+
+def test_l2_bit_equal_share_counts_nonzero_interior_outputs():
+    got = torch.zeros((1, 25, 25, 16, 841), dtype=torch.bfloat16)
+    want = got.clone()
+    assert tl2.bit_equal_share(got, want) == 0.0  # nothing nonzero
+    got[..., 60:64] = 1.0   # 4 interior lanes, each in 25 * 25 * 16 rows
+    got[..., 87:89] = 1.0   # halo lanes (row 1 cells 27, 28): not counted
+    want[..., 60:61] = 1.0
+    assert tl2.bit_equal_share(got, want) == 0.25
+
+
+def reordered_twin(xp, w2, bias, mask, ydt):
+    """``conv_l2_reference`` with its Y sums formed in float64 and then
+    rounded to f32: the same rounding points, the f32 sums' order changed."""
+    b = xp.shape[0]
+    w = w2.double()
+    out = torch.zeros((b, 25, 25, 16, 841), dtype=xp.dtype)
+    for bi in range(b):
+        for i in range(25):
+            rows = xp[bi, i:i + 5]
+            a = torch.stack([rows[p, q:q + 25] for p in range(5)
+                             for q in range(5)], dim=1)
+            y = torch.matmul(w.t(), a.reshape(25, 400, 841).double()).float()
+            y = y.to(ydt).float()
+            acc = torch.zeros((25, 16, tl2.NT))
+            for r in range(5):
+                for s in range(5):
+                    blk, off = (r * 5 + s) * 16, r * 29 + s
+                    acc = acc + y[:, blk:blk + 16, off:off + tl2.NT]
+            acc = torch.relu(acc + bias.float().reshape(1, 16, 1))
+            m = mask.float().reshape(1, 1, 841)[..., tl2.LO:tl2.LO + tl2.NT]
+            out[bi, i, :, :, tl2.LO:tl2.LO + tl2.NT] = (acc * m).to(xp.dtype)
+    return out
+
+
+@pytest.fixture(scope="module")
+def l2_twins():
+    """The twins of both Y dtypes at B = 1 on the seed-8 layer."""
+    x, w, b = seeded_layer(batch=1, seed=8)
+    args = (tl2.to_fused_layout(to_torch(x)), tl2.pack_weight(to_torch(w)),
+            to_torch(b).reshape(1, 16, 1), tl2.make_mask("cpu"))
+    return args, {name: tl2.conv_l2_reference(*args, ydt=ydt)
+                  for name, ydt in tl2.YDTS.items()}
+
+
+@pytest.mark.parametrize("ydt_name", ["bf16", "f32"])
+def test_l2_only_bit_equality_sees_the_y_rounding(l2_twins, ydt_name):
+    args, twins = l2_twins
+    other = "f32" if ydt_name == "bf16" else "bf16"
+    # the other Y dtype passes both of the card's normalized tolerances
+    err = float((twins[other].float() - twins[ydt_name].float()).abs().max())
+    err /= float(twins[ydt_name].float().abs().max())
+    assert 0 < err <= min(1e-2, 2.0 ** -7)
+    # but not the bit-equality share, which another sum order does pass
+    reordered = reordered_twin(*args, tl2.YDTS[ydt_name])
+    assert not torch.equal(reordered, twins[ydt_name])
+    assert tl2.bit_equal_share(reordered, twins[ydt_name]) >= 0.999
+    assert tl2.bit_equal_share(twins[other], twins[ydt_name]) < 0.9
+
+
+def test_l2_variants_replace_the_kernel_constants():
+    """Each timed variant of T1 is its source with those constants set; a
+    constant the source does not define once is refused."""
+    text = (kernel_build.CSRC_DIR / tl2.SOURCE).read_text()
+    for name, subs in tvar.VARIANTS.items():
+        got = tvar.variant_source(subs, text)
+        changed = [(a, b) for a, b in zip(text.splitlines(), got.splitlines())
+                   if a != b]
+        assert len(changed) == sum(
+            f"constexpr int {k} = {v};" not in text for k, v in subs.items()), name
+        for k, v in subs.items():
+            assert f"constexpr int {k} = {v};" in got
+    assert tvar.variant_source({}, text) == text
+    with pytest.raises(ValueError, match="kWarps2"):
+        tvar.variant_source({"kWarps2": 1}, text)
+
+
+def test_l2_variants_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only where CUDA is not available")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvar.main([])
+    with pytest.raises(ValueError, match="unknown variants"):
+        tvar.main(["no_such_variant"])
 
 
 # ---------------------------------------------------------------------------
