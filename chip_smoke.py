@@ -103,6 +103,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      to the twin of its Y dtype and fewer to the other's (the Y rounding,
      which the tolerances cannot see), and kernel, plain, bound and
      ``coutfold`` times; each probe once more against its twin, timed;
+  E. the PF-Pascal eval step at full width: ``make_eval_step`` with the
+     PF-Pascal NCNet in bf16 (trunk BatchNorm calibrated, NC kernels
+     centre-peaked) on a warm-up and 3 batches of 4 pairs at 400² (seeded
+     images resized by ``resize_bilinear_align_corners_np`` and
+     ``quantize_u8``, each target its source shifted by whole cells; 20
+     keypoint slots, 8 to 20 valid, −1 padded), normalized on the card; the
+     FFT tier, so no B2 launch; the ``(4, 6)`` tables checked, one batch's
+     quality columns against ``quality_table`` on its own volume and its
+     PCK against ``pck_metric`` on the CPU on that volume (at most one
+     keypoint apart a sample); the phase runs under an ``EventLog`` with a
+     span and an ``eval_batch`` metrics event a batch, and the replayed log
+     must hold them; ms a batch and the PCK of the shifted pairs printed;
+     the device resize ``resize_bilinear_align_corners`` on the card
+     against the CPU's (full f32: within 1e-6 of the image's largest value);
+  R. relocalized serving: ``BatchMatchEngine`` with the PF-Pascal NCNet in
+     bf16 at ``relocalization_k_size=2`` and 1600² (a 100⁴ correlation
+     pooled to 50⁴) answers a warm-up and 3 requests of 4 pairs; the 8 ×
+     50⁴ stack takes B2 (the resident tier), 3 launches a request; one
+     request's pooling bit-equal to the CPU pooling of the same volume, its
+     B2 call against the twin and twice bit-identical; tables ``(4, 6,
+     2500)`` on the 100-point fine grid; the point matcher on a pair equal
+     to the engine on that pair, and to the request's row 0 wherever the
+     batch-1 and batch-4 trunks agree: the batch-4 forward with the pair's
+     batch-1 features gives the matcher's row and the other rows
+     unchanged, bit for bit (the trunks' difference and the differing
+     matches printed); a stage line and the peak memory;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -119,10 +145,22 @@ import subprocess
 import sys
 import time
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W
-PEAK_BF16_FLOPS = 989e12
+HERE = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(HERE, "ncnet_tpu_torch")):
+    sys.exit("chip_smoke: run it from a checkout of the repository")
+sys.path.insert(0, HERE)
+
+from ncnet_tpu_torch.observability.metrics import (  # noqa: E402
+    PEAK_BF16_TFLOPS,
+    PEAK_HBM_GBPS,
+)
+
+# published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W, from
+# the port's peak tables
+H100 = "NVIDIA H100 80GB HBM3"
+PEAK_BF16_FLOPS = PEAK_BF16_TFLOPS[H100] * 1e12
 PEAK_F32_FLOPS = 67e12    # float32 outside the tensor cores
-PEAK_HBM_BYTES_PER_S = 3.35e12
+PEAK_HBM_BYTES_PER_S = PEAK_HBM_GBPS[H100] * 1e9
 TOLERANCE = 1e-2          # max|kernel − plain| / max|plain|, bf16 outputs
 # The filtered volume of the whole forward, kernel path vs plain path.  The
 # two stacks sum in different orders, so a few bf16 outputs round one ulp
@@ -224,6 +262,19 @@ L2_CONV_TOLERANCE = 0.05
 L2_BIT_EQUAL_SHARE = 0.99
 # each training target is its source rolled by whole feature cells (16 px)
 TRAIN_SHIFT = (32, 48)
+# phase E: the PF-Pascal eval step at the dataset's eval size, batches of 4
+# pairs (seeded images of EVAL_SOURCE_HW resized to EVAL_SIDE), 20 keypoint
+# slots (the dataset's −1 padding), PCK at alpha 0.1; a warm-up and 3 batches
+EVAL_SIDE, EVAL_BATCHES, EVAL_ALPHA = 400, 3, 0.1
+EVAL_SOURCE_HW = (300, 500)
+# the device resize on the card against the CPU's, max|Δ| / max|image|: two
+# full-f32 contractions round a few ulps apart; a TF32 product keeps 10
+# mantissa bits and would be off by about 1e-3
+RESIZE_TOLERANCE = 1e-6
+# phase R: relocalized dense serving, k = 2 at 1600² (a 100² grid pooled to
+# 50²: the NC stack's call is the dense 800² request's 8 × 50⁴); a warm-up
+# and 3 requests of SERVE_BATCH pairs
+RELOC_SIDE, RELOC_K, RELOC_REQUESTS = 1600, 2, 3
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -1506,13 +1557,36 @@ def fine_pass_check(torch, cfg, params, fa, fb, cand_ab, cand_ba, where):
         raise SystemExit(f"{where}: the fine pass disagrees with the plain path")
 
 
-def c2f_requests(seed, shift):
-    """``C2F_REQUESTS + 1`` requests of uint8 pairs at ``C2F_SIDE``, each
+def serving_params(torch, cfg, dev, side):
+    """The PF-Pascal model's parameters on ``dev`` for the served phases (B,
+    E, R): random from seed 0, the trunk's BatchNorm statistics from one
+    seeded batch at ``side`` through the f32 trunk (the bf16 trunk runs on
+    a cast copy of the parameters), NC kernels centre-peaked with biases
+    off zero, as in phase 5."""
+    import numpy as np
+
+    from ncnet_tpu_torch.models.ncnet import init_ncnet, params_to
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+
+    params = params_to(init_ncnet(cfg, seed=0), dev)
+    calib = np.random.default_rng(3).integers(
+        0, 256, (SERVE_BATCH, side, side, 3), dtype=np.uint8)
+    calibrate_trunk(cfg.replace(backbone_bf16=False), params,
+                    normalize_imagenet(torch.as_tensor(calib).to(dev)))
+    for layer in params["nc"]:
+        d = layer["w"].shape[0] // 2
+        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
+        layer["b"] = layer["b"] + 0.05
+    return params
+
+
+def c2f_requests(seed, shift, side=C2F_SIDE):
+    """``C2F_REQUESTS + 1`` requests of uint8 pairs at ``side``, each
     target its source rolled by ``shift`` pixels."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    shape = (SERVE_BATCH, C2F_SIDE, C2F_SIDE, 3)
+    shape = (SERVE_BATCH, side, side, 3)
     out = []
     for _ in range(C2F_REQUESTS + 1):
         src = rng.integers(0, 256, shape, dtype=np.uint8)
@@ -1531,9 +1605,7 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
     from ncnet_tpu_torch.models.ncnet import (
         coarse2fine_filter,
         extract_features,
-        init_ncnet,
         ncnet_filter,
-        params_to,
     )
     from ncnet_tpu_torch.ops.correlation import correlation_4d
     from ncnet_tpu_torch.ops.image import normalize_imagenet
@@ -1547,18 +1619,8 @@ def serve_c2f(torch, nc_fused_lane, sparse_corr, dev):
     cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
                       ncons_channels=(16, 16, 1), half_precision=True,
                       backbone_bf16=True, sparse_topk=C2F_TOPK, sparse_factor=2)
-    params = params_to(init_ncnet(cfg, seed=0), dev)
+    params = serving_params(torch, cfg, dev, C2F_SIDE)
     requests = c2f_requests(seed=2, shift=TRAIN_SHIFT)
-    # the BatchNorm statistics from one seeded batch, through the f32 trunk
-    # (the bf16 trunk runs on a cast copy of the parameters)
-    calib = np.random.default_rng(3).integers(
-        0, 256, (SERVE_BATCH, C2F_SIDE, C2F_SIDE, 3), dtype=np.uint8)
-    calibrate_trunk(cfg.replace(backbone_bf16=False), params,
-                    normalize_imagenet(torch.as_tensor(calib).to(dev)))
-    for layer in params["nc"]:  # centre-peaked, as in phase 5
-        d = layer["w"].shape[0] // 2
-        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
-        layer["b"] = layer["b"] + 0.05
     engine = BatchMatchEngine(cfg, params)
     n_cells = (C2F_SIDE // 16) ** 2
 
@@ -1979,18 +2041,396 @@ def fp32_stages(torch, cfg, params, src, tgt):
           flush=True)
 
 
+def eval_batches(seed, n, shift):
+    """``n`` PF-Pascal-style batches at ``EVAL_SIDE``: seeded uint8 images
+    of ``EVAL_SOURCE_HW`` through the host resize and ``quantize_u8``, each
+    target its source rolled by ``shift`` (y, x) pixels; 20 keypoint slots,
+    8 to 20 valid with the −1 padding a suffix, target points the source
+    points plus the shift (inside the image); ``L_pck`` the longer side of
+    the valid source points' bounding box (the dataset's 'pf' procedure)."""
+    import numpy as np
+
+    from ncnet_tpu_torch.ops.image import (
+        quantize_u8,
+        resize_bilinear_align_corners_np,
+    )
+
+    rng = np.random.default_rng(seed)
+    dy, dx = shift
+    out = []
+    for _ in range(n):
+        src = np.stack([quantize_u8(resize_bilinear_align_corners_np(
+            rng.uniform(0, 255, EVAL_SOURCE_HW + (3,)).astype(np.float32),
+            EVAL_SIDE, EVAL_SIDE)) for _ in range(SERVE_BATCH)])
+        points = np.full((2, SERVE_BATCH, 2, 20), -1, np.float32)
+        l_pck = np.ones((SERVE_BATCH, 1), np.float32)
+        for i in range(SERVE_BATCH):
+            n_valid = int(rng.integers(8, 21))
+            x = rng.uniform(1, EVAL_SIDE - dx, n_valid).astype(np.float32)
+            y = rng.uniform(1, EVAL_SIDE - dy, n_valid).astype(np.float32)
+            points[0, i, :, :n_valid] = (x, y)
+            points[1, i, :, :n_valid] = (x + dx, y + dy)
+            l_pck[i, 0] = max(np.ptp(x), np.ptp(y))
+        size = np.tile(np.float32([EVAL_SIDE, EVAL_SIDE, 3]), (SERVE_BATCH, 1))
+        out.append({"source_image": src,
+                    "target_image": np.roll(src, shift, axis=(1, 2)),
+                    "source_points": points[0], "target_points": points[1],
+                    "source_im_size": size, "target_im_size": size,
+                    "L_pck": l_pck})
+    return out
+
+
+def eval_phase(torch, nc_fused_lane, dev):
+    """Phase E: the PF-Pascal eval step (``make_eval_step``) at full width
+    under the observability core; returns its B2 launches."""
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.evaluation import pf_pascal
+    from ncnet_tpu_torch.evaluation.pck import pck_metric
+    from ncnet_tpu_torch.models.ncnet import NCNet
+    from ncnet_tpu_torch.observability import events, tracing
+    from ncnet_tpu_torch.observability.metrics import MetricsRegistry
+    from ncnet_tpu_torch.observability.quality import quality_table
+    from ncnet_tpu_torch.ops.matching import corr_to_matches
+
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1), half_precision=True,
+                      backbone_bf16=True)
+    net = NCNet(cfg, serving_params(torch, cfg, dev, EVAL_SIDE), device=dev)
+    step = pf_pascal.make_eval_step(net, EVAL_ALPHA, device_normalize=True)
+    host = eval_batches(seed=4, n=EVAL_BATCHES + 1, shift=TRAIN_SHIFT)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+               for b in host]
+
+    registry = MetricsRegistry(scope="eval_phase")
+    timer = registry.timer("eval_batch")
+    walls, tables = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "events.jsonl")
+        with events.EventLog(path) as log, events.bound(log):
+            with tracing.span("eval_phase") as root:
+                for i, batch in enumerate(batches):  # batch 0: the warm-up
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        nc_fused_lane.launches = 0
+                    with tracing.span("eval_batch", batch=i), timer:
+                        tables.append(step(net.params, batch).cpu())
+                    walls.append(timer.last_s * 1e3)
+                    registry.flush(event="eval_batch", batch=i)
+        launches = nc_fused_lane.launches
+        tier = nc_fused_lane.last_selected_tier()
+        _, replayed = events.replay_events(path)
+    spans = [e for e in replayed if e["event"] == "span"
+             and e["name"] == "eval_batch"]
+    begins = [e for e in spans if e["ph"] == "B"]
+    batch_events = [e for e in replayed if e["event"] == "eval_batch"]
+    print(f"eval: the PF-Pascal eval step, {EVAL_BATCHES} batches of "
+          f"{SERVE_BATCH} pairs at {EVAL_SIDE}x{EVAL_SIDE} (after a warm-up), "
+          f"wall ms per batch {walls[1:]} (warm-up {walls[0]:.1f}), NC stack "
+          f"tier {tier!r}, B2 launches {launches}; the event log replays "
+          f"{len(batch_events)} eval_batch events and {len(begins)} spans",
+          flush=True)
+    if launches != 0 or tier != "fft":
+        raise SystemExit(f"eval: expected the fft tier and no B2 launch, got "
+                         f"{tier!r} and {launches}")
+    if (len(batch_events), len(begins), len(spans)) != (len(batches),) * 2 + (
+            2 * len(batches),) or any(e["parent"] != root._id for e in begins):
+        raise SystemExit("eval: the replayed log does not hold one event and "
+                         "one closed span a batch under the phase's root span")
+    if batch_events[-1]["metrics"]["eval_batch"]["count"] != len(batches):
+        raise SystemExit("eval: the timer did not count every batch")
+    for t in tables:
+        if (t.shape != (SERVE_BATCH, len(pf_pascal.RESULT_COLUMNS))
+                or not torch.isfinite(t).all()
+                or t[:, 0].min() < 0 or t[:, 0].max() > 1):
+            raise SystemExit(f"eval: bad table {tuple(t.shape)}: {t}")
+
+    # the device resize on the card against the CPU's, on seeded images of
+    # the eval batches' source size
+    from ncnet_tpu_torch.ops.image import resize_bilinear_align_corners
+
+    raw = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 255, (SERVE_BATCH,) + EVAL_SOURCE_HW + (3,)).astype(np.float32))
+    want = resize_bilinear_align_corners(raw, EVAL_SIDE, EVAL_SIDE)
+    got = resize_bilinear_align_corners(raw.to(dev), EVAL_SIDE, EVAL_SIDE)
+    resize_err = float((got.cpu() - want).abs().max() / raw.abs().max())
+    print(f"eval: resize_bilinear_align_corners {tuple(raw.shape)} -> "
+          f"{EVAL_SIDE}x{EVAL_SIDE} on the card vs the CPU: max|diff| / "
+          f"max|image| {resize_err:.3e} (tolerance {RESIZE_TOLERANCE})",
+          flush=True)
+    if got.dtype != torch.float32 or not resize_err <= RESIZE_TOLERANCE:
+        raise SystemExit("eval: the device resize on the card is not full f32")
+
+    # one batch again with the forward recorded: its quality columns against
+    # quality_table on the same volume, and its PCK against pck_metric run
+    # on the CPU on that volume copied to the host
+    calls = []
+    with routed(pf_pascal, "ncnet_forward", pf_pascal.ncnet_forward, calls):
+        table = step(net.params, batches[1]).cpu()
+    out = calls[0][2]
+    with torch.no_grad():
+        quality = quality_table(out.corr).cpu()
+    corr = out.corr.cpu()
+    cpu_batch = {k: torch.as_tensor(v) for k, v in host[1].items()}
+    pck_cpu = pck_metric(cpu_batch, corr_to_matches(corr, do_softmax=True),
+                         EVAL_ALPHA)
+    n_valid = (cpu_batch["source_points"][:, 0] != -1).sum(dim=1)
+    keypoints_off = ((table[:, 0] - pck_cpu).abs() * n_valid).round()
+    print(f"eval: batch 1 again: PCK on the card {table[:, 0].tolist()}, "
+          f"pck_metric on the CPU {pck_cpu.tolist()} (keypoints apart "
+          f"{keypoints_off.tolist()} of {n_valid.tolist()}); quality columns "
+          f"vs quality_table on the same volume: max difference "
+          f"{float((table[:, 1:] - quality).abs().max()):.3e}", flush=True)
+    if not torch.equal(table[:, 1:], quality):
+        raise SystemExit("eval: the quality columns differ from quality_table "
+                         "on the step's own volume")
+    if keypoints_off.max() > 1:
+        raise SystemExit("eval: PCK on the card and pck_metric on the CPU "
+                         "differ by more than one keypoint")
+    pck = torch.cat([t[:, 0] for t in tables[1:]])
+    print(f"eval: PCK@{EVAL_ALPHA} on the shifted pairs (shift recovery; "
+          f"printed, not gated): mean {float(pck.mean()):.4f}, per pair "
+          f"{[round(v, 4) for v in pck.tolist()]}; ms per batch mean "
+          f"{np.mean(walls[1:]):.2f}", flush=True)
+    return launches
+
+
+def serve_reloc(torch, nc_fused_lane, dev):
+    """Phase R: relocalized dense serving at full width; returns its B2
+    launches."""
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
+    from ncnet_tpu_torch.models.ncnet import make_point_matcher, ncnet_forward
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.ops.matching import _grid
+    from ncnet_tpu_torch.ops.pooling import maxpool4d_with_argmax
+    from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1), half_precision=True,
+                      backbone_bf16=True, relocalization_k_size=RELOC_K)
+    params = serving_params(torch, cfg, dev, RELOC_SIDE)
+    engine = BatchMatchEngine(cfg, params)
+    requests = c2f_requests(seed=2, shift=TRAIN_SHIFT, side=RELOC_SIDE)
+    fine_side = RELOC_SIDE // 16
+    n_cells = (fine_side // RELOC_K) ** 2
+
+    engine.fetch(engine.dispatch(*requests[-1]))  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nc_fused_lane.launches = 0
+    walls, tables = [], []
+    for src, tgt in requests[:RELOC_REQUESTS]:
+        t0 = time.perf_counter()
+        tables.append(engine.fetch(engine.dispatch(src, tgt)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = nc_fused_lane.launches
+    tier = nc_fused_lane.last_selected_tier()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"reloc serve: {RELOC_REQUESTS} requests of {SERVE_BATCH} pairs at "
+          f"{RELOC_SIDE}x{RELOC_SIDE}, relocalization k={RELOC_K} ("
+          f"{fine_side}^4 pooled to {fine_side // RELOC_K}^4), wall ms per "
+          f"request {walls}, peak memory {peak} bytes, NC stack tier "
+          f"{tier!r}, B2 launches {launches}", flush=True)
+    check_tables(tables, n_cells, "reloc serve")
+    if launches != 3 * RELOC_REQUESTS or tier != "resident":
+        raise SystemExit(f"reloc serve: expected the resident tier and "
+                         f"{3 * RELOC_REQUESTS} B2 launches")
+    grid = _grid(-1.0, fine_side, "cpu").numpy()
+    if not all(np.isin(t[:, :4], grid).all() for t in tables):
+        raise SystemExit("reloc serve: match coordinates off the fine grid")
+
+    # one request again with the pooling and the NC stack recorded: the
+    # pooling against the CPU pooling on the same volume, bit for bit; B2
+    # against its twin on the path's exact input, and twice bit-identical
+    src, tgt = (normalize_imagenet(torch.as_tensor(a).to(dev))
+                for a in requests[0])
+    p_calls, s_calls = [], []
+    with torch.no_grad(), \
+            routed(ncnet_mod, "maxpool4d_with_argmax",
+                   ncnet_mod.maxpool4d_with_argmax, p_calls), \
+            routed(nc_fused_lane, "nc_stack_resident",
+                   nc_fused_lane.nc_stack_resident, s_calls):
+        ncnet_forward(cfg, engine._params, src, tgt)
+    if (len(p_calls), len(s_calls)) != (1, 1):
+        raise SystemExit(f"reloc serve: {len(p_calls)} poolings and "
+                         f"{len(s_calls)} NC stack calls in one forward")
+    (vol, k), _, (pooled, deltas) = p_calls[0]
+    want, want_d = maxpool4d_with_argmax(vol.cpu(), k)
+    pool_ok = torch.equal(pooled.cpu(), want) and all(
+        torch.equal(d.cpu(), w) for d, w in zip(deltas, want_d))
+    moved = sum(int(d.count_nonzero()) for d in deltas)
+    (nc, x), _, y = s_calls[0]
+    with torch.no_grad():
+        err = normalized_err(y, nc_fused_lane.nc_stack_reference(nc, x))
+        again = torch.equal(y, nc_fused_lane.nc_stack_resident(nc, x))
+    print(f"reloc serve: pooling of the path's {vol.dtype} volume "
+          f"{tuple(vol.shape)} vs maxpool4d_with_argmax on the CPU: "
+          f"{'bit-equal' if pool_ok else 'DIFFERENT'}, {moved} nonzero "
+          f"offsets; NC stack on {tuple(x.shape)} vs its twin: normalized "
+          f"{err:.3e} (tolerance {TOLERANCE}), two launches bit-identical: "
+          f"{again}", flush=True)
+    if not pool_ok or moved == 0:
+        raise SystemExit("reloc serve: the pooling differs from the CPU's or "
+                         "moved no match off the pooled grid")
+    if not err <= TOLERANCE or not again:
+        raise SystemExit("reloc serve: the NC kernel disagrees with its twin "
+                         "or is not deterministic")
+
+    # the point matcher on the first pair, against the engine on that pair
+    # alone (the same batch-1 program), then against row 0 of the request
+    matcher = make_point_matcher(cfg, engine._params)
+    m, q = matcher.match_with_quality(requests[0][0][:1], requests[0][1][:1])
+    got = np.concatenate(m)
+    single, single_q = engine.split(engine.fetch(engine.dispatch(
+        requests[0][0][:1], requests[0][1][:1])))
+    print(f"reloc serve: point matcher on pair 0 vs the engine on that pair "
+          f"alone: {'equal' if np.array_equal(got, single[0]) else 'DIFFERENT'}"
+          f"; quality {q}", flush=True)
+    if not np.array_equal(got, single[0]) or q != single_q[0]:
+        raise SystemExit("reloc serve: the point matcher's table differs from "
+                         "the engine's")
+    reloc_batch_check(torch, cfg, engine, src, tgt, got, tables[0])
+    cells = (TRAIN_SHIFT[0] // 16, TRAIN_SHIFT[1] // 16)
+    print(f"reloc serve: shift recovery on the {fine_side}-cell fine grid "
+          f"{shift_recovery(tables[0], fine_side, cells):.4f} (printed, not "
+          "gated)", flush=True)
+    reloc_stages(torch, cfg, engine._params, src, tgt, nc, x)
+    return launches
+
+
+def reloc_batch_check(torch, cfg, engine, src, tgt, matcher_table,
+                      request_table):
+    """Phase R: the point matcher on pair 0 against row 0 of the 4-pair
+    request.  The request's trunk runs at batch 4 and the matcher's at
+    batch 1, so the two may round otherwise.  Checked bit for bit: the
+    request's table from its own trunk features; the batch-4 forward with
+    pair 0's batch-1 features in their place gives the matcher's table in
+    row 0 and the request's other rows unchanged; and where the two trunks
+    agree, the matcher gives row 0 itself.  Printed: how far the trunks
+    differ, and how near a tie each differing match was."""
+    import numpy as np
+
+    from ncnet_tpu_torch.models.ncnet import (
+        extract_features,
+        ncnet_forward_from_feature_pair,
+    )
+    from ncnet_tpu_torch.ops.matching import _grid
+
+    params = engine._params
+    with torch.no_grad():
+        f4 = [extract_features(cfg, params, x) for x in (src, tgt)]
+        f1 = [extract_features(cfg, params, x[:1]) for x in (src, tgt)]
+        trunk_equal = all(torch.equal(a[:1], b) for a, b in zip(f4, f1))
+        trunk_err = max(float((a[:1] - b).abs().max() / b.abs().max())
+                        for a, b in zip(f4, f1))
+        trunk_share = sum(int((a[:1] != b).sum()) for a, b in zip(f4, f1)) / sum(
+            b.numel() for b in f1)
+        own_out = ncnet_forward_from_feature_pair(cfg, params, *f4)
+        own = engine.fetch(engine._tables(own_out))
+        mixed = engine.fetch(engine._tables(ncnet_forward_from_feature_pair(
+            cfg, params, *(torch.cat([b, a[1:]]) for a, b in zip(f4, f1)))))
+        n = own_out.corr.shape[1] * own_out.corr.shape[2]
+        scores = torch.softmax(own_out.corr.reshape(len(own), n, -1),
+                               dim=1)[0].float().cpu()
+
+    # the matches that differ, by the coarse A cell each side chose: the
+    # same cell (the pooling's box broke a tie otherwise) or another one
+    # (the readout's argmax did), the second with the matcher's choice's
+    # gap below the engine's in the engine's softmax, in bf16 ulps
+    fine = RELOC_SIDE // 16
+    grid = _grid(-1.0, fine, "cpu").numpy()
+    row0 = request_table[0, :5]
+    differ = np.flatnonzero(np.any(matcher_table[:4] != row0[:4], axis=0))
+
+    def coarse_a(table):
+        ia = np.searchsorted(grid, table[1, differ]) // RELOC_K
+        ja = np.searchsorted(grid, table[0, differ]) // RELOC_K
+        return ia * (fine // RELOC_K) + ja
+
+    a_eng, a_mat = coarse_a(row0), coarse_a(matcher_table)
+    other = a_eng != a_mat
+    cols = torch.from_numpy(differ[other])
+    s_eng = scores[torch.from_numpy(a_eng[other]), cols]
+    s_mat = scores[torch.from_numpy(a_mat[other]), cols]
+    ulps = ((s_eng - s_mat) / torch.exp2(torch.floor(torch.log2(s_eng)) - 7)
+            ).numpy()
+    gaps = (f"max {ulps.max():.2f}, median {np.median(ulps):.2f}, "
+            f"{int((ulps == 0).sum())} at 0" if len(ulps) else "none")
+    print(f"reloc serve: pair 0's trunk features at batch 1 vs batch 4: "
+          f"{'bit-equal' if trunk_equal else 'DIFFERENT'}, max|diff| / max "
+          f"{trunk_err:.3e}, share of values that differ {trunk_share:.4f}; "
+          f"the matcher vs row 0 of the {len(own)}-pair request: "
+          f"{len(differ)} of {row0.shape[1]} matches differ, "
+          f"{int((~other).sum())} in the offset inside the same pooled cell, "
+          f"{int(other.sum())} in the pooled cell, there the matcher's "
+          f"choice below the engine's in the engine's softmax by bf16 ulps: "
+          f"{gaps}", flush=True)
+    if not np.array_equal(own, request_table):
+        raise SystemExit("reloc serve: the request's table from its own trunk "
+                         "features differs from the request's")
+    if not (np.array_equal(mixed[0, :5], matcher_table)
+            and np.array_equal(mixed[1:], request_table[1:])):
+        raise SystemExit("reloc serve: with pair 0's batch-1 features the "
+                         "batch-4 forward does not give the matcher's row 0 "
+                         "and the request's other rows")
+    if trunk_equal and len(differ):
+        raise SystemExit("reloc serve: the trunks agree but the matcher "
+                         "differs from row 0 of the request")
+
+
+def reloc_stages(torch, cfg, params, src, tgt, nc, nc_input):
+    """CUDA-event ms of each stage of one relocalized request's forward
+    (warm, one stage at a time)."""
+    from ncnet_tpu_torch.models.ncnet import extract_features, ncnet_filter
+    from ncnet_tpu_torch.observability.quality import append_quality_rows
+    from ncnet_tpu_torch.ops import nc_fused_lane
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.matching import corr_to_matches
+    from ncnet_tpu_torch.ops.pooling import maxpool4d_with_argmax
+
+    def trunk():
+        return (extract_features(cfg, params, src),
+                extract_features(cfg, params, tgt))
+
+    def readout(out):
+        m = corr_to_matches(out.corr, delta4d=out.delta4d, k_size=RELOC_K,
+                            do_softmax=True)
+        return append_quality_rows(
+            torch.stack([v.to(torch.float32) for v in m], dim=1), out.corr)
+
+    with torch.no_grad():
+        fa, fb = (f.to(torch.bfloat16) for f in trunk())
+        corr = correlation_4d(fa, fb)
+        out = ncnet_filter(cfg, params, corr)
+        stages = {
+            "trunk, both sides": cuda_ms(trunk, 2),
+            "correlation (f32 sums, bf16 out)": cuda_ms(
+                lambda: correlation_4d(fa, fb), 2),
+            "pooling (maxpool4d_with_argmax)": cuda_ms(
+                lambda: maxpool4d_with_argmax(corr, RELOC_K), 2),
+            "filter (pooling, mutual, NC stack, mutual)": cuda_ms(
+                lambda: ncnet_filter(cfg, params, corr), 1),
+            "of which the NC stack (B2)": cuda_ms(
+                lambda: nc_fused_lane.nc_stack_resident(nc, nc_input), 1),
+            "readout (matches with the offsets, quality row)": cuda_ms(
+                lambda: readout(out), 2),
+        }
+    print(f"reloc serve stages ms per request ({RELOC_SIDE}x{RELOC_SIDE}, "
+          f"B={SERVE_BATCH}): " + json.dumps(stages), flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "ncnet_tpu_torch")):
-        print("chip_smoke: run it from a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, here)
     from ncnet_tpu_torch.ops import (
         conv4d_pallas,
         kernel_build,
@@ -2033,11 +2473,15 @@ def main() -> int:
     tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
                                      params, requests, tables)
     b5_by_path, b5_path_err = serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev)
+    eval_launches = eval_phase(torch, nc_fused_lane, dev)
+    reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
                   "serve_tracked": tracked_launches["nc_conv4d_bf16"],
-                  "dense_800": dense_launches}
+                  "dense_800": dense_launches,
+                  "eval_400": eval_launches,
+                  "reloc_1600": reloc_launches}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"]}
 

@@ -15,7 +15,9 @@ whose chooser sends a small-C_out layer to the B5 kernel
 (``ops/conv4d_pallas.py``).  The CUDA kernels run on the card, their plain
 twins on the CPU.
 
-The port runs the dense serving path, the training step (``training/``)
+The port runs the dense serving path, with relocalization
+(``relocalization_k_size`` > 1: the volume max-pooled by k before the
+filter, ``ops/pooling.py``), the training step (``training/``)
 and the coarse-to-fine and tracked match pipelines
 (``ModelConfig.sparse_topk`` > 0: :func:`coarse2fine_filter`,
 :func:`ncnet_forward_tracked`; the gathered tiles go through
@@ -51,13 +53,14 @@ from ncnet_tpu_torch.ops.matching import (
     mutual_matching,
 )
 from ncnet_tpu_torch.ops.norm import feature_l2_norm
+from ncnet_tpu_torch.ops.pooling import maxpool4d_with_argmax
+from ncnet_tpu_torch.utils.seeding import torch_generator
 
 
 def check_ported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
     that this slice of the port does not run."""
     unported = [
-        ("relocalization_k_size", config.relocalization_k_size > 1),
         ("backbone", config.backbone not in ("resnet101", "tiny")),
         ("backbone_weights", bool(config.backbone_weights)),
         ("checkpoint", bool(config.checkpoint)),
@@ -111,7 +114,9 @@ def params_to(params, target) -> Any:
 
 
 class NCNetOutput(NamedTuple):
-    """Filtered correlation volume (+ relocalization offsets, not ported)."""
+    """Filtered correlation volume, and the relocalization offsets
+    ``(di, dj, dk, dl)`` (int32, shaped like ``corr``) when the volume was
+    max-pooled (``relocalization_k_size`` > 1)."""
 
     corr: torch.Tensor                      # (B, hA, wA, hB, wB)
     delta4d: Optional[Tuple[torch.Tensor, ...]] = None
@@ -132,7 +137,7 @@ def init_ncnet(config: ModelConfig, seed: int = 1) -> Dict[str, Any]:
         raise ValueError(
             "ncons_kernel_sizes and ncons_channels must have equal length, got "
             f"{config.ncons_kernel_sizes} vs {config.ncons_channels}")
-    g = torch.Generator().manual_seed(seed)
+    g = torch_generator(seed)
     params: Dict[str, Any] = {
         "backbone": bb.backbone_init(config.backbone, g,
                                      last_layer=config.backbone_last_layer)}
@@ -187,7 +192,7 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
     tier runs the stack or every layer keeps a channel-folding formulation
     at the doubled batch (``:607-624``); otherwise the two passes run one
     after the other.  The JAX package's tap-swap form of the rectangular
-    symmetric pass is not ported (ROADMAP A4): the port runs the two passes.
+    symmetric pass is not ported (ROADMAP A7): the port runs the two passes.
     """
     conv = conv4d_same if custom_grad else conv4d
 
@@ -298,16 +303,23 @@ def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
                  remat_nc_layers: bool = False, nc_custom_grad: bool = False,
                  nc_pallas: bool = True, nc_pallas_vjp: bool = False
                  ) -> NCNetOutput:
-    """MutualMatching → NeighConsensus → MutualMatching, in bf16 when
-    ``half_precision`` (volume and NC weights cast together, differentiably:
-    the gradients of f32 weights come back in f32).  The training arguments
-    are :func:`neigh_consensus`'s (``nc_pallas`` is its ``allow_pallas``,
+    """[maxpool4d] → MutualMatching → NeighConsensus → MutualMatching, in
+    bf16 when ``half_precision`` (volume and NC weights cast together,
+    differentiably: the gradients of f32 weights come back in f32; the cast
+    comes before the pooling, as in the JAX package).  With
+    ``relocalization_k_size`` > 1 the volume is max-pooled by k first and
+    the output carries the offsets.  The training arguments are
+    :func:`neigh_consensus`'s (``nc_pallas`` is its ``allow_pallas``,
     ``nc_pallas_vjp`` its ``require_vjp``)."""
     check_ported(config)
     nc_params = params["nc"]
     if config.half_precision:
         nc_params = params_to(nc_params, torch.bfloat16)
         corr = corr.to(torch.bfloat16)
+    delta4d = None
+    if config.relocalization_k_size > 1:
+        corr, delta4d = maxpool4d_with_argmax(corr,
+                                              config.relocalization_k_size)
     corr = mutual_matching(corr)
     corr = neigh_consensus(nc_params, corr, symmetric=config.symmetric_mode,
                            remat_layers=remat_nc_layers,
@@ -315,7 +327,7 @@ def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
                            require_vjp=nc_pallas_vjp,
                            force_tier=config.nc_tier or None)
     corr = mutual_matching(corr)
-    return NCNetOutput(corr, None)
+    return NCNetOutput(corr, delta4d)
 
 
 def ncnet_match_volume(config: ModelConfig, params, fa: torch.Tensor,
@@ -517,7 +529,11 @@ def make_point_matcher(config: ModelConfig, params, *, do_softmax: bool = True,
         src = normalize_imagenet(torch.as_tensor(np.asarray(src)).to(dev))
         tgt = normalize_imagenet(torch.as_tensor(np.asarray(tgt)).to(dev))
         out = ncnet_forward(config, staged, src, tgt)
-        m = corr_to_matches(out.corr, do_softmax=do_softmax, scale=scale)
+        # a relocalized volume carries its offsets: the matches land on the
+        # fine grid
+        m = corr_to_matches(out.corr, delta4d=out.delta4d,
+                            k_size=max(config.relocalization_k_size, 1),
+                            do_softmax=do_softmax, scale=scale)
         table = torch.stack([v.to(torch.float32).reshape(-1) for v in m])
         return append_quality_row(table, out.corr)
 

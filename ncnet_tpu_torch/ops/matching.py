@@ -3,13 +3,15 @@
 Reference semantics (and ``ncnet_tpu/ops/matching.py``, which this mirrors):
   * MutualMatching         lib/model.py:155-175
   * corr_to_matches        lib/point_tnf.py:12-80
-  * axis (un)normalization lib/point_tnf.py:6-10
+  * nearest/bilinear tnf   lib/point_tnf.py:82-148
+  * axis (un)normalization lib/point_tnf.py:6-10,151-167
   * scatter_sparse_scores  the coarse-to-fine pipeline's dense readout
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -108,12 +110,11 @@ def corr_to_matches(corr: torch.Tensor, delta4d=None, k_size: int = 1,
     ``invert_matching_direction`` False picks the best A cell for every B
     cell (the reference default), True the best B cell for every A cell.
     ``scale`` 'centered' gives coordinates in [-1, 1], 'positive' in [0, 1].
-    Relocalization offsets (``delta4d``) belong to the InLoc slice and are
-    not ported yet.
+    ``delta4d``: the relocalization offsets of
+    :func:`~ncnet_tpu_torch.ops.pooling.maxpool4d_with_argmax`; with them
+    the coordinates live on the ``k_size``× finer grid (fine = coarse·k +
+    the offset at the matched coarse cell).
     """
-    if delta4d is not None:
-        raise NotImplementedError(
-            "corr_to_matches: delta4d (relocalization) is not ported yet")
     if scale not in ("centered", "positive"):
         raise ValueError(f"unknown scale {scale!r}")
     b, fs1, fs2, fs3, fs4 = corr.shape
@@ -136,6 +137,14 @@ def corr_to_matches(corr: torch.Tensor, delta4d=None, k_size: int = 1,
         i_a, j_a = idx // fs2, idx % fs2
         cells = torch.arange(fs3 * fs4, device=dev)[None, :].expand_as(idx)
         i_b, j_b = cells // fs4, cells % fs4
+    if delta4d is not None:  # relocalization onto the fine grid (point_tnf.py:61-70)
+        bidx = torch.arange(b, device=dev)[:, None]
+        d_ia, d_ja, d_ib, d_jb = (d[bidx, i_a, j_a, i_b, j_b].long()
+                                  for d in delta4d)
+        i_a = i_a * k_size + d_ia
+        j_a = j_a * k_size + d_ja
+        i_b = i_b * k_size + d_ib
+        j_b = j_b * k_size + d_jb
     m = Matches(
         _grid(lo, fs2 * k_size, dev)[j_a],
         _grid(lo, fs1 * k_size, dev)[i_a],
@@ -146,3 +155,96 @@ def corr_to_matches(corr: torch.Tensor, delta4d=None, k_size: int = 1,
     if return_indices:
         return m, (i_a, j_a, i_b, j_b)
     return m
+
+
+def nearest_neighbor_point_tnf(matches: Matches,
+                               target_points_norm: torch.Tensor
+                               ) -> torch.Tensor:
+    """Warp normalized ``(B, 2, N)`` target points by snapping each to the
+    nearest match's B coordinate and emitting its A coordinate
+    (point_tnf.py:82-94)."""
+    dx = target_points_norm[:, 0, :, None] - matches.xB[:, None, :]
+    dy = target_points_norm[:, 1, :, None] - matches.yB[:, None, :]
+    dist = torch.sqrt(dx ** 2 + dy ** 2)  # (B, N, M)
+    idx = torch.argmin(dist, dim=2)
+    return torch.stack([torch.gather(matches.xA, 1, idx),
+                        torch.gather(matches.yA, 1, idx)], dim=1)
+
+
+def bilinear_interp_point_tnf(matches: Matches,
+                              target_points_norm: torch.Tensor,
+                              grid_hw: Optional[Tuple[int, int]] = None
+                              ) -> torch.Tensor:
+    """Warp normalized ``(B, 2, N)`` target points by inverse-bilinear
+    interpolation of the match field at the 4 surrounding B-grid corners
+    (point_tnf.py:96-148).
+
+    The matches come from the default (B→A) direction of
+    :func:`corr_to_matches`, so ``(xB, yB)`` is the regular row-major B
+    grid; ``grid_hw`` gives its ``(hB, wB)`` shape, square when None (the
+    reference's ``sqrt(len(xB))``), and a ``ValueError`` says when it does
+    not tile the matches.  The grid nodes are :func:`_grid`'s, as the JAX
+    package's jitted programs round them."""
+    n_match = matches.xB.shape[-1]
+    if grid_hw is None:
+        fs_h = fs_w = int(round(math.sqrt(n_match)))
+    else:
+        fs_h, fs_w = int(grid_hw[0]), int(grid_hw[1])
+    if fs_h * fs_w != n_match:
+        raise ValueError(f"grid {fs_h}x{fs_w} does not tile {n_match} matches")
+    dev = target_points_norm.device
+    grid_y = _grid(-1.0, fs_h, dev)
+    grid_x = _grid(-1.0, fs_w, dev)
+
+    def lower_index(coords, grid, fs):  # (B, N) → the node strictly below
+        cnt = ((coords[:, :, None] - grid[None, None, :]) > 0).sum(dim=2) - 1
+        return cnt.clamp(0, fs - 2)
+
+    x_minus = lower_index(target_points_norm[:, 0, :], grid_x, fs_w)
+    y_minus = lower_index(target_points_norm[:, 1, :], grid_y, fs_h)
+    x_plus, y_plus = x_minus + 1, y_minus + 1
+
+    def at(field_x, field_y, x, y):
+        idx = y * fs_w + x  # row-major B grid
+        return torch.stack([torch.gather(field_x, 1, idx),
+                            torch.gather(field_y, 1, idx)], dim=1)
+
+    corners = ((x_minus, y_minus), (x_plus, y_plus), (x_plus, y_minus),
+               (x_minus, y_plus))  # mm, pp, pm, mp
+    p_mm, p_pp, p_pm, p_mp = (at(matches.xB, matches.yB, x, y)
+                              for x, y in corners)
+    q_mm, q_pp, q_pm, q_mp = (at(matches.xA, matches.yA, x, y)
+                              for x, y in corners)
+
+    def area(d):
+        return (d[:, 0, :] * d[:, 1, :]).abs()
+
+    f_pp = area(target_points_norm - p_mm)
+    f_mm = area(target_points_norm - p_pp)
+    f_mp = area(target_points_norm - p_pm)
+    f_pm = area(target_points_norm - p_mp)
+    num = (q_mm * f_mm[:, None, :] + q_pp * f_pp[:, None, :]
+           + q_mp * f_mp[:, None, :] + q_pm * f_pm[:, None, :])
+    den = (f_pp + f_mm + f_mp + f_pm)[:, None, :]
+    return num / den
+
+
+def points_to_unit_coords(points: torch.Tensor,
+                          im_size: torch.Tensor) -> torch.Tensor:
+    """Pixel → [-1, 1] coordinates (point_tnf.py:151-158).  ``points``
+    ``(B, 2, N)``, row 0 x (normalized by the width), row 1 y (by the
+    height); ``im_size`` ``(B, 2+)`` as (h, w, ...)."""
+    h, w = im_size[:, 0], im_size[:, 1]
+    x = normalize_axis(points[:, 0, :], w[:, None])
+    y = normalize_axis(points[:, 1, :], h[:, None])
+    return torch.stack([x, y], dim=1)
+
+
+def points_to_pixel_coords(points: torch.Tensor,
+                           im_size: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] → pixel coordinates, the inverse of
+    :func:`points_to_unit_coords` (point_tnf.py:160-167)."""
+    h, w = im_size[:, 0], im_size[:, 1]
+    x = unnormalize_axis(points[:, 0, :], w[:, None])
+    y = unnormalize_axis(points[:, 1, :], h[:, None])
+    return torch.stack([x, y], dim=1)

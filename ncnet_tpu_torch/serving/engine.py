@@ -24,6 +24,7 @@ import torch
 
 from ncnet_tpu_torch.config import ModelConfig
 from ncnet_tpu_torch.models.ncnet import (
+    NCNetOutput,
     check_ported,
     extract_features,
     ncnet_forward,
@@ -82,10 +83,15 @@ class BatchMatchEngine:
         return normalize_imagenet(
             torch.as_tensor(np.asarray(u8)).to(self.device))
 
-    def _tables(self, corr: torch.Tensor) -> torch.Tensor:
-        m = corr_to_matches(corr, do_softmax=self.do_softmax, scale=self.scale)
+    def _tables(self, out: NCNetOutput) -> torch.Tensor:
+        """The match-extraction tail of both programs (the JAX
+        ``tables_from``): a relocalized volume's matches land on the
+        ``k``× finer grid through its offsets."""
+        m = corr_to_matches(out.corr, delta4d=out.delta4d,
+                            k_size=max(self.config.relocalization_k_size, 1),
+                            do_softmax=self.do_softmax, scale=self.scale)
         table = torch.stack([v.to(torch.float32) for v in m], dim=1)  # (B, 5, N)
-        return append_quality_rows(table, corr)
+        return append_quality_rows(table, out.corr)
 
     @torch.no_grad()
     def dispatch(self, src_u8: np.ndarray, tgt_u8: np.ndarray) -> torch.Tensor:
@@ -94,7 +100,7 @@ class BatchMatchEngine:
         self.coarse_passes += 1
         out = ncnet_forward(self.config, self._params, self._upload(src_u8),
                             self._upload(tgt_u8))
-        return self._tables(out.corr)
+        return self._tables(out)
 
     def _resolve_src_features(self, row: np.ndarray,
                               digest: Optional[str]) -> torch.Tensor:
@@ -137,7 +143,7 @@ class BatchMatchEngine:
             self.config, self._params, fa, self._upload(tgt_u8),
             torch.as_tensor(np.asarray(prior_ab, dtype=np.int32)),
             torch.as_tensor(np.asarray(prior_ba, dtype=np.int32)))
-        return self._tables(out.corr)
+        return self._tables(out)
 
     def tracking_feasible(self, src_hw: Tuple[int, int],
                           tgt_hw: Tuple[int, int]) -> bool:

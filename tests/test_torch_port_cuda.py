@@ -27,6 +27,11 @@ other, so T1 also keeps at least 99 % of its nonzero interior outputs
 bit-equal to the twin of its Y dtype, and fewer to the other's (sums in
 another order flip about 0.05 % of them, the other Y dtype about 40 %).
 Every T2 probe reports PASS: its kernel launched and matched its twin.
+The relocalization pooling is exact, so the card's is bit-equal to the
+CPU's; the device resize (two f32 contractions) stays within 1e-6 of the
+image's largest value of the CPU's; the eval step's PCK may differ from the CPU readout of the same
+volume by one keypoint a sample (softmax on two devices may round a
+near-tie otherwise).
 """
 
 import numpy as np
@@ -439,3 +444,104 @@ def test_every_probe_passes(cuda):
     assert results == {name: "PASS" for name in mosaic_probes.PROBES}
     kernels = [n for n, p in mosaic_probes.PROBES.items() if p is not None]
     assert mosaic_probes.launches == before + len(kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+def test_maxpool4d_on_cuda_equals_the_cpu(cuda, k):
+    """The relocalization pooling of a bf16 volume full of exact ties: the
+    pooled values and the first maximal offsets bit-equal to the CPU's."""
+    from ncnet_tpu_torch.ops.pooling import maxpool4d_with_argmax
+
+    rng = np.random.default_rng(k)
+    vol = torch.from_numpy(rng.integers(0, 4, (2, 4 * k, 3 * k, 2 * k, 5 * k))
+                           .astype(np.float32)).to(torch.bfloat16)
+    got, got_d = maxpool4d_with_argmax(vol.to(cuda), k)
+    want, want_d = maxpool4d_with_argmax(vol, k)
+    assert torch.equal(got.cpu(), want)
+    for g, w in zip(got_d, want_d):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_hw,out_hw", [((300, 500), (400, 400)),
+                                           ((37, 53), (64, 29))])
+def test_resize_on_cuda_equals_the_cpu(cuda, src_hw, out_hw):
+    """The device resize's two contractions stay full f32 on the card:
+    within 1e-6 of the image's largest value of the CPU's (a TF32 product
+    keeps 10 mantissa bits and would be off by about 1e-3 of it)."""
+    from ncnet_tpu_torch.ops.image import resize_bilinear_align_corners
+
+    img = torch.from_numpy(np.random.default_rng(14).uniform(
+        0, 255, (2,) + src_hw + (3,)).astype(np.float32))
+    want = resize_bilinear_align_corners(img, *out_hw)
+    got = resize_bilinear_align_corners(img.to(cuda), *out_hw).cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-6 * img.abs().max()
+
+
+@pytest.mark.cuda
+def test_eval_step_on_cuda_matches_the_cpu_readout(cuda, monkeypatch):
+    """The eval step's table on the card: the quality columns equal
+    ``quality_table`` on the step's own volume, and the PCK column
+    ``pck_metric`` run on the CPU on that volume, within one keypoint a
+    sample (softmax on two devices may round a near-tie otherwise)."""
+    from ncnet_tpu_torch.evaluation import pf_pascal
+    from ncnet_tpu_torch.evaluation.pck import pck_metric
+    from ncnet_tpu_torch.models.ncnet import NCNet
+    from ncnet_tpu_torch.observability.quality import quality_table
+    from ncnet_tpu_torch.ops.matching import corr_to_matches
+
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+                      half_precision=True)
+    net = NCNet(cfg, seed=0)
+    rng = np.random.default_rng(6)
+    src = rng.integers(0, 256, (3, 128, 128, 3), dtype=np.uint8)
+    points = np.full((2, 3, 2, 20), -1, np.float32)
+    for i, n in enumerate((8, 20, 13)):
+        xy = rng.uniform(1, 96, (2, n)).astype(np.float32)
+        points[0, i, :, :n], points[1, i, :, :n] = xy, xy + 32
+    size = np.tile(np.float32([128, 128, 3]), (3, 1))
+    host = {"source_image": src, "target_image": np.roll(src, (32, 32), axis=(1, 2)),
+            "source_points": points[0], "target_points": points[1],
+            "source_im_size": size, "target_im_size": size,
+            "L_pck": np.float32([[60], [80], [70]])}
+    calls = []
+    real = pf_pascal.ncnet_forward
+
+    def recorded(*args):
+        out = real(*args)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(pf_pascal, "ncnet_forward", recorded)
+    step = pf_pascal.make_eval_step(net, 0.1, device_normalize=True)
+    table = step(net.params, {k: torch.as_tensor(v).to(cuda) for k, v in host.items()}).cpu()
+    assert table.shape == (3, 6) and torch.isfinite(table).all()
+    corr = calls[0].corr
+    assert torch.equal(table[:, 1:], quality_table(corr).cpu())
+    cpu_batch = {k: torch.as_tensor(v) for k, v in host.items()}
+    pck = pck_metric(cpu_batch, corr_to_matches(corr.cpu(), do_softmax=True), 0.1)
+    n_valid = (cpu_batch["source_points"][:, 0] != -1).sum(dim=1)
+    assert ((table[:, 0] - pck).abs() * n_valid).round().max() <= 1
+
+
+@pytest.mark.cuda
+def test_relocalized_engine_launches_the_kernel(cuda):
+    """``relocalization_k_size=2`` at a small width: 192² pairs give a 12²
+    grid pooled to 6², whose bf16 stack (k = 3) no arithmetic tier takes:
+    one folded B2 call of 2 layers a request; the matches on the 12-point
+    fine grid."""
+    from ncnet_tpu_torch.ops.matching import _grid
+
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+                      half_precision=True, relocalization_k_size=2)
+    engine = BatchMatchEngine(cfg, init_ncnet(cfg, seed=0))
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, 256, (2, 192, 192, 3), dtype=np.uint8)
+    before = nc_fused_lane.launches
+    table = engine.fetch(engine.dispatch(src, np.roll(src, (8, 24), axis=(1, 2))))
+    assert nc_fused_lane.launches == before + 2
+    assert nc_fused_lane.last_selected_tier() == "resident"
+    assert table.shape == (2, 6, 36) and np.isfinite(table).all()
+    assert np.isin(table[:, :4], _grid(-1.0, 12, "cpu").numpy()).all()

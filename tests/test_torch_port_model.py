@@ -253,7 +253,6 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(relocalization_k_size=2),
     dict(backbone="vgg"), dict(backbone="densenet201"),
     dict(checkpoint="model.pth.tar"), dict(backbone_weights="resnet101.pth"),
 ])
@@ -264,6 +263,21 @@ def test_unported_options_raise(option):
         BatchMatchEngine(tc, {"nc": [], "backbone": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         tnet.init_ncnet(tc)
+
+
+def test_relocalization_builds_an_engine_and_a_matcher_on_cpu():
+    """``relocalization_k_size=2``, unported until the main path's last
+    slice, now builds the engine and the point matcher: 96² pairs give a
+    6² grid pooled to 3², one match a pooled B cell."""
+    _, tc = configs(backbone="tiny", ncons_kernel_sizes=(3,), ncons_channels=(1,),
+                    relocalization_k_size=2)
+    params = tnet.init_ncnet(tc, seed=0)
+    src, tgt = serving_pairs()
+    engine = BatchMatchEngine(tc, params, device="cpu")
+    table = engine.fetch(engine.dispatch(src, tgt))
+    assert table.shape == (2, 6, 9) and np.isfinite(table).all()
+    m = tnet.make_point_matcher(tc, params, device="cpu")(src[:1], tgt[:1])
+    assert all(v.shape == (1, 9) for v in m)
 
 
 @pytest.mark.parametrize("tier", ["fft", "cp"])

@@ -141,9 +141,17 @@ def test_corr_to_matches(invert, softmax, scale):
 
 
 def test_corr_to_matches_rejects_unported_and_bad_args():
+    """``delta4d``, refused until the relocalization slice, now reads the
+    k× finer grid (zero offsets: fine = coarse·k; the offsets themselves
+    are held to JAX in ``test_torch_port_eval.py``); a bad scale raises."""
     corr = torch.zeros(1, 2, 2, 2, 2)
-    with pytest.raises(NotImplementedError, match="delta4d"):
-        tm.corr_to_matches(corr, delta4d=(corr,) * 4, k_size=2)
+    corr[0, 1, 0, 0, 1] = 1.0
+    zeros = tuple(torch.zeros(1, 2, 2, 2, 2, dtype=torch.int32) for _ in range(4))
+    m, fine = tm.corr_to_matches(corr, delta4d=zeros, k_size=2, return_indices=True)
+    _, coarse = tm.corr_to_matches(corr, return_indices=True)
+    for f, c in zip(fine, coarse):
+        assert torch.equal(f, 2 * c)
+    assert m.xA.shape == (1, 4) and float(m.yA[0, 1]) == tm._grid(-1.0, 4, "cpu")[2]
     with pytest.raises(ValueError, match="scale"):
         tm.corr_to_matches(corr, scale="pixels")
 
