@@ -129,6 +129,24 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      batch-1 features gives the matcher's row and the other rows
      unchanged, bit for bit (the trunks' difference and the differing
      matches printed); a stage line and the peak memory;
+  L. the PF-Pascal eval loop end to end: ``write_pf_pascal_like`` writes 12
+     raw pairs at 300 × 500 (each target its source moved by (12, 20) px,
+     about one feature cell of the 400² image) and phase E's weights are
+     saved as a reference ``.pth.tar``; ``run_eval`` with that checkpoint
+     in bf16 at 400², batch 4 (the FFT tier: no B2 launch), then with
+     ``sparse_topk=4`` at 800² (each batch a coarse-to-fine request: 6 B2
+     and 2 B4 launches), and dense at 800² (3 B2 launches a batch; the
+     same pairs' PCK without the candidate selection), each under its
+     event log, with no quarantine,
+     retry or substitution, and its rows bit-equal to ``make_eval_step`` run
+     directly on the batches the loop uploaded; the first batch's PCK
+     against ``pck_metric`` on the CPU (one keypoint a sample, as phase E);
+     the CLI (``cli/eval_pf_pascal.py``, its fp32 model) at 400², batch 1,
+     printing the reference's lines, then the same CLI in a subprocess
+     killed by an injected SIGKILL at its fifth journal append and resumed:
+     the resumed journal's rows bit-equal to the uninterrupted run's; the
+     perf store holds the runs' PCK; walls, the decode / dispatch / fetch
+     split and PCK printed;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -275,6 +294,12 @@ RESIZE_TOLERANCE = 1e-6
 # 50²: the NC stack's call is the dense 800² request's 8 × 50⁴); a warm-up
 # and 3 requests of SERVE_BATCH pairs
 RELOC_SIDE, RELOC_K, RELOC_REQUESTS = 1600, 2, 3
+# phase L: the eval loop on a fixture of 12 raw pairs at EVAL_SOURCE_HW, each
+# target its source moved by EVAL_LOOP_SHIFT px (about one 16-px feature
+# cell of the EVAL_SIDE image in each axis); run_eval at batch 4, the CLI at
+# batch 1, killed at its EVAL_LOOP_KILL_AT-th journal append once
+EVAL_LOOP_PAIRS, EVAL_LOOP_BATCH, EVAL_LOOP_SHIFT = 12, 4, (12, 20)
+EVAL_LOOP_WORKERS, EVAL_LOOP_KILL_AT = 4, 5
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -2425,6 +2450,274 @@ def reloc_stages(torch, cfg, params, src, tgt, nc, nc_input):
           f"B={SERVE_BATCH}): " + json.dumps(stages), flush=True)
 
 
+def reference_checkpoint(torch, path, cfg, params) -> None:
+    """Write ``params`` as a reference ``.pth.tar`` (``ImMatchNet`` key
+    names and layouts, the run's ``args``), as the published PF-Pascal
+    checkpoint is stored."""
+    import argparse
+
+    from ncnet_tpu_torch.models.checkpoint import reference_state_dict
+
+    args = argparse.Namespace(
+        ncons_kernel_sizes=list(cfg.ncons_kernel_sizes),
+        ncons_channels=list(cfg.ncons_channels),
+        feature_extraction_cnn=cfg.backbone)
+    torch.save({"epoch": 0, "args": args,
+                "state_dict": reference_state_dict(cfg, params)}, path)
+
+
+def result_table(stats):
+    """The ``(N, 6)`` rows of a ``run_eval`` result: PCK, then the quality
+    columns."""
+    import numpy as np
+
+    from ncnet_tpu_torch.observability.quality import QUALITY_SIGNALS
+
+    return np.column_stack([stats["per_pair"]]
+                           + [stats["quality"][n] for n in QUALITY_SIGNALS])
+
+
+def journal_rows(path):
+    """Every journaled batch's rows of an eval journal, in batch order."""
+    import numpy as np
+
+    from ncnet_tpu_torch.evaluation.pf_pascal import RESULT_COLUMNS
+    from ncnet_tpu_torch.evaluation.resilience import EvalJournal
+
+    with open(path) as f:
+        header = json.loads(f.readline())["header"]
+    journal = EvalJournal(path, header)
+    journal.close()
+    return np.concatenate([journal.entries[i].reshape(-1, len(RESULT_COLUMNS))
+                           for i in sorted(journal.entries)])
+
+
+def eval_loop_run(torch, nc_fused_lane, sparse_corr, config, model_config,
+                  batch_size, where):
+    """One ``run_eval`` with every step call recorded; returns the stats,
+    the launches, the recorded ``(net, step batch)`` pairs and the run's
+    replayed events."""
+    from ncnet_tpu_torch.evaluation import pf_pascal
+    from ncnet_tpu_torch.evaluation.pf_pascal import run_eval
+    from ncnet_tpu_torch.observability import events
+
+    real_make = pf_pascal.make_eval_step
+    calls = []
+
+    def recording_make(net, alpha, device_normalize=False):
+        step = real_make(net, alpha, device_normalize)
+
+        def recorded(params, batch):
+            calls.append((net, batch))
+            return step(params, batch)
+        return recorded
+
+    torch.cuda.synchronize()
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    t0 = time.perf_counter()
+    with routed(pf_pascal, "make_eval_step", recording_make):
+        stats = run_eval(config, model_config=model_config,
+                         batch_size=batch_size, num_workers=EVAL_LOOP_WORKERS,
+                         progress=False)
+    wall = time.perf_counter() - t0
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "gather_tile_corr_bf16": sparse_corr.launches}
+    _, replayed = events.replay_events(
+        os.path.join(config.telemetry_dir, "events.jsonl"))
+    batch_events = [e for e in replayed if e["event"] == "eval_batch"]
+    fetch_ms = [round(e["fetch_wall_s"] * 1e3, 3) for e in batch_events]
+    # a batch's wall: from the previous batch's result to its own (the
+    # first from the run's start: checkpoint load and first calls)
+    stamps = [replayed[0]["t"]] + [e["t"] for e in batch_events]
+    walls = [round((b - a) * 1e3, 2) for a, b in zip(stamps, stamps[1:])]
+    retries = [e for e in replayed if e["event"] == "retry"]
+    n_batches = len(fetch_ms)
+    print(f"{where}: {stats['total']} pairs in {n_batches} batches of "
+          f"{batch_size} at {config.image_size}x{config.image_size} in "
+          f"{wall:.3f} s; batch walls ms {walls} (the first with set-up); "
+          f"decode/dispatch/fetch s {json.dumps(stats['timing'])}; fetch ms "
+          f"a batch {fetch_ms}; PCK@{config.pck_alpha} {stats['pck']:.4f} "
+          f"({stats['valid']} valid); tier {stats['quality_tier']!r}; "
+          f"launches {launches}; quarantined batches "
+          f"{stats['quarantined_batches']}, retries {len(retries)}, "
+          f"undecodable images {stats['decode_quarantined']}", flush=True)
+    if stats["quarantined_batches"] or stats["decode_quarantined"] or retries \
+            or stats["total"] != EVAL_LOOP_PAIRS:
+        raise SystemExit(f"{where}: the run quarantined, retried or "
+                         "substituted, or lost pairs")
+    return stats, launches, calls, replayed
+
+
+def eval_loop(torch, nc_fused_lane, sparse_corr, dev):
+    """Phase L: the PF-Pascal eval loop end to end (``run_eval`` and the
+    CLI) on a raw fixture with a reference checkpoint; returns the B2 and
+    B4 launches by run."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.cli import eval_pf_pascal as cli
+    from ncnet_tpu_torch.config import EvalPFPascalConfig, ModelConfig
+    from ncnet_tpu_torch.data.synthetic import write_pf_pascal_like
+    from ncnet_tpu_torch.evaluation import pf_pascal
+    from ncnet_tpu_torch.evaluation.pck import pck_metric
+    from ncnet_tpu_torch.observability import perfstore
+    from ncnet_tpu_torch.ops.matching import corr_to_matches
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_loop_")
+    root = os.path.join(tmp, "pf-pascal")
+    t0 = time.perf_counter()
+    write_pf_pascal_like(root, n_pairs=EVAL_LOOP_PAIRS, image_hw=EVAL_SOURCE_HW,
+                         shift=EVAL_LOOP_SHIFT, seed=11)
+    fixture_s = time.perf_counter() - t0
+    arch = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                       ncons_channels=(16, 16, 1), half_precision=True,
+                       backbone_bf16=True)
+    ckpt = os.path.join(tmp, "ncnet_pfpascal.pth.tar")
+    reference_checkpoint(torch, ckpt, arch,
+                         serving_params(torch, arch, dev, EVAL_SIDE))
+    print(f"eval loop: fixture of {EVAL_LOOP_PAIRS} raw pairs at "
+          f"{EVAL_SOURCE_HW} (shift {EVAL_LOOP_SHIFT} px, about one 16-px "
+          f"cell at {EVAL_SIDE}x{EVAL_SIDE}) written in {fixture_s:.2f} s; "
+          f"reference checkpoint of phase E's weights "
+          f"{os.path.getsize(ckpt)} bytes", flush=True)
+    store = os.path.join(tmp, "perf_history.jsonl")
+    os.environ[perfstore.STORE_ENV] = store
+    bf16 = ModelConfig(half_precision=True, backbone_bf16=True)
+
+    def config(side, name, **kw):
+        return EvalPFPascalConfig(
+            checkpoint=ckpt, image_size=side, eval_dataset_path=root,
+            telemetry_dir=os.path.join(tmp, name), **kw)
+
+    runs = {}
+    # (name, side, options, B2 and B4 launches a batch, tier): the 400²
+    # stack takes the FFT tier (no kernel); at 800² each coarse-to-fine
+    # batch is a request of phase B, and the dense 800² run beside it (the
+    # same pairs' PCK without the candidate selection) a dense request
+    # there
+    n_batches = EVAL_LOOP_PAIRS // EVAL_LOOP_BATCH
+    for name, side, kw, per_batch, tier in (
+            ("eval_loop_400", EVAL_SIDE, {}, (0, 0), "fft"),
+            ("eval_loop_800", C2F_SIDE, {"sparse_topk": C2F_TOPK}, (6, 2),
+             "coarse2fine"),
+            ("eval_loop_800_dense", C2F_SIDE, {}, (3, 0), "resident")):
+        where = name.replace("_", " ")
+        stats, launches, calls, _ = eval_loop_run(
+            torch, nc_fused_lane, sparse_corr, config(side, name, **kw), bf16,
+            EVAL_LOOP_BATCH, where)
+        want = {"nc_conv4d_bf16": per_batch[0] * n_batches,
+                "gather_tile_corr_bf16": per_batch[1] * n_batches}
+        if launches != want or stats["quality_tier"] != tier:
+            raise SystemExit(f"{where}: expected launches {want} and "
+                             f"tier {tier!r}")
+        # the loop's rows against the step run directly on the batches the
+        # loop uploaded (the same program: bit for bit)
+        net = calls[0][0]
+        step = pf_pascal.make_eval_step(net, 0.1, device_normalize=True)
+        direct = np.concatenate([step(net.params, b).cpu().numpy()
+                                 for _, b in calls])
+        same = np.array_equal(direct, result_table(stats), equal_nan=True)
+        print(f"{where}: rows vs make_eval_step run directly on the "
+              f"{len(calls)} uploaded batches: "
+              f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+        if not same or len(calls) != n_batches:
+            raise SystemExit(f"{where}: the loop's rows differ from the "
+                             "direct step's")
+        runs[name] = (stats, launches, calls)
+
+    # phase E's check on the loop's first batch: its PCK against
+    # pck_metric on the CPU on the step's own volume
+    stats, _, calls = runs["eval_loop_400"]
+    net, batch = calls[0]
+    step = pf_pascal.make_eval_step(net, 0.1, device_normalize=True)
+    fwd = []
+    with routed(pf_pascal, "ncnet_forward", pf_pascal.ncnet_forward, fwd):
+        table = step(net.params, batch).cpu()
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    pck_cpu = pck_metric(cpu_batch, corr_to_matches(fwd[0][2].corr.cpu(),
+                                                    do_softmax=True), 0.1)
+    n_valid = (cpu_batch["source_points"][:, 0] != -1).sum(dim=1)
+    off = ((table[:, 0] - pck_cpu).abs() * n_valid).round()
+    print(f"eval loop {EVAL_SIDE}: batch 0's PCK {table[:, 0].tolist()} vs "
+          f"pck_metric "
+          f"on the CPU {pck_cpu.tolist()}: keypoints apart {off.tolist()} of "
+          f"{n_valid.tolist()}", flush=True)
+    if off.max() > 1:
+        raise SystemExit("eval loop: the loop's PCK and pck_metric on the "
+                         "CPU differ by more than one keypoint")
+
+    # the CLI (its default fp32 model from the checkpoint), once through
+    # and once killed mid-journal by an injected SIGKILL and resumed: the
+    # resumed journal's rows equal the uninterrupted run's bit for bit.  The
+    # killed run is a process of its own with PyTorch's default TF32
+    # settings, which the in-process runs take for the CLI too
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    def cli_args(journal):
+        return ["--checkpoint", ckpt, "--image_size", str(EVAL_SIDE),
+                "--eval_dataset_path", root, "--batch_size", "1",
+                "--num_workers", str(EVAL_LOOP_WORKERS),
+                "--journal_dir", os.path.join(tmp, journal),
+                "--telemetry_dir", os.path.join(tmp, journal + "_events")]
+
+    def cli_run(journal):
+        out = io.StringIO()
+        nc_fused_lane.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(cli_args(journal))
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if not ln.startswith("Batch: ")]
+        return rc, lines, time.perf_counter() - t0, nc_fused_lane.launches
+
+    rc, lines, wall, cli_launches = cli_run("cli")
+    print(f"eval cli {EVAL_SIDE}: exit {rc} in {wall:.3f} s ({EVAL_LOOP_PAIRS} batches "
+          f"of 1, fp32, PyTorch's default TF32 settings), B2 launches "
+          f"{cli_launches}, printed {lines}", flush=True)
+    if rc != 0 or lines[:3] != ["NCNet evaluation script - PF Pascal dataset",
+                                f"Total: {EVAL_LOOP_PAIRS}",
+                                f"Valid: {EVAL_LOOP_PAIRS}"] \
+            or not lines[3].startswith("PCK: ") or len(lines) != 4:
+        raise SystemExit("eval cli: expected exit 0 and the reference's lines")
+    env = dict(os.environ, NCNET_TPU_FAULTS=json.dumps(
+        {"kill_at_journal_append": EVAL_LOOP_KILL_AT}))
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-m", "ncnet_tpu_torch.cli.eval_pf_pascal"]
+        + cli_args("cli_killed"), cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=600)
+    kill_s = time.perf_counter() - t0
+    rc2, lines2, wall2, _ = cli_run("cli_killed")
+    full = journal_rows(os.path.join(tmp, "cli", "pck_journal.jsonl"))
+    resumed = journal_rows(os.path.join(tmp, "cli_killed", "pck_journal.jsonl"))
+    same = np.array_equal(full, resumed, equal_nan=True)
+    print(f"eval cli {EVAL_SIDE}: a run killed at journal append "
+          f"{EVAL_LOOP_KILL_AT} "
+          f"(exit {killed.returncode} after {kill_s:.1f} s) resumed in "
+          f"{wall2:.3f} s: exit {rc2}, printed {lines2}; its journaled rows vs "
+          f"the uninterrupted run's: {'bit-equal' if same else 'DIFFERENT'}",
+          flush=True)
+    if killed.returncode != -9 or rc2 != 0 or lines2 != lines or not same \
+            or len(resumed) != EVAL_LOOP_PAIRS:
+        raise SystemExit("eval cli: the killed run did not resume to the "
+                         "uninterrupted result" + killed.stderr[-2000:])
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    recorded = perfstore.PerfStore(store).records()
+    print(f"eval loop: perf store {len(recorded)} records "
+          f"({sorted({r['metric'] for r in recorded})[:4]} ...)", flush=True)
+    if not any(r["metric"] == "pf_pascal_pck" for r in recorded):
+        raise SystemExit("eval loop: the perf store holds no PCK record")
+    del os.environ[perfstore.STORE_ENV]
+    shutil.rmtree(tmp)
+    return ({name: launches for name, (_, launches, _) in runs.items()},
+            cli_launches)
+
+
 def main() -> int:
     import torch
 
@@ -2475,15 +2768,21 @@ def main() -> int:
     b5_by_path, b5_path_err = serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev)
     eval_launches = eval_phase(torch, nc_fused_lane, dev)
     reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
+    loop_launches, cli_launches = eval_loop(torch, nc_fused_lane, sparse_corr,
+                                            dev)
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
                   "serve_tracked": tracked_launches["nc_conv4d_bf16"],
                   "dense_800": dense_launches,
                   "eval_400": eval_launches,
-                  "reloc_1600": reloc_launches}
+                  "reloc_1600": reloc_launches,
+                  **{k: v["nc_conv4d_bf16"] for k, v in loop_launches.items()},
+                  "eval_cli_400": cli_launches}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
-                      "serve_tracked": tracked_launches["gather_tile_corr_bf16"]}
+                      "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
+                      **{k: v["gather_tile_corr_bf16"]
+                         for k, v in loop_launches.items()}}
 
     kernels = [{
         "name": "nc_conv4d_bf16",

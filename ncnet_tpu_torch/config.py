@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port.
 
-``ModelConfig`` and ``TrainConfig`` repeat ``ncnet_tpu/config.py`` field for
-field (same names, same defaults), so a configuration written for the JAX
-package means the same model and run here.  Options the port does not run
+``ModelConfig``, ``TrainConfig`` and ``EvalPFPascalConfig`` repeat
+``ncnet_tpu/config.py`` field for field (same names, same defaults), so a
+configuration written for the JAX package means the same model and run
+here.  Options the port does not run
 yet are still fields; the code rejects them loudly (``models/ncnet.py::
 check_ported``, ``training/train.py::check_train_ported``).  The other
 config dataclasses come with the slices that use them.
@@ -85,3 +86,33 @@ class TrainConfig:
     io_retry_backoff: float = 0.5
     decode_retries: int = 1
     quarantine_decode_errors: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalPFPascalConfig:
+    """PCK evaluation on PF-Pascal (reference eval_pf_pascal.py:28-30)."""
+
+    checkpoint: str = ""
+    image_size: int = 400
+    eval_dataset_path: str = "datasets/pf-pascal/"
+    pck_alpha: float = 0.1
+    pck_procedure: str = "scnet"
+    # coarse-to-fine matching (ModelConfig.sparse_topk) when the eval builds
+    # the net itself; a caller-supplied net keeps its own. 0 = dense
+    sparse_topk: int = 0
+    # fault tolerance (evaluation/resilience.py):
+    journal_dir: str = ""                # journal per-batch rows + the run
+                                         # manifest here; a rerun with the
+                                         # same settings resumes to a
+                                         # bit-equal result. "" = none
+    query_retries: int = 2               # per-batch retries after the first
+                                         # dispatch/fetch failure
+    retry_backoff_s: float = 0.5         # seconds, doubled per attempt
+    quarantine: bool = True              # exhausted retries: record the batch
+                                         # in the manifest, score its pairs
+                                         # NaN and go on (else raise)
+    fetch_timeout_s: float = 0.0         # watchdog around each fetch; 0 = off
+    decode_retries: int = 1              # per-image transient decode retries
+    # observability: open an event log here for the run. "" = emit only to
+    # an already-bound global sink, if any
+    telemetry_dir: str = ""

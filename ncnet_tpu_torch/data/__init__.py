@@ -1,0 +1,19 @@
+"""Host-side input pipeline of the port: the PF-Pascal dataset in the raw
+image form (ROADMAP decision D1), the loader and the synthetic fixtures."""
+
+from ncnet_tpu_torch.data.datasets import (
+    MAX_KEYPOINTS,
+    PFPascalDataset,
+    SampleDecodeError,
+    load_image,
+)
+from ncnet_tpu_torch.data.loader import DataLoader, default_collate
+
+__all__ = [
+    "DataLoader",
+    "MAX_KEYPOINTS",
+    "PFPascalDataset",
+    "SampleDecodeError",
+    "default_collate",
+    "load_image",
+]

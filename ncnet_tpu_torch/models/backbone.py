@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -169,6 +170,57 @@ def backbone_apply(name: str, params, images: torch.Tensor,
                    last_layer: str = "") -> torch.Tensor:
     _check_name(name)
     return _APPLYS[name](params, images, last_layer)
+
+
+# ---------------------------------------------------------------------------
+# torchvision state_dict import
+# ---------------------------------------------------------------------------
+
+
+def _t(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().clone()
+    return torch.from_numpy(np.array(v, copy=True))
+
+
+def _import_bn(sd, prefix) -> Dict[str, torch.Tensor]:
+    return {"scale": _t(sd[prefix + ".weight"]),
+            "bias": _t(sd[prefix + ".bias"]),
+            "mean": _t(sd[prefix + ".running_mean"]),
+            "var": _t(sd[prefix + ".running_var"])}
+
+
+def import_torch_backbone(state_dict, name: str = "resnet101",
+                          prefix: str = "", last_layer: str = ""):
+    """A torchvision-named ``state_dict`` (``resnet101``: ``conv1.weight``,
+    ``bn1.*``, ``layer<n>.<i>.conv<j>.weight``, ...; values torch tensors
+    or numpy arrays) → the trunk's parameter tree, the counterpart of
+    ``ncnet_tpu/models/backbone.py:449``.  Conv weights keep PyTorch's
+    OIHW layout (the port's own); ``prefix`` strips a leading path and
+    skips keys without it.  Stages past ``last_layer`` are not read."""
+    _check_name(name)
+    if name != "resnet101":
+        raise ValueError(f"no torchvision state_dict exists for the {name!r} "
+                         "trunk")
+    sd = {k[len(prefix):]: v for k, v in state_dict.items()
+          if k.startswith(prefix)}
+    params: Dict[str, Any] = {"conv1": {"w": _t(sd["conv1.weight"])},
+                              "bn1": _import_bn(sd, "bn1")}
+    for stage in _resnet_stages(last_layer):
+        blocks = []
+        for i in range(RESNET101_STAGES[stage]):
+            p = f"{stage}.{i}"
+            blk = {f"{part}{j}": ({"w": _t(sd[f"{p}.conv{j}.weight"])}
+                                  if part == "conv"
+                                  else _import_bn(sd, f"{p}.bn{j}"))
+                   for j in (1, 2, 3) for part in ("conv", "bn")}
+            if f"{p}.downsample.0.weight" in sd:
+                blk["downsample"] = {
+                    "conv": {"w": _t(sd[f"{p}.downsample.0.weight"])},
+                    "bn": _import_bn(sd, f"{p}.downsample.1")}
+            blocks.append(blk)
+        params[stage] = blocks
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -59,11 +59,13 @@ from ncnet_tpu_torch.utils.seeding import torch_generator
 
 def check_ported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that this slice of the port does not run."""
+    that this slice of the port does not run.  Weights files
+    (``backbone_weights``, ``checkpoint``) load for the ResNet-101 trunk."""
+    resnet = config.backbone == "resnet101"
     unported = [
         ("backbone", config.backbone not in ("resnet101", "tiny")),
-        ("backbone_weights", bool(config.backbone_weights)),
-        ("checkpoint", bool(config.checkpoint)),
+        ("backbone_weights", bool(config.backbone_weights) and not resnet),
+        ("checkpoint", bool(config.checkpoint) and not resnet),
     ]
     for name, hit in unported:
         if hit:
@@ -128,19 +130,27 @@ class NCNetOutput(NamedTuple):
 
 
 def init_ncnet(config: ModelConfig, seed: int = 1) -> Dict[str, Any]:
-    """Random parameters (CPU tensors) for the full model from ``seed``:
-    a He-initialized trunk and the NC stack with the reference Conv4d
-    init.  The numbers differ from the JAX package's init at the same seed
-    (different generators); tests share weights via ``models/convert.py``."""
+    """Parameters (CPU tensors) for the full model from ``seed``: the NC
+    stack with the reference Conv4d init, and the trunk from
+    ``config.backbone_weights`` (a torchvision ``state_dict``) when given,
+    else He-initialized.  The numbers differ from the JAX package's init
+    at the same seed (different generators); tests share weights via
+    ``models/convert.py``."""
     check_ported(config)
     if len(config.ncons_kernel_sizes) != len(config.ncons_channels):
         raise ValueError(
             "ncons_kernel_sizes and ncons_channels must have equal length, got "
             f"{config.ncons_kernel_sizes} vs {config.ncons_channels}")
     g = torch_generator(seed)
-    params: Dict[str, Any] = {
-        "backbone": bb.backbone_init(config.backbone, g,
-                                     last_layer=config.backbone_last_layer)}
+    # drawn even when the weights file replaces it, so that the NC init at a
+    # seed does not depend on backbone_weights
+    trunk = bb.backbone_init(config.backbone, g,
+                             last_layer=config.backbone_last_layer)
+    if config.backbone_weights:
+        from ncnet_tpu_torch.models.checkpoint import load_backbone_weights
+
+        trunk = load_backbone_weights(config.backbone_weights, config)
+    params: Dict[str, Any] = {"backbone": trunk}
     nc: List[Dict[str, torch.Tensor]] = []
     c_in = 1
     for k, c_out in zip(config.ncons_kernel_sizes, config.ncons_channels):
@@ -175,14 +185,17 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
       that arithmetic tier unconditionally; ``'cp'`` needs factors on every
       layer.
     * ``require_vjp`` (the training gate, with ``allow_pallas``): a bf16
-      stack in B2's shape class runs ``nc_fused_lane.nc_stack_fused``,
-      whose forward asks the tier chooser (the FFT tier at the PF-Pascal
-      25⁴ volume) and whose backward is B3.
+      stack in B2's shape class (every layer compiled into the kernels,
+      ``nc_fused_lane.COMPILED_LAYER_SHAPES``) runs
+      ``nc_fused_lane.nc_stack_fused``, whose forward asks the tier chooser
+      (the FFT tier at the PF-Pascal 25⁴ volume) and whose backward is B3.
     * Otherwise, with ``allow_pallas`` and neither ``remat_layers`` nor
       ``custom_grad``, ``nc_fused_lane.choose_fused_stack`` decides for
       every orientation the call runs: an arithmetic tier that wins them
       all runs the whole stack; a bf16 stack whose decisions are all
       kernel tiers runs B2 (``nc_stack_fused`` when autograd records).
+      The chooser takes the kernel tier only for compiled layer shapes, so
+      any other stack falls to the line below before any launch.
     * Everything else runs layer by layer through ``conv4d``'s formulation
       chooser (``"pallas"``, B5, for a small-C_out layer): through
       :func:`~ncnet_tpu_torch.ops.conv4d.conv4d_same` when ``custom_grad``,
@@ -231,10 +244,14 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
         nc_fused_lane.note_forced_tier(force_tier)
     elif tier_eligible and require_vjp:
         # the training gate fuses only where the B3 backward exists: B2's
-        # shape class (the arithmetic tiers are never auto-selected here;
-        # the fused stack's own forward may still take one)
+        # shape class with every layer compiled in (the arithmetic tiers
+        # are never auto-selected here; the fused stack's own forward may
+        # still take one); any other stack runs the formulations per layer
+        # with autograd through them, reported as "xla"
         use_fused = bf16 and nc_fused_lane.fused_shape_class(
             kernels, channels)
+        if not use_fused:
+            nc_fused_lane.note_forced_tier("xla")
     elif tier_eligible:
         cp_ranks = cp_stack_ranks(nc_params)
         decisions = [nc_fused_lane.choose_fused_stack(
@@ -562,14 +579,22 @@ def make_point_matcher(config: ModelConfig, params, *, do_softmax: bool = True,
 
 class NCNet:
     """Config + params bundled with a callable forward, on ``device`` (CUDA
-    by default).  ``NCNet(cfg, params)`` stages the given params;
-    ``NCNet(cfg, seed=s)`` initializes them randomly."""
+    by default).  ``NCNet(cfg, params)`` stages the given params; without
+    them ``cfg.checkpoint`` (a reference ``.pth.tar``, whose stored
+    architecture then overrides ``cfg``'s, ``models/checkpoint.py``) is
+    loaded, else ``NCNet(cfg, seed=s)`` initializes them
+    (:func:`init_ncnet`)."""
 
     def __init__(self, config: ModelConfig = ModelConfig(), params=None,
                  seed: int = 1, device=None):
         check_ported(config)
-        self.config = config
         self.device = resolve_device(device)
+        if params is None and config.checkpoint:
+            from ncnet_tpu_torch.models.checkpoint import load_params
+
+            config, params = load_params(config.checkpoint, config)
+            check_ported(config)
+        self.config = config
         if params is None:
             params = init_ncnet(config, seed)
         self.params = params_to(params, self.device)

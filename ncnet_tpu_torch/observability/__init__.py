@@ -1,9 +1,10 @@
 """Observability of the port: the event log, the leveled logger, metrics,
-span tracing, the perf store, and the in-graph match-quality signals.
+span tracing, the perf store, the match-quality signals, and the device
+and memory planes (``observability/device.py``, ``memory.py``).
 
-The JAX package's ``observability/__init__.py`` names, for the modules
-ported so far (its ``device`` and ``memory`` modules and the host half of
-``quality`` are not ported yet).
+The JAX package's ``observability/__init__.py`` names, for the parts
+ported so far (the quality drift gate, the program ledger and the
+exporters are not ported yet).
 """
 
 from ncnet_tpu_torch.observability.events import (  # noqa: F401
@@ -43,9 +44,14 @@ from ncnet_tpu_torch.observability.perfstore import (  # noqa: F401
     resolve_store_path,
 )
 from ncnet_tpu_torch.observability.quality import (  # noqa: F401
+    DIGEST_BINS,
     QUALITY_SIGNALS,
+    SIGNAL_RANGE,
+    active_tier,
+    emit_quality,
     quality_signals,
     quality_table,
+    spearman,
 )
 from ncnet_tpu_torch.observability.tracing import (  # noqa: F401
     current_span_id,
@@ -80,9 +86,14 @@ __all__ = [
     "current_span_id",
     "span",
     "traced",
+    "DIGEST_BINS",
     "QUALITY_SIGNALS",
+    "SIGNAL_RANGE",
+    "active_tier",
+    "emit_quality",
     "quality_signals",
     "quality_table",
+    "spearman",
     "PerfStore",
     "check_regressions",
     "maybe_record",

@@ -1,7 +1,10 @@
-"""Match-quality signals over the filtered 4D volume: the in-graph half of
-``ncnet_tpu/observability/quality.py`` (:data:`QUALITY_SIGNALS`, the signal
-extractor and the ``(B, 6, N)`` wire row).  The host half (tier tagging,
-events, digests, the drift gate) comes with the port's observability slice.
+"""Match-quality signals over the filtered 4D volume, the port of
+``ncnet_tpu/observability/quality.py``: the in-graph half
+(:data:`QUALITY_SIGNALS`, the signal extractor and the ``(B, 6, N)`` wire
+row) and the host half the eval loop calls (:data:`SIGNAL_RANGE`,
+:data:`DIGEST_BINS`, :func:`active_tier`, :func:`emit_quality`,
+:func:`spearman`).  The drift gate (``psi``, ``write_reference``,
+``check_drift``) waits in ROADMAP A11.
 
 Signals, all per pair and in [0, 1], over the B→A direction that
 :func:`~ncnet_tpu_torch.ops.matching.corr_to_matches` scores by:
@@ -14,7 +17,7 @@ adjacent B cells whose matched A cells advance within 0.9 of a grid step).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,14 @@ from ncnet_tpu_torch.ops.matching import mutual_argmax_agreement
 
 # signal order IS the wire order of the quality row
 QUALITY_SIGNALS = ("score", "entropy", "margin", "mnn_agreement", "coherence")
+
+# per-signal digest range; everything the volume extractor emits is [0, 1]
+# by construction, the training score gap is a difference of [0, 1] means
+SIGNAL_RANGE: Dict[str, Tuple[float, float]] = {
+    **{name: (0.0, 1.0) for name in QUALITY_SIGNALS},
+    "score_gap": (-1.0, 1.0),
+}
+DIGEST_BINS = 32
 
 
 def quality_signals(corr: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -119,3 +130,90 @@ def split_quality_row(table: np.ndarray):
     signals = dict(zip(QUALITY_SIGNALS,
                        (float(v) for v in table[5, : len(QUALITY_SIGNALS)])))
     return table[:5], signals
+
+
+# ---------------------------------------------------------------------------
+# host half: tier tagging, events and digests, signal-vs-PCK validation
+# ---------------------------------------------------------------------------
+
+
+def active_tier(eligible: bool = True, stage: str = "forward") -> str:
+    """The NC-stack tier label for quality events.
+
+    ``eligible``: whether the program that produced the signals could take
+    the kernel tier at all (callers pass their config's
+    ``half_precision``: the chooser offers B2 to bf16 volumes only); an
+    ineligible program is ``"xla"`` unless an arithmetic tier ran.  The
+    match-pipeline decision outranks the stack's: when the latest
+    ``sparse_corr.choose_match_pipeline`` consult chose ``"coarse2fine"``
+    the signals describe that pipeline's volume, in any precision.  The
+    arithmetic tiers (``"cp"``, ``"fft"``) pass through in any precision;
+    otherwise the stage's latest decision
+    (``nc_fused_lane.last_selected_tier``), or ``"xla"``."""
+    from ncnet_tpu_torch.ops.nc_fused_lane import last_selected_tier
+
+    if stage == "forward" and last_selected_tier("pipeline") == "coarse2fine":
+        return "coarse2fine"
+    selected = last_selected_tier(stage)
+    if stage == "forward" and selected in ("cp", "fft"):
+        return selected
+    if not eligible:
+        return "xla"
+    return selected or "xla"
+
+
+def emit_quality(scope: str, signals: Dict[str, Any], *,
+                 tier: Optional[str] = None,
+                 pck: Optional[Iterable[float]] = None,
+                 registry=None, **ids) -> None:
+    """Stream one unit's per-pair signals: a ``quality`` event into the
+    bound sink (no-op when unbound), tagged with the active tier, and —
+    when a registry is given — into its per-signal histogram digests (NaNs
+    dropped there; they mark quarantined pairs).  ``pck`` rides along when
+    labels exist so consumers can rank-correlate signal vs PCK."""
+    from ncnet_tpu_torch.observability import events as _events
+
+    tier = tier or active_tier()
+    sig_lists = {}
+    for name, vals in signals.items():
+        arr = np.atleast_1d(np.asarray(vals, dtype=np.float64))
+        sig_lists[name] = [round(float(v), 6) for v in arr]
+        if registry is not None:
+            lo, hi = SIGNAL_RANGE.get(name, (0.0, 1.0))
+            registry.histogram(f"q_{name}", lo, hi, DIGEST_BINS).add(
+                arr[np.isfinite(arr)])
+    if _events.get_global_sink() is not None:
+        fields = dict(ids)
+        if pck is not None:
+            fields["pck"] = [round(float(v), 6)
+                             for v in np.atleast_1d(np.asarray(pck))]
+        _events.emit("quality", scope=scope, tier=tier,
+                     signals=sig_lists, **fields)
+
+
+def spearman(a, b) -> float:
+    """Spearman rank correlation with average ranks for ties; NaN pairs are
+    dropped, degenerate inputs (under 3 pairs, or a constant side) return
+    NaN rather than a fake verdict."""
+    a = np.asarray(a, dtype=np.float64).ravel()
+    b = np.asarray(b, dtype=np.float64).ravel()
+    m = np.isfinite(a) & np.isfinite(b)
+    a, b = a[m], b[m]
+    if a.size < 3:
+        return float("nan")
+
+    def rank(x):
+        order = np.argsort(x, kind="stable")
+        r = np.empty(x.size, dtype=np.float64)
+        r[order] = np.arange(1, x.size + 1)
+        for v in np.unique(x):  # average ranks over tie groups
+            tie = x == v
+            if np.sum(tie) > 1:
+                r[tie] = np.mean(r[tie])
+        return r
+
+    ra, rb = rank(a), rank(b)
+    sa, sb = np.std(ra), np.std(rb)
+    if sa == 0 or sb == 0:
+        return float("nan")
+    return float(np.mean((ra - np.mean(ra)) * (rb - np.mean(rb))) / (sa * sb))

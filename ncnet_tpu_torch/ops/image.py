@@ -13,6 +13,8 @@ gather+lerp form.  Both derive from :func:`_tap_weights`.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -116,9 +118,17 @@ def normalize_imagenet(img: torch.Tensor, *,
     x = img if img.is_floating_point() else img.to(torch.float32)
     if scale_255:
         x = x / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean, std = _imagenet_constants(x.dtype, x.device)
     return (x - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_constants(dtype, device):
+    """The mean and std as tensors on ``device``, made once: a tensor made
+    from Python numbers on the card is a host-to-device copy, which makes
+    the host wait for the card's queue (the eval step's first op)."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
 
 
 def quantize_u8(img: np.ndarray) -> np.ndarray:

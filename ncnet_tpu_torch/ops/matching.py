@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -91,10 +92,12 @@ def _grid(lo: float, n: int, device) -> torch.Tensor:
     1, n)`` is inside a jitted JAX program: ``t = i·f32(1/(n−1))``, then
     ``lo·(1−t) + t``, each step rounded to float32, endpoint appended.
     Match coordinates then agree with the JAX package's programs bit for
-    bit (``torch.linspace`` rounds some points differently)."""
+    bit (``torch.linspace`` rounds some points differently).  The
+    reciprocal is rounded on the host (a number copied to the card would
+    make the host wait for the card's queue)."""
     if n == 1:
         return torch.full((1,), lo, dtype=torch.float32, device=device)
-    recip = 1.0 / torch.tensor(n - 1, dtype=torch.float32, device=device)
+    recip = float(np.float32(1.0) / np.float32(n - 1))
     t = torch.arange(n - 1, dtype=torch.float32, device=device) * recip
     head = lo * (1 - t) + t
     return torch.cat([head, torch.ones(1, dtype=torch.float32, device=device)])

@@ -20,8 +20,9 @@ layer outputs.
 :func:`choose_fused_stack` is the tier authority
 (``ncnet_tpu/ops/nc_fused_lane.py:838-976``): the arithmetic tiers first
 (``"cp"``, ``"fft"``; any device, any dtype), then, for bf16 volumes and
-weights, ``"resident"`` (B2's shape class), else None (the conv4d
-formulations).  The TPU's VMEM gates and compile probes bind no CUDA
+weights, ``"resident"`` (B2's shape class, for the layer shapes the
+kernels are compiled for: :data:`COMPILED_LAYER_SHAPES`), else None (the
+conv4d formulations).  The TPU's VMEM gates and compile probes bind no CUDA
 kernel and are not carried; the runtime demotion registry, the persistent
 tier cache and the tier events wait in ROADMAP queue A.
 :func:`last_selected_tier` reads the most recent decision per stage.
@@ -97,18 +98,47 @@ def last_selected_tier(stage: str = "forward"):
 
 
 def note_forced_tier(tier) -> None:
-    """Record an explicitly forced forward tier (``ModelConfig.nc_tier``)
-    as the stage's active decision, bypassing the chooser."""
+    """Record a forward tier decided outside the chooser as the stage's
+    active decision: an explicitly forced one (``ModelConfig.nc_tier``), or
+    the training gate's ``"xla"`` for a stack the kernels do not serve."""
     _last_selected["forward"] = tier
+
+
+#: The ``(k, C_in, C_out)`` layer shapes the kernels are compiled for: the
+#: ``NC_CONV4D_SHAPES`` list of ``csrc/nc_conv4d.cu`` (B6, and the
+#: transposed launch of the backward under the same forward shape) and the
+#: ``NC_VJP_SHAPES`` list of ``csrc/nc_conv4d_vjp.cu`` (B3's dW/db), which
+#: repeat each other.  The routes below read it before any launch.
+COMPILED_LAYER_SHAPES = frozenset({
+    (5, 1, 16), (5, 16, 16), (5, 16, 1),
+    (3, 1, 16), (3, 16, 16), (3, 16, 1),
+    (3, 1, 10), (3, 10, 10), (3, 10, 1),
+    (3, 1, 1), (3, 1, 2), (3, 1, 4), (3, 2, 1), (3, 2, 2), (3, 4, 1),
+    (3, 4, 2), (3, 4, 4),
+    (5, 1, 1), (5, 1, 2), (5, 1, 4), (5, 2, 1), (5, 2, 2), (5, 4, 1),
+    (5, 4, 2), (5, 4, 4),
+})
+
+
+def stack_compiled(kernels, channels) -> bool:
+    """Whether every ``(k, C_in, C_out)`` layer of the stack (a 1-channel
+    input) is in :data:`COMPILED_LAYER_SHAPES`."""
+    c_in, layers = 1, []
+    for k, c_out in zip(kernels, channels):
+        layers.append((int(k), c_in, int(c_out)))
+        c_in = int(c_out)
+    return all(s in COMPILED_LAYER_SHAPES for s in layers)
 
 
 def fused_shape_class(kernels, channels) -> bool:
     """B2's shape class, from the stack's kernel sizes and channels: one
     odd kernel size for the whole stack, a final layer of at most 4
-    channels (the whole-volume checks are ``_check_stack``'s).  B3, the
+    channels (the whole-volume checks are ``_check_stack``'s), and every
+    layer compiled into the kernels (:func:`stack_compiled`).  B3, the
     backward, serves the same class."""
+    kernels, channels = tuple(kernels), tuple(channels)
     return (len(set(kernels)) == 1 and kernels[0] % 2 == 1
-            and channels[-1] <= 4)
+            and channels[-1] <= 4 and stack_compiled(kernels, channels))
 
 
 def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
@@ -116,8 +146,9 @@ def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
     """The stack's tier at a shape class, the first that applies: ``"cp"``
     (every layer carries factors and ``conv4d_cp.cp_feasible`` passes),
     ``"fft"`` (``conv4d_fft.fft_feasible``), then, only when ``pallas_ok``
-    (a bf16 volume and weights), ``"resident"`` (B2's shape class); else
-    None (the conv4d formulations layer by layer).  The JAX ladder's
+    (a bf16 volume and weights), ``"resident"`` (B2's shape class, whose
+    layers the kernel is compiled for); else None (the conv4d formulations
+    layer by layer, reported as ``"xla"``).  The JAX ladder's
     ``"perlayer"`` (a 1-channel final layer) lies inside B2's shape class,
     so without the VMEM gates it is never reached."""
     kernels, channels = tuple(kernels), tuple(channels)

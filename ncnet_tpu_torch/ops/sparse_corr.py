@@ -84,6 +84,16 @@ class SparseTiles(NamedTuple):
     jb: torch.Tensor
 
 
+@functools.lru_cache(maxsize=None)
+def _source_patch_index_on(ha: int, wa: int, factor: int, patch: int,
+                           device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`source_patch_index` as tensors on ``device``, copied there
+    once (a host-to-device copy makes the host wait for the card's
+    queue)."""
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in source_patch_index(ha, wa, factor, patch))
+
+
 def source_patch_index(ha: int, wa: int, factor: int,
                        patch: int) -> Tuple[np.ndarray, np.ndarray]:
     """Static ``(ia, ja)`` int32 arrays ``(Hc·Wc, p)``: per coarse source
@@ -269,8 +279,7 @@ def sparse_fine_corr(fa: torch.Tensor, fb: torch.Tensor, cand: torch.Tensor,
     hb, wb = fb.shape[1], fb.shape[2]
     patch = patch_side(factor, halo)
     wc = wb // factor
-    ia, ja = (torch.from_numpy(x).to(fa.device)
-              for x in source_patch_index(ha, wa, factor, patch))
+    ia, ja = _source_patch_index_on(ha, wa, factor, patch, fa.device)
     oi, oj = candidate_origins(cand.to(fa.device), wc, factor, patch, hb, wb)
     rng = torch.arange(patch, dtype=torch.int32, device=fa.device)
     ib = oi[..., None] + rng
@@ -368,11 +377,18 @@ def choose_match_pipeline(ha: int, wa: int, hb: int, wb: int, *,
                           sparse_topk: int, factor: int, halo: int,
                           reloc_k: int = 0) -> Optional[str]:
     """``"coarse2fine"`` where :func:`coarse2fine_feasible` holds, else
-    ``None`` (dense)."""
+    ``None`` (dense).  Every consult stamps the decision as the
+    ``"pipeline"`` stage's (``nc_fused_lane.last_selected_tier``, where
+    ``"dense"`` stands for None) for the quality layer's tier tagging
+    (``observability/quality.active_tier``)."""
+    from ncnet_tpu_torch.ops import nc_fused_lane
+
+    tier = None
     if coarse2fine_feasible(ha, wa, hb, wb, sparse_topk=sparse_topk,
                             factor=factor, halo=halo, reloc_k=reloc_k):
-        return "coarse2fine"
-    return None
+        tier = "coarse2fine"
+    nc_fused_lane._last_selected["pipeline"] = tier or "dense"
+    return tier
 
 
 def tracking_feasible(ha: int, wa: int, hb: int, wb: int, *, factor: int,

@@ -5,6 +5,7 @@ Each module runs from the repository root as a script on the card:
     python3 -m ncnet_tpu_torch.tools.pallas_l2_probe 8 bf16
     python3 -m ncnet_tpu_torch.tools.mosaic_probes [name ...]
     python3 -m ncnet_tpu_torch.tools.l2_variants [name ...]
+    python3 -m ncnet_tpu_torch.tools.convert_images <dataset root>
 
 ``pallas_l2_probe`` times the L2 layer's CUDA kernel in the padded
 fused-lane frame; ``mosaic_probes`` builds and checks a battery of minimal
@@ -13,5 +14,6 @@ L2 kernel's design choices (its compile-time constants) against each
 other.  They keep the JAX tools'
 names so that a reader finds the counterpart, but they are CUDA: they run
 on the card unless given ``device="cpu"`` (the tests), where only the plain
-twins run.
+twins run.  ``convert_images`` (no JAX counterpart) writes the raw image
+files the port's dataset reads from a JPEG tree, with PIL, on any host.
 """

@@ -45,12 +45,19 @@ def _discard(tmp: str) -> None:
 
 def atomic_savemat(path: str, mdict: dict, **kwargs) -> None:
     """``scipy.io.savemat`` to ``path`` via a same-directory temp file +
-    ``os.replace``, so the file exists only once fully written."""
+    ``os.replace``, so the file exists only once fully written.  The fault
+    hooks of ``utils/faults.py`` fail the write before any byte lands, or
+    kill the process between the temp write and the rename."""
     from scipy.io import savemat
 
+    from ncnet_tpu_torch.utils import faults
+
+    faults.savemat_hook(path)
     tmp = path + ".tmp"
     try:
         savemat(tmp, mdict, **kwargs)
+        # an injected SIGKILL lands here: a .tmp carcass, no final file
+        faults.savemat_kill_hook(path)
         os.replace(tmp, path)
     except BaseException:
         _discard(tmp)

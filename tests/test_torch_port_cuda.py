@@ -31,7 +31,11 @@ The relocalization pooling is exact, so the card's is bit-equal to the
 CPU's; the device resize (two f32 contractions) stays within 1e-6 of the
 image's largest value of the CPU's; the eval step's PCK may differ from the CPU readout of the same
 volume by one keypoint a sample (softmax on two devices may round a
-near-tie otherwise).
+near-tie otherwise).  A bf16 stack the kernels are not compiled for runs
+the conv4d formulations per layer, within 1e-2 normalized of the twin
+(its layers round to bf16 at other points); ``run_eval`` on the card keeps
+each pair's PCK within one keypoint of the same run on the CPU; the eval
+step run under the sync debug mode equals its first run bit for bit.
 """
 
 import numpy as np
@@ -131,6 +135,40 @@ def test_kernel_matches_twin(cuda, shape, kernels, channels):
     assert got.shape == shape + (channels[-1],) and got.dtype == torch.bfloat16
     assert torch.equal(got, again)
     assert normalized_err(got, nc_fused_lane.nc_stack_reference(params, x)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_uncompiled_stack_runs_per_layer(cuda):
+    """A bf16 (5, 5, 5) / (8, 8, 1) stack is not compiled into B6 or B3
+    (ROADMAP §C, C1): on 40 coarse-to-fine 6⁴ tiles the route is 'xla'
+    before any launch, the conv4d formulations run layer by layer with no
+    B2 launch, and the symmetric filtered volume matches the twin's
+    ``NC(x) + NC(xᵀ)ᵀ`` within 1e-2 normalized (each layer rounds to bf16
+    at other points than the twin); in training the gradients come back
+    through the formulations, with no B3 launch."""
+    from ncnet_tpu_torch.models.ncnet import neigh_consensus
+
+    kernels, channels = (5, 5, 5), (8, 8, 1)
+    params, x = random_stack(np.random.default_rng(5), (40, 6, 6, 6, 6),
+                             kernels, channels, cuda)
+    swap = lambda v: v.permute(0, 3, 4, 1, 2, 5)  # noqa: E731
+    before, vjp_before = nc_fused_lane.launches, dict(nc_fused_lane_vjp.launches)
+    got = neigh_consensus(params, x[..., 0])
+    torch.cuda.synchronize()
+    assert nc_fused_lane.launches == before
+    assert nc_fused_lane.last_selected_tier() == "xla"
+    twin = (nc_fused_lane.nc_stack_reference(params, x)
+            + swap(nc_fused_lane.nc_stack_reference(params, swap(x).contiguous())))
+    assert got.shape == x.shape[:5] and got.dtype == torch.bfloat16
+    assert normalized_err(got, twin[..., 0]) <= 1e-2
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in params]
+    neigh_consensus(leaves, x[..., 0], require_vjp=True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert nc_fused_lane.last_selected_tier() == "xla"
+    assert nc_fused_lane.launches == before
+    assert nc_fused_lane_vjp.launches == vjp_before
+    assert all(torch.isfinite(p["w"].grad).all() and p["w"].grad.abs().max() > 0
+               for p in leaves)
 
 
 @pytest.mark.cuda
@@ -545,3 +583,71 @@ def test_relocalized_engine_launches_the_kernel(cuda):
     assert nc_fused_lane.last_selected_tier() == "resident"
     assert table.shape == (2, 6, 36) and np.isfinite(table).all()
     assert np.isin(table[:, :4], _grid(-1.0, 12, "cpu").numpy()).all()
+
+
+@pytest.mark.cuda
+def test_run_eval_on_the_card(cuda, tmp_path, monkeypatch):
+    """The eval loop on the card: a raw fixture of 5 pairs through
+    ``run_eval`` with a tiny bf16 stack ((3, 3) / (4, 1), centre-peaked),
+    whose folded 6⁴ volume takes B2: 2 launches a batch of 2 (3 batches,
+    the last padded), no quarantine, and per-pair PCK within one keypoint
+    of the same run on the CPU (the kernel and its twin round a bf16
+    output one ulp apart here and there)."""
+    from ncnet_tpu_torch.config import EvalPFPascalConfig
+    from ncnet_tpu_torch.data.synthetic import write_pf_pascal_like
+    from ncnet_tpu_torch.evaluation import run_eval
+    from ncnet_tpu_torch.models.ncnet import NCNet
+
+    monkeypatch.setenv("NCNET_TPU_PERF_STORE", "off")  # not the repo's history
+    root = str(tmp_path / "pf")
+    write_pf_pascal_like(root, n_pairs=5, image_hw=(96, 96), shift=(16, 16), seed=3)
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+                      half_precision=True)
+    params = init_ncnet(cfg, seed=0)
+    for layer in params["nc"]:
+        layer["w"][1, 1, 1, 1] += 1.0 / layer["w"].shape[4]
+        layer["b"] += 0.05
+    config = EvalPFPascalConfig(image_size=96, eval_dataset_path=root)
+    before = nc_fused_lane.launches
+    got = run_eval(config, net=NCNet(cfg, params), batch_size=2, num_workers=2,
+                   progress=False)
+    assert nc_fused_lane.launches == before + 6
+    assert nc_fused_lane.last_selected_tier() == "resident"
+    want = run_eval(config, net=NCNet(cfg, params, device="cpu"), batch_size=2,
+                    num_workers=0, progress=False)
+    assert got["quarantined_batches"] == [] and got["total"] == got["valid"] == 5
+    assert np.abs(got["per_pair"] - want["per_pair"]).max() <= 1 / 6 + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,sparse_topk", [(96, 0), (192, 4)])
+def test_eval_step_does_not_wait_for_the_card(cuda, side, sparse_topk):
+    """After a first call, one eval step (dense on B2, or coarse-to-fine
+    with B4) runs with ``torch.cuda.set_sync_debug_mode("error")``: no
+    operation the debug mode sees makes the host wait for the card, so the
+    loop's dispatch of batch i+1 queues behind batch i's compute."""
+    from ncnet_tpu_torch.evaluation.pf_pascal import make_eval_step
+    from ncnet_tpu_torch.models.ncnet import NCNet
+
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3), ncons_channels=(4, 1),
+                      half_precision=True, sparse_topk=sparse_topk)
+    net = NCNet(cfg, init_ncnet(cfg, seed=0))
+    rng = np.random.default_rng(6)
+    src = rng.integers(0, 256, (2, side, side, 3), dtype=np.uint8)
+    pts = np.full((2, 2, 20), -1, np.float32)
+    pts[:, :, :6] = rng.uniform(10, side - 10, (2, 2, 6))
+    batch = {"source_image": src, "target_image": np.roll(src, 16, axis=1),
+             "source_points": pts, "target_points": pts + 8,
+             "source_im_size": np.tile(np.float32([side, side, 3]), (2, 1)),
+             "target_im_size": np.tile(np.float32([side, side, 3]), (2, 1)),
+             "L_pck": np.full((2, 1), 50, np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    step = make_eval_step(net, 0.1, device_normalize=True)
+    want = step(net.params, batch).cpu()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(net.params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out.cpu(), want)

@@ -197,3 +197,14 @@ def test_l2_work():
     t_ops = flops / chip_smoke.PEAK_BF16_FLOPS
     assert t_ops > nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S
     assert t_ops * 1e3 == pytest.approx(0.830, abs=1e-3)
+
+
+def test_compiled_layer_shapes_constant_is_the_sources():
+    """The routes' list of compiled layer shapes
+    (``nc_fused_lane.COMPILED_LAYER_SHAPES``) is the forward's and the
+    backward's X-macro list, shape for shape."""
+    from ncnet_tpu_torch.ops.nc_fused_lane import COMPILED_LAYER_SHAPES
+
+    fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
+    bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
+    assert COMPILED_LAYER_SHAPES == set(fwd) == set(bwd)

@@ -254,7 +254,9 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch):
 
 @pytest.mark.parametrize("option", [
     dict(backbone="vgg"), dict(backbone="densenet201"),
-    dict(checkpoint="model.pth.tar"), dict(backbone_weights="resnet101.pth"),
+    # weights files load for the ResNet-101 trunk only
+    dict(checkpoint="model.pth.tar", backbone="tiny"),
+    dict(backbone_weights="resnet101.pth", backbone="tiny"),
 ])
 def test_unported_options_raise(option):
     _, tc = configs(**option)
@@ -370,13 +372,24 @@ def test_port_imports_no_jax():
         "conv4d", "conv4d_pallas", "conv4d_fft", "conv4d_cp", "cp_als",
         "nc_fused_lane")} <= names
     assert {f"ncnet_tpu_torch/tools/{m}.py" for m in (
-        "_timing", "pallas_l2_probe", "mosaic_probes")} <= names
+        "_timing", "pallas_l2_probe", "mosaic_probes", "convert_images")} <= names
+    # the eval loop's modules (the card has no JAX, pandas or PIL)
+    assert {f"ncnet_tpu_torch/{m}.py" for m in (
+        "data/datasets", "data/loader", "data/synthetic",
+        "evaluation/pipeline", "evaluation/resilience", "evaluation/pf_pascal",
+        "models/checkpoint", "observability/device", "observability/memory",
+        "utils/faults", "utils/profiling", "cli/common",
+        "cli/eval_pf_pascal")} <= names
     bad = []
     for path in files:
         for name in _imported_modules(path):
             root = name.split(".")[0]
-            if (root in ("jax", "jaxlib", "ncnet_tpu", "tools", "_timing")
+            if (root in ("jax", "jaxlib", "ncnet_tpu", "tools", "_timing",
+                         "pandas")
                     or root.startswith("jax_")):
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+            # PIL only in the JPEG converter, which imports it when it runs
+            if root == "PIL" and path.name != "convert_images.py":
                 bad.append(f"{path.relative_to(REPO)}: {name}")
         if path.name != "chip_smoke.py":  # it puts its checkout on the path
             bad += [f"{path.relative_to(REPO)}:{line}: edits sys.path"

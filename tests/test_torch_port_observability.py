@@ -548,3 +548,56 @@ def test_atomic_write_bytes_and_savemat(tmp_path):
                         do_compression=True)
     np.testing.assert_array_equal(loadmat(mat)["matches"], np.arange(6.0).reshape(2, 3))
     assert not os.path.exists(mat + ".tmp")
+
+
+def test_atomic_savemat_fault_hooks(tmp_path):
+    """An armed ``savemat_hook`` fails the write before any byte lands (a
+    transient one only on the first attempt)."""
+    from ncnet_tpu_torch.utils import faults
+
+    bad = str(tmp_path / "q_bad.mat")
+    with faults.injected(faults.FaultPlan(savemat_fail_substring="q_bad",
+                                          savemat_fail_times=1)):
+        with pytest.raises(faults.InjectedFault):
+            t_io.atomic_savemat(bad, {"x": np.zeros(2)})
+        assert not os.path.exists(bad) and not os.path.exists(bad + ".tmp")
+        t_io.atomic_savemat(bad, {"x": np.zeros(2)})  # the retry lands
+    assert os.path.exists(bad)
+
+
+def test_savemat_kill_leaves_a_carcass_and_no_file(tmp_path):
+    """SIGKILL between the temp write and the rename (a subprocess armed
+    through ``NCNET_TPU_FAULTS``): a ``.tmp`` carcass, no final file."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mat = str(tmp_path / "q_kill.mat")
+    code = (f"import sys; sys.path.insert(0, {repo!r}); import numpy as np; "
+            "from ncnet_tpu_torch.utils.io import atomic_savemat; "
+            f"atomic_savemat({mat!r}, {{'x': np.zeros(3)}})")
+    env = dict(os.environ, NCNET_TPU_FAULTS=json.dumps(
+        {"kill_in_savemat_substring": "q_kill"}))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, timeout=120)
+    assert proc.returncode == -9
+    assert not os.path.exists(mat) and os.path.exists(mat + ".tmp")
+
+
+def test_fault_plan_from_the_environment(monkeypatch):
+    """A plan armed through ``NCNET_TPU_FAULTS``; a field the port has no
+    hook for raises instead of passing as armed."""
+    from ncnet_tpu_torch.utils import faults
+
+    faults._plan, faults._env_read = None, False
+    monkeypatch.setenv("NCNET_TPU_FAULTS", json.dumps({"device_fail_calls": [2]}))
+    try:
+        faults.device_error_hook()
+        with pytest.raises(faults.InjectedDeviceError, match="call 2"):
+            faults.device_error_hook("step")
+        faults.clear()
+        faults._env_read = False
+        monkeypatch.setenv("NCNET_TPU_FAULTS", json.dumps({"nan_loss_steps": [1]}))
+        with pytest.raises(ValueError, match="nan_loss_steps"):
+            faults.device_error_hook()
+    finally:
+        faults.clear()

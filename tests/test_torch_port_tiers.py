@@ -562,3 +562,89 @@ def test_coarse2fine_forwards_nc_tier(fresh_chooser, monkeypatch):
     assert out.corr.shape == (1, 8, 8, 8, 8)
     assert len(calls) == 3 and all(t == "fft" for t in calls)
     assert tlane.last_selected_tier("forward") == "fft"
+
+
+# ---------------------------------------------------------------------------
+# the compiled-shape gate of the kernel tier (ROADMAP §C, C1)
+# ---------------------------------------------------------------------------
+
+
+def spy_stack_routes(monkeypatch):
+    """Record the kernel tier's entry points as ``neigh_consensus`` calls
+    them (``fused_stack_forward``, ``nc_stack_fused``), each still run."""
+    calls = []
+    for name in ("fused_stack_forward", "nc_stack_fused"):
+        fn = getattr(tlane, name)
+        monkeypatch.setattr(tlane, name, lambda p, x, _fn=fn, _n=name: (
+            calls.append(_n), _fn(p, x))[1])
+    return calls
+
+
+@pytest.mark.parametrize("kernels,channels,side", [
+    ((5, 5, 5), (8, 8, 1), 6),     # 8 channels: no compiled layer shape
+    ((7, 7, 7), (16, 16, 1), 50),  # k = 7: no compiled layer shape
+])
+def test_uncompiled_bf16_stacks_take_no_kernel_tier(fresh_chooser, kernels,
+                                                     channels, side):
+    """A bf16 stack of one odd k with a thin final layer is B2's shape
+    class only where every layer is compiled into the kernels; any other
+    stack is None ('xla') before any launch, where the JAX package falls
+    to its XLA tier."""
+    assert not tlane.stack_compiled(kernels, channels)
+    assert not tlane.fused_shape_class(kernels, channels)
+    assert tlane.choose_fused_stack(side, side, side, side, kernels, channels) is None
+    assert tlane.last_selected_tier() == "xla"
+    assert tlane.stack_compiled((5, 5, 5), (16, 16, 1))
+    assert tlane.choose_fused_stack(side, side, side, side, (5, 5, 5),
+                                    (16, 16, 1)) == "resident"
+    assert tlane.last_selected_tier() == "resident"
+
+
+@pytest.mark.parametrize("kernels,channels", [((5, 5, 5), (8, 8, 1)),
+                                              ((7, 7, 7), (16, 16, 1))])
+def test_uncompiled_bf16_stacks_route_per_layer(fresh_chooser, monkeypatch,
+                                                kernels, channels):
+    """Forward and the training gate (``require_vjp``) of an uncompiled
+    bf16 stack on a 5⁴ volume: no kernel-tier entry point runs, the tier
+    reads 'xla', and the value (and, in training, the gradients through
+    the formulations) equals the per-layer route's with the kernel tier
+    off."""
+    calls = spy_stack_routes(monkeypatch)
+    layers = as_torch(make_stack(31, kernels, channels), torch.bfloat16)
+    x = torch.from_numpy(rng(32).uniform(0, 1, (1, 5, 5, 5, 5)).astype(
+        np.float32)).to(torch.bfloat16)
+    tlane.note_forced_tier("resident")
+    plain = tnet.neigh_consensus(layers, x, allow_pallas=False)
+    if tlane.choose_fused_stack(5, 5, 5, 5, kernels, channels) is None:
+        got = tnet.neigh_consensus(layers, x)
+        assert tlane.last_selected_tier() == "xla"
+        assert torch.equal(got, plain)
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in layers]
+    tlane.note_forced_tier("resident")
+    out = tnet.neigh_consensus(leaves, x, require_vjp=True)
+    assert tlane.last_selected_tier() == "xla"
+    assert torch.equal(out.detach(), plain)
+    out.float().square().sum().backward()
+    ref = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in layers]
+    tnet.neigh_consensus(ref, x, allow_pallas=False).float().square().sum().backward()
+    for a, b in zip(leaves, ref):
+        assert torch.equal(a["w"].grad, b["w"].grad)
+        assert torch.equal(a["b"].grad, b["b"].grad)
+    assert calls == []
+
+
+def test_compiled_bf16_stack_takes_the_kernel_tier(fresh_chooser, monkeypatch):
+    """The compiled PF-Pascal stack at 6⁴ (no arithmetic tier): the
+    forward takes 'resident' and the training gate the fused stack with
+    the B3 backward (their twins here)."""
+    calls = spy_stack_routes(monkeypatch)
+    layers = as_torch(make_stack(33, (5, 5, 5), (16, 16, 1)), torch.bfloat16)
+    x = torch.from_numpy(rng(34).uniform(0, 1, (1, 6, 6, 6, 6)).astype(
+        np.float32)).to(torch.bfloat16)
+    tnet.neigh_consensus(layers, x)
+    assert tlane.last_selected_tier() == "resident"
+    assert calls == ["fused_stack_forward"]
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in layers]
+    tnet.neigh_consensus(leaves, x, require_vjp=True).float().sum().backward()
+    assert calls[1:] == ["nc_stack_fused"]
+    assert all(p["w"].grad is not None for p in leaves)
