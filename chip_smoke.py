@@ -147,6 +147,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the resumed journal's rows bit-equal to the uninterrupted run's; the
      perf store holds the runs' PCK; walls, the decode / dispatch / fetch
      split and PCK printed;
+  F. training end to end: ``write_pair_dataset`` writes 32 train and 16 val
+     raw pairs at 400² (each target its source shifted by (32, 48) px, as
+     phase 5's), phase 5's start weights (calibrated trunk, centre-peaked
+     NC kernels) are saved with ``save_params``, and ``fit`` runs the train
+     CLI's configuration of the PF-Pascal recipe (bf16 NC stack, batch 16,
+     lr 5e-4, automatic chunks, NaN guard) with ``model.checkpoint`` set to
+     them: 2 epochs, a checkpoint every step with the newest 2 kept, steps
+     [2, 4) traced by ``NCNET_TPU_PROFILE_STEPS``.  B3's counter must read
+     64 a step (8 chunks × (3 dW/db + 3 reductions + 2 transposed)) and
+     B2's 0; losses finite; the last two versions and ``best_`` left;
+     ``load_params(root)`` bit-equal to the returned state and its payload
+     sha verified; the event log's ``run_start``, 4 ``step``, 6
+     ``checkpoint_commit``, 2 ``epoch_end`` and ``run_end``; the heartbeat
+     at step 4; ``train_step_wall_s`` in the perf store; the trace on disk.
+     Then a steady-state step must wait for the card once (its loss fetch,
+     ``torch.cuda.set_sync_debug_mode``), and a traced pass without
+     checkpoints gives the device's busy share; then the CLI in
+     subprocesses, SIGTERMed after step 3 and SIGKILLed mid-save of version
+     3 (two at a time), each resumed from its root and ending bit-equal
+     (params, Adam state, step) to the in-process run, all with PyTorch's
+     default TF32 settings; a NaN batch at step 2 skipped with version 2
+     equal to version 1; one epoch with ``fe_finetune_params=1`` (the last
+     layer3 block's trainable leaves and the NC stack move, every other
+     trunk leaf stays bit-equal; 18 B3 launches a step, the whole-batch
+     backward's) and one with ``finetune_cp_rank=4`` (the factors move,
+     the dense kernels stay; the forced CP tier launches no kernel).  Step
+     walls beside phase 5's, checkpoint save ms and bytes, host waits and
+     the traced windows' device busy share printed;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +328,12 @@ RELOC_SIDE, RELOC_K, RELOC_REQUESTS = 1600, 2, 3
 # batch 1, killed at its EVAL_LOOP_KILL_AT-th journal append once
 EVAL_LOOP_PAIRS, EVAL_LOOP_BATCH, EVAL_LOOP_SHIFT = 12, 4, (12, 20)
 EVAL_LOOP_WORKERS, EVAL_LOOP_KILL_AT = 4, 5
+# phase F: fit at the PF-Pascal recipe on FIT_TRAIN_PAIRS train and
+# FIT_VAL_PAIRS val pairs (2 steps an epoch), a checkpoint every step with
+# the newest 2 kept, steps FIT_PROFILE_STEPS traced; the CP fine-tune at
+# rank FIT_CP_RANK
+FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_BATCH, FIT_EPOCHS = 32, 16, 16, 2
+FIT_WORKERS, FIT_PROFILE_STEPS, FIT_CP_RANK = 4, "2:4", 4
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -1073,10 +1107,13 @@ def feature_contrast(mc, params, batch):
 
 def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
     """Phase 5: the full-width bf16 training step (``model`` and
-    ``train_kw`` override the recipe, for a rehearsal at a small size)."""
+    ``train_kw`` override the recipe, for a rehearsal at a small size).
+    Returns the launches, the weights the steps started from (calibrated
+    trunk, peaked NC kernels) and the timed steps' walls."""
     import numpy as np
 
     from ncnet_tpu_torch.config import ModelConfig, TrainConfig
+    from ncnet_tpu_torch.models.ncnet import tree_map
     from ncnet_tpu_torch.ops.conv4d_fft import fft_stack_activations
     from ncnet_tpu_torch.ops.image import normalize_imagenet
     from ncnet_tpu_torch.training import (
@@ -1114,6 +1151,8 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
         d = layer["w"].shape[0] // 2
         layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
         layer["b"] = layer["b"] + 0.05
+    # phase F trains from these weights
+    start = tree_map(torch.clone, state.params)
     step = make_train_step(mc, optimizer, stop_backbone_grad=True,
                            accum_chunks=cfg.accum_chunks,
                            nan_guard=cfg.nan_guard)
@@ -1127,12 +1166,14 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
     nc_fused_lane.launches = 0
     for key in vjp.launches:
         vjp.launches[key] = 0
+    walls = []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, loss = step(state, batches[i])
-        loss = float(loss)  # the NaN guard has synchronised already
+        loss = float(loss)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        walls.append(round(wall, 2))
         peak = torch.cuda.max_memory_allocated()
         print(f"train step {i + 1}: loss {loss:.9g}, wall {wall:.1f} ms, "
               f"peak memory {peak} bytes", flush=True)
@@ -1185,7 +1226,7 @@ def train(torch, nc_fused_lane, vjp, dev, model=None, **train_kw):
                          "training volume")
     train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
                  params, x, g, chunks)
-    return launches
+    return launches, start, walls
 
 
 def train_stages(torch, nc_fused_lane, vjp, mc, state, optimizer, batch,
@@ -2718,6 +2759,422 @@ def eval_loop(torch, nc_fused_lane, sparse_corr, dev):
             cli_launches)
 
 
+def trace_busy_share(path):
+    """``(busy_s, window_s, device_events)`` of a profiler Chrome trace:
+    the union of its device intervals (kernels, copies, fills) against the
+    span of all its events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        return 0.0, 0.0, 0
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in device:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-6, (hi - lo) * 1e-6, len(device)
+
+
+def fit_cli_args(ckpt, root, out):
+    """The train CLI's arguments for phase F's recipe."""
+    return ["--checkpoint", ckpt, "--image_size", str(SERVE_SIDE),
+            "--dataset_image_path", root,
+            "--dataset_csv_path", os.path.join(root, "image_pairs"),
+            "--num_epochs", str(FIT_EPOCHS), "--batch_size", str(FIT_BATCH),
+            "--lr", "0.0005", "--half_precision",
+            "--checkpoint_steps", "1", "--keep_checkpoints", "2",
+            "--num_workers", str(FIT_WORKERS), "--result-model-dir", out]
+
+
+def version_trees(version):
+    """A committed version's params and opt trees (CPU tensors)."""
+    from ncnet_tpu_torch.models.checkpoint import PARAMS_FILE, load_tree
+    from ncnet_tpu_torch.training.train import OPT_FILE
+
+    return load_tree(version, PARAMS_FILE), load_tree(version, OPT_FILE)
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Two trees equal key for key and bit for bit."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(trees_equal(torch, a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(trees_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def run_root(out):
+    """The one versioned root ``fit`` wrote under ``out``."""
+    (name,) = [n for n in os.listdir(out) if not n.startswith("best_")]
+    return os.path.join(out, name)
+
+
+def steady_state_steps(torch, mc, state, optimizer, batches, trace_dir):
+    """Host waits of one steady-state ``fit`` step (``process_epoch`` on 3
+    batches, the sync debug mode on from the end of step 1 to the end of
+    step 2), then a profiled pass of 4 steps (the window [2, 4), no
+    checkpoint) whose trace gives the device's busy share."""
+    import warnings
+
+    from ncnet_tpu_torch.observability.events import EventLog, bound
+    from ncnet_tpu_torch.observability.metrics import MetricsRegistry
+    from ncnet_tpu_torch.training import auto_accum_chunks, make_train_step
+    from ncnet_tpu_torch.training.train import process_epoch
+    from ncnet_tpu_torch.utils.profiling import StepWindowTracer
+
+    step = make_train_step(mc, optimizer, stop_backbone_grad=True,
+                           accum_chunks=auto_accum_chunks(FIT_BATCH),
+                           nan_guard=True, with_grad_norm=True)
+
+    def on_step(batch_idx, st, loss):
+        torch.cuda.set_sync_debug_mode("warn" if batch_idx == 0 else 0)
+        return False
+
+    log = EventLog(os.path.join(trace_dir, "events.jsonl"))
+    ctx = {"registry": MetricsRegistry(scope="train_step")}
+    with bound(log), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            state, _ = process_epoch("train", 1, state, step, batches[:3],
+                                     log_interval=100, on_step=on_step,
+                                     telemetry_ctx=ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    waits = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    tracer = StepWindowTracer(trace_dir, window=(2, 4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bound(log):
+        state, _ = process_epoch("train", 1, state, step, batches[:4],
+                                 log_interval=100,
+                                 telemetry_ctx={**ctx, "tracer": tracer})
+    tracer.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log.close()
+    return waits, trace_busy_share(tracer.trace_path), wall
+
+
+def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
+              model=None):
+    """Phase F: ``fit`` end to end at the PF-Pascal recipe from phase 5's
+    weights; resumes through the CLI in subprocesses; the NaN guard and the
+    two fine-tune recipes (``model`` overrides the architecture, for a
+    rehearsal at a small size).  Returns the B2/B3 launches by run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.cli import train as cli
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.data import DataLoader, ImagePairDataset
+    from ncnet_tpu_torch.data.synthetic import write_pair_dataset
+    from ncnet_tpu_torch.models import backbone as bb
+    from ncnet_tpu_torch.models import checkpoint as ckpt_io
+    from ncnet_tpu_torch.models.ncnet import tree_leaves
+    from ncnet_tpu_torch.observability import events, perfstore
+    from ncnet_tpu_torch.observability.device import Heartbeat
+    from ncnet_tpu_torch.training import create_train_state, fit
+    from ncnet_tpu_torch.utils import faults, profiling
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    root = os.path.join(tmp, "pairs")
+    t0 = time.perf_counter()
+    write_pair_dataset(root, n_pairs=FIT_TRAIN_PAIRS,
+                       image_hw=(SERVE_SIDE, SERVE_SIDE), shift=TRAIN_SHIFT,
+                       seed=21, splits=("train",))
+    write_pair_dataset(root, n_pairs=FIT_VAL_PAIRS,
+                       image_hw=(SERVE_SIDE, SERVE_SIDE), shift=TRAIN_SHIFT,
+                       seed=22, splits=("val",))
+    mc = model or ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                              ncons_channels=(16, 16, 1), half_precision=True)
+    start_dir = os.path.join(tmp, "start")
+    ckpt_io.save_params(start_dir, mc, start)
+    print(f"fit: fixture of {FIT_TRAIN_PAIRS} train and {FIT_VAL_PAIRS} val "
+          f"raw pairs at {SERVE_SIDE}x{SERVE_SIDE} (shift {TRAIN_SHIFT} px) "
+          f"and phase 5's start weights written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def reset():
+        torch.cuda.synchronize()
+        nc_fused_lane.launches = 0
+        for key in vjp.launches:
+            vjp.launches[key] = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"nc_conv4d_bf16": nc_fused_lane.launches, **vjp.launches}
+
+    # (a): the CLI's configuration run in this process, with PyTorch's
+    # default TF32 settings as the CLI subprocesses below have them, the
+    # step window profiled and the perf store in the run's directory
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    store = os.path.join(tmp, "perf_history.jsonl")
+    env_keys = {perfstore.STORE_ENV: store,
+                profiling.PROFILE_DIR_ENV: os.path.join(tmp, "trace"),
+                profiling.PROFILE_STEPS_ENV: FIT_PROFILE_STEPS}
+    os.environ.update(env_keys)
+    config = cli.config_from_args(cli.build_parser().parse_args(
+        fit_cli_args(start_dir, root, os.path.join(tmp, "a"))))
+    reset()
+    t0 = time.perf_counter()
+    res = fit(config, progress=False, device=dev)
+    fit_wall = time.perf_counter() - t0
+    launches = {"fit": read()}
+    for key in env_keys:
+        del os.environ[key]
+    a_root = res["checkpoint"]
+    chunks = 2 * FIT_BATCH // 4
+    n_layers = len(mc.ncons_channels)
+    steps = FIT_EPOCHS * (FIT_TRAIN_PAIRS // FIT_BATCH)
+    # per step, each of the chunks runs the folded stack's forward on the
+    # FFT tier (no B2) and its backward on B3: dW/db and its reduction a
+    # layer, the transposed conv for every layer but the first (the volume
+    # needs no gradient); the val passes run the forward only
+    want = {"nc_conv4d_bf16": 0,
+            "nc_vjp_dw": steps * chunks * n_layers,
+            "nc_vjp_reduce": steps * chunks * n_layers,
+            "nc_conv4d_transpose": steps * chunks * (n_layers - 1)}
+    _, replayed = events.replay_events(os.path.join(a_root, "telemetry",
+                                                    "events.jsonl"))
+    names = [e["event"] for e in replayed]
+    step_events = [e for e in replayed if e["event"] == "step"]
+    commits = [e for e in replayed if e["event"] == "checkpoint_commit"]
+    versions = [os.path.basename(p)
+                for _, p in ckpt_io.list_checkpoint_versions(a_root)]
+    best = os.path.join(os.path.dirname(a_root), "best_" + os.path.basename(a_root))
+    cfg_back, params_back = ckpt_io.load_params(a_root)
+    same = trees_equal(torch, params_back, ckpt_io.cpu_tree(res["state"].params))
+    sha = ckpt_io.verify_checkpoint_payload(a_root, params_back)
+    beat = Heartbeat.read(os.path.join(a_root, "telemetry", "heartbeat.json"))
+    recorded = {r["metric"] for r in perfstore.PerfStore(store).records()}
+    trace = os.path.join(tmp, "trace", "trace_steps_" +
+                         FIT_PROFILE_STEPS.replace(":", "-") + ".json")
+    busy, window, n_dev = trace_busy_share(trace) if os.path.exists(trace) \
+        else (0.0, 0.0, 0)
+    walls = [round(e["wall_s"] * 1e3, 2) for e in step_events]
+    print(f"fit: {steps} steps of batch {FIT_BATCH} in {FIT_EPOCHS} epochs, "
+          f"{fit_wall:.2f} s in all; train loss {res['train_loss'].tolist()}, "
+          f"val loss {res['test_loss'].tolist()}; launches {launches['fit']}, "
+          f"expected {want}; versions {versions}, best copy "
+          f"{os.path.isdir(best)}; load_params(root) bit-equal to the "
+          f"returned state: {same}, payload sha verified: {bool(sha)}; "
+          f"heartbeat step {beat and beat.get('step')}; perf store holds "
+          f"train_step_wall_s: {'train_step_wall_s' in recorded}", flush=True)
+    print(f"fit: step walls ms {walls} (steps {FIT_PROFILE_STEPS} traced, "
+          f"each with a checkpoint after it) beside phase 5's make_train_step "
+          f"walls {step5_walls}; stage walls ms "
+          f"{[round(e['stage_wall_s'] * 1e3, 3) for e in step_events]}; "
+          f"checkpoint saves ms "
+          f"{[round(e['save_wall_s'] * 1e3, 1) for e in commits]} of bytes "
+          f"{sorted({e['bytes'] for e in commits})}", flush=True)
+    print(f"fit: traced window {FIT_PROFILE_STEPS}: device busy "
+          f"{busy * 1e3:.2f} ms of {window * 1e3:.2f} ms "
+          f"({100 * busy / window if window else 0:.1f} %), {n_dev} device "
+          f"intervals, trace {os.path.getsize(trace) if os.path.exists(trace) else 0}"
+          f" bytes", flush=True)
+    counts = {n: names.count(n) for n in ("run_start", "step",
+                                          "checkpoint_commit", "epoch_end",
+                                          "run_end")}
+    if launches["fit"] != want or not np.isfinite(res["train_loss"]).all() \
+            or not np.isfinite(res["test_loss"]).all() \
+            or versions != ["step_%08d" % (steps - 1), "step_%08d" % steps] \
+            or not os.path.isdir(best) or not same or not sha \
+            or not beat or beat.get("step") != steps \
+            or "train_step_wall_s" not in recorded \
+            or not os.path.exists(trace) \
+            or counts != {"run_start": 1, "step": steps,
+                          "checkpoint_commit": steps + FIT_EPOCHS,
+                          "epoch_end": FIT_EPOCHS, "run_end": 1}:
+        raise SystemExit(f"fit: a check failed (events {counts})")
+
+    # the steady state without checkpoints: host waits a step, device busy
+    # share of a traced window
+    state, optimizer, _, _ = create_train_state(
+        dataclasses.replace(config, model=mc.replace(checkpoint=start_dir)), device=dev)
+    loader = DataLoader(ImagePairDataset(
+        os.path.join(root, "image_pairs"), "train_pairs.csv", root,
+        output_size=(SERVE_SIDE, SERVE_SIDE)), batch_size=FIT_BATCH,
+        shuffle=True, num_workers=FIT_WORKERS)
+    batches = []
+    for epoch in (1, 2):
+        loader.set_epoch(epoch)
+        batches += list(loader)
+    waits, (sbusy, swindow, sn), swall = steady_state_steps(
+        torch, mc, state, optimizer, batches, os.path.join(tmp, "steady"))
+    print(f"fit steady state (batch {FIT_BATCH}, no checkpoints): host "
+          f"waits in one step {len(waits)} {waits}; 4 steps {swall:.3f} s; "
+          f"traced steps [2, 4): device busy {sbusy * 1e3:.2f} ms of "
+          f"{swindow * 1e3:.2f} ms ({100 * sbusy / swindow if swindow else 0:.1f}"
+          f" %), {sn} device intervals", flush=True)
+    if len(waits) != 1:
+        raise SystemExit("fit: a steady-state step must wait for the card "
+                         "once (its loss fetch)")
+
+    # (b) SIGTERM after step 3 and (c) SIGKILL mid-save of version 3, each
+    # through the CLI in a subprocess, both running at once; then both
+    # resumed from their roots at once; each ends bit-equal to (a)
+    env = dict(os.environ, NCNET_TPU_PERF_STORE="off")
+
+    def cli_procs(runs):
+        procs = []
+        for args, plan in runs:
+            e = dict(env, NCNET_TPU_FAULTS=json.dumps(plan)) if plan else env
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ncnet_tpu_torch.cli.train"] + args,
+                cwd=HERE, env=e, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        return [(p.wait(timeout=600), p.communicate()) for p in procs]
+
+    t0 = time.perf_counter()
+    cut = cli_procs([
+        (fit_cli_args(start_dir, root, os.path.join(tmp, "b")),
+         {"sigterm_at_step": 3}),
+        (fit_cli_args(start_dir, root, os.path.join(tmp, "c")),
+         {"kill_at_version": 3})])
+    cut_s = time.perf_counter() - t0
+    b_root, c_root = run_root(os.path.join(tmp, "b")), run_root(
+        os.path.join(tmp, "c"))
+    b_listing, c_listing = sorted(os.listdir(b_root)), sorted(os.listdir(c_root))
+    t0 = time.perf_counter()
+    resumed = cli_procs([(fit_cli_args(b_root, root, os.path.join(tmp, "x")),
+                          None),
+                         (fit_cli_args(c_root, root, os.path.join(tmp, "y")),
+                          None)])
+    resume_s = time.perf_counter() - t0
+    final = "step_%08d" % steps
+    a_trees = version_trees(os.path.join(a_root, final))
+    same_b = trees_equal(torch, version_trees(os.path.join(b_root, final)),
+                         a_trees)
+    same_c = trees_equal(torch, version_trees(os.path.join(c_root, final)),
+                         a_trees)
+    print(f"fit resume: SIGTERM at step 3 exit {cut[0][0]}, its root "
+          f"{b_listing}; SIGKILL mid-save of version 3 exit {cut[1][0]}, its "
+          f"root {c_listing} ({cut_s:.1f} s, both at once); resumed exits "
+          f"{[r[0] for r in resumed]} ({resume_s:.1f} s); version {final} "
+          f"(params, Adam state, step) vs the uninterrupted run's: SIGTERM "
+          f"{'bit-equal' if same_b else 'DIFFERENT'}, kill mid-save "
+          f"{'bit-equal' if same_c else 'DIFFERENT'}", flush=True)
+    if cut[0][0] != 0 or cut[1][0] != -9 \
+            or c_listing != ["step_00000001", "step_00000002",
+                             "step_00000003.tmp", "telemetry"] \
+            or "step_00000003" not in b_listing \
+            or any(r[0] != 0 for r in resumed) or not same_b or not same_c:
+        raise SystemExit("fit resume: the interrupted runs did not resume "
+                         "bit-equal" + "".join(e[-1500:] for _, (_, e) in
+                                               cut + resumed))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # the NaN guard: a NaN batch at step 2 is skipped, version 2 keeps
+    # version 1's params and Adam state
+    short = dict(num_epochs=1, checkpoint_steps=1, keep_checkpoints=0,
+                 telemetry=False)
+    with faults.injected(faults.FaultPlan(nan_loss_steps=(2,))):
+        nan_res = fit(dataclasses.replace(config, result_model_dir=os.path.join(tmp, "nan"),
+                                     **short), progress=False, device=dev)
+    v = [p for _, p in ckpt_io.list_checkpoint_versions(nan_res["checkpoint"])]
+    (p1, o1), (p2, o2) = version_trees(v[0]), version_trees(v[1])
+    kept = trees_equal(torch, p2, p1) and trees_equal(
+        torch, o2["opt_state"], o1["opt_state"])
+    print(f"fit NaN guard: NaN batch at step 2, {nan_res['nan_steps_skipped']} "
+          f"step skipped, train loss {nan_res['train_loss'].tolist()}; "
+          f"version 2 equals version 1 (params, Adam state): {kept}",
+          flush=True)
+    if nan_res["nan_steps_skipped"] != 1 or not kept:
+        raise SystemExit("fit NaN guard: the NaN step was not skipped")
+
+    # the two fine-tune recipes, one epoch each
+    fe = dataclasses.replace(config, result_model_dir=os.path.join(tmp, "fe"),
+                        fe_finetune_params=1, **dict(short, checkpoint_steps=0))
+    reset()
+    fe_res = fit(fe, progress=False, device=dev)
+    launches["fit_fe_finetune"] = read()
+    got, ref = fe_res["state"].params["backbone"], start["backbone"]
+    labels = bb.finetune_labels(mc.backbone, ref, 1)["layer3"][-1]
+    # the last layer3 block: every trainable leaf moved; every other trunk
+    # leaf (earlier blocks, BatchNorm statistics) bit-unchanged
+    last = [(a, b, lab) for a, b, lab in zip(
+        tree_leaves(got["layer3"][-1]), tree_leaves(ref["layer3"][-1]),
+        tree_leaves(labels))]
+    n_trainable = sum(lab == "trainable" for _, _, lab in last)
+    changed_last = sum(lab == "trainable" and not torch.equal(a, b)
+                       for a, b, lab in last)
+    frozen_ok = all(torch.equal(a, b) for a, b, lab in last
+                    if lab == "frozen") and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves({k: v for k, v in got.items() if k != "layer3"})
+            + tree_leaves(got["layer3"][:-1]),
+            tree_leaves({k: v for k, v in ref.items() if k != "layer3"})
+            + tree_leaves(ref["layer3"][:-1])))
+    nc_moved = not all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fe_res["state"].params["nc"]), tree_leaves(start["nc"])))
+    fe_steps = FIT_TRAIN_PAIRS // FIT_BATCH
+    # the whole-batch step: two filter calls (positives, negatives), each
+    # the folded stack once; its input needs a gradient, so every layer
+    # runs the transposed conv
+    fe_want = {"nc_conv4d_bf16": 0,
+               "nc_vjp_dw": fe_steps * 2 * n_layers,
+               "nc_vjp_reduce": fe_steps * 2 * n_layers,
+               "nc_conv4d_transpose": fe_steps * 2 * n_layers}
+    print(f"fit fe_finetune_params=1: {fe_steps} steps, train loss "
+          f"{fe_res['train_loss'].tolist()}; trainable leaves of layer3[-1] "
+          f"changed {changed_last} of {n_trainable}; every frozen trunk "
+          f"leaf (earlier blocks, BatchNorm statistics) bit-unchanged: "
+          f"{frozen_ok}; NC stack changed: {nc_moved}; launches "
+          f"{launches['fit_fe_finetune']}, expected {fe_want}", flush=True)
+    if changed_last != n_trainable or not frozen_ok or not nc_moved \
+            or launches["fit_fe_finetune"] != fe_want \
+            or not np.isfinite(fe_res["train_loss"]).all():
+        raise SystemExit("fit fe_finetune_params: a check failed")
+    cp = dataclasses.replace(config, result_model_dir=os.path.join(tmp, "cp"),
+                        finetune_cp_rank=FIT_CP_RANK,
+                        **dict(short, checkpoint_steps=0))
+    cp_start = create_train_state(cp, device=dev)[0].params["nc"]
+    reset()
+    cp_res = fit(cp, progress=False, device=dev)
+    launches["fit_cp"] = read()
+    got = cp_res["state"].params["nc"]
+    factors_moved = all(not torch.equal(layer["cp"][k], old["cp"][k])
+                        for layer, old in zip(got, cp_start)
+                        for k in ("cin", "cout"))
+    # the biases train with the factors (the CP chain adds them)
+    dense_same = all(torch.equal(layer["w"], old["w"])
+                     for layer, old in zip(got, start["nc"]))
+    # the forced CP tier carries both directions (plain PyTorch): no kernel
+    cp_want = {"nc_conv4d_bf16": 0, "nc_vjp_dw": 0, "nc_vjp_reduce": 0,
+               "nc_conv4d_transpose": 0}
+    print(f"fit finetune_cp_rank={FIT_CP_RANK}: tier "
+          f"{cp_res['model_config'].nc_tier!r}, train loss "
+          f"{cp_res['train_loss'].tolist()}; every layer's factors changed: "
+          f"{factors_moved}; dense kernels bit-unchanged: "
+          f"{dense_same}; launches {launches['fit_cp']}, "
+          f"expected {cp_want}", flush=True)
+    if not dense_same or launches["fit_cp"] != cp_want or not factors_moved \
+            or cp_res["model_config"].nc_tier != "cp" \
+            or not np.isfinite(cp_res["train_loss"]).all():
+        raise SystemExit("fit finetune_cp_rank: a check failed")
+    shutil.rmtree(tmp)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2760,7 +3217,8 @@ def main() -> int:
     gather_numbers = check_gather(torch, sparse_corr, dev)
     l2_numbers, probe_numbers = probe_tools(torch, dev)
     serve_launches = serve(torch, nc_fused_lane, dev)
-    train_launches = train(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
+    train_launches, train_start, train_walls = train(
+        torch, nc_fused_lane, nc_fused_lane_vjp, dev)
     engine, params, requests, tables, c2f_launches, dense_launches = serve_c2f(
         torch, nc_fused_lane, sparse_corr, dev)
     tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
@@ -2770,6 +3228,9 @@ def main() -> int:
     reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
     loop_launches, cli_launches = eval_loop(torch, nc_fused_lane, sparse_corr,
                                             dev)
+    fit_launches = fit_phase(torch, nc_fused_lane, nc_fused_lane_vjp, dev,
+                             train_start, train_walls)
+    del train_start
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -2778,7 +3239,12 @@ def main() -> int:
                   "eval_400": eval_launches,
                   "reloc_1600": reloc_launches,
                   **{k: v["nc_conv4d_bf16"] for k, v in loop_launches.items()},
-                  "eval_cli_400": cli_launches}
+                  "eval_cli_400": cli_launches,
+                  **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()}}
+    b3_by_path = {"train": {k: train_launches[k]
+                            for k in nc_fused_lane_vjp.launches},
+                  **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
+                     for k, v in fit_launches.items()}}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
                       **{k: v["gather_tile_corr_bf16"]
@@ -2805,9 +3271,12 @@ def main() -> int:
         "source": "ncnet_tpu_torch/csrc/nc_conv4d_vjp.cu",
         "also_source": "ncnet_tpu_torch/csrc/nc_conv4d.cu",
         "replaces": "ncnet_tpu/ops/nc_fused_lane_vjp.py:490",
-        # the three kernels' launches in the timed training steps
-        "launches": sum(train_launches[k] for k in nc_fused_lane_vjp.launches),
-        "launches_by_kernel": {k: train_launches[k]
+        # the three kernels' launches in the timed training steps (phase
+        # 5) and in phase F's fit runs, each path read with its counts set
+        # to 0 just before it
+        "launches": sum(sum(v.values()) for v in b3_by_path.values()),
+        "launches_by_path": {k: sum(v.values()) for k, v in b3_by_path.items()},
+        "launches_by_kernel": {k: sum(v[k] for v in b3_by_path.values())
                                for k in nc_fused_lane_vjp.launches},
         # dW/db (nc_vjp_dw_bf16) redesigned as B7; the transposed conv is
         # B6's kernel

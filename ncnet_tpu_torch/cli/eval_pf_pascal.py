@@ -6,7 +6,9 @@
 
 Flag names and defaults are the JAX CLI's (which mirror the reference's,
 eval_pf_pascal.py:27-30; ``--batch_size`` extends the reference's fixed
-1), plus ``--device`` (default ``cuda``; ``cpu`` runs on the host).  The
+1), plus ``--device`` (default ``cuda``; ``cpu`` runs on the host).
+``--checkpoint`` takes a reference ``.pth.tar``, a native checkpoint
+directory or a root ``fit`` wrote (its newest complete version).  The
 dataset's images are read in their raw form (ROADMAP decision D1:
 ``tools/convert_images.py`` writes them from a JPEG tree).  It prints the
 reference's three lines; a degraded run (a quarantined batch, or an

@@ -42,12 +42,10 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Weak-supervision training run (reference train.py:34-47 flags).
-
-    The fields the port's training step reads are ``model``, ``lr``,
-    ``seed``, ``batch_size``, ``accum_chunks``, ``nan_guard`` and the
-    unported options below; the rest belong to ``fit``, the data loader and
-    the CLI, which come in a later slice."""
+    """Weak-supervision training run (reference train.py:34-47 flags), read
+    by ``training/train.py::fit`` and ``cli/train.py``.  ``distributed`` is
+    refused (multi-process runs, ROADMAP A9); ``data_parallel`` and
+    ``donate_state`` have no effect on one card in eager PyTorch."""
 
     model: ModelConfig = ModelConfig(
         ncons_kernel_sizes=(5, 5, 5), ncons_channels=(16, 16, 1))
@@ -59,22 +57,22 @@ class TrainConfig:
     lr: float = 5e-4
     result_model_fn: str = "checkpoint_adam"
     result_model_dir: str = "trained_models"
-    fe_finetune_params: int = 0          # >0 not ported: trunk fine-tuning
-    finetune_cp_rank: int = 0            # >0 not ported: the CP fine-tune
+    fe_finetune_params: int = 0          # >0: fine-tune the last trunk blocks
+    finetune_cp_rank: int = 0            # >0: fine-tune rank-R CP factors
     seed: int = 1
     num_workers: int = 0
     eval_num_workers: int = 4
     log_interval: int = 1
-    data_parallel: bool = True           # shard the pair batch over devices
+    data_parallel: bool = True           # one card: no effect (A9)
     donate_state: bool = True            # no counterpart in eager PyTorch
-    remat_nc_layers: bool = False        # True refused by the recipe (the steps take it)
-    nc_custom_grad: bool = False         # True refused by the recipe (the steps take it)
+    remat_nc_layers: bool = False        # recompute each NC layer in the backward
+    nc_custom_grad: bool = False         # the conv4d_same custom backward
     fold_pos_neg: bool = False           # one 2B-volume filter call (accum_chunks=0)
-    nc_pallas_vjp: bool = True           # False refused by the recipe (the steps take it)
+    nc_pallas_vjp: bool = True           # the B3 backward where compiled
     remat_filter: bool = True            # recompute the filter in the backward
     accum_chunks: int = -1               # -1 auto, 0 whole batch, >1 chunks
     val_drop_last: bool = True
-    distributed: bool = False            # True not ported: multi-host runs
+    distributed: bool = False            # True refused: multi-host runs (A9)
     profile_dir: str = ""
     telemetry: bool = True
     telemetry_dir: str = ""

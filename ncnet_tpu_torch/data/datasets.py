@@ -1,17 +1,18 @@
-"""Host-side PF-Pascal keypoint dataset, the port of the eval half of
-``ncnet_tpu/data/datasets.py`` (``SampleDecodeError``, ``load_image``,
-``load_image_with_retry``, ``_preprocess``, ``_parse_points``,
-``PFPascalDataset``).
+"""Host-side datasets, the port of ``ncnet_tpu/data/datasets.py``:
+``SampleDecodeError``, ``load_image``, ``load_image_with_retry``,
+``_preprocess``, ``_parse_points``, the weak-supervision
+``ImagePairDataset`` and the PF-Pascal keypoint ``PFPascalDataset``.
 
 Images are read in their raw form (ROADMAP decision D1): each image
 ``<rel>.jpg`` of a dataset tree has ``<rel>.jpg.npy`` beside it, an
 ``(H, W, 3)`` uint8 array saved with ``np.save``
-(``tools/convert_images.py`` writes them from a JPEG tree with PIL, so this
-dataset sees PIL's pixels bit for bit, as the JAX package's does).  The pair
+(``tools/convert_images.py`` writes them from a JPEG tree with PIL, so these
+datasets see PIL's pixels bit for bit, as the JAX package's do).  The pair
 CSVs are read with the ``csv`` module.  Same preprocessing order as the
-reference (record the image size, THEN resize; optional ImageNet
-normalization), the same −1 keypoint padding to 20 and the 'pf' / 'scnet'
-PCK procedures, channels-last numpy out.
+reference (grayscale to 3 channels, random crop, flip, record the image
+size, THEN resize; optional ImageNet normalization), the same −1 keypoint
+padding to 20 and the 'pf' / 'scnet' PCK procedures, channels-last numpy
+out, and a seeded per-``(seed, epoch, idx)`` generator for the crops.
 """
 
 from __future__ import annotations
@@ -104,6 +105,89 @@ def _preprocess(image: np.ndarray, out_h: int, out_w: int, normalize: bool
     return image, im_size
 
 
+def _read_csv_rows(path: str):
+    """The data rows of a CSV (the header row names the columns)."""
+    with open(path, newline="") as f:
+        return list(csv.reader(f))[1:]
+
+
+class ImagePairDataset:
+    """Weak-supervision pairs from a ``source,target,class,flip`` CSV
+    (im_pair_dataset.py:26-57).
+
+    ``decode_retries``: transient read errors are retried that many times
+    per image; a sample that still fails raises :class:`SampleDecodeError`,
+    which the loader's quarantine policy can absorb."""
+
+    def __init__(
+        self,
+        dataset_csv_path: str,
+        dataset_csv_file: str,
+        dataset_image_path: str,
+        dataset_size: int = 0,
+        output_size: Tuple[int, int] = (240, 240),
+        normalize: bool = True,
+        random_crop: bool = False,
+        seed: int = 1,
+        decode_retries: int = 1,
+    ):
+        self.out_h, self.out_w = output_size
+        self.random_crop = random_crop
+        self.normalize = normalize
+        self.decode_retries = decode_retries
+        rows = _read_csv_rows(os.path.join(dataset_csv_path, dataset_csv_file))
+        if dataset_size:
+            rows = rows[: min(dataset_size, len(rows))]
+        self.img_a_names = [r[0] for r in rows]
+        self.img_b_names = [r[1] for r in rows]
+        self.set = np.asarray([int(r[2]) for r in rows], dtype=np.int64)
+        self.flip = np.asarray([int(r[3]) for r in rows], dtype=np.int64)
+        self.image_path = dataset_image_path
+        self.seed = seed
+        self.epoch = 0  # set via set_epoch (DataLoader does this per epoch)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Vary augmentation draws across epochs while staying
+        deterministic (the reference's per-worker reseeding,
+        lib/dataloader.py:39-43)."""
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.img_a_names)
+
+    def _get_image(self, name: str, flip: int, rng
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        image = load_image_with_retry(os.path.join(self.image_path, name),
+                                      self.decode_retries)
+        if self.random_crop:
+            # crop bounds exactly as the reference draws them
+            # (im_pair_dataset.py:68-74)
+            h, w, _ = image.shape
+            top = int(rng.integers(h // 4))
+            bottom = int(3 * h / 4 + rng.integers(h // 4))
+            left = int(rng.integers(w // 4))
+            right = int(3 * w / 4 + rng.integers(w // 4))
+            image = image[top:bottom, left:right]
+        if flip:
+            image = image[:, ::-1]
+        return _preprocess(image, self.out_h, self.out_w, self.normalize)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        # per-(seed, epoch, sample) generator: deterministic under any
+        # thread scheduling (a shared Generator is not thread-safe)
+        rng = np.random.default_rng([self.seed, self.epoch, idx])
+        flip = self.flip[idx]
+        image_a, size_a = self._get_image(self.img_a_names[idx], flip, rng)
+        image_b, size_b = self._get_image(self.img_b_names[idx], flip, rng)
+        return {
+            "source_image": image_a,
+            "target_image": image_b,
+            "source_im_size": size_a,
+            "target_im_size": size_b,
+            "set": self.set[idx],
+        }
+
+
 def _parse_points(x_str: str, y_str: str) -> np.ndarray:
     """';'-separated keypoint strings → (2, 20) with −1 padding
     (pf_dataset.py:104-108)."""
@@ -139,8 +223,7 @@ class PFPascalDataset:
         self.normalize = normalize
         self.pck_procedure = pck_procedure
         self.decode_retries = decode_retries
-        with open(csv_file, newline="") as f:
-            rows = list(csv.reader(f))[1:]  # the header row names the columns
+        rows = _read_csv_rows(csv_file)
         self.category = np.asarray([float(r[2]) for r in rows],
                                    dtype=np.float32)
         if category is not None:

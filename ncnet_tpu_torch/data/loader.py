@@ -25,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Set
 
 import numpy as np
+import torch
 
 from ncnet_tpu_torch.data.datasets import SampleDecodeError
 
@@ -42,6 +43,17 @@ def default_collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarra
         else:  # strings etc. pass through as lists (reference collate_custom)
             out[key] = vals
     return out
+
+
+def stage_array(a, device: torch.device) -> torch.Tensor:
+    """A host batch array as a tensor on ``device``; on CUDA from pinned
+    memory without waiting, so the copy queues behind the card's work (the
+    training and eval loops' staging)."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a)))
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class DataLoader:

@@ -1,6 +1,6 @@
-"""Synthetic PF-Pascal-schema fixtures for tests and smoke runs, the port of
+"""Synthetic reference-schema fixtures for tests and smoke runs, the port of
 ``ncnet_tpu/data/synthetic.py`` (``make_shifted_pair``,
-``write_pf_pascal_like``).
+``write_pair_dataset``, ``write_pf_pascal_like``).
 
 The target image is a shifted crop of the source, so keypoint transfer has
 an analytic answer.  The functions draw the same random sequence and write
@@ -89,6 +89,36 @@ def make_shifted_pair(rng: np.random.Generator, h: int, w: int,
     src = big[y0: y0 + h, x0: x0 + w]
     tgt = big[y0 - dy: y0 - dy + h, x0 - dx: x0 - dx + w]
     return src, tgt
+
+
+def write_pair_dataset(
+    root: str,
+    n_pairs: int = 6,
+    image_hw: Tuple[int, int] = (96, 128),
+    shift: Tuple[int, int] = (16, 16),
+    seed: int = 0,
+    splits: Tuple[str, ...] = ("train", "val"),
+) -> str:
+    """Weak-supervision layout: ``root/images/*.jpg`` (each in its raw
+    form) and ``root/image_pairs/{split}_pairs.csv`` with the reference's
+    ``source_image,target_image,class,flip`` columns."""
+    rng = np.random.default_rng(seed)
+    h, w = image_hw
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    csv_dir = os.path.join(root, "image_pairs")
+    os.makedirs(csv_dir, exist_ok=True)
+    for split in splits:
+        rows = ["source_image,target_image,class,flip"]
+        for i in range(n_pairs):
+            src, tgt = make_shifted_pair(rng, h, w, shift)
+            a = f"images/{split}_{i}_a.jpg"
+            b = f"images/{split}_{i}_b.jpg"
+            np.save(raw_path(os.path.join(root, a)), src)
+            np.save(raw_path(os.path.join(root, b)), tgt)
+            rows.append(f"{a},{b},{1 + i % 3},0")
+        with open(os.path.join(csv_dir, f"{split}_pairs.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return root
 
 
 def write_pf_pascal_like(

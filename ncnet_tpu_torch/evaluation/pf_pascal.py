@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ncnet_tpu_torch.config import EvalPFPascalConfig, ModelConfig
+from ncnet_tpu_torch.data.loader import stage_array
 from ncnet_tpu_torch.evaluation.pck import pck_metric
 from ncnet_tpu_torch.models.ncnet import ncnet_forward
 from ncnet_tpu_torch.observability import events as obs_events
@@ -116,11 +117,7 @@ def upload_batch(batch: Dict[str, np.ndarray], device: torch.device,
         if k.endswith("_image") and not device_normalize \
                 and image_dtype is not None:
             t = t.to(image_dtype)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[k] = t
+        out[k] = stage_array(t, device)
     return out
 
 

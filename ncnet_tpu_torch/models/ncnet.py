@@ -28,6 +28,7 @@ and the coarse-to-fine and tracked match pipelines
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -59,13 +60,16 @@ from ncnet_tpu_torch.utils.seeding import torch_generator
 
 def check_ported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that this slice of the port does not run.  Weights files
-    (``backbone_weights``, ``checkpoint``) load for the ResNet-101 trunk."""
+    that this slice of the port does not run.  A native checkpoint
+    directory (``models/checkpoint.py``) loads for every ported trunk; the
+    torchvision and ``.pth.tar`` importers (``backbone_weights``, a
+    ``checkpoint`` file) for the ResNet-101 trunk only."""
     resnet = config.backbone == "resnet101"
     unported = [
         ("backbone", config.backbone not in ("resnet101", "tiny")),
         ("backbone_weights", bool(config.backbone_weights) and not resnet),
-        ("checkpoint", bool(config.checkpoint) and not resnet),
+        ("checkpoint", bool(config.checkpoint) and not resnet
+         and not os.path.isdir(config.checkpoint)),
     ]
     for name, hit in unported:
         if hit:
@@ -580,9 +584,10 @@ def make_point_matcher(config: ModelConfig, params, *, do_softmax: bool = True,
 class NCNet:
     """Config + params bundled with a callable forward, on ``device`` (CUDA
     by default).  ``NCNet(cfg, params)`` stages the given params; without
-    them ``cfg.checkpoint`` (a reference ``.pth.tar``, whose stored
-    architecture then overrides ``cfg``'s, ``models/checkpoint.py``) is
-    loaded, else ``NCNet(cfg, seed=s)`` initializes them
+    them ``cfg.checkpoint`` (a reference ``.pth.tar``, a native directory
+    or a ``fit`` root, whose stored architecture then overrides ``cfg``'s,
+    ``models/checkpoint.py``) is loaded, else ``NCNet(cfg, seed=s)``
+    initializes them
     (:func:`init_ncnet`)."""
 
     def __init__(self, config: ModelConfig = ModelConfig(), params=None,

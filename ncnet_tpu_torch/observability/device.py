@@ -1,6 +1,6 @@
-"""Device introspection, the part of ``ncnet_tpu/observability/device.py``
-the eval path calls: :func:`device_snapshot` and :class:`DeviceMonitor`,
-on ``torch.cuda``.
+"""Device introspection, the port of ``ncnet_tpu/observability/device.py``:
+:func:`device_snapshot` and :class:`DeviceMonitor` on ``torch.cuda``, and
+the :class:`Heartbeat` file.
 
 A snapshot is one dict per CUDA device (index, name, platform, and the
 caching allocator's watermarks: ``bytes_in_use``, ``peak_bytes_in_use``,
@@ -9,12 +9,17 @@ caching allocator's watermarks: ``bytes_in_use``, ``peak_bytes_in_use``,
 replayed run shows memory pressure beside its timeline.  It reads the
 devices only when this process has already initialized CUDA (it never
 initializes it), so on the CPU it stays silent, as the JAX one does on a
-backend without memory stats.  Everything is fail-open.  The heartbeat
-file comes with the training loop (ROADMAP A6).
+backend without memory stats.  Everything is fail-open.
+
+The heartbeat is a small JSON file (``{"time", "pid", "step", "run"}``)
+that a long run rewrites atomically every step: a watchdog reads its mtime
+(one ``stat``) to tell a live run from a hung one.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -85,3 +90,55 @@ class DeviceMonitor:
         _events.emit("device_snapshot", devices=snap,
                      **({"step": step} if step is not None else {}))
         return True
+
+
+class Heartbeat:
+    """Atomic-mtime heartbeat file (see the module docstring).
+
+    ``beat()`` writes ``{"time", "pid", "step", "run"}`` to a temp file and
+    ``os.replace``s it over ``path``: the mtime and the payload move as one,
+    so a reader never sees a torn document."""
+
+    def __init__(self, path: str, run_id: Optional[str] = None):
+        self.path = path
+        self.run_id = run_id
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def beat(self, step: Optional[int] = None, **fields) -> None:
+        doc = {"time": time.time(), "pid": os.getpid()}
+        if step is not None:
+            doc["step"] = int(step)
+        if self.run_id:
+            doc["run"] = self.run_id
+        doc.update(fields)
+        tmp = self.path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, self.path)
+        except OSError:
+            # fail-open: a beat that cannot land (disk full) must not kill
+            # the step it reports on; the stale mtime is the right signal
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+    @staticmethod
+    def read(path: str) -> Optional[Dict[str, Any]]:
+        """The last beat's payload, or None (missing or unreadable)."""
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            return doc if isinstance(doc, dict) else None
+        except (OSError, ValueError):
+            return None
+
+    @staticmethod
+    def age_s(path: str) -> Optional[float]:
+        """Seconds since the last beat (from the mtime), or None when the
+        file is missing."""
+        try:
+            return max(0.0, time.time() - os.stat(path).st_mtime)
+        except OSError:
+            return None

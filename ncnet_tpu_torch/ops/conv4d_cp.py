@@ -28,6 +28,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+# the checkpoint conversion's default rank (tools/cp_decompose.py, the JAX
+# package's constant): at the k=5 16→16 layer R=16 keeps the rank channels
+# as wide as the dense channels
+DEFAULT_CP_RANK = 16
+
 # the arithmetic gate's win margin (the JAX package's constant)
 _CP_GATE_MARGIN = 0.75
 

@@ -14,7 +14,7 @@ and the chunked loss weights the bf16 pair scores with f32 weights.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,6 +23,7 @@ from ncnet_tpu_torch.config import ModelConfig
 from ncnet_tpu_torch.models.ncnet import (
     extract_features,
     ncnet_filter,
+    tree_leaves,
     tree_map,
 )
 from ncnet_tpu_torch.ops.correlation import correlation_4d
@@ -156,17 +157,17 @@ def weak_loss_and_grads(config: ModelConfig, params,
         raise ValueError(f"accum_chunks={accum_chunks} must divide 2*batch={n2}")
     fa2 = torch.cat([fa, torch.roll(fa, -1, dims=0)], dim=0)
     fb2 = torch.cat([fb, fb], dim=0)
-    w2 = torch.cat([torch.full((b,), -1.0 / b), torch.full((b,), 1.0 / b)]
-                   ).to(device=fa.device, dtype=torch.float32)
+    # made on the card: a host tensor copied there would wait for it
+    w2 = torch.cat([torch.full((b,), -1.0 / b, device=fa.device),
+                    torch.full((b,), 1.0 / b, device=fa.device)])
     nc = params["nc"]
     c = n2 // accum_chunks
     loss = torch.zeros((), dtype=torch.float32, device=fa.device)
-    g_nc: List[Dict[str, torch.Tensor]] = [
-        {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-         for k, v in layer.items()} for layer in nc]
+    g_nc: List[Dict[str, Any]] = tree_map(
+        lambda v: torch.zeros(v.shape, dtype=torch.float32, device=v.device),
+        nc)
     for i in range(accum_chunks):
-        leaves = [{k: v.detach().requires_grad_() for k, v in layer.items()}
-                  for layer in nc]
+        leaves = tree_map(lambda v: v.detach().requires_grad_(), nc)
         with torch.enable_grad():
             vol = ncnet_filter(
                 config, {**params, "nc": leaves},
@@ -176,12 +177,14 @@ def weak_loss_and_grads(config: ModelConfig, params,
                 nc_pallas_vjp=nc_pallas_vjp).corr
             val = (match_score_per_pair(vol, normalization)
                    * w2[i * c:(i + 1) * c]).sum()
-        flat = [t for layer in leaves for t in layer.values()]
-        grads = torch.autograd.grad(val, flat)
-        it = iter(grads)
-        for layer in g_nc:
-            for k in layer:
-                layer[k] += next(it).to(torch.float32)
+        # a leaf the route does not read (the dense kernel under the
+        # forced CP tier, the factors elsewhere) gets a zero gradient, as
+        # JAX's value_and_grad gives it
+        grads = torch.autograd.grad(val, tree_leaves(leaves),
+                                    allow_unused=True)
+        for acc, g in zip(tree_leaves(g_nc), grads):
+            if g is not None:
+                acc += g.to(torch.float32)
         loss = loss + val.detach()
     grads = {**tree_map(torch.zeros_like,
                         {k: v for k, v in params.items() if k != "nc"}),

@@ -1,6 +1,6 @@
-"""Deterministic fault injection for the eval path's fault tolerance, the
-part of ``ncnet_tpu/utils/faults.py`` that the port's data, eval and
-``utils/io`` paths call.
+"""Deterministic fault injection for the training and eval paths' fault
+tolerance, the part of ``ncnet_tpu/utils/faults.py`` that the port's data,
+training, eval and ``utils/io`` paths call.
 
 Claims about crash paths rot unless they are executed, so the production
 code carries tiny hook call sites and this module arms them
@@ -9,6 +9,16 @@ deterministically from tests:
   * ``decode_hook(path)``        — ``data/datasets.load_image``: raises
     :class:`InjectedFault` (an OSError) for matching image paths, optionally
     only for the first k attempts per path (exercises decode retry).
+  * ``corrupt_batch_hook(b, s)`` — ``training/train.process_epoch``:
+    NaN-fills the source images of selected global train steps, so the NaN
+    flows through the real loss, gradients and update and the NaN guard
+    must keep it out of the Adam state.
+  * ``kill_mid_save_hook(n)``    — ``training/train.save_train_checkpoint``:
+    SIGKILLs the process between the ``params`` and ``opt`` writes of
+    version ``step_<n>`` (a ``.tmp`` carcass, no commit).
+  * ``sigterm_hook(step)``       — ``fit``'s step loop: delivers SIGTERM to
+    the process after a given global step (the preemption handler end to
+    end, its boundary checkpoint included).
   * ``savemat_hook(path)``       — ``utils/io.atomic_savemat``: raises
     :class:`InjectedFault` for matching artifact paths (optionally only the
     first k attempts per path).
@@ -45,6 +55,8 @@ import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
+
 FAULTS_ENV = "NCNET_TPU_FAULTS"
 
 
@@ -63,11 +75,19 @@ class InjectedDeviceError(RuntimeError):
 class FaultPlan:
     """What to break, and when.  All fields default to 'never'."""
 
+    # global train steps (1-based, = TrainState.step after the batch) whose
+    # input batch is NaN-corrupted before the step runs
+    nan_loss_steps: Tuple[int, ...] = ()
     # image paths containing this substring raise InjectedFault on decode
     decode_fail_substring: str = ""
     # -1: every decode attempt fails; k >= 0: only the first k attempts per
     # path fail (a transient error that retry should absorb)
     decode_fail_times: int = -1
+    # SIGKILL self mid-save of checkpoint version step_<N> (between the
+    # params and opt writes: .tmp exists, the commit rename never happens)
+    kill_at_version: int = -1
+    # SIGTERM self after this global train step (1-based)
+    sigterm_at_step: int = -1
     # artifact paths containing this substring raise InjectedFault inside
     # atomic_savemat (before any bytes are written)
     savemat_fail_substring: str = ""
@@ -170,6 +190,35 @@ def decode_hook(path: str) -> None:
         return
     if _attempt_fails(_decode_attempts, path, p.decode_fail_times):
         raise InjectedFault(f"injected decode failure for {path!r}")
+
+
+def corrupt_batch_hook(batch: dict, step: int) -> dict:
+    """NaN-fill the source images of the host batch feeding global
+    ``step`` (if armed)."""
+    p = _active()
+    if p is None or step not in p.nan_loss_steps:
+        return batch
+    out = dict(batch)
+    src = np.asarray(out["source_image"], dtype=np.float32)
+    out["source_image"] = np.full_like(src, np.nan)
+    return out
+
+
+def kill_mid_save_hook(version: int) -> None:
+    """SIGKILL self mid-save of checkpoint version ``version`` (if armed)."""
+    p = _active()
+    if p is None or p.kill_at_version < 0 or version != p.kill_at_version:
+        return
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def sigterm_hook(step: int) -> None:
+    """Deliver SIGTERM to self after global train step ``step`` (if
+    armed)."""
+    p = _active()
+    if p is None or p.sigterm_at_step < 0 or step != p.sigterm_at_step:
+        return
+    os.kill(os.getpid(), signal.SIGTERM)
 
 
 def savemat_hook(path: str) -> None:

@@ -651,3 +651,97 @@ def test_eval_step_does_not_wait_for_the_card(cuda, side, sparse_topk):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(out.cpu(), want)
+
+
+def _tiny_fit_config(root, out, **kw):
+    from ncnet_tpu_torch.config import TrainConfig
+
+    return TrainConfig(
+        model=ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3),
+                          ncons_channels=(4, 1), half_precision=True),
+        image_size=112, dataset_image_path=root,
+        dataset_csv_path=root + "/image_pairs", num_epochs=2, batch_size=2,
+        lr=1e-3, result_model_dir=str(out), log_interval=100,
+        checkpoint_steps=1, keep_checkpoints=2, **kw)
+
+
+@pytest.mark.cuda
+def test_fit_step_waits_for_the_card_once(cuda, tmp_path):
+    """A steady-state ``fit`` step (``process_epoch`` with the telemetry on:
+    dispatch of step N, staging of batch N+1, then the loss fetch) makes
+    the host wait for the card once, the loss and grad-norm fetch: the NaN
+    guard decides on the card.  Counted under
+    ``torch.cuda.set_sync_debug_mode("warn")`` from the end of step 1 to
+    the end of step 2."""
+    import warnings
+
+    from ncnet_tpu_torch.observability.events import EventLog, bound
+    from ncnet_tpu_torch.observability.metrics import MetricsRegistry
+    from ncnet_tpu_torch.training import process_epoch
+
+    cfg = _tiny_fit_config(str(tmp_path), tmp_path)
+    state, opt, mc, _ = create_train_state(cfg, seed=0, device=cuda)
+    step = make_train_step(mc, opt, stop_backbone_grad=True, accum_chunks=-1,
+                           nan_guard=True, with_grad_norm=True)
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        src = rng.uniform(-1, 1, (2, 112, 112, 3)).astype(np.float32)
+        batches.append({"source_image": src,
+                        "target_image": np.roll(src, 16, axis=1).copy()})
+
+    def on_step(batch_idx, st, loss):
+        torch.cuda.set_sync_debug_mode("warn" if batch_idx == 0 else 0)
+        return False
+
+    log = EventLog(str(tmp_path / "events.jsonl"))
+    with bound(log), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            state, mean = process_epoch(
+                "train", 1, state, step, batches, on_step=on_step,
+                telemetry_ctx={"registry": MetricsRegistry()})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    log.close()
+    waits = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+    assert len(waits) == 1, waits
+    assert state.step == 3 and np.isfinite(mean)
+
+
+@pytest.mark.cuda
+def test_fit_on_the_card_resumes_bit_equal(cuda, tmp_path):
+    """``fit`` on the card from a fixture of raw pairs: B3 launches, the
+    checkpoint loads back bit-equal, and a run preempted by SIGTERM after
+    step 3 and resumed ends bit-equal to the uninterrupted one."""
+    import dataclasses
+
+    from ncnet_tpu_torch.data.synthetic import write_pair_dataset
+    from ncnet_tpu_torch.models import checkpoint as ckpt_io
+    from ncnet_tpu_torch.models.ncnet import tree_leaves
+    from ncnet_tpu_torch.training import fit
+    from ncnet_tpu_torch.utils import faults
+
+    root = write_pair_dataset(str(tmp_path / "data"), n_pairs=4,
+                              image_hw=(112, 112), shift=(16, 16), seed=1)
+    for key in nc_fused_lane_vjp.launches:
+        nc_fused_lane_vjp.launches[key] = 0
+    full = fit(_tiny_fit_config(root, tmp_path / "a", telemetry=False),
+               progress=False, device=cuda)
+    assert nc_fused_lane_vjp.launches["nc_vjp_dw"] > 0
+    _, params = ckpt_io.load_params(full["checkpoint"])
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(
+        tree_leaves(params), tree_leaves(full["state"].params)))
+    with faults.injected(faults.FaultPlan(sigterm_at_step=3)):
+        cut = fit(_tiny_fit_config(root, tmp_path / "b", telemetry=False),
+                  progress=False, device=cuda)
+    assert cut["preempted"]
+    cfg = _tiny_fit_config(root, tmp_path / "c", telemetry=False)
+    resumed = fit(dataclasses.replace(cfg, model=cfg.model.replace(
+        checkpoint=cut["checkpoint"])), progress=False, device=cuda)
+    assert resumed["state"].step == full["state"].step == 4
+    for a, b in zip(tree_leaves((resumed["state"].params,
+                                 resumed["state"].opt_state._asdict())),
+                    tree_leaves((full["state"].params,
+                                 full["state"].opt_state._asdict()))):
+        assert torch.equal(a, b)

@@ -15,6 +15,7 @@ never changes a tier: those cases check that instead.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -786,10 +787,19 @@ def test_backbone_weights_load_as_the_jax_package(resnet_ckpt, tmp_path):
 
 
 def test_checkpoint_directory_and_unported_trunks_refuse(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
+    """Directories load since the native format (ROADMAP D5): an empty one
+    has no ``config.json`` (as in the JAX package), and a JAX-written
+    orbax ``params/`` is refused by name; a reference file still loads for
+    ResNet-101 only, and other trunks stay unported."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
         tckpt.load_params(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         tnet.NCNet(tcfg.ModelConfig(checkpoint=str(tmp_path)), device="cpu")
+    (tmp_path / "params").mkdir()
+    (tmp_path / "config.json").write_text(
+        json.dumps(dataclasses.asdict(tcfg.ModelConfig(backbone="tiny"))))
+    with pytest.raises(ValueError, match="orbax"):
+        tckpt.load_params(str(tmp_path))
     with pytest.raises(NotImplementedError, match="backbone='vgg'"):
         tnet.NCNet(tcfg.ModelConfig(backbone="vgg", checkpoint="x.pth.tar"),
                    device="cpu")
