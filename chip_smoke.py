@@ -161,9 +161,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      sha verified; the event log's ``run_start``, 4 ``step``, 6
      ``checkpoint_commit``, 2 ``epoch_end`` and ``run_end``; the heartbeat
      at step 4; ``train_step_wall_s`` in the perf store; the trace on disk.
-     Then a steady-state step must wait for the card once (its loss fetch,
-     ``torch.cuda.set_sync_debug_mode``), and a traced pass without
-     checkpoints gives the device's busy share; then the CLI in
+     Then a second ``fit``, one epoch of 64 new pairs without periodic
+     checkpoints: its step 3 (mid-epoch, with ``fit``'s own per-step hook)
+     must wait for the card once, the loss fetch
+     (``torch.cuda.set_sync_debug_mode``), and a trace of the card's
+     activity over that step gives the device's busy share; then the CLI in
      subprocesses, SIGTERMed after step 3 and SIGKILLed mid-save of version
      3 (two at a time), each resumed from its root and ending bit-equal
      (params, Adam state, step) to the in-process run, all with PyTorch's
@@ -334,6 +336,10 @@ EVAL_LOOP_WORKERS, EVAL_LOOP_KILL_AT = 4, 5
 # rank FIT_CP_RANK
 FIT_TRAIN_PAIRS, FIT_VAL_PAIRS, FIT_BATCH, FIT_EPOCHS = 32, 16, 16, 2
 FIT_WORKERS, FIT_PROFILE_STEPS, FIT_CP_RANK = 4, "2:4", 4
+# the steady-state fit run: one epoch of FIT_STEADY_PAIRS train pairs (4
+# steps), its window a step in mid-epoch (the first step of an epoch waits
+# for the loader's second batch)
+FIT_STEADY_PAIRS, FIT_STEADY_WINDOW = 64, (3, 4)
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -2822,51 +2828,83 @@ def run_root(out):
     return os.path.join(out, name)
 
 
-def steady_state_steps(torch, mc, state, optimizer, batches, trace_dir):
-    """Host waits of one steady-state ``fit`` step (``process_epoch`` on 3
-    batches, the sync debug mode on from the end of step 1 to the end of
-    step 2), then a profiled pass of 4 steps (the window [2, 4), no
-    checkpoint) whose trace gives the device's busy share."""
+class SyncDebugWindow:
+    """``fit``'s step tracer for phase F's steady-state run: over global
+    steps ``[a, b)`` a profiler of the card's activity alone (no host-op
+    records, so the steps keep their untraced walls) and
+    ``torch.cuda.set_sync_debug_mode("warn")``, switched on after the
+    profiler starts and off before it stops.  Duck-types
+    ``StepWindowTracer`` (``enabled``, ``at_step``, ``close``)."""
+
+    def __init__(self, torch, log_dir, window):
+        self.torch, self.window = torch, window
+        self.trace_path = os.path.join(log_dir, "trace_steps_%d-%d.json"
+                                       % window)
+        self.enabled, self._prof = True, None
+        os.makedirs(log_dir, exist_ok=True)
+
+    def at_step(self, global_step):
+        a, b = self.window
+        if self.enabled and self._prof is None and a <= global_step < b:
+            torch = self.torch
+            self._prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            self._prof.start()
+            torch.cuda.set_sync_debug_mode("warn")
+        elif global_step >= b:
+            self.close()
+
+    def close(self):
+        self.torch.cuda.set_sync_debug_mode(0)
+        if self._prof is not None:
+            self.torch.cuda.synchronize()
+            self._prof.stop()
+            self._prof.export_chrome_trace(self.trace_path)
+            self._prof = None
+        self.enabled = False
+
+
+def steady_state_fit(torch, fit, config, root, dev, out):
+    """Host waits and device busy share of one steady-state step of
+    ``fit`` itself: one epoch of FIT_STEADY_PAIRS pairs under ``root``
+    with the telemetry on and no periodic checkpoint, under
+    :class:`SyncDebugWindow` at steps FIT_STEADY_WINDOW (a step in
+    mid-epoch: its dispatch, the staging of the next batch, the loss
+    fetch, the step event and ``fit``'s own ``on_step`` with the
+    heartbeat, the device monitor, the NaN streak and the checkpoint
+    decision).  Returns ``(waits, (busy_s, window_s, n), step walls in
+    ms)``."""
+    import dataclasses
     import warnings
 
-    from ncnet_tpu_torch.observability.events import EventLog, bound
-    from ncnet_tpu_torch.observability.metrics import MetricsRegistry
-    from ncnet_tpu_torch.training import auto_accum_chunks, make_train_step
-    from ncnet_tpu_torch.training.train import process_epoch
-    from ncnet_tpu_torch.utils.profiling import StepWindowTracer
+    from ncnet_tpu_torch.observability import events
+    from ncnet_tpu_torch.training import train as train_mod
 
-    step = make_train_step(mc, optimizer, stop_backbone_grad=True,
-                           accum_chunks=auto_accum_chunks(FIT_BATCH),
-                           nan_guard=True, with_grad_norm=True)
-
-    def on_step(batch_idx, st, loss):
-        torch.cuda.set_sync_debug_mode("warn" if batch_idx == 0 else 0)
-        return False
-
-    log = EventLog(os.path.join(trace_dir, "events.jsonl"))
-    ctx = {"registry": MetricsRegistry(scope="train_step")}
-    with bound(log), warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        try:
-            state, _ = process_epoch("train", 1, state, step, batches[:3],
-                                     log_interval=100, on_step=on_step,
-                                     telemetry_ctx=ctx)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    window = SyncDebugWindow(torch, os.path.join(out, "trace"),
+                             FIT_STEADY_WINDOW)
+    saved = train_mod.StepWindowTracer
+    train_mod.StepWindowTracer = lambda *a, **k: window
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = fit(dataclasses.replace(
+                config, dataset_image_path=root,
+                dataset_csv_path=os.path.join(root, "image_pairs"),
+                num_epochs=1, checkpoint_steps=0, result_model_dir=out),
+                progress=False, device=dev)
+    finally:
+        train_mod.StepWindowTracer = saved
+        window.close()
     waits = [str(w.message).splitlines()[0] for w in caught
              if "called a synchronizing" in str(w.message)]
-    tracer = StepWindowTracer(trace_dir, window=(2, 4))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with bound(log):
-        state, _ = process_epoch("train", 1, state, step, batches[:4],
-                                 log_interval=100,
-                                 telemetry_ctx={**ctx, "tracer": tracer})
-    tracer.close()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log.close()
-    return waits, trace_busy_share(tracer.trace_path), wall
+    _, replayed = events.replay_events(os.path.join(
+        res["checkpoint"], "telemetry", "events.jsonl"))
+    walls = [round(e["wall_s"] * 1e3, 2) for e in replayed
+             if e["event"] == "step"]
+    if res["state"].step != FIT_STEADY_PAIRS // FIT_BATCH \
+            or not os.path.exists(window.trace_path):
+        raise SystemExit("fit steady state: the run or its trace is missing")
+    return waits, trace_busy_share(window.trace_path), walls
 
 
 def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
@@ -2882,7 +2920,6 @@ def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
 
     from ncnet_tpu_torch.cli import train as cli
     from ncnet_tpu_torch.config import ModelConfig
-    from ncnet_tpu_torch.data import DataLoader, ImagePairDataset
     from ncnet_tpu_torch.data.synthetic import write_pair_dataset
     from ncnet_tpu_torch.models import backbone as bb
     from ncnet_tpu_torch.models import checkpoint as ckpt_io
@@ -3006,25 +3043,28 @@ def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
                           "epoch_end": FIT_EPOCHS, "run_end": 1}:
         raise SystemExit(f"fit: a check failed (events {counts})")
 
-    # the steady state without checkpoints: host waits a step, device busy
-    # share of a traced window
-    state, optimizer, _, _ = create_train_state(
-        dataclasses.replace(config, model=mc.replace(checkpoint=start_dir)), device=dev)
-    loader = DataLoader(ImagePairDataset(
-        os.path.join(root, "image_pairs"), "train_pairs.csv", root,
-        output_size=(SERVE_SIDE, SERVE_SIDE)), batch_size=FIT_BATCH,
-        shuffle=True, num_workers=FIT_WORKERS)
-    batches = []
-    for epoch in (1, 2):
-        loader.set_epoch(epoch)
-        batches += list(loader)
-    waits, (sbusy, swindow, sn), swall = steady_state_steps(
-        torch, mc, state, optimizer, batches, os.path.join(tmp, "steady"))
-    print(f"fit steady state (batch {FIT_BATCH}, no checkpoints): host "
-          f"waits in one step {len(waits)} {waits}; 4 steps {swall:.3f} s; "
-          f"traced steps [2, 4): device busy {sbusy * 1e3:.2f} ms of "
-          f"{swindow * 1e3:.2f} ms ({100 * sbusy / swindow if swindow else 0:.1f}"
-          f" %), {sn} device intervals", flush=True)
+    # the steady state without checkpoints: host waits of one step of fit,
+    # and the device's busy share over it
+    steady_root = os.path.join(tmp, "steady_pairs")
+    write_pair_dataset(steady_root, n_pairs=FIT_STEADY_PAIRS,
+                       image_hw=(SERVE_SIDE, SERVE_SIDE), shift=TRAIN_SHIFT,
+                       seed=23, splits=("train",))
+    write_pair_dataset(steady_root, n_pairs=FIT_BATCH,
+                       image_hw=(SERVE_SIDE, SERVE_SIDE), shift=TRAIN_SHIFT,
+                       seed=24, splits=("val",))
+    os.environ[perfstore.STORE_ENV] = "off"
+    try:
+        waits, (sbusy, swindow, sn), swalls = steady_state_fit(
+            torch, fit, config, steady_root, dev, os.path.join(tmp, "steady"))
+    finally:
+        del os.environ[perfstore.STORE_ENV]
+    print(f"fit steady state (batch {FIT_BATCH}, no periodic checkpoints): "
+          f"host waits in step {FIT_STEADY_WINDOW[0]} {len(waits)} {waits}; "
+          f"step walls ms {swalls} (step {FIT_STEADY_WINDOW[0]} traced, the "
+          f"card's activity only); traced step: device busy "
+          f"{sbusy * 1e3:.2f} ms of {swindow * 1e3:.2f} ms "
+          f"({100 * sbusy / swindow if swindow else 0:.1f} %), {sn} device "
+          f"intervals", flush=True)
     if len(waits) != 1:
         raise SystemExit("fit: a steady-state step must wait for the card "
                          "once (its loss fetch)")

@@ -53,6 +53,7 @@ import torch
 
 from ncnet_tpu_torch.config import ModelConfig
 from ncnet_tpu_torch.models import backbone as bb
+from ncnet_tpu_torch.models.ncnet import tree_map
 
 # fields that describe the trained network (restored from checkpoints); all
 # other ModelConfig fields are runtime flags owned by the caller
@@ -384,13 +385,7 @@ def verify_checkpoint_payload(path: str, params) -> Optional[str]:
 def cpu_tree(tree):
     """``tree`` with every tensor detached and copied to the CPU (None
     leaves kept): what ``torch.save`` writes."""
-    if isinstance(tree, dict):
-        return {k: cpu_tree(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [cpu_tree(v) for v in tree]
-    if torch.is_tensor(tree):
-        return tree.detach().to("cpu", copy=True)
-    return tree
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
 def write_config_json(path: str, doc: Dict[str, Any]) -> None:

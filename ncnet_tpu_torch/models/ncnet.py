@@ -28,7 +28,6 @@ and the coarse-to-fine and tracked match pipelines
 
 from __future__ import annotations
 
-import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,16 +59,17 @@ from ncnet_tpu_torch.utils.seeding import torch_generator
 
 def check_ported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that this slice of the port does not run.  A native checkpoint
-    directory (``models/checkpoint.py``) loads for every ported trunk; the
-    torchvision and ``.pth.tar`` importers (``backbone_weights``, a
-    ``checkpoint`` file) for the ResNet-101 trunk only."""
+    that this slice of the port does not run.  The torchvision and
+    reference importers (``backbone_weights``, a ``.pth.tar``
+    ``checkpoint``) read the ResNet-101 trunk only, decided from the
+    names alone; a native checkpoint directory (``models/checkpoint.py``)
+    loads for every ported trunk."""
     resnet = config.backbone == "resnet101"
     unported = [
         ("backbone", config.backbone not in ("resnet101", "tiny")),
         ("backbone_weights", bool(config.backbone_weights) and not resnet),
         ("checkpoint", bool(config.checkpoint) and not resnet
-         and not os.path.isdir(config.checkpoint)),
+         and config.checkpoint.endswith(".pth.tar")),
     ]
     for name, hit in unported:
         if hit:

@@ -554,17 +554,16 @@ def _emit_step(ctx, registry, images, epoch, batch_idx, gstep, loss_f,
 def _reclaim_carcasses(root: str) -> None:
     """Drop ``.tmp`` carcasses of crashed saves (``fit`` is the root's sole
     writer); a ``.old`` (a same-step re-save's displaced original) is
-    restored when its replacement never committed, dropped otherwise."""
+    restored where :func:`~ncnet_tpu_torch.models.checkpoint.
+    list_checkpoint_versions` counts it as its version, dropped
+    otherwise."""
+    recovered = {p for _, p in ckpt_io.list_checkpoint_versions(root)}
     for name in os.listdir(root):
         full = os.path.join(root, name)
-        if name.endswith(".tmp"):
+        if name.endswith(".old") and full in recovered:
+            os.rename(full, full[:-4])
+        elif name.endswith((".tmp", ".old")):
             shutil.rmtree(full, ignore_errors=True)
-        elif name.endswith(".old"):
-            committed = os.path.join(root, name[:-4])
-            if os.path.isdir(committed):
-                shutil.rmtree(full, ignore_errors=True)
-            else:
-                os.rename(full, committed)
 
 
 def _finite_or_none(values) -> list:
@@ -672,13 +671,9 @@ def load_train_checkpoint(path: str, state_like: TrainState,
 
     params = load(ckpt_io.PARAMS_FILE)
     opt = load(OPT_FILE)
+    ckpt_io.verify_checkpoint_payload(path, params)
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
-    expect = meta.get(ckpt_io.PAYLOAD_SHA_KEY)
-    if expect and ckpt_io.params_payload_sha256(params) != expect:
-        raise ckpt_io.CheckpointPayloadError(
-            f"training checkpoint {path!r} payload sha256 mismatch — "
-            "refusing to resume from a corrupt/torn params payload")
     dev = tree_leaves(state_like.params["nc"])[0].device
     state = TrainState(params_to(params, dev),
                        AdamState(**params_to(opt["opt_state"], dev)),

@@ -122,6 +122,9 @@ def test_native_directories_load_for_every_ported_trunk(tmp_path):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         NCNet(tcfg.ModelConfig(backbone="tiny", checkpoint=path + ".pth.tar"),
               device="cpu")
+    with pytest.raises(FileNotFoundError):  # a mistyped path is not found
+        NCNet(tcfg.ModelConfig(backbone="tiny", checkpoint=path + "x"),
+              device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -666,47 +666,48 @@ def _tiny_fit_config(root, out, **kw):
 
 
 @pytest.mark.cuda
-def test_fit_step_waits_for_the_card_once(cuda, tmp_path):
-    """A steady-state ``fit`` step (``process_epoch`` with the telemetry on:
-    dispatch of step N, staging of batch N+1, then the loss fetch) makes
-    the host wait for the card once, the loss and grad-norm fetch: the NaN
-    guard decides on the card.  Counted under
-    ``torch.cuda.set_sync_debug_mode("warn")`` from the end of step 1 to
-    the end of step 2."""
+def test_fit_step_waits_for_the_card_once(cuda, tmp_path, monkeypatch):
+    """A steady-state step of ``fit`` itself (telemetry on, no periodic
+    checkpoint; step 3 of an epoch of 4: its dispatch, the staging of
+    batch 4, the loss fetch, the step event and ``fit``'s ``on_step`` with
+    the heartbeat, the device monitor, the NaN streak and the checkpoint
+    decision) makes the host wait for the card once, the loss and
+    grad-norm fetch: the NaN guard decides on the card.  Counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``, switched on and off by
+    the step tracer ``fit`` feeds."""
+    import dataclasses
     import warnings
 
-    from ncnet_tpu_torch.observability.events import EventLog, bound
-    from ncnet_tpu_torch.observability.metrics import MetricsRegistry
-    from ncnet_tpu_torch.training import process_epoch
+    from ncnet_tpu_torch.data.synthetic import write_pair_dataset
+    from ncnet_tpu_torch.training import fit
+    from ncnet_tpu_torch.training import train as train_mod
 
-    cfg = _tiny_fit_config(str(tmp_path), tmp_path)
-    state, opt, mc, _ = create_train_state(cfg, seed=0, device=cuda)
-    step = make_train_step(mc, opt, stop_backbone_grad=True, accum_chunks=-1,
-                           nan_guard=True, with_grad_norm=True)
-    rng = np.random.default_rng(2)
-    batches = []
-    for _ in range(3):
-        src = rng.uniform(-1, 1, (2, 112, 112, 3)).astype(np.float32)
-        batches.append({"source_image": src,
-                        "target_image": np.roll(src, 16, axis=1).copy()})
+    class SyncWindow:
+        enabled = True
 
-    def on_step(batch_idx, st, loss):
-        torch.cuda.set_sync_debug_mode("warn" if batch_idx == 0 else 0)
-        return False
+        def at_step(self, global_step):
+            torch.cuda.set_sync_debug_mode("warn" if global_step == 3 else 0)
 
-    log = EventLog(str(tmp_path / "events.jsonl"))
-    with bound(log), warnings.catch_warnings(record=True) as caught:
+        def close(self):
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setenv("NCNET_TPU_PERF_STORE", "off")
+    monkeypatch.setattr(train_mod, "StepWindowTracer",
+                        lambda *a, **k: SyncWindow())
+    root = write_pair_dataset(str(tmp_path / "data"), n_pairs=8,
+                              image_hw=(112, 112), shift=(16, 16), seed=1)
+    cfg = _tiny_fit_config(root, tmp_path / "out")
+    with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         try:
-            state, mean = process_epoch(
-                "train", 1, state, step, batches, on_step=on_step,
-                telemetry_ctx={"registry": MetricsRegistry()})
+            res = fit(dataclasses.replace(cfg, num_epochs=1,
+                                          checkpoint_steps=0),
+                      progress=False, device=cuda)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    log.close()
     waits = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
     assert len(waits) == 1, waits
-    assert state.step == 3 and np.isfinite(mean)
+    assert res["state"].step == 4 and np.isfinite(res["train_loss"]).all()
 
 
 @pytest.mark.cuda
