@@ -177,6 +177,25 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the dense kernels stay; the forced CP tier launches no kernel).  Step
      walls beside phase 5's, checkpoint save ms and bytes, host waits and
      the traced windows' device busy share printed;
+  I. InLoc dense matching at the IVD model's full width (ResNet-101 to
+     layer3, NC kernels (3, 3) with channels (16, 1), bf16 trunk and stack,
+     relocalization k = 2, images to a longest side of 3200; random weights
+     from a seed, the trunk's BatchNorm statistics from the query, NC
+     kernels centre-peaked): the tap-swap chain's layers (3, 1, 32) and
+     (3, 32, 2), then the chain, against the twin on the full pooled volume
+     (1, 100, 75, 75, 100), two launches bit-identical, and the chain timed
+     against the two-pass (16, 1) route on it; the pair matcher as
+     ``bench.py`` builds it, one raw 4032 × 3024 query and 10 raw 1200 ×
+     1600 cutouts (crops of it, made on the card) dispatched at depth 2:
+     pair walls (mean, p50, p95), tier ``"resident"`` and 2 B2 launches a
+     pair, finite tables, one pair's chain call against its twin and its
+     filtered volume against the forward with the twins and with the
+     two-pass form, a stage line; ``run_inloc_eval`` on 2 queries of 3
+     cutouts (every ``.mat`` valid, no retry); the CLI from a reference
+     checkpoint, once through, killed by an injected SIGKILL while
+     committing its second ``.mat`` and resumed (its tables bit-equal to
+     the uninterrupted run's), and with a device error injected at every
+     attempt of its first query (quarantined, exit 2);
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -340,6 +359,15 @@ FIT_WORKERS, FIT_PROFILE_STEPS, FIT_CP_RANK = 4, "2:4", 4
 # steps), its window a step in mid-epoch (the first step of an epoch waits
 # for the loader's second batch)
 FIT_STEADY_PAIRS, FIT_STEADY_WINDOW = 64, (3, 4)
+# phase I: InLoc at the IVD model's full width (the README's launchers,
+# bench.py:1615-1650): images resized to a longest side of INLOC_SIDE,
+# relocalization k = INLOC_K; a portrait iPhone query of INLOC_QUERY_HW
+# against INLOC_PANOS landscape cutouts of INLOC_PANO_HW, dispatched at depth
+# INLOC_DEPTH; the loop and the CLI on INLOC_LOOP_QUERIES queries of
+# INLOC_LOOP_PANOS cutouts each
+INLOC_SIDE, INLOC_K, INLOC_PANOS, INLOC_DEPTH = 3200, 2, 10, 2
+INLOC_QUERY_HW, INLOC_PANO_HW = (4032, 3024), (1200, 1600)
+INLOC_LOOP_QUERIES, INLOC_LOOP_PANOS = 2, 3
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -414,6 +442,21 @@ def stack_work(shape, kernels, channels, c_in=1, backward=False,
     nbytes += 2 * b * cells * channels[-1]  # the output, or the cotangent
     if backward and need_dx:
         nbytes += 2 * b * cells
+    return flops, nbytes
+
+
+def chain_work(shape, k, c):
+    """(FLOP, bytes) the tap-swap chain (``models/ncnet.py::
+    tap_swap_chain``) of a two-layer (C, 1) stack of kernel ``k`` needs on
+    a 1-channel volume: the fused first layer (1 → 2C), and the second
+    layer and its tap-swapped twin (C → 1 each) on the two halves; the
+    zero blocks of the chain's block-diagonal 2C → 2 layer are no work.
+    Bytes: the input, those weights and the 2-channel output once (bf16)."""
+    b, *dims = shape
+    taps, cells = _taps(dims, k), b * _prod(dims)
+    flops = 2 * b * taps * 2 * c + 2 * (2 * b * taps * c)
+    nbytes = 2 * (cells + (k ** 4 * 2 * c + 2 * c) + 2 * (k ** 4 * c + 1)
+                  + 2 * cells)
     return flops, nbytes
 
 
@@ -3215,6 +3258,593 @@ def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase I: InLoc dense matching at the IVD model's full width
+# ---------------------------------------------------------------------------
+
+
+def inloc_config():
+    """The IVD model of the InLoc launchers (``bench.py:1615-1619``):
+    ResNet-101 to layer3, NC kernels (3, 3) with channels (16, 1), bf16
+    volume, trunk and NC stack, relocalization k = 2."""
+    from ncnet_tpu_torch.config import ModelConfig
+
+    return ModelConfig(backbone="resnet101", ncons_kernel_sizes=(3, 3),
+                       ncons_channels=(16, 1), half_precision=True,
+                       backbone_bf16=True, relocalization_k_size=INLOC_K)
+
+
+def inloc_images(torch, dev, hw, n, seed, source=None):
+    """``n`` uint8 ``(H, W, 3)`` images made on the card: a smooth random
+    texture (low-resolution noise upsampled bilinearly, plus noise), or,
+    with ``source``, crops of it of size ``hw`` at seeded origins (a
+    cutout showing part of its query)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = hw
+    out = []
+    for _ in range(n):
+        if source is None:
+            low = torch.rand((1, 3, h // 8, w // 8), generator=g, device=dev)
+            img = torch.nn.functional.interpolate(
+                low * 255, size=(h, w), mode="bilinear", align_corners=False)
+            img = img + (torch.rand((1, 3, h, w), generator=g, device=dev)
+                         - 0.5) * 24
+            img = img.clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0)
+        else:
+            y0 = int(torch.randint(0, source.shape[0] - h + 1, (1,),
+                                   generator=g, device=dev))
+            x0 = int(torch.randint(0, source.shape[1] - w + 1, (1,),
+                                   generator=g, device=dev))
+            img = torch.as_tensor(source[y0:y0 + h, x0:x0 + w])
+        out.append(img.contiguous().cpu().numpy())
+    return out
+
+
+def inloc_params(torch, cfg, dev, calib_u8):
+    """The IVD model's parameters on ``dev``: random from seed 0, the
+    trunk's BatchNorm statistics from ``calib_u8`` (one raw image, resized
+    as the matcher does, through the f32 trunk), NC kernels centre-peaked
+    with biases off zero, as in the served phases."""
+    from ncnet_tpu_torch.evaluation.inloc import device_preprocess
+    from ncnet_tpu_torch.models.ncnet import init_ncnet, params_to
+
+    params = params_to(init_ncnet(cfg, seed=0), dev)
+    x = device_preprocess(torch.as_tensor(calib_u8[None]).to(dev), INLOC_SIDE,
+                          INLOC_K)
+    calibrate_trunk(cfg.replace(backbone_bf16=False), params, x)
+    for layer in params["nc"]:
+        d = layer["w"].shape[0] // 2
+        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
+        layer["b"] = layer["b"] + 0.05
+    return params
+
+
+def inloc_volume(query_hw, pano_hw):
+    """The pooled volume ``(1, hA, wA, hB, wB)`` of a query and a cutout
+    at ``INLOC_SIDE`` and ``INLOC_K``."""
+    from ncnet_tpu_torch.evaluation.inloc import (
+        FEATURE_STRIDE,
+        quantized_resize_shape,
+    )
+
+    cells = FEATURE_STRIDE * INLOC_K
+    (qh, qw), (ph, pw) = (quantized_resize_shape(*hw, INLOC_SIDE, INLOC_K)
+                          for hw in (query_hw, pano_hw))
+    return (1, qh // cells, qw // cells, ph // cells, pw // cells)
+
+
+def check_chain(torch, nc_fused_lane, dev):
+    """Phase I, B6 on the tap-swap chain: each chain layer (3, 1, 32) and
+    (3, 32, 2), then the chain, against the twin on the InLoc volume, two
+    launches bit-identical; the chain timed against the two-pass route the
+    port took before (two (16, 1) stacks and two transposes) on the same
+    volume.  Returns the chain's numbers for the kernels line."""
+    from ncnet_tpu_torch.models.ncnet import tap_swap_chain
+
+    shape = inloc_volume(INLOC_QUERY_HW, INLOC_PANO_HW)
+    params = stack_params((3, 3), (16, 1), seed=1, device=dev)
+    chain = tap_swap_chain(params)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand(shape + (1,), generator=g, device=dev).to(torch.bfloat16)
+    v = x
+    for layer in chain:
+        got = nc_fused_lane.nc_conv4d_layer(v, layer["w"], layer["b"])
+        again = nc_fused_lane.nc_conv4d_layer(v, layer["w"], layer["b"])
+        want = nc_fused_lane.layer_reference(v, layer["w"], layer["b"])
+        torch.cuda.synchronize()
+        err, same = normalized_err(got, want), torch.equal(got, again)
+        print(f"inloc chain: layer {tuple(layer['w'].shape)} on {shape} vs "
+              f"its twin: normalized {err:.3e} (tolerance {TOLERANCE}); two "
+              f"launches bit-identical: {same}", flush=True)
+        if not (err <= TOLERANCE and same):
+            raise SystemExit("inloc chain: a chain layer disagrees with its "
+                             "twin or is not deterministic")
+        del want, again
+        v = got
+    del v, got
+    torch.cuda.empty_cache()
+
+    def two_pass():
+        y = nc_fused_lane.nc_stack_resident(params, x)
+        yt = nc_fused_lane.nc_stack_resident(
+            params, x.permute(0, 3, 4, 1, 2, 5).contiguous())
+        return y + yt.permute(0, 3, 4, 1, 2, 5)
+
+    y2 = nc_fused_lane.nc_stack_resident(chain, x)
+    t0 = time.perf_counter()
+    want = nc_fused_lane.nc_stack_reference(chain, x)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = normalized_err(y2, want)
+    max_abs = float((y2.float() - want.float()).abs().max())
+    del want
+    torch.cuda.empty_cache()
+    vs_two = normalized_err(y2[..., :1] + y2[..., 1:], two_pass())
+    same = torch.equal(y2, nc_fused_lane.nc_stack_resident(chain, x))
+    # in turns: chain, two-pass, chain, two-pass
+    ms_c, ms_t = [], []
+    for _ in range(2):
+        ms_c.append(cuda_ms(lambda: nc_fused_lane.nc_stack_resident(chain, x), 3))
+        ms_t.append(cuda_ms(two_pass, 3))
+    ms_p = cuda_ms(lambda: nc_fused_lane.nc_stack_reference(chain, x), 1)
+    layers = layer_times(torch, nc_fused_lane, "inloc chain", shape, (3, 3),
+                         (32, 2), chain, x, 3)
+    flops, nbytes = chain_work(shape, 3, 16)
+    # what the kernel computes: the block-diagonal layer's zero blocks too
+    padded = stack_work(shape, (3, 3), (32, 2))[0]
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    numbers = {
+        "shape": list(shape), "max_abs_err": max_abs, "normalized_err": err,
+        "ms": sum(ms_c) / 2, "plain_ms": ms_p,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "two_pass_ms": sum(ms_t) / 2, "layer_ms": layers,
+    }
+    print(f"inloc chain: the chain on {shape} vs its twin: max_abs_err "
+          f"{max_abs:.6g} normalized {err:.3e} (tolerance {TOLERANCE}; the "
+          f"twin {plain_s:.2f} s with its first call); its two channels "
+          f"summed vs the two-pass (16, 1) route: normalized {vs_two:.3e}; "
+          f"two launches bit-identical: {same}; chain {ms_c} ms, two-pass "
+          f"route {ms_t} ms, plain {ms_p:.1f} ms, {flops:.4g} FLOP "
+          f"needed ({padded:.4g} computed with the zero blocks), "
+          f"{nbytes:.4g} bytes, bound {numbers['bound_ms']:.4f} ms "
+          f"({numbers['bound_by']}), {flops / numbers['ms'] / 1e9:.2f} "
+          "TFLOP/s needed", flush=True)
+    if not (err <= TOLERANCE and vs_two <= TOLERANCE and same):
+        raise SystemExit("inloc chain: the chain disagrees with its twin or "
+                         "the two-pass route, or is not deterministic")
+    return numbers
+
+
+def check_unfused(torch, dev):
+    """Phase I, the unfused tap-swap form, which runs where no kernel tier
+    takes the stack (fp32): ``neigh_consensus`` of the (16, 1) stack on
+    the InLoc volume in fp32 (the fused 1 → 32 layer through ``tapfold``,
+    the second layer and its tap-swapped twin through B5 on the two
+    halves) against the two-pass form (two (16, 1) stacks through the same
+    formulations, and two transposes), within ``FP32_TOLERANCE``, timed in
+    turns.  Returns their ms."""
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
+
+    shape = inloc_volume(INLOC_QUERY_HW, INLOC_PANO_HW)
+    params = [{k: v.float() for k, v in layer.items()}
+              for layer in stack_params((3, 3), (16, 1), seed=1, device=dev)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    corr = torch.rand(shape, generator=g, device=dev)
+
+    def run():
+        return ncnet_mod.neigh_consensus(params, corr)
+
+    swaps = []
+    with torch.no_grad():
+        with routed(ncnet_mod, "_swap_ab", ncnet_mod._swap_ab, swaps):
+            got = run()
+        with routed(ncnet_mod, "tap_swap_fusable", lambda p: False):
+            want = run()
+            torch.cuda.synchronize()
+        err = normalized_err(got, want)
+        del got, want
+        ms_u, ms_t = [], []
+        for _ in range(2):  # in turns: unfused, two-pass
+            ms_u.append(cuda_ms(run, 3))
+            with routed(ncnet_mod, "tap_swap_fusable", lambda p: False):
+                ms_t.append(cuda_ms(run, 3))
+    torch.cuda.empty_cache()
+    print(f"inloc unfused: fp32 (16, 1) stack on {shape}: the unfused "
+          f"tap-swap form ({len(swaps)} transposes) vs the two-pass form: "
+          f"normalized {err:.3e} (tolerance {FP32_TOLERANCE}); unfused "
+          f"{ms_u} ms, two-pass {ms_t} ms", flush=True)
+    if swaps or err > FP32_TOLERANCE:
+        raise SystemExit("inloc unfused: the fp32 rectangular pass did not "
+                         "take the unfused form, or disagrees with two passes")
+    return {"unfused_fp32_ms": sum(ms_u) / 2, "two_pass_fp32_ms": sum(ms_t) / 2}
+
+
+def write_inloc_tree(torch, dev, root, n_queries, n_panos, seed):
+    """An InLoc tree of raw images (``write_inloc_like``'s layout and
+    names): ``n_queries`` portrait queries of ``INLOC_QUERY_HW`` and
+    ``n_panos`` landscape cutouts of ``INLOC_PANO_HW`` each, cut from its
+    query; returns the shortlist's path."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from ncnet_tpu_torch.data.datasets import raw_path
+
+    os.makedirs(os.path.join(root, "query", "iphone7"), exist_ok=True)
+    os.makedirs(os.path.join(root, "pano", "DUC1"), exist_ok=True)
+    entries = np.zeros((1, n_queries), dtype=np.dtype(
+        [("queryname", object), ("topNname", object)]))
+    for q in range(n_queries):
+        (query,) = inloc_images(torch, dev, INLOC_QUERY_HW, 1, seed + q)
+        qfn = f"query_{q}.jpg"
+        np.save(raw_path(os.path.join(root, "query", "iphone7", qfn)), query)
+        panos = []
+        for p, img in enumerate(inloc_images(torch, dev, INLOC_PANO_HW,
+                                             n_panos, seed + 100 + q, query)):
+            pfn = f"DUC1/DUC_cutout_{q:03d}_{p * 30}_0.jpg"
+            np.save(raw_path(os.path.join(root, "pano", pfn)), img)
+            panos.append(pfn)
+        entries[0, q] = (np.array([qfn]), np.array(panos, dtype=object)[:, None])
+    shortlist = os.path.join(root, "shortlist.mat")
+    savemat(shortlist, {"ImgList": entries})
+    return shortlist
+
+
+def inloc_matcher(torch, nc_fused_lane, conv4d_pallas, dev):
+    """Phase I, the full-width matcher as ``bench.py:1615-1650`` builds it:
+    one raw portrait query and ``INLOC_PANOS`` raw landscape cutouts at
+    ``INLOC_SIDE``, dispatched at depth ``INLOC_DEPTH``; returns its B2
+    launches, its config and its parameters."""
+    import numpy as np
+
+    from ncnet_tpu_torch.evaluation.inloc import (
+        device_preprocess,
+        make_pair_matcher,
+    )
+    from ncnet_tpu_torch.models import ncnet as ncnet_mod
+    from ncnet_tpu_torch.models.ncnet import ncnet_forward_from_features
+
+    cfg = inloc_config()
+    (query,) = inloc_images(torch, dev, INLOC_QUERY_HW, 1, seed=21)
+    panos = inloc_images(torch, dev, INLOC_PANO_HW, INLOC_PANOS + 1, seed=22,
+                         source=query)
+    params = inloc_params(torch, cfg, dev, query)
+    matcher = make_pair_matcher(cfg, params, do_softmax=True,
+                                both_directions=True, flip_direction=False,
+                                preprocess_image_size=INLOC_SIDE)
+    src = matcher.preprocess(query[None])
+    for _ in range(2):  # warm-up on the extra cutout, not counted
+        matcher(src, panos[-1][None])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nc_fused_lane.launches = 0
+    conv4d_pallas.launches = 0
+    # the eval loop's depth-2 pipeline: pair i+1 dispatched before pair i
+    # is fetched; a pair's wall is the time between two fetches
+    t0 = time.perf_counter()
+    ticks, in_flight, tables = [], [], []
+    for img in panos[:INLOC_PANOS]:
+        in_flight.append(matcher.dispatch(src, img[None]))
+        if len(in_flight) >= INLOC_DEPTH:
+            tables.append(matcher.fetch(in_flight.pop(0)))
+            ticks.append(time.perf_counter())
+    while in_flight:
+        tables.append(matcher.fetch(in_flight.pop(0)))
+        ticks.append(time.perf_counter())
+    launches, b5 = nc_fused_lane.launches, conv4d_pallas.launches
+    tier = nc_fused_lane.last_selected_tier()
+    peak = torch.cuda.max_memory_allocated()
+    walls = np.diff(np.asarray([t0] + ticks)) * 1e3
+    vol = inloc_volume(INLOC_QUERY_HW, INLOC_PANO_HW)
+    n_rows = 2 * vol[3] * vol[4]
+    print(f"inloc matcher: 1 query {INLOC_QUERY_HW} and {INLOC_PANOS} "
+          f"cutouts {INLOC_PANO_HW} at {INLOC_SIDE} (pooled volume {vol}), "
+          f"depth {INLOC_DEPTH}: pair walls ms {walls.round(2).tolist()}"
+          f", mean {walls.mean():.2f}, p50 {np.percentile(walls, 50):.2f}, "
+          f"p95 {np.percentile(walls, 95):.2f}; tier {tier!r}, B2 launches "
+          f"{launches}, B5 launches {b5}; peak memory {peak} bytes", flush=True)
+    bad = [i for i, t in enumerate(tables)
+           if len(t[0]) != n_rows or not all(np.isfinite(c).all() for c in t)
+           or not ((t[4] >= 0) & (t[4] <= 1)).all()
+           or not all(((c > 0) & (c < 1)).all() for c in t[:4])]
+    if tier != "resident" or launches != 2 * INLOC_PANOS or b5 or bad:
+        raise SystemExit(f"inloc matcher: expected the resident tier, "
+                         f"{2 * INLOC_PANOS} B2 launches (2 a pair), no B5, "
+                         f"and {n_rows}-row finite tables in (0, 1); bad "
+                         f"tables {bad}")
+
+    # one pair again with the NC stack recorded: its chain call against the
+    # same chain through the twins; the filtered volume against the forward
+    # with the twins and against the two-pass form (the tap-swap class
+    # refused)
+    tgt = panos[0][None]
+    calls = []
+    with torch.no_grad():
+        timg = device_preprocess(torch.as_tensor(tgt).to(dev), INLOC_SIDE,
+                                 INLOC_K)
+        with routed(nc_fused_lane, "nc_stack_resident",
+                    nc_fused_lane.nc_stack_resident, calls):
+            out = ncnet_forward_from_features(cfg, params, src.features, timg)
+        (chain, x), _, y = calls[0]
+        stack_err = normalized_err(y, nc_fused_lane.nc_stack_reference(chain, x))
+        with routed(nc_fused_lane, "nc_stack_resident",
+                    lambda p, v: nc_fused_lane.nc_stack_reference(p, v)):
+            twin = ncnet_forward_from_features(cfg, params, src.features, timg)
+        vol_twin = normalized_err(out.corr, twin.corr)
+        del twin
+        n_before = nc_fused_lane.launches
+        with routed(ncnet_mod, "tap_swap_fusable", lambda p: False):
+            two = ncnet_forward_from_features(cfg, params, src.features, timg)
+        two_launches = nc_fused_lane.launches - n_before
+        vol_two = normalized_err(out.corr, two.corr)
+        del two
+    chain_shape = [tuple(int(layer["w"].shape[5]) for layer in chain)]
+    print(f"inloc matcher: pair 0's NC call {len(calls)} stack on "
+          f"{tuple(x.shape)} with channels {chain_shape} vs its twin: "
+          f"normalized {stack_err:.3e} (tolerance {TOLERANCE}); the filtered "
+          f"volume vs the forward with the twins {vol_twin:.3e}, vs the "
+          f"two-pass form ({two_launches} B2 launches) {vol_two:.3e} "
+          f"(tolerance {SERVE_TOLERANCE:.4f})", flush=True)
+    if len(calls) != 1 or chain_shape != [(32, 2)] or stack_err > TOLERANCE \
+            or vol_twin > SERVE_TOLERANCE or vol_two > SERVE_TOLERANCE \
+            or two_launches != 4:
+        raise SystemExit("inloc matcher: the chain call, its twin or the "
+                         "two-pass form disagree")
+    inloc_stages(torch, cfg, params, src, torch.as_tensor(tgt).to(dev), timg,
+                 chain, x, tables[0])
+    return launches, cfg, params
+
+
+def inloc_stages(torch, cfg, params, src, raw, timg, chain, x, table):
+    """CUDA-event ms of each device stage of one pair (warm, one stage at
+    a time; the query's trunk runs once for all its pairs) and host ms of
+    the sort/dedup and of one query's savemat."""
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.evaluation.inloc import (
+        device_preprocess,
+        extract_match_table,
+        match_capacity,
+        sort_and_dedup,
+    )
+    from ncnet_tpu_torch.models.ncnet import extract_features, ncnet_filter
+    from ncnet_tpu_torch.observability.quality import append_quality_row
+    from ncnet_tpu_torch.ops import nc_fused_lane
+    from ncnet_tpu_torch.ops.correlation import correlation_4d
+    from ncnet_tpu_torch.ops.pooling import maxpool4d_with_argmax
+    from ncnet_tpu_torch.utils.io import atomic_savemat
+
+    def readout(out):
+        return append_quality_row(extract_match_table(
+            out, k_size=INLOC_K, do_softmax=True, both_directions=True),
+            out.corr)
+
+    with torch.no_grad():
+        fb = extract_features(cfg, params, timg)
+        fa, fbb = src.features.to(torch.bfloat16), fb.to(torch.bfloat16)
+        corr = correlation_4d(fa, fbb)
+        out = ncnet_filter(cfg, params, corr)
+        stages = {
+            "cutout preprocess (normalize, resize)": cuda_ms(
+                lambda: device_preprocess(raw, INLOC_SIDE, INLOC_K), 2),
+            "cutout trunk": cuda_ms(
+                lambda: extract_features(cfg, params, timg), 2),
+            "correlation (f32 sums, bf16 out)": cuda_ms(
+                lambda: correlation_4d(fa, fbb), 2),
+            "pooling (maxpool4d_with_argmax)": cuda_ms(
+                lambda: maxpool4d_with_argmax(corr, INLOC_K), 2),
+            "filter (pooling, mutual, NC chain, mutual)": cuda_ms(
+                lambda: ncnet_filter(cfg, params, corr), 2),
+            "of which the NC chain (B2)": cuda_ms(
+                lambda: nc_fused_lane.nc_stack_resident(chain, x), 2),
+            "readout (both directions, recentring, quality row)": cuda_ms(
+                lambda: readout(out), 2),
+        }
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sort_and_dedup(*table)
+    stages["host sort/dedup"] = (time.perf_counter() - t0) / 3 * 1e3
+    n_cap = match_capacity(INLOC_SIDE, INLOC_K, True)
+    matches = np.zeros((1, INLOC_PANOS, n_cap, 5))
+    rows = sort_and_dedup(*table)
+    for i in range(INLOC_PANOS):
+        for c, v in enumerate(rows):
+            matches[0, i, :len(v), c] = v[:n_cap]
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_inloc_mat_"),
+                        "1.mat")
+    payload = {"matches": matches, "query_fn": "query_0.jpg",
+               "pano_fn": np.array([["x"]] * INLOC_PANOS, dtype=object)}
+    atomic_savemat(path, payload, do_compression=True)  # warm-up
+    t0 = time.perf_counter()
+    atomic_savemat(path, payload, do_compression=True)
+    stages[f"savemat of a query ({INLOC_PANOS} cutouts, "
+           f"{os.path.getsize(path)} bytes)"] = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(os.path.dirname(path))
+    with torch.no_grad():
+        stages["query trunk, once a query"] = cuda_ms(
+            lambda: extract_features(cfg, params, src.image), 2)
+    print("inloc matcher stages ms per pair: " + json.dumps(stages),
+          flush=True)
+
+
+def inloc_mats(out_dir, n_queries):
+    """Each query's ``.mat`` content: the table and the names."""
+    from scipy.io import loadmat
+
+    return [{k: v for k, v in loadmat(os.path.join(out_dir, f"{q + 1}.mat"))
+             .items() if not k.startswith("__")} for q in range(n_queries)]
+
+
+def mats_equal(a, b) -> bool:
+    import numpy as np
+
+    return all(sorted(x) == sorted(y) and all(
+        np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
+
+
+def inloc_eval(torch, nc_fused_lane, dev, cfg, params):
+    """Phase I, the loop and the CLI: ``run_inloc_eval`` on a raw tree of
+    ``INLOC_LOOP_QUERIES`` portrait queries and ``INLOC_LOOP_PANOS``
+    landscape cutouts each; the CLI once through, killed after its first
+    ``.mat`` and resumed, and run with an injected device error that
+    exhausts the retry budget.  Returns the B2 launches by run."""
+    import io
+    import tempfile
+
+    from ncnet_tpu_torch.cli import eval_inloc as cli
+    from ncnet_tpu_torch.config import EvalInLocConfig
+    from ncnet_tpu_torch.evaluation.inloc import (
+        match_capacity,
+        run_inloc_eval,
+        validate_matches_mat,
+    )
+    from ncnet_tpu_torch.evaluation.resilience import RunManifest
+    from ncnet_tpu_torch.observability import events
+    from ncnet_tpu_torch.utils import faults
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_inloc_")
+    t0 = time.perf_counter()
+    shortlist = write_inloc_tree(torch, dev, tmp, INLOC_LOOP_QUERIES,
+                                 INLOC_LOOP_PANOS, seed=31)
+    fixture_s = time.perf_counter() - t0
+    n_pairs = INLOC_LOOP_QUERIES * INLOC_LOOP_PANOS
+    n_cap = match_capacity(INLOC_SIDE, INLOC_K, True)
+    tree = dict(inloc_shortlist=shortlist, k_size=INLOC_K,
+                image_size=INLOC_SIDE, n_queries=INLOC_LOOP_QUERIES,
+                n_panos=INLOC_LOOP_PANOS,
+                pano_path=os.path.join(tmp, "pano"),
+                query_path=os.path.join(tmp, "query", "iphone7"))
+    config = EvalInLocConfig(output_root=os.path.join(tmp, "loop"),
+                             telemetry_dir=os.path.join(tmp, "loop_events"),
+                             **tree)
+    torch.cuda.synchronize()
+    nc_fused_lane.launches = 0
+    t0 = time.perf_counter()
+    out_dir = run_inloc_eval(config, model_config=cfg, params=params,
+                             progress=False)
+    wall = time.perf_counter() - t0
+    runs = {"inloc_eval": nc_fused_lane.launches}
+    _, replayed = events.replay_events(
+        os.path.join(config.telemetry_dir, "events.jsonl"))
+    q_walls = [round(e["wall_s"], 3) for e in replayed
+               if e["event"] == "eval_query"]
+    valid = [validate_matches_mat(os.path.join(out_dir, f"{q + 1}.mat"),
+                                  INLOC_LOOP_PANOS, n_cap)
+             for q in range(INLOC_LOOP_QUERIES)]
+    manifest = RunManifest(os.path.join(out_dir, "manifest.json"))
+    retries = [e for e in replayed if e["event"] == "retry"]
+    print(f"inloc eval: fixture of {INLOC_LOOP_QUERIES} queries "
+          f"{INLOC_QUERY_HW} x {INLOC_LOOP_PANOS} cutouts {INLOC_PANO_HW} "
+          f"written in {fixture_s:.2f} s; run_inloc_eval at {INLOC_SIDE} in "
+          f"{wall:.3f} s ({n_pairs} pairs), query walls s {q_walls}; B2 "
+          f"launches {runs['inloc_eval']}; every .mat valid: {valid}; "
+          f"quarantined {list(manifest.quarantined_ids)}, retries "
+          f"{len(retries)}", flush=True)
+    if runs["inloc_eval"] != 2 * n_pairs or not all(valid) \
+            or manifest.quarantined_ids or retries:
+        raise SystemExit("inloc eval: expected 2 B2 launches a pair, valid "
+                         "tables, no retry and no quarantine")
+
+    # the CLI (its model from a reference checkpoint of the same weights:
+    # bf16 volume and NC stack, the trunk in f32 as the reference runs it),
+    # once through, then killed by an injected SIGKILL while committing its
+    # second .mat and resumed: the tables equal the uninterrupted run's bit
+    # for bit.  The killed run is a process of its own with PyTorch's
+    # default TF32 settings, which the in-process runs take too
+    ckpt = os.path.join(tmp, "ncnet_ivd.pth.tar")
+    reference_checkpoint(torch, ckpt, cfg, params)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+    def cli_args(name):
+        return ["--checkpoint", ckpt, "--inloc_shortlist", shortlist,
+                "--image_size", str(INLOC_SIDE),
+                "--n_queries", str(INLOC_LOOP_QUERIES),
+                "--n_panos", str(INLOC_LOOP_PANOS),
+                "--pano_path", tree["pano_path"],
+                "--query_path", tree["query_path"],
+                "--retry_backoff_s", "0",
+                "--output_root", os.path.join(tmp, name)]
+
+    def cli_run(name):
+        out = io.StringIO()
+        nc_fused_lane.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(cli_args(name))
+        return rc, out.getvalue(), time.perf_counter() - t0, \
+            nc_fused_lane.launches
+
+    rc, printed, wall, runs["inloc_cli"] = cli_run("cli")
+    cli_dir = printed.split("Wrote matches to ")[-1].strip()
+    full = inloc_mats(cli_dir, INLOC_LOOP_QUERIES)
+    print(f"inloc cli: exit {rc} in {wall:.3f} s, B2 launches "
+          f"{runs['inloc_cli']}, wrote {cli_dir}", flush=True)
+    if rc != 0 or runs["inloc_cli"] != 2 * n_pairs:
+        raise SystemExit("inloc cli: expected exit 0 and 2 B2 launches a pair")
+    env = dict(os.environ, NCNET_TPU_FAULTS=json.dumps(
+        {"kill_in_savemat_substring": f"{os.sep}2.mat"}))
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-m", "ncnet_tpu_torch.cli.eval_inloc"]
+        + cli_args("cli_killed"), cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=600)
+    kill_s = time.perf_counter() - t0
+    killed_dir = os.path.join(tmp, "cli_killed", os.path.basename(cli_dir))
+    left = sorted(os.listdir(killed_dir))
+    rc2, _, wall2, runs["inloc_cli_resumed"] = cli_run("cli_killed")
+    same = mats_equal(inloc_mats(killed_dir, INLOC_LOOP_QUERIES), full)
+    print(f"inloc cli: a run killed while committing 2.mat (exit "
+          f"{killed.returncode} after {kill_s:.1f} s, left {left}) resumed "
+          f"in {wall2:.3f} s: exit {rc2}, B2 launches "
+          f"{runs['inloc_cli_resumed']}; its tables vs the uninterrupted "
+          f"run's: {'bit-equal' if same else 'DIFFERENT'}", flush=True)
+    if killed.returncode != -9 or "1.mat" not in left or "2.mat" in left \
+            or rc2 != 0 or not same \
+            or runs["inloc_cli_resumed"] != 2 * INLOC_LOOP_PANOS:
+        raise SystemExit("inloc cli: the killed run did not resume to the "
+                         "uninterrupted result" + killed.stderr[-2000:])
+
+    # an injected device error on every attempt at the first query's pairs
+    # (three: the first try and two retries) quarantines it; the run goes
+    # on and the CLI exits 2
+    faults.install(faults.FaultPlan(device_fail_calls=(1, 2, 3)))
+    try:
+        rc3, _, wall3, runs["inloc_cli_degraded"] = cli_run("cli_degraded")
+    finally:
+        faults.clear()
+    deg_dir = os.path.join(tmp, "cli_degraded", os.path.basename(cli_dir))
+    deg = RunManifest(os.path.join(deg_dir, "manifest.json"))
+    print(f"inloc cli: with a device error injected at dispatches 1-3: exit "
+          f"{rc3} in {wall3:.3f} s, quarantined {list(deg.quarantined_ids)} "
+          f"({deg.data['quarantined']}), B2 launches "
+          f"{runs['inloc_cli_degraded']}, files {sorted(os.listdir(deg_dir))}",
+          flush=True)
+    if rc3 != 2 or deg.quarantined_ids != ("query_1",) \
+            or not deg.is_completed("query_2") \
+            or runs["inloc_cli_degraded"] != 2 * INLOC_LOOP_PANOS:
+        raise SystemExit("inloc cli: the exhausted device error did not "
+                         "quarantine its query or the CLI did not exit 2")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    shutil.rmtree(tmp)
+    return runs
+
+
+def inloc_phase(torch, nc_fused_lane, conv4d_pallas, dev):
+    """Phase I; returns the chain's numbers and the B2 launches by path."""
+    chain = {**check_chain(torch, nc_fused_lane, dev), **check_unfused(torch, dev)}
+    launches, cfg, params = inloc_matcher(torch, nc_fused_lane, conv4d_pallas,
+                                          dev)
+    runs = inloc_eval(torch, nc_fused_lane, dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return chain, {"inloc_matcher": launches, **runs}
+
+
 def main() -> int:
     import torch
 
@@ -3271,6 +3901,8 @@ def main() -> int:
     fit_launches = fit_phase(torch, nc_fused_lane, nc_fused_lane_vjp, dev,
                              train_start, train_walls)
     del train_start
+    chain_numbers, inloc_launches = inloc_phase(torch, nc_fused_lane,
+                                                conv4d_pallas, dev)
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -3280,6 +3912,7 @@ def main() -> int:
                   "reloc_1600": reloc_launches,
                   **{k: v["nc_conv4d_bf16"] for k, v in loop_launches.items()},
                   "eval_cli_400": cli_launches,
+                  **inloc_launches,
                   **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()}}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
@@ -3303,6 +3936,9 @@ def main() -> int:
         "launches_by_path": nc_by_path,
         "design": "tensor-core, PR 6",
         **main_numbers,
+        # the InLoc tap-swap chain (3, 1, 32), (3, 32, 2) on the full pooled
+        # volume (phase I), beside the two-pass (16, 1) route on it
+        "inloc_chain": chain_numbers,
         # no single PyTorch call computes a 4D convolution
         "library_ms": None,
     }, {

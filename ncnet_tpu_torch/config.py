@@ -1,12 +1,13 @@
 """Configuration of the PyTorch port.
 
-``ModelConfig``, ``TrainConfig`` and ``EvalPFPascalConfig`` repeat
-``ncnet_tpu/config.py`` field for field (same names, same defaults), so a
-configuration written for the JAX package means the same model and run
-here.  Options the port does not run
-yet are still fields; the code rejects them loudly (``models/ncnet.py::
-check_ported``, ``training/train.py::check_train_ported``).  The other
-config dataclasses come with the slices that use them.
+``ModelConfig``, ``TrainConfig``, ``EvalPFPascalConfig`` and
+``EvalInLocConfig`` repeat ``ncnet_tpu/config.py`` field for field (same
+names, same defaults), so a configuration written for the JAX package
+means the same model and run here.  Options the port does not run yet are
+still fields; the code rejects them loudly (``models/ncnet.py::
+check_ported``, ``training/train.py::check_train_ported``,
+``evaluation/inloc.py::check_inloc_ported``).  The other config
+dataclasses come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -114,3 +115,56 @@ class EvalPFPascalConfig:
     # observability: open an event log here for the run. "" = emit only to
     # an already-bound global sink, if any
     telemetry_dir: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalInLocConfig:
+    """Dense matching for InLoc localization (reference eval_inloc.py:30-40),
+    read by ``evaluation/inloc.py::run_inloc_eval`` and
+    ``cli/eval_inloc.py``.  ``spatial_shards`` > 1 (ROADMAP A9),
+    ``feature_store_dir`` and ``retrieval_index`` (A12) are refused."""
+
+    checkpoint: str = ""
+    inloc_shortlist: str = "datasets/inloc/densePE_top100_shortlist_cvpr18.mat"
+    k_size: int = 2
+    image_size: int = 3200
+    n_queries: int = 356
+    n_panos: int = 10
+    softmax: bool = True
+    matching_both_directions: bool = True
+    flip_matching_direction: bool = False
+    pano_path: str = "datasets/inloc/pano/"
+    query_path: str = "datasets/inloc/query/iphone7/"
+    output_root: str = "matches"
+    spatial_shards: int = 1              # > 1 refused: the hB-sharded forward (A9)
+    # coarse-to-fine matching (ModelConfig.sparse_topk); needs k_size=1
+    # (relocalization keeps the dense path). 0 = dense
+    sparse_topk: int = 0
+    # dispatch/fetch depth: 0 = adaptive (2 to 4), > 0 pins it
+    pipeline_depth: int = 0
+    # stripe queries across hosts (one .mat per query; each host its own
+    # manifest). -1 / 0: from torch.distributed when initialised, else
+    # the one stripe
+    host_index: int = -1
+    host_count: int = 0
+    skip_existing: bool = True           # resume by artifact
+    # fault tolerance (evaluation/resilience.py):
+    validate_existing: bool = True       # loadmat-validate an artifact
+                                         # before skipping it
+    query_retries: int = 2               # per-query retries after the first
+                                         # failure
+    retry_backoff_s: float = 0.5         # seconds, doubled per attempt
+    quarantine: bool = True              # exhausted retries: record the
+                                         # query in the manifest and go on
+    fetch_timeout_s: float = 0.0         # watchdog around each pair fetch;
+                                         # 0 = off
+    write_manifest: bool = True          # journal completed / quarantined /
+                                         # in-flight queries
+    # observability: open an event log here for the run. "" = emit only to
+    # an already-bound global sink, if any
+    telemetry_dir: str = ""
+    feature_store_dir: str = ""          # refused: the feature store (A12)
+    feature_store_budget_mb: int = 0
+    retrieval_index: str = ""            # refused: the retrieval shortlist (A12)
+    retrieval_topk: int = 0
+    retrieval_min_coverage: float = 1.0

@@ -42,17 +42,22 @@
 //     ldmatrix of 16 shifted cells (48-byte pitch: the 8 rows of a matrix
 //     fall on distinct banks), B the tap's (C_in, C_out) weights through
 //     ldmatrix.trans; 8 warps x 2 m-tiles x C_out / 8 n-tiles;
-//   - taps in K (C_in = 1; the 1->16 layer): the (r, s) taps are the
+//   - taps in K (C_in = 1; the 1->16 layer, and the tap-swap chain's
+//     1->32): the (r, s) taps are the
 //     contraction, not C_in padded to 16 (16x its FLOP): an expanded box
 //     holds each cell's 8 horizontal shifts (s, zeros past k) as one
 //     16-byte row, so a k-step is two tap rows r and one ldmatrix; a
 //     thread loads its row segment into registers before a (p, q) is
 //     computed and stores it after, hiding the loads behind the product;
-//   - taps in N (C_out <= 4; the 16->1 layer): per (p, q) one product of
+//     C_out = 32 is 4 n-tiles, its weight rows at an 80-byte pitch;
+//   - taps in N (C_out <= 4; the 16->1 layer, and the chain's block-
+//     diagonal 32->2): per (p, q) one product of
 //     every box cell's 16 channels with the (C_in, k^2 C_out) tap weights
 //     gives each cell's partial for every (r, s) tap; the partials stay f32
 //     in shared memory, and each output cell sums its k^2 shifted partials.
-//     Padding N = C_out to 8 would cost 8x its FLOP.
+//     Padding N = C_out to 8 would cost 8x its FLOP.  C_in = 32 is two
+//     k-steps of 16 channels, its cells staged at an 80-byte pitch (the 8
+//     rows of a matrix still fall on distinct banks).
 // Every output is summed in a fixed order in one block, with no atomics and
 // no split of the contraction across blocks, so two launches give bit-
 // identical results.  Like the plain twin, and unlike the TPU kernel, the
@@ -74,7 +79,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMTW = 2;                       // m-tiles a warp holds
 constexpr int kMaxOut = kWarps * kMTW * 16;   // output cells a block
 constexpr int kOutPerThread = 4;              // taps in N: kMaxOut * 4 / kThreads
-constexpr int kCellPitch = 24;                // bf16 a staged cell: 16 channels + 8
 constexpr size_t kSmemBudget = 112 * 1024;    // two blocks an SM
 constexpr int kShifts = 8;                    // taps in K: s slots a cell
 
@@ -85,22 +89,35 @@ struct Layer {
   static constexpr int D = K / 2;
   static constexpr Mode kMode =
       CIN == 1 ? kTapsK : (COUT <= 4 ? kTapsN : kChannels);
-  static constexpr int NT = COUT > 8 ? 2 : 1;   // n-tiles of C_out (rows modes)
+  static_assert(kMode != kChannels || (CIN <= 16 && COUT <= 16),
+                "the channels mode stages 16 channels a cell");
+  static_assert(kMode != kTapsK || COUT <= 32, "taps in K: C_out <= 32");
+  static_assert(kMode != kTapsN || CIN <= 32, "taps in N: C_in <= 32");
+  static constexpr int NT = (COUT + 7) / 8;     // n-tiles of C_out (rows modes)
+  // bf16 a staged row holds: a cell's channels (channels, taps in N) or a
+  // weight row's C_out columns (taps in K), padded to 16 or 32
+  static constexpr int kWidth =
+      (kMode == kTapsK ? COUT : CIN) > 16 ? 32 : 16;
+  // the row pitch: 8 bf16 past the width (48 or 80 bytes), so the 8 rows of
+  // an ldmatrix fall on distinct banks
+  static constexpr int kPitch = kWidth + 8;
+  static constexpr int KSTEPS = kWidth / 16;    // taps in N: k-steps of C_in
   // taps in K: a k-step is two tap rows r of 8 columns s (s >= K zero)
   static constexpr int KS = (K + 1) / 2;
-  // weight rows staged a (p, q), kCellPitch bf16 each: (r, s, ci) with ci
+  // weight rows staged a (p, q), kPitch bf16 each: (r, s, ci) with ci
   // padded to 16, or (k-step, r % 2, s) for the taps in K
   static constexpr int kWRows = kMode == kTapsK ? 16 * KS : K * K * 16;
   // taps in N: the columns n = (r, s, co), padded to 8; weights staged as
-  // rows n of 16 ci at kCellPitch
+  // rows n of kWidth ci at kPitch
   static constexpr int NPAD = (K * K * COUT + 7) / 8 * 8;
   static constexpr int NTN = NPAD / 8;
   static constexpr int kPRows = K * K * COUT;  // the columns P keeps
   // box m-tiles a warp loads ahead (taps in N): 2 while its B fragments
   // are few enough to stay in registers beside them
   static constexpr int kBoxMTW = NTN > 4 ? 1 : 2;
-  // blocks an SM: the taps in K need little shared memory
-  static constexpr int kMinBlocks = kMode == kTapsK ? 3 : 2;
+  // blocks an SM: the taps in K need little shared memory, and three
+  // blocks while their C_out sums fit the registers
+  static constexpr int kMinBlocks = kMode == kTapsK && NT <= 2 ? 3 : 2;
 };
 
 // the block tiling of one launch (host-chosen, uniform in the grid)
@@ -114,6 +131,11 @@ struct Geo {
 };
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// log2 of a power of two: the staging loops split an index by shifts
+__host__ __device__ constexpr int log2_of(int n) {
+  return n > 1 ? 1 + log2_of(n / 2) : 0;
+}
 
 // block decode: band fastest, then j, i, then the group of volumes, so
 // neighbouring blocks share their input planes in L2
@@ -169,29 +191,31 @@ __device__ __forceinline__ void box_offsets(long long* boff, const Geo& g,
 }
 
 // Stage the input box of plane (ii, jj) into `sin`: CIN channels a cell at
-// kCellPitch (zeros to 16; 16-byte cp.async copies for CIN = 16); zeros
+// PITCH (zeros to WIDTH; 16-byte cp.async copies when CIN = WIDTH); zeros
 // outside the volume.
-template <int CIN>
+template <int CIN, int WIDTH, int PITCH>
 __device__ __forceinline__ void stage_box(const __nv_bfloat16* __restrict__ x,
                                           __nv_bfloat16* sin,
                                           const long long* boff, const Geo& g,
                                           int ii, int jj) {
   const long long po =
       (static_cast<long long>(ii) * g.wA + jj) * g.hB * g.wB;
-  if constexpr (CIN == 16) {
-    for (int e = threadIdx.x; e < 2 * g.box; e += kThreads) {
-      const int cell = e >> 1, h = e & 1;
+  if constexpr (CIN == WIDTH) {
+    constexpr int kChunks = CIN / 8, kShift = log2_of(kChunks);
+    for (int e = threadIdx.x; e < kChunks * g.box; e += kThreads) {
+      const int cell = e >> kShift, h = e & (kChunks - 1);
       const long long o = boff[cell];
-      tc::cp_async16(sin + cell * kCellPitch + 8 * h,
-                     o >= 0 ? x + (o + po) * 16 + 8 * h : x, o >= 0 ? 16 : 0);
+      tc::cp_async16(sin + cell * PITCH + 8 * h,
+                     o >= 0 ? x + (o + po) * CIN + 8 * h : x, o >= 0 ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < 16 * g.box; e += kThreads) {
-      const int cell = e >> 4, c = e & 15;
+    constexpr int kShift = log2_of(WIDTH);
+    for (int e = threadIdx.x; e < WIDTH * g.box; e += kThreads) {
+      const int cell = e >> kShift, c = e & (WIDTH - 1);
       const long long o = boff[cell];
-      sin[cell * kCellPitch + c] = (c < CIN && o >= 0)
-                                       ? x[(o + po) * CIN + c]
-                                       : __float2bfloat16_rn(0.f);
+      sin[cell * PITCH + c] = (c < CIN && o >= 0)
+                                  ? x[(o + po) * CIN + c]
+                                  : __float2bfloat16_rn(0.f);
     }
   }
 }
@@ -250,26 +274,28 @@ struct Segment {
   }
 };
 
-// Stage `rows` weight rows of 16 bf16 at kCellPitch from a (rows_in, COLS)
+// Stage `rows` weight rows of WIDTH bf16 at PITCH from a (rows_in, COLS)
 // matrix: row n, column c is src[n * COLS + c] for n < rows_in and c <
-// cols_used, else 0.  16-byte copies when a row is exactly 16 bf16.
-template <int COLS>
+// cols_used, else 0.  16-byte copies when a row is exactly WIDTH bf16.
+template <int COLS, int WIDTH, int PITCH>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src, int rows,
                                            int rows_in, int cols_used) {
-  if constexpr (COLS == 16) {
-    for (int e = threadIdx.x; e < 2 * rows; e += kThreads) {
-      const int n = e >> 1, h = e & 1;
+  if constexpr (COLS == WIDTH) {
+    constexpr int kChunks = COLS / 8, kShift = log2_of(kChunks);
+    for (int e = threadIdx.x; e < kChunks * rows; e += kThreads) {
+      const int n = e >> kShift, h = e & (kChunks - 1);
       const bool ok = n < rows_in;
-      tc::cp_async16(dst + n * kCellPitch + 8 * h,
-                     ok ? src + n * 16 + 8 * h : src, ok ? 16 : 0);
+      tc::cp_async16(dst + n * PITCH + 8 * h,
+                     ok ? src + n * COLS + 8 * h : src, ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < 16 * rows; e += kThreads) {
-      const int n = e >> 4, c = e & 15;
-      dst[n * kCellPitch + c] = (n < rows_in && c < cols_used)
-                                    ? src[n * COLS + c]
-                                    : __float2bfloat16_rn(0.f);
+    constexpr int kShift = log2_of(WIDTH);
+    for (int e = threadIdx.x; e < WIDTH * rows; e += kThreads) {
+      const int n = e >> kShift, c = e & (WIDTH - 1);
+      dst[n * PITCH + c] = (n < rows_in && c < cols_used)
+                               ? src[n * COLS + c]
+                               : __float2bfloat16_rn(0.f);
     }
   }
 }
@@ -298,8 +324,9 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
                       const __nv_bfloat16* __restrict__ bias,
                       __nv_bfloat16* __restrict__ out, const Geo g) {
   using L = Layer<K, CIN, COUT>;
-  constexpr int D = L::D, NT = L::NT;
+  constexpr int D = L::D, NT = L::NT, P = L::kPitch;
   constexpr bool kTaps = L::kMode == kTapsK;
+  static_assert(NT == 1 || NT % 2 == 0, "B fragments load n-tiles in pairs");
   extern __shared__ __align__(16) unsigned char smem[];
   long long* boff = reinterpret_cast<long long*>(smem);
   unsigned char* stages = smem + round16(g.box * 8);
@@ -319,7 +346,8 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
     auto* sin = reinterpret_cast<__nv_bfloat16*>(base);
     auto* sw = reinterpret_cast<__nv_bfloat16*>(base + g.in_bytes);
     if constexpr (!kTaps)
-      stage_box<CIN>(x, sin, boff, g, blk.i + p - D, blk.j + q - D);
+      stage_box<CIN, L::kWidth, P>(x, sin, boff, g, blk.i + p - D,
+                                   blk.j + q - D);
     const __nv_bfloat16* slab =
         w + static_cast<int64_t>(p * K + q) * (K * K * CIN * COUT);
     if constexpr (kTaps) {
@@ -328,31 +356,32 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
         const int r = 2 * (row >> 4) + ((row >> 3) & 1), sc = row & 7;
         return r < K && sc < K ? r * K + sc : -1;
       };
-      if constexpr (COUT == 16) {
-        for (int e = threadIdx.x; e < L::kWRows * 2; e += kThreads) {
-          const int row = e >> 1, h = e & 1, rs = tap(row);
-          tc::cp_async16(sw + row * kCellPitch + 8 * h,
-                         rs >= 0 ? slab + rs * 16 + 8 * h : slab,
+      if constexpr (COUT == L::kWidth) {
+        constexpr int kChunks = COUT / 8, kShift = log2_of(kChunks);
+        for (int e = threadIdx.x; e < L::kWRows * kChunks; e += kThreads) {
+          const int row = e >> kShift, h = e & (kChunks - 1), rs = tap(row);
+          tc::cp_async16(sw + row * P + 8 * h,
+                         rs >= 0 ? slab + rs * COUT + 8 * h : slab,
                          rs >= 0 ? 16 : 0);
         }
       } else {
-        for (int e = threadIdx.x; e < L::kWRows * 16; e += kThreads) {
-          const int row = e / 16, co = e % 16, rs = tap(row);
-          sw[row * kCellPitch + co] = (rs >= 0 && co < COUT)
-                                          ? slab[rs * COUT + co]
-                                          : __float2bfloat16_rn(0.f);
+        for (int e = threadIdx.x; e < L::kWRows * L::kWidth; e += kThreads) {
+          const int row = e / L::kWidth, co = e % L::kWidth, rs = tap(row);
+          sw[row * P + co] = (rs >= 0 && co < COUT)
+                                 ? slab[rs * COUT + co]
+                                 : __float2bfloat16_rn(0.f);
         }
       }
     } else if constexpr (CIN == 16 && COUT == 16) {
       // rows (r, s, ci), columns C_out
-      stage_rows<16>(sw, slab, L::kWRows, L::kWRows, 16);
+      stage_rows<16, 16, P>(sw, slab, L::kWRows, L::kWRows, 16);
     } else {
       for (int e = threadIdx.x; e < L::kWRows * 16; e += kThreads) {
         const int row = e / 16, co = e % 16;
         const int rs = row / 16, ci = row % 16;
-        sw[row * kCellPitch + co] = (ci < CIN && co < COUT)
-                                        ? slab[(rs * CIN + ci) * COUT + co]
-                                        : __float2bfloat16_rn(0.f);
+        sw[row * P + co] = (ci < CIN && co < COUT)
+                               ? slab[(rs * CIN + ci) * COUT + co]
+                               : __float2bfloat16_rn(0.f);
       }
     }
   };
@@ -371,7 +400,7 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
       const int lc = m % g.Wc, rest = m / g.Wc;
       a_at[u] = ((rest / g.R) * g.Hp + rest % g.R) * g.Wc + lc;
     } else {
-      a_at[u] = box_cell(g, m) * kCellPitch + (lane >> 4) * 8;
+      a_at[u] = box_cell(g, m) * P + (lane >> 4) * 8;
     }
   }
 
@@ -383,14 +412,18 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[u][nt][v] = 0.f;
 
-  // B fragments of weight rows row0..row0+15 (ldmatrix.trans)
+  // B fragments of weight rows row0..row0+15 (ldmatrix.trans), n-tiles in
+  // pairs of 16 columns
   auto load_b = [&](const __nv_bfloat16* sw, int row0, uint32_t* bw) {
     const __nv_bfloat16* at =
-        sw + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kCellPitch;
-    if constexpr (NT == 2)
-      tc::ldmatrix_x4_trans(bw, at + (lane >> 4) * 8);
-    else
+        sw + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P;
+    if constexpr (NT == 1) {
       tc::ldmatrix_x2_trans(bw, at);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        tc::ldmatrix_x4_trans(bw + 4 * np, at + 16 * np + (lane >> 4) * 8);
+    }
   };
 
   auto compute = [&](int slot) {
@@ -420,7 +453,7 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
       for (int r = 0; r < K; ++r) {
 #pragma unroll
         for (int s = 0; s < K; ++s) {
-          const int tap = (r * g.Wp + s) * kCellPitch;
+          const int tap = (r * g.Wp + s) * P;
           uint32_t bw[2 * NT];
           load_b(sw, (r * K + s) * 16, bw);
 #pragma unroll
@@ -514,7 +547,7 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ bias,
                         __nv_bfloat16* __restrict__ out, const Geo g) {
   using L = Layer<K, CIN, COUT>;
-  constexpr int D = L::D;
+  constexpr int D = L::D, PITCH = L::kPitch, KST = L::KSTEPS;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* boff = reinterpret_cast<long long*>(smem);
   unsigned char* stages = smem + round16(g.box * 8);
@@ -533,19 +566,21 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
     unsigned char* base = stages + (t & 1) * g.stage_bytes;
     auto* sin = reinterpret_cast<__nv_bfloat16*>(base);
     auto* sw = reinterpret_cast<__nv_bfloat16*>(base + g.in_bytes);
-    stage_box<CIN>(x, sin, boff, g, blk.i + p - D, blk.j + q - D);
+    stage_box<CIN, L::kWidth, PITCH>(x, sin, boff, g, blk.i + p - D,
+                                     blk.j + q - D);
     const __nv_bfloat16* slab =
         w + static_cast<int64_t>(p * K + q) * (K * K * CIN * COUT);
     if constexpr (COUT == 1) {
       // the slab (r, s, ci) is already (n, ci)
-      stage_rows<CIN>(sw, slab, L::NPAD, K * K, CIN);
+      stage_rows<CIN, L::kWidth, PITCH>(sw, slab, L::NPAD, K * K, CIN);
     } else {
-      for (int e = threadIdx.x; e < 16 * L::NPAD; e += kThreads) {
-        const int n = e >> 4, ci = e & 15;
+      constexpr int kShift = log2_of(L::kWidth);
+      for (int e = threadIdx.x; e < L::kWidth * L::NPAD; e += kThreads) {
+        const int n = e >> kShift, ci = e & (L::kWidth - 1);
         const int rs = n / COUT, co = n % COUT;
-        sw[n * kCellPitch + ci] = (ci < CIN && n < K * K * COUT)
-                                      ? slab[(rs * CIN + ci) * COUT + co]
-                                      : __float2bfloat16_rn(0.f);
+        sw[n * PITCH + ci] = (ci < CIN && n < K * K * COUT)
+                                 ? slab[(rs * CIN + ci) * COUT + co]
+                                 : __float2bfloat16_rn(0.f);
       }
     }
   };
@@ -572,20 +607,27 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
     const unsigned char* base = stages + (t & 1) * g.stage_bytes;
     const auto* sin = reinterpret_cast<const __nv_bfloat16*>(base);
     const auto* sw = reinterpret_cast<const __nv_bfloat16*>(base + g.in_bytes);
-    uint32_t bw[L::NTN][2];
+    // B fragments per k-step of 16 channels and n-tile
+    uint32_t bw[KST][L::NTN][2];
 #pragma unroll
-    for (int nt = 0; nt < L::NTN; ++nt)
-      tc::ldmatrix_x2(bw[nt], sw + (nt * 8 + (lane & 7)) * kCellPitch +
-                                  ((lane >> 3) & 1) * 8);
+    for (int ks = 0; ks < KST; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < L::NTN; ++nt)
+        tc::ldmatrix_x2(bw[ks][nt], sw + (nt * 8 + (lane & 7)) * PITCH +
+                                        16 * ks + ((lane >> 3) & 1) * 8);
     // the warp's box m-tiles, kBoxMTW at a time: their A fragments first,
     // then the products
     for (int mt0 = warp; mt0 < box_mt; mt0 += kWarps * L::kBoxMTW) {
-      uint32_t a[L::kBoxMTW][4];
+      uint32_t a[L::kBoxMTW][KST][4];
 #pragma unroll
       for (int u = 0; u < L::kBoxMTW; ++u) {
         const int row = min((mt0 + kWarps * u) * 16 + (lane & 15), g.box - 1);
-        if (mt0 + kWarps * u < box_mt)
-          tc::ldmatrix_x4(a[u], sin + row * kCellPitch + (lane >> 4) * 8);
+        if (mt0 + kWarps * u < box_mt) {
+#pragma unroll
+          for (int ks = 0; ks < KST; ++ks)
+            tc::ldmatrix_x4(a[u][ks],
+                            sin + row * PITCH + 16 * ks + (lane >> 4) * 8);
+        }
       }
 #pragma unroll
       for (int u = 0; u < L::kBoxMTW; ++u) {
@@ -595,7 +637,8 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < L::NTN; ++nt) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          tc::mma_bf16(d, a[u], bw[nt]);
+#pragma unroll
+          for (int ks = 0; ks < KST; ++ks) tc::mma_bf16(d, a[u][ks], bw[ks][nt]);
           const int n = nt * 8 + 2 * t4;
           float* col = P + n * g.p_pitch;
 #pragma unroll
@@ -644,8 +687,8 @@ size_t smem_bytes(Geo& g) {
   const size_t offsets = round16(g.box * 8);
   g.p_pitch = 0;
   if (L::kMode == kTapsN) {
-    g.in_bytes = round16(g.box * kCellPitch * 2);
-    g.stage_bytes = g.in_bytes + L::NPAD * kCellPitch * 2;
+    g.in_bytes = round16(g.box * L::kPitch * 2);
+    g.stage_bytes = g.in_bytes + L::NPAD * L::kPitch * 2;
     // the smallest pitch >= box that is 4 mod 32 words, so the fragment
     // stores of 8 rows x 4 columns fall on distinct banks
     g.p_pitch = (g.box + 27) / 32 * 32 + 4;
@@ -657,9 +700,9 @@ size_t smem_bytes(Geo& g) {
     if (g.G * g.Hp * ((g.Wc + 7) / 8) > kThreads) return SIZE_MAX;
     g.in_bytes = round16(g.G * g.Hp * g.Wc * kShifts * 2);
   } else {
-    g.in_bytes = round16(g.box * kCellPitch * 2);
+    g.in_bytes = round16(g.box * L::kPitch * 2);
   }
-  g.stage_bytes = g.in_bytes + L::kWRows * kCellPitch * 2;
+  g.stage_bytes = g.in_bytes + L::kWRows * L::kPitch * 2;
   return offsets + 2 * static_cast<size_t>(g.stage_bytes);
 }
 
@@ -718,13 +761,13 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
 
 }  // namespace
 
-// The (k, C_in, C_out) layer shapes compiled in: the PF-Pascal stack
-// (5: 1->16, 16->16, 16->1), the IVD/InLoc stack (3: 1->16, 16->1), the
-// default ModelConfig stack (3: 1->10, 10->10, 10->1), and the thin test
-// stacks (channels 1, 2 and 4 at k = 3 and 5).  The transposed variant is
-// compiled for the transpose (k, C_out, C_in) of each, and
-// csrc/nc_conv4d_vjp.cu repeats this list.
-#define NC_CONV4D_SHAPES(X)                                                  \
+// The (k, C_in, C_out) layer shapes whose forward and transposed variant
+// (the backward's input gradient, of the transpose (k, C_out, C_in)) are
+// compiled in: the PF-Pascal stack (5: 1->16, 16->16, 16->1), the
+// IVD/InLoc stack (3: 1->16, 16->1), the default ModelConfig stack
+// (3: 1->10, 10->10, 10->1) and the thin test stacks (channels 1, 2 and 4
+// at k = 3 and 5); csrc/nc_conv4d_vjp.cu repeats the list.
+#define NC_CONV4D_TRANSPOSE_SHAPES(X)                                        \
   X(5, 1, 16) X(5, 16, 16) X(5, 16, 1)                                       \
   X(3, 1, 16) X(3, 16, 16) X(3, 16, 1)                                       \
   X(3, 1, 10) X(3, 10, 10) X(3, 10, 1)                                       \
@@ -733,9 +776,16 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
   X(5, 1, 1) X(5, 1, 2) X(5, 1, 4) X(5, 2, 1) X(5, 2, 2) X(5, 4, 1)          \
   X(5, 4, 2) X(5, 4, 4)
 
+// The layer shapes the forward is compiled for: those above and, forward
+// only, the IVD stack's tap-swap chain (3: 1->32, 32->2; ncnet_tpu_torch/
+// models/ncnet.py::tap_swap_chain) that filters a rectangular symmetric
+// volume.
+#define NC_CONV4D_SHAPES(X)                                                  \
+  NC_CONV4D_TRANSPOSE_SHAPES(X) X(3, 1, 32) X(3, 32, 2)
+
 extern "C" {
 
-// 1 when the layer shape is compiled in, else 0
+// 1 when the forward layer shape is compiled in, else 0
 int nc_conv4d_supported(int k, int c_in, int c_out) {
 #define NC_SUPPORTED(K, CI, CO) \
   if (k == K && c_in == CI && c_out == CO) return 1;
@@ -763,8 +813,7 @@ int nc_conv4d_bf16(const void* x, const void* w, const void* b, void* out,
 // out = bf16(conv4d_same(gz, wt)) with no bias and no ReLU, gz (B, hA, wA,
 // hB, wB, c_out) bf16, wt (k, k, k, k, c_out, c_in) the flipped, channel-
 // swapped weights, out (B, hA, wA, hB, wB, c_in).  Returns the cudaError_t
-// of the launch, or -1 for a shape that is not compiled in (the forward
-// shape (k, c_in, c_out) is, exactly when nc_conv4d_supported says so).
+// of the launch, or -1 for a shape that is not compiled in.
 int nc_conv4d_transpose_bf16(const void* gz, const void* wt, void* out, int B,
                              int hA, int wA, int hB, int wB, int k, int c_in,
                              int c_out, void* stream) {
@@ -773,7 +822,7 @@ int nc_conv4d_transpose_bf16(const void* gz, const void* wt, void* out, int B,
     return static_cast<int>(launch<K, CO, CI, false>(                     \
         gz, wt, nullptr, out, B, hA, wA, hB, wB,                          \
         static_cast<cudaStream_t>(stream)));
-  NC_CONV4D_SHAPES(NC_LAUNCH_T)
+  NC_CONV4D_TRANSPOSE_SHAPES(NC_LAUNCH_T)
 #undef NC_LAUNCH_T
   return -1;
 }

@@ -705,8 +705,9 @@ cudaError_t launch_dw(const void* x, const void* y, const void* g, void* gz,
 
 }  // namespace
 
-// The (k, C_in, C_out) layer shapes compiled in: the forward's list in
-// csrc/nc_conv4d.cu (NC_CONV4D_SHAPES), kept the same by hand.
+// The (k, C_in, C_out) layer shapes compiled in: the list of forward shapes
+// with a transposed variant in csrc/nc_conv4d.cu (NC_CONV4D_TRANSPOSE_SHAPES),
+// kept the same by hand.
 #define NC_VJP_SHAPES(X)                                                     \
   X(5, 1, 16) X(5, 16, 16) X(5, 16, 1)                                       \
   X(3, 1, 16) X(3, 16, 16) X(3, 16, 1)                                       \

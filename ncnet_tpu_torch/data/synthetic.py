@@ -1,6 +1,6 @@
 """Synthetic reference-schema fixtures for tests and smoke runs, the port of
 ``ncnet_tpu/data/synthetic.py`` (``make_shifted_pair``,
-``write_pair_dataset``, ``write_pf_pascal_like``).
+``write_pair_dataset``, ``write_pf_pascal_like``, ``write_inloc_like``).
 
 The target image is a shifted crop of the source, so keypoint transfer has
 an analytic answer.  The functions draw the same random sequence and write
@@ -180,3 +180,48 @@ def write_pf_pascal_like(
     with open(csv_path, "w") as f:
         f.write("\n".join(rows) + "\n")
     return csv_path
+
+
+def write_inloc_like(
+    root: str,
+    n_queries: int = 2,
+    n_panos: int = 3,
+    image_hw: Tuple[int, int] = (96, 128),
+    seed: int = 0,
+) -> str:
+    """InLoc-shaped layout: ``root/query/iphone7/*.jpg``, ``root/pano/*.jpg``
+    (each image in its raw form) and a densePE-style shortlist ``.mat``
+    whose ``ImgList`` struct array indexes per-query pano shortlists the
+    way the reference reads it (eval_inloc.py:97-101: ``db[q][0]`` the
+    query name, ``db[q][1].ravel()[idx]`` a pano name).
+
+    Pano 0 of each query is the query image, so a correct matcher scores
+    near-identity matches on it.  Pano names follow the real dataset's
+    cutout pattern (``DUC1/DUC_cutout_<scan>_<pan>_<tilt>.jpg``).  The
+    random sequence is the JAX writer's, so the arrays are its images
+    before their JPEG encoding.  Returns the shortlist path."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(seed)
+    h, w = image_hw
+    qdir = os.path.join(root, "query", "iphone7")
+    os.makedirs(qdir, exist_ok=True)
+    os.makedirs(os.path.join(root, "pano", "DUC1"), exist_ok=True)
+    entries = np.zeros(
+        (1, n_queries),
+        dtype=np.dtype([("queryname", object), ("topNname", object)]))
+    for q in range(n_queries):
+        qimg = _textured_image(rng, h, w)
+        qfn = f"query_{q}.jpg"
+        np.save(raw_path(os.path.join(qdir, qfn)), qimg)
+        panos = []
+        for p in range(n_panos):
+            pfn = f"DUC1/DUC_cutout_{q:03d}_{p * 30}_0.jpg"
+            img = qimg if p == 0 else _textured_image(rng, h, w)
+            np.save(raw_path(os.path.join(root, "pano", pfn)), img)
+            panos.append(pfn)
+        entries[0, q] = (np.array([qfn]),
+                         np.array(panos, dtype=object)[:, None])
+    shortlist = os.path.join(root, "shortlist.mat")
+    savemat(shortlist, {"ImgList": entries})
+    return shortlist

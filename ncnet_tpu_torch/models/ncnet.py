@@ -22,6 +22,9 @@ and the coarse-to-fine and tracked match pipelines
 (``ModelConfig.sparse_topk`` > 0: :func:`coarse2fine_filter`,
 :func:`ncnet_forward_tracked`; the gathered tiles go through
 ``ops/sparse_corr.py`` and its B4 kernel, then through the same NC stack).
+A rectangular volume (InLoc's portrait query against a landscape cutout)
+filters its symmetric pass as the tap-swapped stack on the volume itself
+(:func:`tap_swap_chain`), not as a second pass on its transpose.
 ``check_ported`` rejects, with ``NotImplementedError``, every
 ``ModelConfig`` option it does not run yet.
 """
@@ -175,6 +178,49 @@ def _swap_ab(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 4, 1, 2, 5)
 
 
+def swap_ab_taps(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The layer whose plain application equals ``transpose ∘ layer ∘
+    transpose`` (A↔B volume transposition): kernel tap groups (kA, kWA)
+    and (kB, kWB) swapped, channels untouched.  Requires a cubic kernel."""
+    return {"w": layer["w"].permute(2, 3, 0, 1, 4, 5).contiguous(),
+            "b": layer["b"]}
+
+
+def tap_swap_fusable(nc_params) -> bool:
+    """Whether the symmetric pass may run as tap-swapped stacks with a
+    fused first layer: cubic kernels, exactly two layers, a 1-channel
+    input (the shape class of ``ncnet_tpu/models/ncnet.py:322``)."""
+    return (len(nc_params) == 2
+            and nc_params[0]["w"].shape[4] == 1
+            and all(tuple(layer["w"].shape[0:2]) == tuple(layer["w"].shape[2:4])
+                    for layer in nc_params))
+
+
+def tap_swap_fused_layers(nc_params):
+    """``(fused_l1, l2, l2_swapped)`` of the tap-swapped symmetric pass:
+    the first layer and its tap-swapped twin side by side (1 → 2C), the
+    second layer, and its tap-swapped twin.  :func:`tap_swap_chain` builds
+    from it."""
+    sw = [swap_ab_taps(layer) for layer in nc_params]
+    fused_l1 = {"w": torch.cat([nc_params[0]["w"], sw[0]["w"]], dim=-1),
+                "b": torch.cat([nc_params[0]["b"], sw[0]["b"]])}
+    return fused_l1, nc_params[1], sw[1]
+
+
+def tap_swap_chain(nc_params):
+    """The tap-swapped symmetric pass as one 2-layer chain for the kernel
+    tier: ``[fused L1 (1 → 2C), block-diagonal L2 (2C → 2)]``.  The final
+    layer applies L2 to channels ``:C`` (output channel 0) and L2ᵀ to
+    channels ``C:`` (output channel 1), each with its own bias, so the
+    kernel's bias and ReLU apply to each stack apart and the sum of the two
+    output channels is ``relu(L2(y_a)) + relu(L2ᵀ(y_b))``."""
+    fused_l1, l2, l2s = tap_swap_fused_layers(nc_params)
+    zero = torch.zeros_like(l2["w"])
+    w_bd = torch.cat([torch.cat([l2["w"], zero], dim=4),
+                      torch.cat([zero, l2s["w"]], dim=4)], dim=5)
+    return [fused_l1, {"w": w_bd, "b": torch.cat([l2["b"], l2s["b"]])}]
+
+
 def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
                     corr: torch.Tensor, *, symmetric: bool = True,
                     remat_layers: bool = False, custom_grad: bool = False,
@@ -189,15 +235,16 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
       that arithmetic tier unconditionally; ``'cp'`` needs factors on every
       layer.
     * ``require_vjp`` (the training gate, with ``allow_pallas``): a bf16
-      stack in B2's shape class (every layer compiled into the kernels,
-      ``nc_fused_lane.COMPILED_LAYER_SHAPES``) runs
+      stack in B2's shape class with the B3 backward (every layer in
+      ``nc_fused_lane.VJP_LAYER_SHAPES``) runs
       ``nc_fused_lane.nc_stack_fused``, whose forward asks the tier chooser
       (the FFT tier at the PF-Pascal 25⁴ volume) and whose backward is B3.
     * Otherwise, with ``allow_pallas`` and neither ``remat_layers`` nor
       ``custom_grad``, ``nc_fused_lane.choose_fused_stack`` decides for
       every orientation the call runs: an arithmetic tier that wins them
       all runs the whole stack; a bf16 stack whose decisions are all
-      kernel tiers runs B2 (``nc_stack_fused`` when autograd records).
+      kernel tiers runs B2 (``nc_stack_fused`` when autograd records, which
+      needs the backward's shapes too).
       The chooser takes the kernel tier only for compiled layer shapes, so
       any other stack falls to the line below before any launch.
     * Everything else runs layer by layer through ``conv4d``'s formulation
@@ -207,9 +254,19 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
 
     A square volume batch-folds ``[x, xᵀ]`` into one stack call when a
     tier runs the stack or every layer keeps a channel-folding formulation
-    at the doubled batch (``:607-624``); otherwise the two passes run one
-    after the other.  The JAX package's tap-swap form of the rectangular
-    symmetric pass is not ported (ROADMAP A7): the port runs the two passes.
+    at the doubled batch (``:607-624``).  Otherwise a stack in the
+    tap-swap class (:func:`tap_swap_fusable`: two cubic layers on a
+    1-channel input) with no arithmetic tier runs the transposed pass
+    algebraically (``:625-649``): ``NC(xᵀ)ᵀ`` is the tap-swapped stack on
+    ``x``, and the two first layers fuse into one 1 → 2C layer.  Where the
+    chooser gives the kernel tier for :func:`tap_swap_chain` (bf16, a
+    rectangular volume), that chain is one stack call whose two output
+    channels are summed; where no tier runs the stack (fp32, or layers
+    not compiled), the fused first layer runs once and the second layer
+    and its tap-swapped twin run on its two channel halves, through the
+    formulations.  Deeper stacks, and a stack on the kernel tier whose
+    chain is not compiled (or not in the backward's list while autograd
+    records), run the two passes one after the other.
     """
     conv = conv4d_same if custom_grad else conv4d
 
@@ -226,14 +283,24 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
             f"volume {x.dtype} and NC weights "
             f"{[layer['w'].dtype for layer in nc_params]} differ: cast both "
             "(ncnet_filter does under half_precision)")
+    # whether autograd records this call: the kernel tier then needs the
+    # backward's compiled shapes too
+    records_grad = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for layer in nc_params for t in (layer["w"], layer["b"])))
     tier_eligible = allow_pallas and not remat_layers and not custom_grad
     use_fused = False
+    fused_tap_swap = False
     arith_tier = None
     b, ha, wa, hb, wb = corr.shape
     kernels = tuple(int(layer["w"].shape[0]) for layer in nc_params)
     channels = tuple(int(layer["w"].shape[5]) for layer in nc_params)
+    tap_swap = tap_swap_fusable(nc_params)
+    rect = symmetric and (ha, wa) != (hb, wb)
+    # the tap-swap chain's channels: the fused first layer and the
+    # block-diagonal final one
+    chain = (2 * channels[0], 2) if tap_swap else None
     shapes = [(ha, wa, hb, wb)]
-    if symmetric and (ha, wa) != (hb, wb):
+    if rect:
         # the rectangular two-pass form also runs the transposed volume
         shapes.append((hb, wb, ha, wa))
     if force_tier:
@@ -248,12 +315,14 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
         nc_fused_lane.note_forced_tier(force_tier)
     elif tier_eligible and require_vjp:
         # the training gate fuses only where the B3 backward exists: B2's
-        # shape class with every layer compiled in (the arithmetic tiers
-        # are never auto-selected here; the fused stack's own forward may
-        # still take one); any other stack runs the formulations per layer
-        # with autograd through them, reported as "xla"
+        # shape class with every layer compiled into both directions (the
+        # arithmetic tiers are never auto-selected here; the fused stack's
+        # own forward may still take one); any other stack runs the
+        # formulations per layer with autograd through them, reported as
+        # "xla".  The tap-swap chain has no backward, so a rectangular
+        # fused stack runs the two passes.
         use_fused = bf16 and nc_fused_lane.fused_shape_class(
-            kernels, channels)
+            kernels, channels, nc_fused_lane.VJP_LAYER_SHAPES)
         if not use_fused:
             nc_fused_lane.note_forced_tier("xla")
     elif tier_eligible:
@@ -265,7 +334,26 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
                 and all(d == decisions[0] for d in decisions):
             arith_tier = decisions[0]
         else:
-            use_fused = bf16 and all(d is not None for d in decisions)
+            use_fused = bf16 and all(d is not None for d in decisions) and (
+                not records_grad
+                or nc_fused_lane.fused_shape_class(
+                    kernels, channels, nc_fused_lane.VJP_LAYER_SHAPES))
+        if bf16 and arith_tier is None and rect and tap_swap:
+            fused_tap_swap = nc_fused_lane.choose_fused_stack(
+                ha, wa, hb, wb, kernels, chain) == "resident" and (
+                    not records_grad
+                    or nc_fused_lane.fused_shape_class(
+                        kernels, chain, nc_fused_lane.VJP_LAYER_SHAPES))
+            if not fused_tap_swap:
+                # the chain's decision is not the route: record the one
+                # that runs (two passes on the kernel, or the formulations)
+                nc_fused_lane.note_forced_tier(
+                    "resident" if use_fused else "xla")
+
+    def fused(params, v: torch.Tensor) -> torch.Tensor:
+        if records_grad:
+            return nc_fused_lane.nc_stack_fused(params, v)
+        return nc_fused_lane.fused_stack_forward(params, v)
 
     def stack(v: torch.Tensor) -> torch.Tensor:
         if arith_tier == "cp":
@@ -273,11 +361,7 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
         if arith_tier == "fft":
             return nc_stack_fft(nc_params, v)
         if use_fused:
-            if torch.is_grad_enabled() and (v.requires_grad or any(
-                    t.requires_grad for layer in nc_params
-                    for t in (layer["w"], layer["b"]))):
-                return nc_fused_lane.nc_stack_fused(nc_params, v)
-            return nc_fused_lane.fused_stack_forward(nc_params, v)
+            return fused(nc_params, v)
         for layer in nc_params:
             v = one_layer(layer["w"], layer["b"], v)
         return v
@@ -296,6 +380,21 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
     if (ha, wa) == (hb, wb) and fold_ok:
         y = stack(torch.cat([x, _swap_ab(x)], dim=0))
         out = y[:b] + _swap_ab(y[b:])
+    elif tap_swap and arith_tier is None and (fused_tap_swap or not use_fused):
+        # the transposed pass as the tap-swapped stack on x: transposition
+        # commutes with ReLU and swaps a cubic kernel's A and B tap groups,
+        # and the two stacks' 1-channel first layers fuse into one conv.  A
+        # stack the kernel tier runs whose chain it does not keeps the two
+        # passes on the kernel.
+        if fused_tap_swap:
+            y2 = fused(tap_swap_chain(nc_params), x)
+            out = y2[..., :1] + y2[..., 1:]
+        else:
+            fused_l1, l2, l2s = tap_swap_fused_layers(nc_params)
+            y = one_layer(fused_l1["w"], fused_l1["b"], x)  # 1 → 2C, once
+            c = channels[0]
+            out = (one_layer(l2["w"], l2["b"], y[..., :c])
+                   + one_layer(l2s["w"], l2s["b"], y[..., c:]))
     else:
         out = stack(x) + _swap_ab(stack(_swap_ab(x).contiguous()))
     return out[..., 0]

@@ -21,10 +21,13 @@ layer outputs.
 (``ncnet_tpu/ops/nc_fused_lane.py:838-976``): the arithmetic tiers first
 (``"cp"``, ``"fft"``; any device, any dtype), then, for bf16 volumes and
 weights, ``"resident"`` (B2's shape class, for the layer shapes the
-kernels are compiled for: :data:`COMPILED_LAYER_SHAPES`), else None (the
-conv4d formulations).  The TPU's VMEM gates and compile probes bind no CUDA
-kernel and are not carried; the runtime demotion registry, the persistent
-tier cache and the tier events wait in ROADMAP queue A.
+forward kernel is compiled for: :data:`FORWARD_LAYER_SHAPES`), else None
+(the conv4d formulations).  The training gate (:func:`fused_shape_class`)
+reads the shorter list of shapes the backward also has
+(:data:`VJP_LAYER_SHAPES`).  The TPU's VMEM gates and compile probes bind
+no CUDA kernel and are not carried; the runtime demotion registry, the
+persistent tier cache and the tier events are not ported (ROADMAP D4: the
+route is decided from shapes before any launch).
 :func:`last_selected_tier` reads the most recent decision per stage.
 
 ``launches`` counts the forward kernel's launches in this process (one per
@@ -104,12 +107,12 @@ def note_forced_tier(tier) -> None:
     _last_selected["forward"] = tier
 
 
-#: The ``(k, C_in, C_out)`` layer shapes the kernels are compiled for: the
-#: ``NC_CONV4D_SHAPES`` list of ``csrc/nc_conv4d.cu`` (B6, and the
-#: transposed launch of the backward under the same forward shape) and the
-#: ``NC_VJP_SHAPES`` list of ``csrc/nc_conv4d_vjp.cu`` (B3's dW/db), which
-#: repeat each other.  The routes below read it before any launch.
-COMPILED_LAYER_SHAPES = frozenset({
+#: The ``(k, C_in, C_out)`` layer shapes that B3, the backward, is compiled
+#: for: the ``NC_VJP_SHAPES`` list of ``csrc/nc_conv4d_vjp.cu`` (dW/db) and
+#: the ``NC_CONV4D_TRANSPOSE_SHAPES`` list of ``csrc/nc_conv4d.cu`` (the
+#: input gradient, B6's transposed launch), which repeat each other.  The
+#: training gate reads it before any launch.
+VJP_LAYER_SHAPES = frozenset({
     (5, 1, 16), (5, 16, 16), (5, 16, 1),
     (3, 1, 16), (3, 16, 16), (3, 16, 1),
     (3, 1, 10), (3, 10, 10), (3, 10, 1),
@@ -119,26 +122,35 @@ COMPILED_LAYER_SHAPES = frozenset({
     (5, 4, 2), (5, 4, 4),
 })
 
+#: The layer shapes the forward kernel B6 is compiled for: the
+#: ``NC_CONV4D_SHAPES`` list of ``csrc/nc_conv4d.cu``, the backward's and
+#: the InLoc (IVD) stack's tap-swap chain (``models/ncnet.py::
+#: tap_swap_chain``: 1 → 32, 32 → 2 at k = 3), which serving alone runs.
+#: The serving chooser reads it before any launch.
+FORWARD_LAYER_SHAPES = VJP_LAYER_SHAPES | {(3, 1, 32), (3, 32, 2)}
 
-def stack_compiled(kernels, channels) -> bool:
+
+def stack_compiled(kernels, channels, shapes) -> bool:
     """Whether every ``(k, C_in, C_out)`` layer of the stack (a 1-channel
-    input) is in :data:`COMPILED_LAYER_SHAPES`."""
+    input) is in ``shapes``: :data:`FORWARD_LAYER_SHAPES` or
+    :data:`VJP_LAYER_SHAPES`."""
     c_in, layers = 1, []
     for k, c_out in zip(kernels, channels):
         layers.append((int(k), c_in, int(c_out)))
         c_in = int(c_out)
-    return all(s in COMPILED_LAYER_SHAPES for s in layers)
+    return all(s in shapes for s in layers)
 
 
-def fused_shape_class(kernels, channels) -> bool:
+def fused_shape_class(kernels, channels, shapes) -> bool:
     """B2's shape class, from the stack's kernel sizes and channels: one
     odd kernel size for the whole stack, a final layer of at most 4
     channels (the whole-volume checks are ``_check_stack``'s), and every
-    layer compiled into the kernels (:func:`stack_compiled`).  B3, the
-    backward, serves the same class."""
+    layer in ``shapes``: :data:`FORWARD_LAYER_SHAPES` for the serving
+    chooser, :data:`VJP_LAYER_SHAPES` for the training gate (the class B3
+    serves too)."""
     kernels, channels = tuple(kernels), tuple(channels)
     return (len(set(kernels)) == 1 and kernels[0] % 2 == 1
-            and channels[-1] <= 4 and stack_compiled(kernels, channels))
+            and channels[-1] <= 4 and stack_compiled(kernels, channels, shapes))
 
 
 def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
@@ -147,7 +159,8 @@ def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
     (every layer carries factors and ``conv4d_cp.cp_feasible`` passes),
     ``"fft"`` (``conv4d_fft.fft_feasible``), then, only when ``pallas_ok``
     (a bf16 volume and weights), ``"resident"`` (B2's shape class, whose
-    layers the kernel is compiled for); else None (the conv4d formulations
+    layers the forward kernel is compiled for: :func:`fused_shape_class`
+    with :data:`FORWARD_LAYER_SHAPES`); else None (the conv4d formulations
     layer by layer, reported as ``"xla"``).  The JAX ladder's
     ``"perlayer"`` (a 1-channel final layer) lies inside B2's shape class,
     so without the VMEM gates it is never reached."""
@@ -158,7 +171,8 @@ def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
         tier = "cp"
     elif fft_feasible(ha, wa, hb, wb, kernels, channels):
         tier = "fft"
-    elif pallas_ok and fused_shape_class(kernels, channels):
+    elif pallas_ok and fused_shape_class(kernels, channels,
+                                         FORWARD_LAYER_SHAPES):
         tier = "resident"
     _last_selected["forward"] = tier or "xla"
     return tier
@@ -227,7 +241,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
     # of forward shape (k, c_out, c_in) runs with these weights
     fwd = (k, c_in, c_out) if b is not None else (k, c_out, c_in)
     lib = _library()
-    if not lib.nc_conv4d_supported(*fwd):
+    if b is not None and not lib.nc_conv4d_supported(*fwd):
         raise NotImplementedError(
             f"nc_conv4d is not compiled for k={fwd[0]}, {fwd[1]}->{fwd[2]} "
             f"channels (add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
@@ -246,6 +260,11 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
             rc = lib.nc_conv4d_bf16(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz,
                 ha, wa, hb, wb, *fwd, stream)
+    if rc == -1:  # a transposed variant that is not compiled in
+        raise NotImplementedError(
+            f"nc_conv4d's transposed variant is not compiled for forward "
+            f"k={fwd[0]}, {fwd[1]}->{fwd[2]} channels (add the shape to "
+            f"NC_CONV4D_TRANSPOSE_SHAPES in csrc/{SOURCE})")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.nc_conv4d_error_string(rc).decode())
@@ -278,7 +297,7 @@ def nc_stack_resident(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
     """The full ``[conv4d_same + bias + ReLU]×L`` stack on ``x``
     ``(B, hA, wA, hB, wB, 1)``; returns ``(B, hA, wA, hB, wB, C_last)`` bf16
     with a final layer of at most 4 channels (the TPU kernel's shape class:
-    1, or 2 for the tap-swap chain)."""
+    1, or 2 for the tap-swap chain, ``models/ncnet.py::tap_swap_chain``)."""
     _check_stack(nc_params, x, "nc_stack_resident")
     channels = _stack_shape(nc_params)[1]
     if channels[-1] > 4:

@@ -36,6 +36,13 @@ the conv4d formulations per layer, within 1e-2 normalized of the twin
 (its layers round to bf16 at other points); ``run_eval`` on the card keeps
 each pair's PCK within one keypoint of the same run on the CPU; the eval
 step run under the sync debug mode equals its first run bit for bit.
+B6 at the InLoc tap-swap chain's layer shapes ((3, 1, 32), (3, 32, 2)) and
+the IVD stack's on rectangular volumes: within 1e-2 of the twin, as every
+shape; the InLoc pair matcher on the card against the same matcher on the
+CPU: each table holding at least 0.9 of the CPU table's matches, their
+scores within 2e-2 (a one-ulp flip of a near-flat random-init NC output
+moves a match, as between the port and the JAX package in
+``tests/test_torch_port_inloc.py``).
 """
 
 import numpy as np
@@ -746,3 +753,116 @@ def test_fit_on_the_card_resumes_bit_equal(cuda, tmp_path):
                     tree_leaves((full["state"].params,
                                  full["state"].opt_state._asdict()))):
         assert torch.equal(a, b)
+
+
+# the InLoc layer shapes: the tap-swap chain's (forward only) and the IVD
+# stack's, on rectangular volumes: (hA, wA) the transpose of (hB, wB), and
+# two planes of different sizes
+RECT_VOLUMES = [(1, 6, 5, 5, 6), (2, 7, 5, 9, 11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c_in,c_out", [(3, 1, 32), (3, 32, 2), (3, 1, 16),
+                                          (3, 16, 1)])
+@pytest.mark.parametrize("shape", RECT_VOLUMES)
+def test_b6_matches_twin_on_rectangular_volumes(cuda, shape, k, c_in, c_out):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(np.maximum(rng.normal(0, 0.5, shape + (c_in,)), 0)
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (k,) * 4 + (c_in, c_out))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(0, 0.1, (c_out,)).astype(np.float32)
+                         ).to(cuda, torch.bfloat16)
+    before = nc_fused_lane.launches
+    got = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    again = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    torch.cuda.synchronize()
+    assert nc_fused_lane.launches == before + 2
+    assert torch.equal(got, again)
+    assert normalized_err(got, nc_fused_lane.layer_reference(x, w, b)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_chain_transposed_launch_is_not_compiled(cuda):
+    """The chain's layers are forward only: B3's input gradient refuses
+    them before any launch."""
+    gz = torch.zeros((1, 3, 3, 3, 3, 2), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 3, 32, 2), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="transposed"):
+        nc_fused_lane_vjp.nc_conv4d_transpose(gz, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RECT_VOLUMES)
+def test_tap_swap_chain_on_the_card(cuda, shape):
+    """The IVD stack on a rectangular volume through ``neigh_consensus``:
+    one chain call of 2 B6 launches, within 1e-2 of the same chain
+    through the twins and of the two-pass form through the twins."""
+    from ncnet_tpu_torch.models.ncnet import neigh_consensus, tap_swap_chain
+
+    params, _ = random_stack(np.random.default_rng(13), shape, (3, 3), (16, 1),
+                             cuda)
+    corr = torch.from_numpy(np.random.default_rng(14).uniform(0, 1, shape)
+                            .astype(np.float32)).to(cuda, torch.bfloat16)
+    before = nc_fused_lane.launches
+    got = neigh_consensus(params, corr)
+    torch.cuda.synchronize()
+    assert nc_fused_lane.launches == before + 2
+    assert nc_fused_lane.last_selected_tier() == "resident"
+    x = corr[..., None]
+    y2 = nc_fused_lane.nc_stack_reference(tap_swap_chain(params), x)
+    chain = (y2[..., :1] + y2[..., 1:])[..., 0]
+    assert normalized_err(got, chain) <= 1e-2
+    xt = x.permute(0, 3, 4, 1, 2, 5).contiguous()
+    two = (nc_fused_lane.nc_stack_reference(params, x).float()
+           + nc_fused_lane.nc_stack_reference(params, xt)
+           .permute(0, 3, 4, 1, 2, 5).float())[..., 0]
+    assert normalized_err(got, two) <= 1e-2
+
+
+def shared_matches(got, want, grid):
+    """The share of ``want``'s matches that ``got`` holds, and the largest
+    score difference between their shared matches; tables are the
+    matcher's five vectors, matches keyed by their fine cells."""
+    (ha, wa, hb, wb), k = grid
+    sizes = np.asarray([wa, ha, wb, hb], dtype=np.float64) * k
+    tabs = []
+    for t in (got, want):
+        cells = np.rint(np.stack(t[:4], -1).astype(np.float64) * sizes - 0.5
+                        ).astype(np.int64)
+        tabs.append({tuple(c): float(s) for c, s in zip(cells, t[4])})
+    common = tabs[0].keys() & tabs[1].keys()
+    return (len(common) / len(tabs[1]),
+            max(abs(tabs[0][c] - tabs[1][c]) for c in common))
+
+
+@pytest.mark.cuda
+def test_inloc_matcher_on_the_card_matches_the_cpu(cuda):
+    """The InLoc pair matcher (IVD stack, bf16, k = 2, the tiny trunk) on a
+    portrait query and a landscape cutout at 256 px: on the card the
+    rectangular volume takes the chain, 2 B6 launches a pair, and the
+    table matches the CPU run of the same weights (see the docstring)."""
+    from ncnet_tpu_torch.data.synthetic import _textured_image
+    from ncnet_tpu_torch.evaluation.inloc import make_pair_matcher
+
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3),
+                      ncons_channels=(16, 1), half_precision=True,
+                      relocalization_k_size=2)
+    params = init_ncnet(cfg, seed=0)
+    for layer in params["nc"]:
+        layer["w"][1, 1, 1, 1] += 1.0 / layer["w"].shape[4]
+        layer["b"] += 0.05
+    big = _textured_image(np.random.default_rng(15), 320, 320)
+    query, pano = big[None, :256, :192], big[None, 8:200, 24:280]
+    tables = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = make_pair_matcher(cfg, params, do_softmax=True,
+                              both_directions=True, flip_direction=False,
+                              preprocess_image_size=256, device=dev)
+        before = nc_fused_lane.launches
+        tables[dev.type] = m(m.preprocess(query), pano)
+        if dev.type == "cuda":
+            assert nc_fused_lane.launches == before + 2
+    share, score_err = shared_matches(tables["cuda"], tables["cpu"],
+                                      ((8, 6, 6, 8), 2))
+    assert share >= 0.9 and score_err <= 2e-2, (share, score_err)

@@ -8,8 +8,10 @@ probe, T1: its 0.830 ms bound at B = 8); a
 redesigned kernel must be read against the same work,
 so these counts are pinned here to the numbers PERF.md's bounds use.  The
 layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
-its list and the backward's (``csrc/nc_conv4d_vjp.cu``) must agree, and
-every stack a ``ModelConfig`` of the repository builds must be in them.
+its forward list is the backward's (``csrc/nc_conv4d_vjp.cu``, and the
+transposed launches of ``nc_conv4d.cu``) plus the InLoc stack's tap-swap
+chain, and every stack a ``ModelConfig`` of the repository builds must be
+in them.
 """
 
 import re
@@ -25,18 +27,35 @@ CSRC = Path(__file__).resolve().parent.parent / "ncnet_tpu_torch" / "csrc"
 
 
 def compiled_shapes(source, macro):
-    """The (k, C_in, C_out) triples of the X-macro list ``macro``."""
+    """The (k, C_in, C_out) triples of the X-macro list ``macro``, in
+    order, with the lists it names (``OTHER_LIST(X)``) expanded."""
     text = (CSRC / source).read_text()
     body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", text, re.S).group(1)
-    return [tuple(int(v) for v in m)
-            for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
+    shapes = []
+    for name, *triple in re.findall(
+            r"(\w+)\(X\)|X\((\d+), (\d+), (\d+)\)", body):
+        shapes += (compiled_shapes(source, name) if name
+                   else [tuple(int(v) for v in triple)])
+    return shapes
+
+
+# the IVD stack's tap-swap chain (models/ncnet.py::tap_swap_chain), whose
+# layers the forward alone is compiled for (serving only)
+CHAIN_SHAPES = {(3, 1, 32), (3, 32, 2)}
 
 
 def test_forward_and_backward_compile_the_same_shapes():
+    """The backward (dW/db and the transposed launch) is compiled for the
+    same shapes as the forward, but for the chain's two forward-only
+    layers."""
     fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
     bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
-    assert len(fwd) == len(set(fwd)) == 25
-    assert fwd == bwd
+    transposed = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_TRANSPOSE_SHAPES")
+    assert len(fwd) == len(set(fwd)) == 27
+    assert len(bwd) == len(set(bwd)) == 25
+    assert transposed == bwd
+    assert set(fwd) == set(bwd) | CHAIN_SHAPES
+    assert not CHAIN_SHAPES & set(bwd)
 
 
 @pytest.mark.parametrize("name,cfg", [
@@ -48,12 +67,20 @@ def test_forward_and_backward_compile_the_same_shapes():
 ])
 def test_model_stacks_are_compiled(name, cfg):
     shapes = set(compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES"))
+    transposed = set(compiled_shapes("nc_conv4d.cu",
+                                     "NC_CONV4D_TRANSPOSE_SHAPES"))
     c_in = 1
     for k, c_out in zip(cfg.ncons_kernel_sizes, cfg.ncons_channels):
         # the forward launch, and the transposed one of the backward, which
         # the kernel serves under the same forward shape
         assert (k, c_in, c_out) in shapes, (name, k, c_in, c_out)
+        assert (k, c_in, c_out) in transposed, (name, k, c_in, c_out)
         c_in = c_out
+    if len(cfg.ncons_channels) == 2 and len(set(cfg.ncons_kernel_sizes)) == 1:
+        # a two-layer stack of one kernel size is in the tap-swap class: its
+        # chain [1 -> 2C, 2C -> 2] filters a rectangular volume
+        k, c = cfg.ncons_kernel_sizes[0], cfg.ncons_channels[0]
+        assert {(k, 1, 2 * c), (k, 2 * c, 2)} <= shapes, name
 
 
 def taps_in_volume(n, k):
@@ -87,6 +114,25 @@ def test_stack_work_pins_the_bound():
     assert flops == pytest.approx(3.82e12, rel=1e-3)
     bound_ms = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
     assert bound_ms == pytest.approx(3.865, abs=1e-3)
+    assert nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
+
+
+def test_chain_work_counts_the_function_not_the_zero_blocks():
+    """The InLoc tap-swap chain's bound: the fused 1 → 32 layer and two
+    16 → 1 layers on (1, 100, 75, 75, 100), two thirds of the multiply-adds
+    the chain's half-zero block-diagonal 32 → 2 layer makes the kernel
+    compute; bound by operations, 0.572 ms."""
+    shape = (1, 100, 75, 75, 100)
+    flops, nbytes = chip_smoke.chain_work(shape, 3, 16)
+    taps = taps_in_volume(100, 3) ** 2 * taps_in_volume(75, 3) ** 2
+    assert flops == 2 * taps * 32 + 2 * (2 * taps * 16) == 565_265_166_848
+    padded, padded_bytes = chip_smoke.stack_work(shape, (3, 3), (32, 2))
+    assert 3 * flops == 2 * padded
+    cells = 100 * 75 * 75 * 100
+    assert nbytes == 2 * (3 * cells + 81 * 32 + 32 + 2 * (81 * 16 + 1))
+    assert padded_bytes - nbytes == 2 * 81 * 32  # the zero blocks' weights
+    bound_ms = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    assert bound_ms == pytest.approx(0.572, abs=1e-3)
     assert nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
 
 
@@ -200,11 +246,18 @@ def test_l2_work():
 
 
 def test_compiled_layer_shapes_constant_is_the_sources():
-    """The routes' list of compiled layer shapes
-    (``nc_fused_lane.COMPILED_LAYER_SHAPES``) is the forward's and the
-    backward's X-macro list, shape for shape."""
-    from ncnet_tpu_torch.ops.nc_fused_lane import COMPILED_LAYER_SHAPES
+    """The routes' lists of compiled layer shapes are the sources' X-macro
+    lists, shape for shape: the serving chooser's
+    (``nc_fused_lane.FORWARD_LAYER_SHAPES``) the forward's, the training
+    gate's (``nc_fused_lane.VJP_LAYER_SHAPES``) the backward's and the
+    transposed launch's."""
+    from ncnet_tpu_torch.ops.nc_fused_lane import (
+        FORWARD_LAYER_SHAPES,
+        VJP_LAYER_SHAPES,
+    )
 
     fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
     bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
-    assert COMPILED_LAYER_SHAPES == set(fwd) == set(bwd)
+    transposed = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_TRANSPOSE_SHAPES")
+    assert FORWARD_LAYER_SHAPES == set(fwd)
+    assert VJP_LAYER_SHAPES == set(bwd) == set(transposed)

@@ -379,7 +379,7 @@ def test_port_imports_no_jax():
         "evaluation/pipeline", "evaluation/resilience", "evaluation/pf_pascal",
         "models/checkpoint", "observability/device", "observability/memory",
         "utils/faults", "utils/profiling", "cli/common",
-        "cli/eval_pf_pascal")} <= names
+        "cli/eval_pf_pascal", "evaluation/inloc", "cli/eval_inloc")} <= names
     bad = []
     for path in files:
         for name in _imported_modules(path):

@@ -590,11 +590,14 @@ def test_uncompiled_bf16_stacks_take_no_kernel_tier(fresh_chooser, kernels,
     class only where every layer is compiled into the kernels; any other
     stack is None ('xla') before any launch, where the JAX package falls
     to its XLA tier."""
-    assert not tlane.stack_compiled(kernels, channels)
-    assert not tlane.fused_shape_class(kernels, channels)
+    assert not tlane.stack_compiled(kernels, channels,
+                                    tlane.FORWARD_LAYER_SHAPES)
+    assert not tlane.fused_shape_class(kernels, channels,
+                                       tlane.VJP_LAYER_SHAPES)
     assert tlane.choose_fused_stack(side, side, side, side, kernels, channels) is None
     assert tlane.last_selected_tier() == "xla"
-    assert tlane.stack_compiled((5, 5, 5), (16, 16, 1))
+    assert tlane.stack_compiled((5, 5, 5), (16, 16, 1),
+                                tlane.FORWARD_LAYER_SHAPES)
     assert tlane.choose_fused_stack(side, side, side, side, (5, 5, 5),
                                     (16, 16, 1)) == "resident"
     assert tlane.last_selected_tier() == "resident"
@@ -648,3 +651,97 @@ def test_compiled_bf16_stack_takes_the_kernel_tier(fresh_chooser, monkeypatch):
     tnet.neigh_consensus(leaves, x, require_vjp=True).float().sum().backward()
     assert calls[1:] == ["nc_stack_fused"]
     assert all(p["w"].grad is not None for p in leaves)
+
+
+# ---------------------------------------------------------------------------
+# the tap-swap chain of the InLoc (IVD) stack (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+IVD_CHAIN = ((3, 3), (32, 2))
+
+
+@pytest.mark.parametrize("volume", [(100, 75, 75, 100), (6, 5, 5, 6)])
+def test_tap_swap_chain_routes_to_the_kernel_tier(fresh_chooser, volume):
+    """The chain of the IVD stack, (3, 1, 32) and (3, 32, 2), is compiled
+    into the forward kernel: the serving chooser takes "resident" at the
+    full InLoc volume and at a small rectangular one, as for the plain
+    (16, 1) stack."""
+    assert tlane.stack_compiled(*IVD_CHAIN, tlane.FORWARD_LAYER_SHAPES)
+    assert tlane.fused_shape_class(*IVD_CHAIN, tlane.FORWARD_LAYER_SHAPES)
+    assert tlane.choose_fused_stack(*volume, *IVD_CHAIN) == "resident"
+    assert tlane.last_selected_tier() == "resident"
+    assert tlane.choose_fused_stack(*volume, (3, 3), (16, 1)) == "resident"
+
+
+def test_training_gate_refuses_the_chain_shapes(fresh_chooser):
+    """The chain's layers have no backward kernel: the training gate
+    (``fused_shape_class`` with the backward's list) refuses them, while
+    the plain IVD stack keeps B2 and B3."""
+    assert not tlane.stack_compiled(*IVD_CHAIN, tlane.VJP_LAYER_SHAPES)
+    assert not tlane.fused_shape_class(*IVD_CHAIN, tlane.VJP_LAYER_SHAPES)
+    assert tlane.fused_shape_class((3, 3), (16, 1), tlane.VJP_LAYER_SHAPES)
+    assert tlane.FORWARD_LAYER_SHAPES - tlane.VJP_LAYER_SHAPES == {
+        (3, 1, 32), (3, 32, 2)}
+
+
+@pytest.mark.parametrize("dtype,tier", [("bfloat16", "resident"),
+                                        ("float32", "xla")])
+def test_rectangular_ivd_stack_routes_to_the_tap_swap(fresh_chooser,
+                                                      monkeypatch, dtype,
+                                                      tier):
+    """A rectangular (16, 1) stack takes the tap-swap form: in bf16 one
+    kernel-tier call on the chain (1 → 32 → 2), in fp32 the fused first
+    layer and the two second layers through the formulations (B5 for the
+    16 → 1 layers); neither runs the stack on the transposed volume."""
+    calls = spy_stack_routes(monkeypatch)
+    b5 = spy_b5(monkeypatch)
+    swapped = []
+    real = tnet._swap_ab
+    monkeypatch.setattr(tnet, "_swap_ab", lambda x: (swapped.append(1),
+                                                     real(x))[1])
+    layers = as_torch(make_stack(35, (3, 3), (16, 1)), getattr(torch, dtype))
+    x = torch.from_numpy(rng(36).uniform(0, 1, (1, 7, 5, 5, 7)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    tnet.neigh_consensus(layers, x)
+    assert not swapped
+    if dtype == "bfloat16":
+        assert calls == ["fused_stack_forward"]
+        assert tlane.last_selected_tier() == tier
+        assert b5 == []
+    else:
+        assert calls == []
+        assert len(b5) == 2
+
+
+@pytest.mark.parametrize("kernels,require_vjp", [
+    ((5, 5), False),  # the chain (5, 1, 32), (5, 32, 2) is not compiled
+    ((3, 3), True),   # the chain has no backward
+])
+def test_rectangular_stack_without_its_chain_keeps_two_kernel_passes(
+        fresh_chooser, monkeypatch, kernels, require_vjp):
+    """A rectangular bf16 (16, 1) stack the kernel tier runs but whose
+    tap-swap chain it does not (k = 5 in serving; the IVD stack while the
+    training gate records gradients) runs the two passes on the kernel, as
+    before the tap-swap form: one kernel-tier call on the volume and one
+    on its transpose, equal to the two twins' sum; the tier reads
+    'resident'."""
+    calls = spy_stack_routes(monkeypatch)
+    b5 = spy_b5(monkeypatch)
+    layers = as_torch(make_stack(37, kernels, (16, 1)), torch.bfloat16)
+    x = torch.from_numpy(rng(38).uniform(0, 1, (1, 7, 5, 5, 7)).astype(
+        np.float32)).to(torch.bfloat16)
+    if require_vjp:
+        layers = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                  for p in layers]
+    out = tnet.neigh_consensus(layers, x, require_vjp=require_vjp)
+    route = "nc_stack_fused" if require_vjp else "fused_stack_forward"
+    assert calls == [route, route]
+    assert tlane.last_selected_tier() == "resident"
+    assert b5 == []
+    with torch.no_grad():
+        v = x[..., None]
+        vt = v.permute(0, 3, 4, 1, 2, 5).contiguous()
+        want = (tlane.nc_stack_reference(layers, v)
+                + tlane.nc_stack_reference(layers, vt).permute(
+                    0, 3, 4, 1, 2, 5))[..., 0]
+    assert torch.equal(out.detach(), want)
