@@ -196,6 +196,30 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      committing its second ``.mat`` and resumed (its tables bit-equal to
      the uninterrupted run's), and with a device error injected at every
      attempt of its first query (quarantined, exit 2);
+  P. InLoc localization (no kernel: B2's counter, reset just before, must
+     read 0): ``run_localization`` at ``LocalizationConfig``'s defaults (top
+     10, score > 0.75, 0.2 degrees, 10,000 samples, pose verification) on a
+     synthetic room of known geometry written with numpy (a raw 4032 × 3024
+     portrait query, 10 cutouts of 1200 × 1600 with their ``XYZcut`` maps,
+     the true one second in the shortlist, 15,000 match rows a cutout, a
+     scan of 2.5 M points): the true pose within 5 cm and 0.2 degrees,
+     DensePE's top 1 the decoy, pose verification ranking the true cutout
+     first, the "InLoc + NCNet" curve 1.0 at 0.25 m; per pair the sampling,
+     ``p3p_solve``, scoring (CUDA events) and LO ms, per verification item
+     the render, inpainting, ``dense_sift`` (CUDA events) and score ms, the
+     stage and query walls; the scorer on the true pair's hypotheses with
+     TF32 forced on against TF32 off (every decision) and the CPU (every
+     decision more than 16 f32 ulps from the threshold, the best index);
+     ``dense_sift`` on the query's 1/8 image under the default TF32
+     settings within 1e-5 of the CPU; the first 2 pairs on the card, on the
+     CPU (poses bit-equal where the masks agree) and with 2 workers on the
+     card (the same ImgLists).  Then phase I's matches (2 queries × 3
+     cutouts, crops of their query, so ``XYZcut`` maps of a wall give a
+     known pose): ``run_localization`` (every ``.mat`` readable, one error
+     line a query, the rate printed, not gated: the weights are random), and
+     the CLI once through, again (its artifacts reloaded, the ImgLists
+     bit-equal) and with one query's matches ``.mat`` corrupted (that query
+     quarantined, exit 2);
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -368,6 +392,28 @@ FIT_STEADY_PAIRS, FIT_STEADY_WINDOW = 64, (3, 4)
 INLOC_SIDE, INLOC_K, INLOC_PANOS, INLOC_DEPTH = 3200, 2, 10, 2
 INLOC_QUERY_HW, INLOC_PANO_HW = (4032, 3024), (1200, 1600)
 INLOC_LOOP_QUERIES, INLOC_LOOP_PANOS = 2, 3
+# phase P: the localization stage at LocalizationConfig's defaults (those of
+# compute_densePE_NCNet.m: top 10, score threshold 0.75, 0.2 degrees, 10,000
+# samples, pose verification on) on a synthetic textured wall of known
+# geometry: a raw portrait query of INLOC_QUERY_HW seen from a known pose,
+# LOC_CUTOUTS cutouts of INLOC_PANO_HW (the true one at LOC_TRUE_SLOT of the
+# shortlist, not first), LOC_ROWS match rows a cutout (the InLoc table's
+# capacity at 3200, match_capacity(3200, 2, True)) of which LOC_GOOD_ROWS on
+# the true cutout come from the geometry with LOC_NOISE_PX of noise on the
+# query side, and LOC_PAD_ROWS pad rows of score 0; a scan of about
+# LOC_SCAN_POINTS points; the recovered pose within LOC_POSE_BOUND (metres,
+# degrees) of the truth
+LOC_CUTOUTS, LOC_TRUE_SLOT = 10, 1
+LOC_ROWS, LOC_GOOD_ROWS, LOC_PAD_ROWS = 15000, 7000, 2000
+LOC_NOISE_PX, LOC_SCAN_POINTS = 1.0, 2_500_000
+LOC_POSE_BOUND = (0.05, 0.2)
+# the scene is a textured room (a box: X, Y (down), Z bounds in metres; the
+# cameras stand near its origin and look along +Z at the back wall), so the
+# depth varies across every view and the pose has no planar ambiguity; its
+# texture a random grid of LOC_TEXTURE_CELL metres; phase I's tree (part 2)
+# faces a wall at LOC_TREE_DEPTH
+LOC_ROOM = ((-2.0, 2.2), (-2.2, 2.0), (-1.0, 5.0))
+LOC_TEXTURE_CELL, LOC_TREE_DEPTH = 0.05, 5.0
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -3274,11 +3320,12 @@ def inloc_config():
                        backbone_bf16=True, relocalization_k_size=INLOC_K)
 
 
-def inloc_images(torch, dev, hw, n, seed, source=None):
+def inloc_images(torch, dev, hw, n, seed, source=None, origins=None):
     """``n`` uint8 ``(H, W, 3)`` images made on the card: a smooth random
     texture (low-resolution noise upsampled bilinearly, plus noise), or,
     with ``source``, crops of it of size ``hw`` at seeded origins (a
-    cutout showing part of its query)."""
+    cutout showing part of its query; each origin ``(y0, x0)`` appended to
+    ``origins`` when given)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     h, w = hw
     out = []
@@ -3296,6 +3343,8 @@ def inloc_images(torch, dev, hw, n, seed, source=None):
             x0 = int(torch.randint(0, source.shape[1] - w + 1, (1,),
                                    generator=g, device=dev))
             img = torch.as_tensor(source[y0:y0 + h, x0:x0 + w])
+            if origins is not None:
+                origins.append((y0, x0))
         out.append(img.contiguous().cpu().numpy())
     return out
 
@@ -3460,11 +3509,13 @@ def check_unfused(torch, dev):
     return {"unfused_fp32_ms": sum(ms_u) / 2, "two_pass_fp32_ms": sum(ms_t) / 2}
 
 
-def write_inloc_tree(torch, dev, root, n_queries, n_panos, seed):
+def write_inloc_tree(torch, dev, root, n_queries, n_panos, seed,
+                     origins=None):
     """An InLoc tree of raw images (``write_inloc_like``'s layout and
     names): ``n_queries`` portrait queries of ``INLOC_QUERY_HW`` and
     ``n_panos`` landscape cutouts of ``INLOC_PANO_HW`` each, cut from its
-    query; returns the shortlist's path."""
+    query (each cutout's origin in its query put in ``origins`` under its
+    name, when given); returns the shortlist's path."""
     import numpy as np
     from scipy.io import savemat
 
@@ -3478,12 +3529,15 @@ def write_inloc_tree(torch, dev, root, n_queries, n_panos, seed):
         (query,) = inloc_images(torch, dev, INLOC_QUERY_HW, 1, seed + q)
         qfn = f"query_{q}.jpg"
         np.save(raw_path(os.path.join(root, "query", "iphone7", qfn)), query)
-        panos = []
+        panos, corners = [], []
         for p, img in enumerate(inloc_images(torch, dev, INLOC_PANO_HW,
-                                             n_panos, seed + 100 + q, query)):
+                                             n_panos, seed + 100 + q, query,
+                                             corners)):
             pfn = f"DUC1/DUC_cutout_{q:03d}_{p * 30}_0.jpg"
             np.save(raw_path(os.path.join(root, "pano", pfn)), img)
             panos.append(pfn)
+        if origins is not None:
+            origins.update(zip(panos, corners))
         entries[0, q] = (np.array([qfn]), np.array(panos, dtype=object)[:, None])
     shortlist = os.path.join(root, "shortlist.mat")
     savemat(shortlist, {"ImgList": entries})
@@ -3689,7 +3743,9 @@ def inloc_eval(torch, nc_fused_lane, dev, cfg, params):
     ``INLOC_LOOP_QUERIES`` portrait queries and ``INLOC_LOOP_PANOS``
     landscape cutouts each; the CLI once through, killed after its first
     ``.mat`` and resumed, and run with an injected device error that
-    exhausts the retry budget.  Returns the B2 launches by run."""
+    exhausts the retry budget.  Returns the B2 launches by run and the
+    tree with the loop's matches (phase P localizes them; it removes the
+    tree)."""
     import io
     import tempfile
 
@@ -3706,8 +3762,9 @@ def inloc_eval(torch, nc_fused_lane, dev, cfg, params):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_inloc_")
     t0 = time.perf_counter()
+    origins = {}
     shortlist = write_inloc_tree(torch, dev, tmp, INLOC_LOOP_QUERIES,
-                                 INLOC_LOOP_PANOS, seed=31)
+                                 INLOC_LOOP_PANOS, seed=31, origins=origins)
     fixture_s = time.perf_counter() - t0
     n_pairs = INLOC_LOOP_QUERIES * INLOC_LOOP_PANOS
     n_cap = match_capacity(INLOC_SIDE, INLOC_K, True)
@@ -3830,20 +3887,798 @@ def inloc_eval(torch, nc_fused_lane, dev, cfg, params):
         raise SystemExit("inloc cli: the exhausted device error did not "
                          "quarantine its query or the CLI did not exit 2")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    shutil.rmtree(tmp)
-    return runs
+    tree = {"root": tmp, "matches_dir": out_dir, "shortlist": shortlist,
+            "origins": origins, "query_path": tree["query_path"],
+            "pano_path": tree["pano_path"]}
+    return runs, tree
 
 
 def inloc_phase(torch, nc_fused_lane, conv4d_pallas, dev):
-    """Phase I; returns the chain's numbers and the B2 launches by path."""
+    """Phase I; returns the chain's numbers, the B2 launches by path and
+    the loop's tree of matches."""
     chain = {**check_chain(torch, nc_fused_lane, dev), **check_unfused(torch, dev)}
     launches, cfg, params = inloc_matcher(torch, nc_fused_lane, conv4d_pallas,
                                           dev)
-    runs = inloc_eval(torch, nc_fused_lane, dev, cfg, params)
+    runs, tree = inloc_eval(torch, nc_fused_lane, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return chain, {"inloc_matcher": launches, **runs}
+    return chain, {"inloc_matcher": launches, **runs}, tree
 
+
+# ---------------------------------------------------------------------------
+# phase P: InLoc localization (PnP, pose verification, curves, the CLI)
+# ---------------------------------------------------------------------------
+
+
+def room_texture(rng):
+    """A smooth random RGB texture on the room's faces: each face's two
+    in-plane coordinates, moved apart face by face, index a random grid of
+    ``LOC_TEXTURE_CELL`` metres interpolated bilinearly.  Returns the
+    lookup ``(…, 3) points -> (…, 3) uint8 RGB``."""
+    import numpy as np
+
+    span = max(hi - lo for lo, hi in LOC_ROOM) + 1.0
+    nx = int(np.ceil(6 * span / LOC_TEXTURE_CELL)) + 2
+    ny = int(np.ceil(span / LOC_TEXTURE_CELL)) + 2
+    grid = (rng.random((ny, nx, 3)) * 255).astype(np.float32)
+    lo, hi = np.array(LOC_ROOM).T
+    # a face's in-plane axes, by its normal's axis: side walls (Z, Y),
+    # floor and ceiling (X, Z), back and front walls (X, Y)
+    first, second = np.array([2, 0, 0]), np.array([1, 2, 1])
+
+    def lookup(X):
+        axis = np.argmin(np.minimum(np.abs(X - lo), np.abs(X - hi)), axis=-1)
+        face = 2 * axis + np.take_along_axis(
+            np.abs(X - hi) < np.abs(X - lo), axis[..., None], -1)[..., 0]
+        rel = X - lo
+        a = np.take_along_axis(rel, first[axis][..., None], -1)[..., 0]
+        b = np.take_along_axis(rel, second[axis][..., None], -1)[..., 0]
+        gx = np.clip((a + face * span) / LOC_TEXTURE_CELL, 0, nx - 1.001)
+        gy = np.clip(b / LOC_TEXTURE_CELL, 0, ny - 1.001)
+        ix, iy = gx.astype(np.int64), gy.astype(np.int64)
+        fx = (gx - ix).astype(np.float32)[..., None]
+        fy = (gy - iy).astype(np.float32)[..., None]
+        top = grid[iy, ix] * (1 - fx) + grid[iy, ix + 1] * fx
+        bottom = grid[iy + 1, ix] * (1 - fx) + grid[iy + 1, ix + 1] * fx
+        return np.round(top * (1 - fy) + bottom * fy).astype(np.uint8)
+
+    return lookup
+
+
+def room_points(P, K, hw, rows=None):
+    """The room's surface points seen at the pixel centres (integer
+    coordinates) of camera ``K [R | t]`` of size ``hw`` (a camera inside
+    the box sees, along each ray, the nearest face crossing), ``(H, W, 3)``
+    float64; ``rows``: a range of pixel rows only."""
+    import numpy as np
+
+    h, w = hw
+    rows = range(h) if rows is None else rows
+    R, t = P[:, :3], P[:, 3]
+    C = -R.T @ t
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.asarray(rows, dtype=np.float64), indexing="xy")
+    d = np.stack([u, v, np.ones_like(u)], axis=-1) @ np.linalg.inv(K).T @ R
+    lam = np.full(d.shape[:-1], np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for a, bounds in enumerate(LOC_ROOM):
+            for bound in bounds:
+                hit = (bound - C[a]) / d[..., a]
+                lam = np.where((hit > 0) & (hit < lam), hit, lam)
+    return C + lam[..., None] * d
+
+
+def camera(yaw_deg, centre, pitch_deg=0.0, roll_deg=0.0):
+    """World→camera pose ``[R | t]`` of a camera at ``centre`` looking
+    along +Z turned by ``yaw`` (about Y), ``pitch`` (about X) and ``roll``
+    (about Z), in degrees."""
+    import numpy as np
+
+    a, b, c = np.deg2rad([yaw_deg, pitch_deg, roll_deg])
+    ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)],
+                   [0, np.sin(b), np.cos(b)]])
+    rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0],
+                   [0, 0, 1]])
+    R = (ry @ rx @ rz).T
+    return np.concatenate([R, (-R @ np.asarray(centre))[:, None]], axis=1)
+
+
+def write_transformation(path, P_after):
+    """A WUSTL-style transformation text file whose last 4 × 4 block is
+    ``P_after`` (scan-local → global)."""
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for title, m in (("P_before", np.linalg.inv(P_after)),
+                         ("P_after", P_after)):
+            f.write(f"{title}\n")
+            for row in m:
+                f.write(" ".join(f"{v:.15f}" for v in row) + "\n")
+
+
+def write_scan(path, xyz_local, rgb):
+    """A ``*_scan_*.ptx.mat``: the cell row ``A`` = {X, Y, Z, intensity,
+    R, G, B} of columns, as the reference's scans store it."""
+    import numpy as np
+    from scipy.io import savemat
+
+    A = np.empty((1, 7), dtype=object)
+    cols = [xyz_local[:, 0], xyz_local[:, 1], xyz_local[:, 2],
+            np.ones(len(rgb), np.uint8), rgb[:, 0], rgb[:, 1], rgb[:, 2]]
+    for i, col in enumerate(cols):
+        A[0, i] = np.ascontiguousarray(col).reshape(-1, 1)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    savemat(path, {"A": A})
+
+
+def write_refposes(path, poses):
+    """``DUC_refposes_all.mat``'s layout: the ``DUC1_RefList`` of
+    ``{queryname: P}`` and an empty ``DUC2_RefList``."""
+    import numpy as np
+    from scipy.io import savemat
+
+    ref = np.empty((len(poses),), dtype=[("queryname", object), ("P", object)])
+    for i, (name, P) in enumerate(poses.items()):
+        ref["queryname"][i] = name
+        ref["P"][i] = P
+    savemat(path, {"DUC1_RefList": ref.reshape(1, -1),
+                   "DUC2_RefList": ref[:0].reshape(1, -1)})
+
+
+def write_localization_scene(root, seed=41):
+    """An InLoc localization scene of known geometry, written with numpy:
+    a textured room (``LOC_ROOM``); a raw portrait query of ``INLOC_QUERY_HW`` seen from a
+    known pose (its focal the iPhone 7 default, so ``query_focal_length=0``
+    applies); ``LOC_CUTOUTS`` cutouts of ``INLOC_PANO_HW`` of one scan with
+    their ``XYZcut`` maps in scan-local coordinates and the scan's WUSTL
+    transformation; the scan's point cloud (about ``LOC_SCAN_POINTS``, on
+    the faces over the query's view); a shortlist with the true cutout at
+    ``LOC_TRUE_SLOT``; one matches ``.mat`` (``LOC_ROWS`` rows a cutout:
+    the true cutout ``LOC_GOOD_ROWS`` from the geometry with
+    ``LOC_NOISE_PX`` of Gaussian noise on the query side at score 0.9, then
+    junk rows at uniform scores, the decoys only junk, every cutout
+    ``LOC_PAD_ROWS`` rows of zeros); the reference poses.  Returns
+    ``LocalizationConfig`` keyword arguments, the true pose and the scan's
+    point count."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from ncnet_tpu_torch.data.datasets import raw_path
+    from ncnet_tpu_torch.localization import geometry
+
+    query_hw, cutout_hw, n_cutouts = INLOC_QUERY_HW, INLOC_PANO_HW, LOC_CUTOUTS
+    rows, good_rows, pad_rows = LOC_ROWS, LOC_GOOD_ROWS, LOC_PAD_ROWS
+    rng = np.random.default_rng(seed)
+    qh, qw = query_hw
+    Kq = geometry.intrinsics(geometry.iphone7_focal(qh, qw), qh, qw)
+    P_q = camera(4.0, (0.3, -0.2, 0.4), pitch_deg=-2.0, roll_deg=1.0)
+    texture = room_texture(rng)
+    P_after = np.eye(4)
+    P_after[:3] = camera(23.0, (0.3, -0.2, 0.1))
+    to_local = np.linalg.inv(P_after)
+
+    # the query, band by band (a 4032 × 3024 image is 12 M rays)
+    query = np.zeros((qh, qw, 3), np.uint8)
+    for r0 in range(0, qh, 512):
+        query[r0:r0 + 512] = texture(room_points(
+            P_q, Kq, query_hw, range(r0, min(qh, r0 + 512))))
+    qdir = os.path.join(root, "query")
+    os.makedirs(qdir, exist_ok=True)
+    np.save(raw_path(os.path.join(qdir, "query_0.jpg")), query)
+
+    # the scan: a regular grid on each face over the part the query sees
+    # (a coarse cast, 0.2 m of margin), in scan-local coordinates
+    seen = room_points(P_q, Kq, query_hw, range(0, qh, 16))[:, ::16]
+    seen = seen.reshape(-1, 3)
+    boxes = []
+    for a, bounds in enumerate(LOC_ROOM):
+        for bound in bounds:
+            on = seen[np.abs(seen[:, a] - bound) < 1e-9]
+            if len(on):
+                lo = np.maximum(on.min(0) - 0.2, [b[0] for b in LOC_ROOM])
+                hi = np.minimum(on.max(0) + 0.2, [b[1] for b in LOC_ROOM])
+                boxes.append((a, bound, lo, hi))
+    area = sum(np.prod(np.delete(hi - lo, a)) for a, _, lo, hi in boxes)
+    step = np.sqrt(area / LOC_SCAN_POINTS)
+    faces = []
+    for a, bound, lo, hi in boxes:
+        i, j = [k for k in range(3) if k != a]
+        gi, gj = np.meshgrid(np.arange(lo[i], hi[i], step),
+                             np.arange(lo[j], hi[j], step), indexing="xy")
+        f = np.empty((gi.size, 3))
+        f[:, a], f[:, i], f[:, j] = bound, gi.ravel(), gj.ravel()
+        faces.append(f)
+    pts = np.concatenate(faces)
+    write_scan(os.path.join(root, "scans", "DUC1", "DUC_scan_001.ptx.mat"),
+               pts @ to_local[:3, :3].T + to_local[:3, 3], texture(pts))
+    write_transformation(os.path.join(root, "DUC1", "transformations",
+                                      "DUC_trans_001.txt"), P_after)
+
+    # cutouts: the true one looks where the query looks, the decoys aside
+    ch, cw = cutout_hw
+    Kdb = geometry.intrinsics(0.625 * cw, ch, cw)  # 77 degrees wide
+    yaws = [3.0] + [(-1) ** i * (10.0 + 4.0 * i) for i in range(n_cutouts - 1)]
+    names = [f"DUC1/DUC_cutout_001_{30 * i}_0.jpg" for i in range(n_cutouts)]
+    order = list(range(1, n_cutouts))
+    order.insert(LOC_TRUE_SLOT, 0)
+    table = np.zeros((1, n_cutouts, rows, 5))
+    for slot, i in enumerate(order):
+        xyz = room_points(camera(yaws[i], (-0.2, 0.1, 0.0)), Kdb, cutout_hw)
+        local = xyz @ to_local[:3, :3].T + to_local[:3, 3]
+        os.makedirs(os.path.join(root, "cutouts", "DUC1"), exist_ok=True)
+        savemat(os.path.join(root, "cutouts", names[i] + ".mat"),
+                {"XYZcut": local})
+        n_good = 0
+        if i == 0:
+            pick = rng.choice(ch * cw, size=3 * good_rows, replace=False)
+            r, c = pick // cw, pick % cw
+            xy, depth = geometry.project_points(P_q, Kq, xyz[r, c])
+            xy = xy + rng.normal(0.0, LOC_NOISE_PX, xy.shape)
+            ok = ((depth > 0) & (xy[:, 0] >= 0) & (xy[:, 0] < qw)
+                  & (xy[:, 1] >= 0) & (xy[:, 1] < qh))
+            sel = np.flatnonzero(ok)[:good_rows]
+            n_good = len(sel)
+            good = table[0, slot, :n_good]
+            good[:, 0] = xy[sel, 0] / qw
+            good[:, 1] = xy[sel, 1] / qh
+            good[:, 2] = (c[sel] + 1.5) / cw  # gathers back to (r, c)
+            good[:, 3] = (r[sel] + 1.5) / ch
+            good[:, 4] = 0.9
+        junk = table[0, slot, n_good:rows - pad_rows]
+        junk[:] = rng.random(junk.shape)
+    os.makedirs(os.path.join(root, "matches"), exist_ok=True)
+    savemat(os.path.join(root, "matches", "1.mat"), {"matches": table})
+    entries = np.zeros((1, 1), dtype=np.dtype(
+        [("queryname", object), ("topNname", object)]))
+    entries[0, 0] = (np.array(["query_0.jpg"]),
+                     np.array([names[i] for i in order], dtype=object)[:, None])
+    savemat(os.path.join(root, "shortlist.mat"), {"ImgList": entries})
+    write_refposes(os.path.join(root, "refposes.mat"), {"query_0.jpg": P_q})
+    return dict(matches_dir=os.path.join(root, "matches"),
+                shortlist=os.path.join(root, "shortlist.mat"),
+                query_path=qdir, cutout_path=os.path.join(root, "cutouts"),
+                scan_path=os.path.join(root, "scans"),
+                transformation_path=root,
+                refposes=os.path.join(root, "refposes.mat"),
+                progress=False), P_q, len(pts)
+
+
+class StageClock:
+    """Per-call times of the localization stage's functions for one run,
+    each wrapped in its module: a call of a *unit* function (one pair's
+    RANSAC, one verification item) opens a record, and the calls of its
+    *parts* inside add their ms to it, on the host clock or, for the device
+    stages, as CUDA events read after the run."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.units = {}
+        self.walls = {}
+        self._saved = []
+
+    def _wrap(self, module, name, fn):
+        self._saved.append((module, name, getattr(module, name)))
+        setattr(module, name, fn(getattr(module, name)))
+
+    def unit(self, module, name, kind, describe=None):
+        def make(orig):
+            def run(*args, **kwargs):
+                rec = dict(describe(*args) if describe else {})
+                self.units.setdefault(kind, []).append(rec)
+                t0 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                rec["wall"] = (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+        self._wrap(module, name, make)
+
+    def part(self, module, name, kind, key, events=False):
+        torch = self.torch
+
+        def make(orig):
+            def run(*args, **kwargs):
+                rec = self.units[kind][-1]
+                if events:
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    out = orig(*args, **kwargs)
+                    end.record()
+                    rec.setdefault(key, []).append((start, end))
+                else:
+                    t0 = time.perf_counter()
+                    out = orig(*args, **kwargs)
+                    rec.setdefault(key, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+        self._wrap(module, name, make)
+
+    def wall(self, module, name, key):
+        def make(orig):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                self.walls.setdefault(key, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+        self._wrap(module, name, make)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in reversed(self._saved):
+            setattr(module, name, orig)
+        self.torch.cuda.synchronize()
+        for recs in self.units.values():
+            for rec in recs:
+                for key, vals in rec.items():
+                    if isinstance(vals, list):
+                        rec[key] = [v if isinstance(v, float)
+                                    else v[0].elapsed_time(v[1]) for v in vals]
+
+
+def localization_clock(torch):
+    """The stage clock over the localization modules: a pair's sampling,
+    ``p3p_solve``, scoring (CUDA events; the first call, the later ones are
+    the LO's re-scoring) and LO refinement; an item's render, inpainting,
+    dense SIFT (CUDA events, the query's and the render's) and score; the
+    stage and query walls."""
+    from ncnet_tpu_torch.localization import (
+        driver,
+        dsift,
+        p3p,
+        pnp,
+        verification,
+    )
+
+    clock = StageClock(torch)
+    clock.unit(pnp, "lo_ransac_p3p", "pair", lambda rays, X, *a: {
+        "tentatives": len(rays)})
+    clock.part(p3p, "sample_triples", "pair", "sampling")
+    clock.part(p3p, "p3p_solve", "pair", "p3p_solve")
+    clock.part(p3p, "_score_hypotheses", "pair", "scoring", events=True)
+    clock.part(p3p, "refine_pose_object_space", "pair", "lo_refine")
+    clock.unit(verification, "verify_pose_downsampled", "item")
+    clock.part(verification, "render_points_perspective", "item", "render")
+    clock.part(dsift, "inpaint_nans", "item", "inpaint")
+    clock.part(dsift, "dense_sift", "item", "dense_sift", events=True)
+    clock.part(verification, "pose_verification_score", "item", "score")
+    clock.wall(driver, "run_pnp_stage", "pnp_stage")
+    clock.wall(driver, "run_pv_stage", "pv_stage")
+    clock.wall(driver, "_pnp_one_query", "query")
+    return clock
+
+
+def clock_lines(clock):
+    """The stage clock's records as printable lists of ms."""
+    r = lambda xs: [round(x, 2) for x in xs]  # noqa: E731
+    pairs = clock.units.get("pair", [])
+    items = clock.units.get("item", [])
+    return {
+        "pairs": {
+            "tentatives": [p["tentatives"] for p in pairs],
+            "sampling": r(sum(p.get("sampling", [])) for p in pairs),
+            "p3p_solve": r(sum(p.get("p3p_solve", [])) for p in pairs),
+            "scoring": r(p["scoring"][0] if p.get("scoring") else 0.0
+                         for p in pairs),
+            "lo": r(sum(p.get("lo_refine", [])) + sum(p.get("scoring", [])[1:])
+                    for p in pairs),
+            "wall": r(p["wall"] for p in pairs)},
+        "items": {key: r(sum(it.get(key, [])) for it in items)
+                  for key in ("render", "inpaint", "dense_sift", "score")}
+        | {"wall": r(it["wall"] for it in items)},
+        "walls": {k: r(v) for k, v in clock.walls.items()}}
+
+
+def imglists_equal(a, b) -> bool:
+    """Two ImgLists equal bit for bit: names, scores, poses."""
+    import numpy as np
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if (x["queryname"] != y["queryname"] or x["topNname"] != y["topNname"]
+                or len(x["P"]) != len(y["P"])
+                or not np.array_equal(x["topNscore"], y["topNscore"])):
+            return False
+        if not all(np.array_equal(p, q, equal_nan=True)
+                   for p, q in zip(x["P"], y["P"])):
+            return False
+    return True
+
+
+def stage_imglists(config):
+    """The PnP and pose-verification ImgLists a run left on disk."""
+    from ncnet_tpu_torch.localization import driver
+
+    out = config.output_dir
+    return (driver._load_imglist(os.path.join(out, driver._pnp_matname(config))),
+            driver._load_imglist(os.path.join(out, driver._pv_matname(config))))
+
+
+def check_scorer(torch, dev, config, pair_dir, name):
+    """Phase P: the scorer on one pair's own hypotheses (the run's seed
+    redrawn and solved again from the pair's tentatives) on the card with
+    TF32 forced on for matmuls and convolutions, against TF32 off (equal,
+    every decision) and the CPU: every decision equal where the float64
+    cosine (computed on the card) lies more than 16 f32 ulps from the
+    threshold, counts equal for hypotheses without such a point, and the
+    best index equal."""
+    import numpy as np
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.localization import p3p
+    from ncnet_tpu_torch.localization.pnp import artifact_stem
+
+    t3d = loadmat(os.path.join(pair_dir, artifact_stem(name)
+                               + ".pnp_nc4d_inlier.mat"))["tentatives_3d"]
+    rays, X = t3d[:3].T, t3d[3:].T
+    rng = np.random.default_rng(config.seed)
+    pri = p3p.sample_triples(rng, config.ransac_iters, len(rays))
+    poses = p3p.p3p_solve(rays[pri], X[pri]).reshape(-1, 3, 4)
+    poses = poses[np.isfinite(poses[:, 0, 0])]
+    thr = np.deg2rad(config.pnp_inlier_thr_deg)
+    cos_thr = np.float32(np.cos(thr))
+    ulp = float(np.spacing(cos_thr))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+
+    def set_tf32(on):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        torch.set_float32_matmul_precision("high" if on else "highest")
+
+    def masks(P, device):
+        Pt = torch.from_numpy(P.astype(np.float32)).to(device)
+        return p3p._inlier_mask(
+            Pt[:, :, :3], Pt[:, :, 3],
+            torch.from_numpy(rays.astype(np.float32)).to(device),
+            torch.from_numpy(X.astype(np.float32)).to(device),
+            torch.ones(len(rays), dtype=torch.bool, device=device),
+            torch.tensor(cos_thr, device=device)).to(dev)
+
+    rays64, X64 = (torch.from_numpy(a).to(dev) for a in (rays, X))
+    band_points = band_hyps = diff_counts = 0
+    for lo in range(0, len(poses), 2048):
+        P = poses[lo:lo + 2048]
+        set_tf32(True)
+        on = masks(P, dev)
+        set_tf32(False)
+        off = masks(P, dev)
+        cpu = masks(P, "cpu")
+        P64 = torch.from_numpy(P).to(dev)
+        xc = torch.einsum("hij,nj->hni", P64[:, :, :3], X64) \
+            + P64[:, None, :, 3]
+        cos = torch.einsum("hni,ni->hn", xc, rays64) / xc.norm(dim=-1)
+        band = (cos - float(cos_thr)).abs() <= 16 * ulp
+        if not torch.equal(on, off) or not torch.equal(
+                on[~band], cpu[~band]) or not torch.equal(
+                on[~band], (cos > float(cos_thr))[~band]):
+            raise SystemExit("localization: the scorer's decisions changed "
+                             "with TF32 or off the card outside the band")
+        counts_on, counts_cpu = on.sum(1), cpu.sum(1)
+        clean = band.sum(1) == 0
+        if not torch.equal(counts_on[clean], counts_cpu[clean]):
+            raise SystemExit("localization: card and CPU counts differ")
+        band_points += int(band.sum())
+        band_hyps += int((~clean).sum())
+        diff_counts += int((counts_on != counts_cpu).sum())
+    set_tf32(True)
+    best_on = p3p._score_hypotheses(poses, rays, X, thr, device=dev)
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     precision) = tf32
+    torch.set_float32_matmul_precision(precision)
+    best_cpu = p3p._score_hypotheses(poses, rays, X, thr, device="cpu")
+    print(f"localization scorer: {len(poses)} hypotheses x {len(rays)} "
+          f"tentatives of the true pair; TF32 forced on == off on the card "
+          f"(every decision); {band_points} cosines of {band_hyps} hypotheses "
+          f"within 16 f32 ulps of the threshold, {diff_counts} counts differ "
+          f"card vs CPU (each within its band); best (index, count) card "
+          f"{best_on[:2]} CPU {best_cpu[:2]}", flush=True)
+    if best_on[:2] != best_cpu[:2] or not np.array_equal(best_on[2],
+                                                          best_cpu[2]):
+        raise SystemExit("localization: the best hypothesis differs between "
+                         "the card and the CPU")
+
+
+def check_dense_sift(torch, dev, query):
+    """Phase P: ``dense_sift`` on the query's 1/8 gray image on the card
+    under PyTorch's default TF32 settings (cuDNN's on) against the CPU,
+    within 1e-5."""
+    import numpy as np
+
+    from ncnet_tpu_torch.localization.dsift import dense_sift, rgb_to_gray
+    from ncnet_tpu_torch.localization.verification import downsample_image
+
+    gray = rgb_to_gray(downsample_image(query))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    got = dense_sift(gray, device=dev)
+    ms = cuda_ms(lambda: dense_sift(gray, device=dev), 5)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    want = dense_sift(gray, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got - want).max())
+    print(f"localization dense_sift: query at 1/8 {gray.shape} -> "
+          f"{got.shape} on the card (default TF32 settings) {ms:.3f} ms a "
+          f"call with its copies, CPU {cpu_ms:.1f} ms; max abs err vs the "
+          f"CPU {err:.3g} (tolerance 1e-5)", flush=True)
+    if got.shape != want.shape or not err <= 1e-5:
+        raise SystemExit("localization: dense_sift on the card disagrees "
+                         "with the CPU")
+
+
+def localization_scene_run(torch, dev):
+    """Phase P, part 1: the stage at ``LocalizationConfig``'s defaults on
+    the synthetic wall (``write_localization_scene``)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.config import LocalizationConfig
+    from ncnet_tpu_torch.data.datasets import load_image
+    from ncnet_tpu_torch.localization import driver, geometry
+    from ncnet_tpu_torch.localization.curves import ERROR_THRESHOLDS
+    from ncnet_tpu_torch.localization.pnp import artifact_stem
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loc_")
+    t0 = time.perf_counter()
+    kw, P_true, n_points = write_localization_scene(tmp)
+    scene_s = time.perf_counter() - t0
+    config = LocalizationConfig(output_dir=os.path.join(tmp, "out"), **kw)
+    print(f"localization scene: a room seen by a {INLOC_QUERY_HW} query, "
+          f"{LOC_CUTOUTS} cutouts {INLOC_PANO_HW} (the true one at shortlist "
+          f"slot {LOC_TRUE_SLOT}), {LOC_ROWS} match rows a cutout "
+          f"({LOC_GOOD_ROWS} from the geometry on the true one, "
+          f"{LOC_NOISE_PX} px noise), a scan of {n_points} points; written "
+          f"in {scene_s:.2f} s; config: top {config.pnp_topN}, score > "
+          f"{config.match_score_thr}, {config.pnp_inlier_thr_deg} deg, "
+          f"{config.ransac_iters} samples, pose verification "
+          f"{config.do_pose_verification}", flush=True)
+
+    torch.cuda.synchronize()
+    with localization_clock(torch) as clock:
+        t0 = time.perf_counter()
+        curves = driver.run_localization(config)
+        wall = time.perf_counter() - t0
+    lines = clock_lines(clock)
+    pe, pv = stage_imglists(config)
+    true_name = "DUC1/DUC_cutout_001_0_0.jpg"
+    i25 = int(np.flatnonzero(ERROR_THRESHOLDS == 0.25)[0])
+    rates = {k: float(v[i25]) for k, v in curves.items()}
+    k = pe[0]["topNname"].index(true_name)
+    dp, do = geometry.pose_distance(P_true, pe[0]["P"][k])
+    print(f"localization run (card, workers 0): {wall:.3f} s; per pair "
+          f"{lines['pairs']}; per verification item {lines['items']}; stage "
+          f"and query walls {lines['walls']}", flush=True)
+    print(f"localization: DensePE top 1 {pe[0]['topNname'][0]}, the true "
+          f"cutout's pose {dp * 100:.3f} cm / {np.rad2deg(do):.4f} deg from "
+          f"the truth; pose verification's order {pv[0]['topNname'][:3]} "
+          f"scores {np.round(pv[0]['topNscore'][:3], 4).tolist()}; localized "
+          f"@0.25 m {rates}", flush=True)
+    if pe[0]["topNname"][0] == true_name or k != LOC_TRUE_SLOT \
+            or not (dp < LOC_POSE_BOUND[0]
+                    and np.rad2deg(do) < LOC_POSE_BOUND[1]) \
+            or pv[0]["topNname"][0] != true_name \
+            or rates["InLoc + NCNet"] != 1.0:
+        raise SystemExit("localization: the true pose was not recovered or "
+                         "not verified first")
+
+    pair_dir = os.path.join(config.output_dir, driver._pnp_dirname(config),
+                            "query_0.jpg")
+    check_scorer(torch, dev, config, pair_dir, true_name)
+    check_dense_sift(torch, dev, load_image(os.path.join(
+        config.query_path, "query_0.jpg")))
+
+    # the first two pairs (the decoy and the true cutout) on the card, on
+    # the CPU (where the inlier masks agree the poses are bit-equal) and
+    # with 2 workers on the card (the same ImgLists)
+    def two_pairs(name, **kw):
+        c = dataclasses.replace(config, pnp_topN=2,
+                                output_dir=os.path.join(tmp, name), **kw)
+        t0 = time.perf_counter()
+        driver.run_localization(c, device="cpu" if name == "cpu" else None)
+        return c, time.perf_counter() - t0
+
+    card2, card_s = two_pairs("card_2")
+    cpu2, cpu_s = two_pairs("cpu")
+    w2, w_s = two_pairs("workers_2", num_workers=2)
+    dirs = [os.path.join(c.output_dir, driver._pnp_dirname(c), "query_0.jpg")
+            for c in (card2, cpu2)]
+    (card_pe, _), (cpu_pe, _) = stage_imglists(card2), stage_imglists(cpu2)
+    agree = []
+    for j, name in enumerate(card_pe[0]["topNname"]):
+        art = artifact_stem(name) + ".pnp_nc4d_inlier.mat"
+        same_mask = np.array_equal(*(loadmat(os.path.join(d, art))["inls"]
+                                     for d in dirs))
+        same_pose = np.array_equal(card_pe[0]["P"][j], cpu_pe[0]["P"][j],
+                                   equal_nan=True)
+        agree.append((same_mask, same_pose))
+        if same_mask and not same_pose:
+            raise SystemExit(f"localization: {name}: the masks agree, the "
+                             "poses differ between the card and the CPU")
+    same = [imglists_equal(a, b)
+            for a, b in zip(stage_imglists(w2), stage_imglists(card2))]
+    print(f"localization, the first 2 pairs: the card {card_s:.2f} s, the "
+          f"CPU {cpu_s:.2f} s ((mask equal, pose bit-equal) by pair "
+          f"{agree}), 2 workers on the card {w_s:.2f} s (ImgLists (PnP, pose "
+          f"verification) equal to the in-process run's: {same})", flush=True)
+    if not all(same):
+        raise SystemExit("localization: the pooled run's ImgLists differ")
+    shutil.rmtree(tmp)
+    return {"wall_s": wall, "two_pairs_s": [card_s, cpu_s, w_s], **lines}
+
+
+def write_tree_geometry(tree):
+    """Phase P, part 2: geometry for phase I's tree, whose cutouts are
+    crops of their query at known origins: the query camera at the
+    identity pose with the iPhone 7 focal, facing the wall ``Z =
+    LOC_TREE_DEPTH``.  Each cutout's ``XYZcut`` holds the wall point the
+    reference's floor-gather reads at its pixel, each query's scan the
+    query's pixels every 4 px, the transformations are identities and the
+    reference poses ``[I | 0]``.  Returns ``LocalizationConfig`` keyword
+    arguments."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from ncnet_tpu_torch.data.datasets import load_image
+    from ncnet_tpu_torch.localization import geometry
+    from ncnet_tpu_torch.localization.scan import parse_cutout_name
+
+    root = tree["root"]
+    qh, qw = INLOC_QUERY_HW
+    Kinv = np.linalg.inv(geometry.intrinsics(geometry.iphone7_focal(qh, qw),
+                                             qh, qw))
+    ch, cw = INLOC_PANO_HW
+    for name, (y0, x0) in tree["origins"].items():
+        # the gather reads pixel floor(W x) - 1 at normalized x: the cell
+        # whose continuous coordinate is c + 1.5
+        u, v = np.meshgrid(x0 + np.arange(cw) + 1.5, y0 + np.arange(ch) + 1.5,
+                           indexing="xy")
+        xyz = np.stack([u, v, np.ones_like(u)], -1) @ Kinv.T * LOC_TREE_DEPTH
+        savemat(os.path.join(tree["pano_path"], name + ".mat"),
+                {"XYZcut": xyz})
+    scans = sorted({parse_cutout_name(n).scan_id for n in tree["origins"]})
+    P0 = np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
+    for q, scan in enumerate(scans):
+        query = load_image(os.path.join(tree["query_path"], f"query_{q}.jpg"))
+        u, v = np.meshgrid(np.arange(0, qw, 4.0), np.arange(0, qh, 4.0),
+                           indexing="xy")
+        xyz = np.stack([u, v, np.ones_like(u)], -1) @ Kinv.T * LOC_TREE_DEPTH
+        write_scan(os.path.join(root, "scans", "DUC1",
+                                f"DUC_scan_{scan}.ptx.mat"),
+                   xyz.reshape(-1, 3), query[::4, ::4].reshape(-1, 3))
+        write_transformation(os.path.join(root, "DUC1", "transformations",
+                                          f"DUC_trans_{scan}.txt"), np.eye(4))
+    write_refposes(os.path.join(root, "refposes.mat"),
+                   {f"query_{q}.jpg": P0 for q in range(len(scans))})
+    return dict(matches_dir=tree["matches_dir"], shortlist=tree["shortlist"],
+                query_path=tree["query_path"], cutout_path=tree["pano_path"],
+                scan_path=os.path.join(root, "scans"),
+                transformation_path=root,
+                refposes=os.path.join(root, "refposes.mat"))
+
+
+def localization_composition(torch, tree):
+    """Phase P, part 2: the stage on the matches phase I's
+    ``run_inloc_eval`` wrote (random weights: the rate is printed, not
+    gated), then the CLI once through, again (its artifacts reloaded, the
+    ImgLists bit-equal) and with one query's matches ``.mat`` corrupted
+    (that query quarantined, exit 2)."""
+    import io
+
+    import numpy as np
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.cli import compute_localization as cli
+    from ncnet_tpu_torch.config import LocalizationConfig
+    from ncnet_tpu_torch.evaluation.resilience import RunManifest
+    from ncnet_tpu_torch.localization import driver
+    from ncnet_tpu_torch.localization.curves import ERROR_THRESHOLDS
+
+    t0 = time.perf_counter()
+    kw = write_tree_geometry(tree)
+    geo_s = time.perf_counter() - t0
+    root = tree["root"]
+    config = LocalizationConfig(output_dir=os.path.join(root, "loc"),
+                                progress=False, **kw)
+    t0 = time.perf_counter()
+    curves = driver.run_localization(config)
+    wall = time.perf_counter() - t0
+    mats = [os.path.join(d, f) for d, _, fs in os.walk(config.output_dir)
+            for f in fs if f.endswith(".mat")]
+    for path in mats:
+        loadmat(path)
+    errors = {f: len(open(os.path.join(config.output_dir, f)).readlines())
+              for f in os.listdir(config.output_dir) if f.startswith("error_")}
+    i = {d: int(np.flatnonzero(ERROR_THRESHOLDS == d)[0])
+         for d in (0.25, 0.5, 1.0)}
+    rates = {k: [float(v[j]) for j in i.values()] for k, v in curves.items()}
+    pe, _ = stage_imglists(config)
+    print(f"localization of phase I's matches ({INLOC_LOOP_QUERIES} queries x "
+          f"{INLOC_LOOP_PANOS} cutouts, random weights): geometry written in "
+          f"{geo_s:.2f} s, run_localization {wall:.3f} s; {len(mats)} .mat "
+          f"files all readable; error lines {errors}; localized @0.25/0.5/1 m "
+          f"{rates} (printed, not gated); finite poses "
+          f"{[int(np.isfinite(np.stack(e['P'])).all(axis=(1, 2)).sum()) for e in pe]}",
+          flush=True)
+    if set(errors.values()) != {INLOC_LOOP_QUERIES} or len(errors) != 2:
+        raise SystemExit("localization: expected two error files of one "
+                         "line a query")
+
+    args = ["--matches_dir", kw["matches_dir"], "--shortlist", kw["shortlist"],
+            "--query_path", kw["query_path"], "--cutout_path",
+            kw["cutout_path"], "--scan_path", kw["scan_path"],
+            "--transformation_path", root, "--refposes", kw["refposes"],
+            "--retry_backoff_s", "0"]
+
+    def cli_run(out_dir, matches=None):
+        argv = list(args) + ["--output_dir", out_dir]
+        if matches:
+            argv[1] = matches
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    cli_dir = os.path.join(root, "loc_cli")
+    cli_config = LocalizationConfig(output_dir=cli_dir, **kw)
+    rc1, out1, s1 = cli_run(cli_dir)
+    first = stage_imglists(cli_config)
+    stamps = {f: os.path.getmtime(os.path.join(cli_dir, f))
+              for f in os.listdir(cli_dir) if f.endswith(".mat")}
+    rc2, out2, s2 = cli_run(cli_dir)
+    same = all(imglists_equal(a, b)
+               for a, b in zip(stage_imglists(cli_config), first))
+    kept = stamps == {f: os.path.getmtime(os.path.join(cli_dir, f))
+                      for f in stamps}
+    rates1 = [ln for ln in out1.splitlines() if "localized @" in ln]
+    rates2 = [ln for ln in out2.splitlines() if "localized @" in ln]
+    bad = os.path.join(root, "matches_corrupted")
+    shutil.copytree(kw["matches_dir"], bad)
+    with open(os.path.join(bad, "1.mat"), "wb") as f:
+        f.write(b"not a .mat file")
+    bad_dir = os.path.join(root, "loc_cli_bad")
+    rc3, out3, s3 = cli_run(bad_dir, matches=bad)
+    manifest = RunManifest(os.path.join(
+        bad_dir, driver._pnp_dirname(cli_config), "manifest.json"))
+    print(f"localization cli: exit {rc1} in {s1:.3f} s {rates1}; again "
+          f"(reloading) exit {rc2} in {s2:.3f} s, stage .mat files untouched "
+          f"{kept}, ImgLists bit-equal {same}, same lines {rates1 == rates2}; "
+          f"with 1.mat corrupted exit {rc3} in {s3:.3f} s, quarantined "
+          f"{list(manifest.quarantined_ids)}", flush=True)
+    if rc1 != 0 or rc2 != 0 or not same or not kept or rates1 != rates2 \
+            or rc3 != 2 or manifest.quarantined_ids != ("query_0.jpg",) \
+            or not manifest.is_completed("query_1.jpg"):
+        raise SystemExit("localization cli: expected exit 0, a reloading "
+                         "rerun with the same ImgLists, and a corrupted "
+                         "query quarantined with exit 2")
+    return {"wall_s": wall, "cli_s": [s1, s2, s3]}
+
+
+def localization_phase(torch, dev, tree):
+    """Phase P: the localization stage on the synthetic wall at its
+    published settings, then on phase I's matches and through its CLI;
+    removes phase I's tree."""
+    t0 = time.perf_counter()
+    scene = localization_scene_run(torch, dev)
+    composed = localization_composition(torch, tree)
+    shutil.rmtree(tree["root"])
+    print(f"localization: phase P in {time.perf_counter() - t0:.1f} s on "
+          f"{card_line()}", flush=True)
+    return {"scene": scene, "composition": composed}
 
 def main() -> int:
     import torch
@@ -3901,8 +4736,12 @@ def main() -> int:
     fit_launches = fit_phase(torch, nc_fused_lane, nc_fused_lane_vjp, dev,
                              train_start, train_walls)
     del train_start
-    chain_numbers, inloc_launches = inloc_phase(torch, nc_fused_lane,
-                                                conv4d_pallas, dev)
+    chain_numbers, inloc_launches, inloc_tree = inloc_phase(
+        torch, nc_fused_lane, conv4d_pallas, dev)
+    nc_fused_lane.launches = 0
+    localization_phase(torch, dev, inloc_tree)
+    if nc_fused_lane.launches:
+        raise SystemExit("localization: phase P launched an NC kernel")
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],

@@ -1,8 +1,8 @@
 """Configuration of the PyTorch port.
 
-``ModelConfig``, ``TrainConfig``, ``EvalPFPascalConfig`` and
-``EvalInLocConfig`` repeat ``ncnet_tpu/config.py`` field for field (same
-names, same defaults), so a configuration written for the JAX package
+``ModelConfig``, ``TrainConfig``, ``EvalPFPascalConfig``,
+``EvalInLocConfig`` and ``LocalizationConfig`` repeat
+``ncnet_tpu/config.py`` field for field (same names, same defaults), so a configuration written for the JAX package
 means the same model and run here.  Options the port does not run yet are
 still fields; the code rejects them loudly (``models/ncnet.py::
 check_ported``, ``training/train.py::check_train_ported``,
@@ -168,3 +168,43 @@ class EvalInLocConfig:
     retrieval_index: str = ""            # refused: the retrieval shortlist (A12)
     retrieval_topk: int = 0
     retrieval_min_coverage: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalizationConfig:
+    """InLoc downstream localization (the reference's MATLAB L6 stage,
+    compute_densePE_NCNet.m: thresholds at :33-34, pnp_topN at :31), read
+    by ``localization/driver.py::run_localization`` and
+    ``cli/compute_localization.py``."""
+
+    matches_dir: str = ""                # matches/<experiment> from eval_inloc
+    shortlist: str = "datasets/inloc/densePE_top100_shortlist_cvpr18.mat"
+    query_path: str = "datasets/inloc/query/iphone7/"
+    cutout_path: str = "datasets/inloc/pano/"     # cutout images + XYZcut .mat
+    cutout_mat_suffix: str = ".mat"      # appended to the cutout name
+    scan_path: str = "datasets/inloc/scans/"      # *_scan_*.ptx.mat
+    scan_suffix: str = ".ptx.mat"
+    transformation_path: str = "datasets/inloc/"  # <floor>/transformations/
+    refposes: str = "datasets/inloc/DUC_refposes_all.mat"
+    output_dir: str = "outputs_localization"
+    pnp_topN: int = 10                   # candidates per query
+    match_score_thr: float = 0.75        # params.ncnet.thr
+    pnp_inlier_thr_deg: float = 0.2      # params.ncnet.pnp_thr (degrees)
+    ransac_iters: int = 10000
+    max_tentatives: int = 0              # params.ncnet.N_subsample; 0 = all
+    do_pose_verification: bool = True    # the densePV rerank stage
+    query_focal_length: float = 0.0      # pixels; 0 → iPhone 7 EXIF default
+    n_queries: int = 0                   # 0 = all queries in the shortlist
+    seed: int = 0
+    progress: bool = True
+    num_workers: int = 0                 # >0: PnP (per query) and pose
+                                         # verification (per scan) fan out
+                                         # over spawn process pools — the
+                                         # reference's two parfor loops
+    # fault tolerance (evaluation/resilience.py): per-query isolation of the
+    # PnP stage — a query whose matches/.mat/cutout data is broken is
+    # retried, then quarantined into the stage manifest (it scores as
+    # not-localized downstream), instead of aborting the stage
+    query_retries: int = 2
+    retry_backoff_s: float = 0.5
+    quarantine: bool = True

@@ -866,3 +866,139 @@ def test_inloc_matcher_on_the_card_matches_the_cpu(cuda):
     share, score_err = shared_matches(tables["cuda"], tables["cpu"],
                                       ((8, 6, 6, 8), 2))
     assert share >= 0.9 and score_err <= 2e-2, (share, score_err)
+
+
+# the localization stage's device parts: the RANSAC's hypothesis scorer and
+# the dense SIFT (no kernel: plain torch on the card)
+
+
+def scorer_inputs(rng, n=1000, h=5000):
+    """Hypotheses near one pose, further and further from it, so that
+    more and more angular residuals reach the 0.2 degree threshold; float64
+    cosines minus the f32 threshold in f32 ulps of it."""
+    Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    Q *= np.sign(np.linalg.det(Q))
+    P = np.concatenate([Q, np.array([[0.1], [-0.2], [4.0]])], axis=1)
+    X = rng.normal(size=(n, 3)) + np.array([0, 0, 5.0])
+    xc = X @ P[:, :3].T + P[:, 3]
+    rays = xc / np.linalg.norm(xc, axis=1, keepdims=True)
+    rays += rng.normal(0, np.deg2rad(0.05), rays.shape)
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    poses = np.repeat(P[None], h, axis=0)
+    poses[:, :, 3] += (rng.normal(0, 1, (h, 3))
+                       * np.linspace(2e-4, 6e-3, h)[:, None])
+    thr = np.float32(np.cos(np.deg2rad(0.2)))
+    xc = np.einsum("hij,nj->hni", poses[:, :, :3], X) + poses[:, None, :, 3]
+    cos = np.einsum("hni,ni->hn", xc, rays) / np.linalg.norm(xc, axis=-1)
+    margin = (cos - np.float64(thr)) / np.float64(np.spacing(thr))
+    return poses, rays, X, margin
+
+
+def scorer_masks(poses, rays, X, device):
+    from ncnet_tpu_torch.localization import p3p
+
+    Pt = torch.from_numpy(poses.astype(np.float32)).to(device)
+    return p3p._inlier_mask(
+        Pt[:, :, :3], Pt[:, :, 3],
+        torch.from_numpy(rays.astype(np.float32)).to(device),
+        torch.from_numpy(X.astype(np.float32)).to(device),
+        torch.ones(len(rays), dtype=torch.bool, device=device),
+        torch.tensor(np.float32(np.cos(np.deg2rad(0.2))), device=device)
+    ).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_localization_scorer_ignores_tf32(cuda, monkeypatch):
+    """The scorer's decisions on the card do not move with TF32 forced on
+    (explicit f32 products and sums, no matmul); against the CPU every
+    decision whose float64 cosine lies more than 16 f32 ulps from the
+    threshold is the same, and the best hypothesis (first maximum) too."""
+    from ncnet_tpu_torch.localization import p3p
+
+    poses, rays, X, margin = scorer_inputs(np.random.default_rng(0))
+    thr = np.deg2rad(0.2)
+    off = scorer_masks(poses, rays, X, cuda)
+    best_off = p3p._score_hypotheses(poses, rays, X, thr, device=cuda)
+    precision = torch.get_float32_matmul_precision()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    torch.set_float32_matmul_precision("high")
+    try:
+        on = scorer_masks(poses, rays, X, cuda)
+        best_on = p3p._score_hypotheses(poses, rays, X, thr, device=cuda)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    np.testing.assert_array_equal(on, off)
+    assert best_on[:2] == best_off[:2]
+    np.testing.assert_array_equal(best_on[2], best_off[2])
+    band = np.abs(margin) <= 16
+    clean = band.sum(axis=1) == 0
+    assert band.any() and 0.1 < clean.mean() < 0.9
+    cpu = scorer_masks(poses, rays, X, "cpu")
+    np.testing.assert_array_equal(on[~band], cpu[~band])
+    np.testing.assert_array_equal(on[~band], (margin > 0)[~band])
+    np.testing.assert_array_equal(on.sum(1)[clean], cpu.sum(1)[clean])
+    best_cpu = p3p._score_hypotheses(poses, rays, X, thr, device="cpu")
+    assert best_on[:2] == best_cpu[:2]
+
+
+@pytest.mark.cuda
+def test_localization_dense_sift_matches_cpu(cuda, monkeypatch):
+    """``dense_sift`` on the card with cuDNN's TF32 on (PyTorch's default)
+    and matmul TF32 forced on: within 1e-5 of the CPU (no convolution or
+    matmul on its path)."""
+    from ncnet_tpu_torch.localization.dsift import dense_sift
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    rng = np.random.default_rng(3)
+    img = rng.random((504, 378)).astype(np.float32) * 255
+    img[100:160, 40:300] = 9.0
+    got = dense_sift(img, device=cuda)
+    want = dense_sift(img, device="cpu")
+    assert got.shape == want.shape == (120, 89, 128)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_localization_run_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                       tmp_path):
+    """``run_localization`` on ``chip_smoke``'s synthetic room at a small
+    size, on the card and with ``device="cpu"``: the true pose recovered,
+    verified first, and the poses bit-equal where the inlier masks agree
+    (all pairs here); the pose-verification scores within 1e-5 relative."""
+    import dataclasses
+
+    import os
+
+    from scipy.io import loadmat
+
+    import chip_smoke
+    from ncnet_tpu_torch.config import LocalizationConfig
+    from ncnet_tpu_torch.localization import driver, geometry
+
+    for name, value in (("INLOC_QUERY_HW", (400, 300)),
+                        ("INLOC_PANO_HW", (120, 160)), ("LOC_ROWS", 1500),
+                        ("LOC_GOOD_ROWS", 700), ("LOC_PAD_ROWS", 200),
+                        ("LOC_SCAN_POINTS", 100_000), ("LOC_NOISE_PX", 0.2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    kw, P_true, _ = chip_smoke.write_localization_scene(str(tmp_path / "scene"))
+    card = LocalizationConfig(output_dir=str(tmp_path / "card"),
+                              ransac_iters=2000, **kw)
+    cpu = dataclasses.replace(card, output_dir=str(tmp_path / "cpu"))
+    driver.run_localization(card)
+    driver.run_localization(cpu, device="cpu")
+    (pe, pv), (cpe, cpv) = (chip_smoke.stage_imglists(c) for c in (card, cpu))
+    pair_dirs = [os.path.join(c.output_dir, driver._pnp_dirname(c),
+                              "query_0.jpg") for c in (card, cpu)]
+    for f in os.listdir(pair_dirs[0]):
+        a, b = (loadmat(os.path.join(d, f)) for d in pair_dirs)
+        np.testing.assert_array_equal(a["inls"], b["inls"])
+        np.testing.assert_array_equal(a["P"], b["P"])
+    assert pe[0]["topNname"] == cpe[0]["topNname"]
+    assert pv[0]["topNname"] == cpv[0]["topNname"]
+    np.testing.assert_allclose(pv[0]["topNscore"], cpv[0]["topNscore"],
+                               rtol=1e-5)
+    assert pv[0]["topNname"][0] == "DUC1/DUC_cutout_001_0_0.jpg"
+    dp, do = geometry.pose_distance(P_true, pv[0]["P"][0])
+    assert dp < 0.05 and np.rad2deg(do) < 0.2

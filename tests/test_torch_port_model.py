@@ -379,7 +379,12 @@ def test_port_imports_no_jax():
         "evaluation/pipeline", "evaluation/resilience", "evaluation/pf_pascal",
         "models/checkpoint", "observability/device", "observability/memory",
         "utils/faults", "utils/profiling", "cli/common",
-        "cli/eval_pf_pascal", "evaluation/inloc", "cli/eval_inloc")} <= names
+        "cli/eval_pf_pascal", "evaluation/inloc", "cli/eval_inloc",
+        "cli/compute_localization")} <= names
+    # the localization stage (numpy and torch only)
+    assert {f"ncnet_tpu_torch/localization/{m}.py" for m in (
+        "__init__", "geometry", "scan", "render", "p3p", "pnp", "dsift",
+        "verification", "curves", "driver")} <= names
     bad = []
     for path in files:
         for name in _imported_modules(path):
