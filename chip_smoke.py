@@ -2997,11 +2997,13 @@ def steady_state_fit(torch, fit, config, root, dev, out):
 
 
 def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
-              model=None):
+              model=None, keep=None):
     """Phase F: ``fit`` end to end at the PF-Pascal recipe from phase 5's
     weights; resumes through the CLI in subprocesses; the NaN guard and the
     two fine-tune recipes (``model`` overrides the architecture, for a
-    rehearsal at a small size).  Returns the B2/B3 launches by run."""
+    rehearsal at a small size).  Returns the B2/B3 launches by run.  With
+    ``keep`` (a dict), the dataset, the CLI's configuration and run (a)'s
+    root are left on disk for phases V and M and recorded there."""
     import dataclasses
     import tempfile
 
@@ -3300,7 +3302,11 @@ def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
             or cp_res["model_config"].nc_tier != "cp" \
             or not np.isfinite(cp_res["train_loss"]).all():
         raise SystemExit("fit finetune_cp_rank: a check failed")
-    shutil.rmtree(tmp)
+    if keep is None:
+        shutil.rmtree(tmp)
+    else:
+        keep.update(tmp=tmp, root=root, config=config, a_root=a_root,
+                    final="step_%08d" % steps)
     return launches
 
 
@@ -4680,6 +4686,490 @@ def localization_phase(torch, dev, tree):
           f"{card_line()}", flush=True)
     return {"scene": scene, "composition": composed}
 
+# ---------------------------------------------------------------------------
+# phase V: the VGG-16 and DenseNet-201 trunks at full width
+# ---------------------------------------------------------------------------
+
+
+def torchvision_features(ref_sd):
+    """A torchvision ``vgg16`` / ``densenet201`` state dict (the trunk under
+    ``features.``) from a reference one: the reference nests the same names
+    under ``FeatureExtraction.model.``."""
+    root = "FeatureExtraction.model."
+    return {"features." + k[len(root):]: v for k, v in ref_sd.items()
+            if k.startswith(root)}
+
+
+def trunk_model(torch, name, dev, tmp):
+    """Phase V's PF-Pascal model with the ``name`` trunk (VGG-16 to pool4,
+    DenseNet-201 to transition2): random from seed 0, the trunk's
+    BatchNorm statistics from one seeded 400² batch, NC kernels
+    centre-peaked with biases off zero; written as a torchvision state
+    dict and as a reference ``.pth.tar``, and read back through
+    ``ModelConfig.backbone_weights`` and ``ModelConfig.checkpoint``, both
+    bit-equal to what was written.  Returns the bf16 serving config, the
+    loaded parameters on ``dev`` and the ``.pth.tar`` path."""
+    import argparse
+    import warnings
+
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.models import checkpoint as ckpt_io
+    from ncnet_tpu_torch.models.ncnet import init_ncnet, params_to, tree_leaves
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+
+    cfg = ModelConfig(backbone=name, ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-trunk warning
+        params = params_to(init_ncnet(cfg, seed=0), dev)
+    calib = np.random.default_rng(3).integers(
+        0, 256, (SERVE_BATCH, SERVE_SIDE, SERVE_SIDE, 3), dtype=np.uint8)
+    calibrate_trunk(cfg, params, normalize_imagenet(torch.as_tensor(calib).to(dev)))
+    for layer in params["nc"]:
+        d = layer["w"].shape[0] // 2
+        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
+        layer["b"] = layer["b"] + 0.05
+    written = ckpt_io.cpu_tree(params)
+    ref = ckpt_io.reference_state_dict(cfg, written)
+    pth = os.path.join(tmp, f"{name}.pth")
+    torch.save(torchvision_features(ref), pth)
+    tar = os.path.join(tmp, f"{name}.pth.tar")
+    torch.save({"epoch": 1, "state_dict": ref, "args": argparse.Namespace(
+        feature_extraction_cnn=name, ncons_kernel_sizes=[5, 5, 5],
+        ncons_channels=[16, 16, 1])}, tar)
+    via_weights = init_ncnet(cfg.replace(backbone_weights=pth), seed=0)
+    loaded_cfg, loaded = ckpt_io.load_params(tar, cfg)
+    same_w = trees_equal(torch, via_weights["backbone"], written["backbone"])
+    same_t = trees_equal(torch, loaded, written)
+    print(f"trunks {name}: {sum(t.numel() for t in tree_leaves(written['backbone']))} "
+          f"trunk parameters; backbone_weights ({os.path.getsize(pth)} bytes) "
+          f"bit-equal: {same_w}; .pth.tar ({os.path.getsize(tar)} bytes, "
+          f"args' trunk {loaded_cfg.backbone!r}) bit-equal: {same_t}",
+          flush=True)
+    if not (same_w and same_t and loaded_cfg.backbone == name):
+        raise SystemExit(f"trunks {name}: the weights files do not load back")
+    serve_cfg = loaded_cfg.replace(half_precision=True, backbone_bf16=True)
+    return serve_cfg, params_to(loaded, dev), tar
+
+
+def trunk_on_cpu(torch, name, cfg, params, dev):
+    """The f32 trunk on the card (TF32 off) against the same trunk on the
+    CPU, on one seeded 400² batch of 4 (cuDNN picks DenseNet's small convs
+    by batch size): the normalized error."""
+    import numpy as np
+
+    from ncnet_tpu_torch.models.ncnet import extract_features, params_to
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+
+    f32 = cfg.replace(backbone_bf16=False)
+    x = np.random.default_rng(7).integers(
+        0, 256, (SERVE_BATCH, SERVE_SIDE, SERVE_SIDE, 3), dtype=np.uint8)
+    img = normalize_imagenet(torch.as_tensor(x).to(dev))
+    with torch.no_grad():
+        card = extract_features(f32, params, img)
+        cpu = extract_features(f32, params_to(params, "cpu"), img.cpu())
+    return normalized_err(card, cpu.to(dev)), tuple(card.shape)
+
+
+def gather_at_channels(torch, sparse_corr, c, dev):
+    """B8 at the coarse-to-fine serving shape with ``c`` channels (a
+    trunk's width): against its twin, two launches bit-identical, and the
+    kernel, plain, library and bound times."""
+    name, b, side, _, factor, halo, k = GATHER_SHAPES[0]
+    args, kw, want, tiles = gather_call(torch, sparse_corr, b, side, c,
+                                        factor, halo, k, dev, seed=6)
+    got = sparse_corr.gather_tile_corr_pallas(*args, **kw)
+    again = sparse_corr.gather_tile_corr_pallas(*args, **kw)
+    torch.cuda.synchronize()
+    err = normalized_err(got, want)
+    if not (err <= GATHER_TOLERANCE and torch.equal(got, again)):
+        raise SystemExit(f"the gather kernel disagrees with its twin at C={c}")
+    run_k = lambda: sparse_corr.gather_tile_corr_pallas(*args, **kw)  # noqa: E731
+    run_p = lambda: sparse_corr.gather_tile_corr_reference(*args, **kw)  # noqa: E731
+    ms = [cuda_ms(run_k, 10), cuda_ms(run_k, 10)]
+    plain = [cuda_ms(run_p, 10), cuda_ms(run_p, 10)]
+    fa_p2, fb, rows, _ = args
+    fb_p2 = sparse_corr.gather_target_patches(
+        fb, tiles.ib, tiles.jb).reshape(got.shape[:4] + (c,))
+    lib = cuda_ms(lambda: torch.einsum("bnic,bnkjc->bnkij", fa_p2, fb_p2), 10)
+    flops, nbytes = gather_work(fa_p2, fb, rows, k)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "normalized_err": err, "ms": sum(ms) / 2, "plain_ms": sum(plain) / 2,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib}
+    print(f"timing B4 {name} at C={c} (one launch): kernel {ms} ms, plain "
+          f"{plain} ms, library (einsum on pre-gathered patches) {lib:.4f} "
+          f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); vs twin "
+          f"normalized {err:.3e}", flush=True)
+    return out
+
+
+def trunk_serve(torch, nc_fused_lane, sparse_corr, name, cfg, params, dev):
+    """A dense bf16 400² request of 4 pairs (the FFT tier: no B2 launch)
+    and a coarse-to-fine 800² request (``sparse_topk=4``: 6 B2 and 2 B4
+    launches), each after a warm-up; the c2f request's kernels against
+    their twins on the path's inputs.  Returns the launches by path."""
+    from ncnet_tpu_torch.models.ncnet import coarse2fine_filter, extract_features
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+
+    dense = BatchMatchEngine(cfg, params)
+    reqs = c2f_requests(seed=8, shift=TRAIN_SHIFT, side=SERVE_SIDE)
+    dense.fetch(dense.dispatch(*reqs[-1]))
+    torch.cuda.synchronize()
+    nc_fused_lane.launches = 0
+    t0 = time.perf_counter()
+    table = dense.fetch(dense.dispatch(*reqs[0]))
+    wall = (time.perf_counter() - t0) * 1e3
+    dense_launches = nc_fused_lane.launches
+    check_tables([table], (SERVE_SIDE // 16) ** 2, f"trunks {name} 400")
+    cells = (TRAIN_SHIFT[0] // 16, TRAIN_SHIFT[1] // 16)
+    rec = shift_recovery(table, SERVE_SIDE // 16, cells)
+
+    c2f_cfg = cfg.replace(sparse_topk=C2F_TOPK, sparse_factor=2)
+    engine = BatchMatchEngine(c2f_cfg, params)
+    reqs = c2f_requests(seed=9, shift=TRAIN_SHIFT, side=C2F_SIDE)
+    engine.fetch(engine.dispatch(*reqs[-1]))
+    torch.cuda.synchronize()
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    t0 = time.perf_counter()
+    c2f_table = engine.fetch(engine.dispatch(*reqs[0]))
+    c2f_wall = (time.perf_counter() - t0) * 1e3
+    c2f = {"nc_conv4d_bf16": nc_fused_lane.launches,
+           "gather_tile_corr_bf16": sparse_corr.launches}
+    check_tables([c2f_table], (C2F_SIDE // 16) ** 2, f"trunks {name} c2f")
+    c2f_rec = shift_recovery(c2f_table, C2F_SIDE // 16, cells)
+    print(f"trunks {name}: dense {SERVE_SIDE}x{SERVE_SIDE} request of "
+          f"{SERVE_BATCH} pairs {wall:.1f} ms, B2 launches {dense_launches}, "
+          f"shift recovery {rec:.4f}; c2f {C2F_SIDE}x{C2F_SIDE} request "
+          f"(sparse_topk {C2F_TOPK}) "
+          f"{c2f_wall:.1f} ms, launches {c2f}, shift recovery {c2f_rec:.4f}",
+          flush=True)
+    if dense_launches != 0 or c2f != {"nc_conv4d_bf16": 6,
+                                      "gather_tile_corr_bf16": 2}:
+        raise SystemExit(f"trunks {name}: expected 0 B2 launches in the "
+                         "dense request and 6 B2 + 2 B4 in the c2f request")
+    src, tgt = (normalize_imagenet(torch.as_tensor(a).to(dev)) for a in reqs[0])
+    with torch.no_grad():
+        fa, fb = (extract_features(c2f_cfg, params, x).to(torch.bfloat16)
+                  for x in (src, tgt))
+    check_path_calls(torch, nc_fused_lane, sparse_corr,
+                     lambda: coarse2fine_filter(c2f_cfg, params, fa, fb), 1,
+                     f"trunks {name} c2f")
+    return {f"{name}_serve_400": dense_launches, f"{name}_c2f_800": c2f}
+
+
+def trunk_fit(torch, nc_fused_lane, vjp, name, tar, f_run, dev):
+    """2 ``fit`` steps with ``fe_finetune_params=1`` from the ``.pth.tar``
+    on phase F's pairs (batch 16 at 400², bf16 NC stack): the last trunk
+    unit's trainable leaves and the NC stack move, every other trunk leaf
+    stays bit-equal, 18 B3 launches a step (the whole-batch backward's)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ncnet_tpu_torch.models import backbone as bb
+    from ncnet_tpu_torch.models import checkpoint as ckpt_io
+    from ncnet_tpu_torch.models.ncnet import tree_leaves
+    from ncnet_tpu_torch.training import fit
+
+    config = dataclasses.replace(
+        f_run["config"], model=f_run["config"].model.replace(checkpoint=tar),
+        fe_finetune_params=1, num_epochs=1, checkpoint_steps=0,
+        telemetry=False, result_model_dir=os.path.join(f_run["tmp"], name))
+    _, start = ckpt_io.load_params(tar, config.model)
+    nc_fused_lane.launches = 0
+    for key in vjp.launches:
+        vjp.launches[key] = 0
+    t0 = time.perf_counter()
+    res = fit(config, progress=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches, **vjp.launches}
+    got = ckpt_io.cpu_tree(res["state"].params)
+    labels = bb.finetune_labels(name, start["backbone"], 1)
+    moved = [(lab, not torch.equal(a, b)) for a, b, lab in zip(
+        tree_leaves(got["backbone"]), tree_leaves(start["backbone"]),
+        tree_leaves(labels))]
+    n_train = sum(lab == "trainable" for lab, _ in moved)
+    ok_trunk = all(m == (lab == "trainable") for lab, m in moved)
+    nc_moved = not trees_equal(torch, got["nc"], start["nc"])
+    steps = FIT_TRAIN_PAIRS // FIT_BATCH
+    want = {"nc_conv4d_bf16": 0, "nc_vjp_dw": steps * 2 * 3,
+            "nc_vjp_reduce": steps * 2 * 3, "nc_conv4d_transpose": steps * 2 * 3}
+    print(f"trunks {name} fit fe_finetune_params=1: {steps} steps of batch "
+          f"{FIT_BATCH} in {wall:.2f} s, train loss "
+          f"{res['train_loss'].tolist()}, val loss {res['test_loss'].tolist()}; "
+          f"the {n_train} trainable trunk leaves moved and every other stayed "
+          f"bit-equal: {ok_trunk}; NC stack moved: {nc_moved}; launches "
+          f"{launches}, expected {want}", flush=True)
+    if not ok_trunk or not n_train or not nc_moved or launches != want \
+            or not np.isfinite(res["train_loss"]).all():
+        raise SystemExit(f"trunks {name} fit: a check failed")
+    return launches
+
+
+def trunks_phase(torch, nc_fused_lane, vjp, sparse_corr, dev, f_run):
+    """Phase V; returns the B2 launches, the B3 launches and the B4
+    launches by path, and B8's numbers at each trunk's width."""
+    import tempfile
+
+    from ncnet_tpu_torch.models import backbone as bb
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trunks_")
+    nc, b3, b4, gather = {}, {}, {}, {}
+    for name in ("vgg", "densenet201"):
+        cfg, params, tar = trunk_model(torch, name, dev, tmp)
+        err, shape = trunk_on_cpu(torch, name, cfg, params, dev)
+        print(f"trunks {name}: f32 trunk features {shape} on the card vs the "
+              f"CPU: normalized {err:.3e} (tolerance {FP32_TOLERANCE})",
+              flush=True)
+        if not err <= FP32_TOLERANCE:
+            raise SystemExit(f"trunks {name}: the card's trunk disagrees "
+                             "with the CPU's")
+        launches = trunk_serve(torch, nc_fused_lane, sparse_corr, name, cfg,
+                               params, dev)
+        nc[f"{name}_serve_400"] = launches[f"{name}_serve_400"]
+        c2f = launches[f"{name}_c2f_800"]
+        nc[f"{name}_c2f_800"] = c2f["nc_conv4d_bf16"]
+        b4[f"{name}_c2f_800"] = c2f["gather_tile_corr_bf16"]
+        c = bb.OUTPUT_CHANNELS[name]
+        gather[f"C{c}"] = gather_at_channels(torch, sparse_corr, c, dev)
+        del params
+        torch.cuda.empty_cache()
+        fit_launches = trunk_fit(torch, nc_fused_lane, vjp, name, tar, f_run,
+                                 dev)
+        nc[f"{name}_fit_fe_finetune"] = fit_launches["nc_conv4d_bf16"]
+        b3[f"{name}_fit_fe_finetune"] = {k: fit_launches[k] for k in vjp.launches}
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    print(f"trunks: phase V in {time.perf_counter() - t_phase:.1f} s on "
+          f"{card_line()}", flush=True)
+    return nc, b3, b4, gather
+
+
+# ---------------------------------------------------------------------------
+# phase M: multi-GPU execution (the hB-sharded InLoc forward, data-parallel
+# fit over torch.distributed)
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_forward_check(torch, nc_fused_lane, conv4d_pallas, cfg, params,
+                          mesh, src, tgt):
+    """``spatial_forward`` on ``mesh`` against the unsharded forward on the
+    same preprocessed pair: the normalized error, the share of equal
+    relocalization offsets, no B6 and no B5 launch, and both ms."""
+    from ncnet_tpu_torch.models.ncnet import ncnet_forward
+    from ncnet_tpu_torch.parallel import spatial_forward
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nc_fused_lane.launches = 0
+        conv4d_pallas.launches = 0
+        sharded = spatial_forward(cfg, params, src, tgt, mesh)
+        torch.cuda.synchronize()
+        launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                    "conv4d_small_cout": conv4d_pallas.launches}
+        peak = torch.cuda.max_memory_allocated()
+        plain = ncnet_forward(cfg, params, src, tgt)
+        err = normalized_err(sharded.corr, plain.corr)
+        same = float(sum((a == b).float().mean() for a, b in zip(
+            sharded.delta4d, plain.delta4d)) / 4)
+        shard_ms = cuda_ms(lambda: spatial_forward(cfg, params, src, tgt, mesh), 1)
+        plain_ms = cuda_ms(lambda: ncnet_forward(cfg, params, src, tgt), 1)
+    return {"normalized_err": err, "delta_equal_share": same,
+            "launches": launches, "shape": tuple(sharded.corr.shape),
+            "ms": shard_ms, "plain_ms": plain_ms, "peak_bytes": peak}
+
+
+def table_agreement(got, want, grid):
+    """(share of ``want``'s matches in ``got``, max score difference over
+    the shared ones) of two matcher tables, matches compared by their fine
+    cells."""
+    import numpy as np
+
+    (ha, wa, hb, wb), k = grid
+    sizes = np.asarray([wa, ha, wb, hb], dtype=np.float64) * k
+    tabs = []
+    for t in (got, want):
+        t = np.stack(t, -1)
+        t = t[t[:, 4] > 0]
+        cells = np.rint(t[:, :4].astype(np.float64) * sizes - 0.5).astype(np.int64)
+        tabs.append({tuple(c): float(s) for c, s in zip(cells, t[:, 4])})
+    common = tabs[0].keys() & tabs[1].keys()
+    diff = max((abs(tabs[0][c] - tabs[1][c]) for c in common), default=0.0)
+    return len(common) / max(1, len(tabs[1])), diff
+
+
+def dp_fit_world1(torch, f_run, dev):
+    """``fit`` with ``distributed=True`` in a world-1 NCCL group (its
+    collectives run: the roll's all_gather, the gradients' all_reduce, the
+    val loss's, the stop agreement's) on phase F's run (a): the final
+    version (params, Adam state, step) bit-equal to (a)'s."""
+    import dataclasses
+
+    from ncnet_tpu_torch.parallel import distributed as pdist
+    from ncnet_tpu_torch.training import fit
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    # run (a)'s settings: the CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    pdist.initialize_distributed(
+        device=dev, init_method=f"tcp://localhost:{free_port()}",
+        world_size=1, rank=0, timeout_s=300)
+    try:
+        backend = torch.distributed.get_backend()
+        t0 = time.perf_counter()
+        res = fit(dataclasses.replace(
+            f_run["config"], distributed=True, telemetry=False,
+            result_model_dir=os.path.join(f_run["tmp"], "world1")),
+            progress=False, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        pdist.shutdown_distributed()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    final = f_run["final"]
+    same = trees_equal(torch, version_trees(os.path.join(res["checkpoint"], final)),
+                       version_trees(os.path.join(f_run["a_root"], final)))
+    print(f"multi-gpu fit: world 1 over {backend}, {int(res['state'].step)} "
+          f"steps in {wall:.2f} s, train loss {res['train_loss'].tolist()}; "
+          f"version {final} (params, Adam state, step) vs phase F's "
+          f"non-distributed run: {'bit-equal' if same else 'DIFFERENT'}",
+          flush=True)
+    if backend != "nccl" or not same:
+        raise SystemExit("multi-gpu fit: the world-1 NCCL run is not "
+                         "bit-equal to phase F's")
+
+
+def _dp_rank(rank, world, port, config, out):
+    """One rank of phase M's world-2 ``fit`` (a process of its own, on
+    ``cuda:<rank>``)."""
+    import torch
+
+    from ncnet_tpu_torch.models import checkpoint as ckpt_io
+    from ncnet_tpu_torch.parallel import distributed as pdist
+    from ncnet_tpu_torch.training import fit
+
+    pdist.initialize_distributed(
+        device=f"cuda:{rank}", init_method=f"tcp://localhost:{port}",
+        world_size=world, rank=rank, timeout_s=300)
+    res = fit(config, progress=False, device=f"cuda:{rank}")
+    torch.save({"params": ckpt_io.cpu_tree(res["state"].params),
+                "train_loss": res["train_loss"].tolist(),
+                "step": int(res["state"].step)},
+               os.path.join(out, f"rank{rank}.pt"))
+    pdist.shutdown_distributed()
+
+
+def dp_fit_world2(torch, f_run):
+    """``fit`` at world 2 over NCCL, a card a rank (two processes): both
+    ranks end on the same parameters, bit for bit, with finite losses."""
+    import dataclasses
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    out = os.path.join(f_run["tmp"], "world2")
+    os.makedirs(out, exist_ok=True)
+    config = dataclasses.replace(f_run["config"], telemetry=False,
+                                 result_model_dir=os.path.join(out, "ckpt"))
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(2, free_port(), config, out), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
+    same = trees_equal(torch, ranks[0]["params"], ranks[1]["params"])
+    print(f"multi-gpu fit: world 2 over nccl on cuda:0 and cuda:1, "
+          f"{ranks[0]['step']} steps in {wall:.2f} s, train loss "
+          f"{ranks[0]['train_loss']}; the ranks' params bit-equal: {same}",
+          flush=True)
+    if not same or not np.isfinite(ranks[0]["train_loss"]).all():
+        raise SystemExit("multi-gpu fit: the world-2 ranks disagree")
+
+
+def multi_gpu_phase(torch, nc_fused_lane, conv4d_pallas, dev, f_run):
+    """Phase M; returns the sharded forward's numbers."""
+    from ncnet_tpu_torch.evaluation.inloc import (
+        device_preprocess,
+        make_pair_matcher,
+    )
+    from ncnet_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if n_gpu >= 2 else ["cuda:0", "cuda:0"]
+    mesh = make_mesh(data=1, spatial=2, devices=devices)
+    print(f"multi-gpu: {n_gpu} CUDA device(s) visible; the sharded forward on "
+          f"{devices}; the data-parallel check: world 1 over NCCL"
+          + (" and world 2 over NCCL, a card a rank" if n_gpu >= 2 else
+             " (world 2 needs a second card: NCCL refuses two ranks on "
+             "one device)"), flush=True)
+    cfg = inloc_config()
+    (query,) = inloc_images(torch, dev, INLOC_QUERY_HW, 1, seed=21)
+    panos = inloc_images(torch, dev, INLOC_PANO_HW, 2, seed=22, source=query)
+    params = inloc_params(torch, cfg, dev, query)
+    src, tgt = (device_preprocess(torch.as_tensor(a[None]).to(dev), INLOC_SIDE,
+                                  INLOC_K) for a in (query, panos[0]))
+    fine_hb = tgt.shape[1] // 16
+    numbers = sharded_forward_check(torch, nc_fused_lane, conv4d_pallas, cfg,
+                                    params, mesh, src, tgt)
+    print(f"multi-gpu spatial_forward: the IVD model (bf16, k {INLOC_K}) on "
+          f"the pair {tuple(src.shape)} x {tuple(tgt.shape)} (fine hB "
+          f"{fine_hb}, padded to the shardable {fine_hb + (-fine_hb) % (2 * INLOC_K)}), "
+          f"2 shards: volume {numbers['shape']}, vs the unsharded forward "
+          f"normalized {numbers['normalized_err']:.3e} (tolerance "
+          f"{SERVE_TOLERANCE:.4f}), relocalization offsets equal "
+          f"{numbers['delta_equal_share']:.5f}; launches "
+          f"{numbers['launches']}; {numbers['ms']:.1f} ms (unsharded "
+          f"{numbers['plain_ms']:.1f} ms), peak memory "
+          f"{numbers['peak_bytes']} bytes", flush=True)
+    if numbers["normalized_err"] > SERVE_TOLERANCE or any(
+            numbers["launches"].values()):
+        raise SystemExit("multi-gpu spatial_forward: disagrees with the "
+                         "unsharded forward or launched B6/B5")
+
+    kw = dict(do_softmax=True, both_directions=True, flip_direction=False,
+              preprocess_image_size=INLOC_SIDE)
+    plain = make_pair_matcher(cfg, params, **kw)
+    sharded = make_pair_matcher(cfg, params, mesh=mesh, **kw)
+    vol = inloc_volume(INLOC_QUERY_HW, INLOC_PANO_HW)
+    shares = []
+    for img in panos:
+        want = plain(plain.preprocess(query[None]), img[None])
+        got = sharded(sharded.preprocess(query[None]), img[None])
+        shares.append(table_agreement(got, want, (vol[1:], INLOC_K)))
+    print(f"multi-gpu matcher: make_pair_matcher(mesh=) tables vs the "
+          f"unsharded matcher's on {len(panos)} cutouts: (share of matches "
+          f"shared, max score difference) {shares}", flush=True)
+    if any(s < 0.9 or d > 2e-2 for s, d in shares):
+        raise SystemExit("multi-gpu matcher: the sharded tables disagree")
+    del params, plain, sharded
+    torch.cuda.empty_cache()
+    dp_fit_world1(torch, f_run, dev)
+    if n_gpu >= 2:
+        dp_fit_world2(torch, f_run)
+    print(f"multi-gpu: phase M in {time.perf_counter() - t_phase:.1f} s on "
+          f"{card_line()}", flush=True)
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -4702,6 +5192,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     t0 = time.perf_counter()
     logs = kernel_build.build()
     print(f"build: {sorted(logs) or 'cached'} in "
@@ -4719,29 +5215,44 @@ def main() -> int:
     main_numbers = check_kernels(torch, nc_fused_lane, dev)
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
     b5_numbers, b5_by_shape = check_b5(torch, conv4d_pallas, dev)
+    mark("3")
     gather_numbers = check_gather(torch, sparse_corr, dev)
     l2_numbers, probe_numbers = probe_tools(torch, dev)
+    mark("A, T")
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches, train_start, train_walls = train(
         torch, nc_fused_lane, nc_fused_lane_vjp, dev)
+    mark("4, 5")
     engine, params, requests, tables, c2f_launches, dense_launches = serve_c2f(
         torch, nc_fused_lane, sparse_corr, dev)
     tracked_launches = serve_tracked(torch, nc_fused_lane, sparse_corr, engine,
                                      params, requests, tables)
     b5_by_path, b5_path_err = serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev)
+    mark("B, C, D")
     eval_launches = eval_phase(torch, nc_fused_lane, dev)
     reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
     loop_launches, cli_launches = eval_loop(torch, nc_fused_lane, sparse_corr,
                                             dev)
+    mark("E, R, L")
+    f_run = {}
     fit_launches = fit_phase(torch, nc_fused_lane, nc_fused_lane_vjp, dev,
-                             train_start, train_walls)
+                             train_start, train_walls, keep=f_run)
     del train_start
+    mark("F")
     chain_numbers, inloc_launches, inloc_tree = inloc_phase(
         torch, nc_fused_lane, conv4d_pallas, dev)
     nc_fused_lane.launches = 0
     localization_phase(torch, dev, inloc_tree)
     if nc_fused_lane.launches:
         raise SystemExit("localization: phase P launched an NC kernel")
+    mark("P")
+    trunk_nc, trunk_b3, trunk_b4, trunk_gather = trunks_phase(
+        torch, nc_fused_lane, nc_fused_lane_vjp, sparse_corr, dev, f_run)
+    mark("V")
+    sharded_numbers = multi_gpu_phase(torch, nc_fused_lane, conv4d_pallas,
+                                      dev, f_run)
+    shutil.rmtree(f_run["tmp"])
+    mark("M")
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -4752,15 +5263,20 @@ def main() -> int:
                   **{k: v["nc_conv4d_bf16"] for k, v in loop_launches.items()},
                   "eval_cli_400": cli_launches,
                   **inloc_launches,
-                  **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()}}
+                  **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()},
+                  **trunk_nc,
+                  # the hB-sharded InLoc forward runs the conv4d formulations
+                  "inloc_sharded": sharded_numbers["launches"]["nc_conv4d_bf16"]}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
-                     for k, v in fit_launches.items()}}
+                     for k, v in fit_launches.items()},
+                  **trunk_b3}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
                       **{k: v["gather_tile_corr_bf16"]
-                         for k, v in loop_launches.items()}}
+                         for k, v in loop_launches.items()},
+                      **trunk_b4}
 
     kernels = [{
         "name": "nc_conv4d_bf16",
@@ -4810,6 +5326,8 @@ def main() -> int:
         # one launch at the serving shape; library_ms is one cuBLAS batched
         # product (einsum) on target patches gathered beforehand
         **gather_numbers,
+        # the same at the VGG-16 (512) and DenseNet-201 (256) widths
+        "by_channels": trunk_gather,
     }, {
         "name": "conv4d_small_cout",
         "route": "cuda",
@@ -4817,7 +5335,9 @@ def main() -> int:
         # _fwd_impl, the pallas_call behind conv4d_small_cout (:133)
         "replaces": "ncnet_tpu/ops/conv4d_pallas.py:146",
         "launches": sum(b5_by_path.values()),
-        "launches_by_path": b5_by_path,
+        # the hB-sharded InLoc forward convolves valid along hB: never B5
+        "launches_by_path": {**b5_by_path, "inloc_sharded": sharded_numbers[
+            "launches"]["conv4d_small_cout"]},
         # k = 3, 5 on the tensor cores (f32 as three bf16 products)
         "design": "tensor-core, PR 8",
         # one launch at the fp32 800² path's shape (4, 50⁴, 16) -> 1 (its

@@ -5,8 +5,10 @@
 
 Flag names and defaults are the JAX CLI's (which mirror the reference's,
 eval_inloc.py:29-40), plus ``--device`` (default ``cuda``; ``cpu`` runs on
-the host).  ``--spatial_shards`` above 1 and ``--feature_store_dir`` are
-refused (``evaluation/inloc.py::check_inloc_ported``).  The images are read in
+the host).  ``--spatial_shards N`` splits each pair's volume over N local
+devices along hB (``parallel/spatial.py``; N GPUs, or the host with
+``--device cpu``); ``--feature_store_dir`` is refused
+(``evaluation/inloc.py::check_inloc_ported``).  The images are read in
 their raw form (ROADMAP decision D1: ``tools/convert_images.py`` writes
 them from a JPEG tree).  A degraded run (a query quarantined in this host's
 manifest) exits 2.
@@ -38,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path to InLoc queries")
     p.add_argument("--output_root", type=str, default="matches")
     p.add_argument("--spatial_shards", type=int, default=1,
-                   help="shard the 4D volume over this many devices (not "
-                        "ported: only 1 runs)")
+                   help="shard the 4D volume's hB over this many local "
+                        "devices (1 = off)")
     p.add_argument("--pipeline_depth", type=int, default=0,
                    help="dispatch/fetch pipeline depth (0 = adaptive to the "
                         "link's latency regime; >0 pins it)")

@@ -11,6 +11,11 @@ D1: ``tools/convert_images.py`` writes them from a JPEG tree).
 root written by an earlier run, which resumes it in place (its newest
 complete version: params, Adam state, step and loader position); SIGTERM
 or SIGINT checkpoint at the next step and exit cleanly.
+
+Data parallelism over N GPUs of a host is one process a GPU under torchrun
+(ROADMAP D7); ``--batch_size`` stays the global batch:
+
+    torchrun --nproc_per_node=N -m ncnet_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@
 ``ncnet_tpu/config.py`` field for field (same names, same defaults), so a configuration written for the JAX package
 means the same model and run here.  Options the port does not run yet are
 still fields; the code rejects them loudly (``models/ncnet.py::
-check_ported``, ``training/train.py::check_train_ported``,
-``evaluation/inloc.py::check_inloc_ported``).  The other config
+check_ported``, ``evaluation/inloc.py::check_inloc_ported``).  The other config
 dataclasses come with the slices that use them.
 """
 
@@ -44,9 +43,10 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Weak-supervision training run (reference train.py:34-47 flags), read
-    by ``training/train.py::fit`` and ``cli/train.py``.  ``distributed`` is
-    refused (multi-process runs, ROADMAP A9); ``data_parallel`` and
-    ``donate_state`` have no effect on one card in eager PyTorch."""
+    by ``training/train.py::fit`` and ``cli/train.py``.  ``batch_size`` is
+    the global batch; ``distributed`` and ``data_parallel`` select the
+    data-parallel run over ``torch.distributed`` (ROADMAP D7);
+    ``donate_state`` has no counterpart in eager PyTorch."""
 
     model: ModelConfig = ModelConfig(
         ncons_kernel_sizes=(5, 5, 5), ncons_channels=(16, 16, 1))
@@ -64,7 +64,8 @@ class TrainConfig:
     num_workers: int = 0
     eval_num_workers: int = 4
     log_interval: int = 1
-    data_parallel: bool = True           # one card: no effect (A9)
+    data_parallel: bool = True           # under torchrun (WORLD_SIZE > 1): one
+                                         # rank a GPU, gradients all-reduced
     donate_state: bool = True            # no counterpart in eager PyTorch
     remat_nc_layers: bool = False        # recompute each NC layer in the backward
     nc_custom_grad: bool = False         # the conv4d_same custom backward
@@ -73,7 +74,8 @@ class TrainConfig:
     remat_filter: bool = True            # recompute the filter in the backward
     accum_chunks: int = -1               # -1 auto, 0 whole batch, >1 chunks
     val_drop_last: bool = True
-    distributed: bool = False            # True refused: multi-host runs (A9)
+    distributed: bool = False            # join the torch.distributed group
+                                         # (torchrun's env), even at world 1
     profile_dir: str = ""
     telemetry: bool = True
     telemetry_dir: str = ""
@@ -121,8 +123,8 @@ class EvalPFPascalConfig:
 class EvalInLocConfig:
     """Dense matching for InLoc localization (reference eval_inloc.py:30-40),
     read by ``evaluation/inloc.py::run_inloc_eval`` and
-    ``cli/eval_inloc.py``.  ``spatial_shards`` > 1 (ROADMAP A9),
-    ``feature_store_dir`` and ``retrieval_index`` (A12) are refused."""
+    ``cli/eval_inloc.py``.  ``feature_store_dir`` and ``retrieval_index``
+    (ROADMAP A12) are refused."""
 
     checkpoint: str = ""
     inloc_shortlist: str = "datasets/inloc/densePE_top100_shortlist_cvpr18.mat"
@@ -136,7 +138,8 @@ class EvalInLocConfig:
     pano_path: str = "datasets/inloc/pano/"
     query_path: str = "datasets/inloc/query/iphone7/"
     output_root: str = "matches"
-    spatial_shards: int = 1              # > 1 refused: the hB-sharded forward (A9)
+    spatial_shards: int = 1              # > 1: the volume's hB split over this
+                                         # many local devices
     # coarse-to-fine matching (ModelConfig.sparse_topk); needs k_size=1
     # (relocalization keeps the dense path). 0 = dense
     sparse_topk: int = 0

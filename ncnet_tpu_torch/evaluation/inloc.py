@@ -36,9 +36,10 @@ under ROADMAP decision D4: per-query retry with backoff, quarantine into a
 per-host manifest, the consecutive-quarantine breaker, resume by artifact
 with validation, the fetch watchdog and the adaptive pipeline depth; a
 device failure re-runs the same program under the retry budget and no tier
-is ever demoted.  The hB-sharded forward (``spatial_shards``), the feature
-store and the retrieval shortlist are not ported and are refused
-(:func:`check_inloc_ported`).
+is ever demoted.  With ``spatial_shards`` > 1 a pair whose target shards
+runs the hB-sharded forward (``parallel/spatial.py``) over the local
+devices (ROADMAP D7); the feature store and the retrieval shortlist are not
+ported and are refused (:func:`check_inloc_ported`).
 """
 
 from __future__ import annotations
@@ -169,7 +170,7 @@ def extract_match_table(out, *, k_size: int, do_softmax: bool,
 def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
                       both_directions: bool, flip_direction: bool,
                       preprocess_image_size: Optional[int] = None,
-                      quality_cb=None, device=None):
+                      quality_cb=None, device=None, mesh=None):
     """``matcher(src, tgt) -> (xA, yA, xB, yB, score)`` numpy arrays, with
     the weights staged on ``device`` (CUDA by default) once.
 
@@ -193,7 +194,14 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
     ``dispatch``/``fetch`` split a call: ``dispatch`` enqueues the pair on
     the card and returns its table tensor without waiting (after
     ``utils/faults.device_error_hook("inloc_pair")``), ``fetch`` copies it
-    to the host."""
+    to the host.
+
+    ``mesh`` (``parallel/mesh.py``, with a ``spatial`` axis > 1): a pair
+    whose target's fine hB shards over it runs
+    :func:`~ncnet_tpu_torch.parallel.spatial.spatial_forward` (the trunk on
+    the mesh's first device, the weights staged there, the query's trunk
+    run again inside); any other shape falls back to the one-device
+    forward, with one warning a shape."""
     from ncnet_tpu_torch.models.ncnet import (
         check_ported,
         extract_features,
@@ -210,9 +218,33 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
     from ncnet_tpu_torch.utils.profiling import annotate
 
     check_ported(config)
-    dev = resolve_device(device)
+    n_shards = 1 if mesh is None else mesh.shape["spatial"]
+    dev = (mesh.row(0)[0] if n_shards > 1 and device is None
+           else resolve_device(device))
     staged = params_to(params, dev)
     k = max(config.relocalization_k_size, 1)
+    warned_shapes = set()
+
+    def can_shard(tgt_shape, raw: bool) -> bool:
+        """Whether the target's fine hB shards over the mesh (a one-time
+        warning a shape where not)."""
+        if n_shards <= 1:
+            return False
+        from ncnet_tpu_torch.parallel.spatial import shardable_hb
+
+        h = (quantized_resize_shape(tgt_shape[1], tgt_shape[2],
+                                    preprocess_image_size, k)[0]
+             if raw else tgt_shape[1])
+        hb = h // FEATURE_STRIDE
+        ok = shardable_hb(hb, config.relocalization_k_size, n_shards,
+                          config.ncons_kernel_sizes)
+        if not ok and tuple(tgt_shape) not in warned_shapes:
+            warned_shapes.add(tuple(tgt_shape))
+            log.warning(f"target shape {tuple(tgt_shape)} (fine hB={hb}) "
+                        f"does not shard over {n_shards} devices; falling "
+                        "back to the single-device forward for this shape "
+                        "bucket", kind="validation")
+        return ok
 
     def prep_input(img) -> torch.Tensor:
         """The one preprocessing both input paths share."""
@@ -237,8 +269,22 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
 
     @torch.no_grad()
     def run(src, tgt) -> torch.Tensor:
+        if isinstance(tgt, PreparedQuery):
+            tgt_shape, tgt_raw = tgt.image.shape, False
+        else:
+            tgt_shape = tuple(np.shape(tgt))
+            tgt_raw = (preprocess_image_size is not None
+                       and not torch.is_tensor(tgt)
+                       and np.asarray(tgt).dtype == np.uint8)
+        sharded = can_shard(tgt_shape, tgt_raw)
         tgt = to_model_input(tgt)
-        if isinstance(src, PreparedQuery):
+        if sharded:
+            from ncnet_tpu_torch.parallel.spatial import spatial_forward
+
+            # the sharded forward runs the trunk itself, on the images
+            out = spatial_forward(config, staged, to_model_input(src), tgt,
+                                  mesh)
+        elif isinstance(src, PreparedQuery):
             out = ncnet_forward_from_features(config, staged, src.features, tgt)
         else:
             out = ncnet_forward(config, staged, to_model_input(src), tgt)
@@ -382,12 +428,9 @@ def load_shortlist(path: str):
 
 def check_inloc_ported(config: EvalInLocConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that the port does not run: the hB-sharded forward
-    (``spatial_shards`` > 1, ROADMAP A9), the feature store
-    (``feature_store_dir``) and the retrieval shortlist
-    (``retrieval_index``, both A12)."""
-    unported = [("spatial_shards", config.spatial_shards > 1),
-                ("feature_store_dir", bool(config.feature_store_dir)),
+    that the port does not run: the feature store (``feature_store_dir``)
+    and the retrieval shortlist (``retrieval_index``, both ROADMAP A12)."""
+    unported = [("feature_store_dir", bool(config.feature_store_dir)),
                 ("retrieval_index", bool(config.retrieval_index))]
     for name, hit in unported:
         if hit:
@@ -465,7 +508,29 @@ def run_inloc_eval(config: EvalInLocConfig,
                 f"{config.k_size}: relocalization pooling keeps the dense "
                 "path (pass --k_size 1 to run the coarse2fine tier)",
                 kind="validation")
-        model_config = model_config.replace(sparse_topk=config.sparse_topk)
+        if config.spatial_shards > 1:
+            # the sharded forward is dense while an unshardable shape
+            # bucket would take the pipeline chooser: one run must not mix
+            # sparse and dense tables, so the knob is dropped wholesale
+            log.warning(
+                f"sparse_topk={config.sparse_topk} ignored under "
+                f"spatial_shards={config.spatial_shards} (the hB-sharded "
+                "forward is dense; a mixed sparse/dense run would be "
+                "per-pair inconsistent)", kind="validation")
+        else:
+            model_config = model_config.replace(
+                sparse_topk=config.sparse_topk)
+    mesh = None
+    if config.spatial_shards > 1:
+        from ncnet_tpu_torch.parallel import make_mesh
+
+        # this process's devices only: under host striping each rank runs
+        # its own queries, so a shard cannot also be a rank (D7).  A CPU
+        # run names the CPU once a shard; a CUDA run needs a card a shard
+        cpu = device is not None and torch.device(device).type == "cpu"
+        mesh = make_mesh(data=1, spatial=config.spatial_shards,
+                         devices=["cpu"] * config.spatial_shards if cpu
+                         else None)
 
     query_fns, pano_fns = load_shortlist(config.inloc_shortlist)
     pano_fn_all = np.vstack([p[:, None] for p in pano_fns])
@@ -508,7 +573,7 @@ def run_inloc_eval(config: EvalInLocConfig,
             flip_direction=config.flip_matching_direction,
             # raw uint8 in, normalize and resize on the card
             preprocess_image_size=config.image_size,
-            quality_cb=on_pair_quality, device=device)
+            quality_cb=on_pair_quality, device=device, mesh=mesh)
         n_cap = match_capacity(config.image_size, config.k_size,
                                config.matching_both_directions)
         manifest = None

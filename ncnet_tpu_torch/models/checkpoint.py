@@ -154,19 +154,27 @@ def import_torch_checkpoint(ckpt: Any,
 
 def load_backbone_weights(path: str, config: ModelConfig):
     """The trunk's parameters from a torchvision ``state_dict`` file
-    (``ModelConfig.backbone_weights``)."""
+    (``ModelConfig.backbone_weights``).  A whole ``vgg16`` or
+    ``densenet201`` state dict nests the trunk under ``features.``, which
+    is stripped (``ncnet_tpu/models/ncnet.py:295``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if config.backbone in ("vgg", "densenet201") and any(
+            k.startswith("features.") for k in sd):
+        sd = {k[len("features."):]: v for k, v in sd.items()
+              if k.startswith("features.")}
     return bb.import_torch_backbone(sd, config.backbone,
                                     last_layer=config.backbone_last_layer)
 
 
 def reference_state_dict(config: ModelConfig, params) -> Dict[str, torch.Tensor]:
-    """The port's ResNet-101 parameters under the reference's
-    ``ImMatchNet`` key names and layouts, the inverse of
-    :func:`import_torch_checkpoint` (BatchNorm ``num_batches_tracked``
-    buffers set to 0).  Save it as ``{"state_dict": ..., "args": ...}``
-    with ``torch.save`` to write a reference checkpoint."""
-    if config.backbone != "resnet101":
+    """The port's parameters under the reference's ``ImMatchNet`` key names
+    and layouts, the inverse of :func:`import_torch_checkpoint` (BatchNorm
+    ``num_batches_tracked`` buffers set to 0): ResNet-101 children by
+    their Sequential index, VGG-16 convs by their index in
+    ``vgg16.features``, DenseNet-201 under its torchvision names.  Save it
+    as ``{"state_dict": ..., "args": ...}`` with ``torch.save`` to write a
+    reference checkpoint."""
+    if config.backbone not in ("resnet101", "vgg", "densenet201"):
         raise ValueError(f"the reference layout of a {config.backbone!r} "
                          "trunk is not written by the port")
     sd: Dict[str, torch.Tensor] = {}
@@ -182,18 +190,37 @@ def reference_state_dict(config: ModelConfig, params) -> Dict[str, torch.Tensor]
 
     trunk = params["backbone"]
     root = "FeatureExtraction.model"
-    put(f"{root}.0.weight", trunk["conv1"]["w"])
-    put_bn(f"{root}.1", trunk["bn1"])
-    for stage in bb._resnet_stages(config.backbone_last_layer):
-        seq = _RESNET_NAME_TO_SEQ[stage]
-        for i, blk in enumerate(trunk[stage]):
-            p = f"{root}.{seq}.{i}"
-            for j in (1, 2, 3):
-                put(f"{p}.conv{j}.weight", blk[f"conv{j}"]["w"])
-                put_bn(f"{p}.bn{j}", blk[f"bn{j}"])
-            if "downsample" in blk:
-                put(f"{p}.downsample.0.weight", blk["downsample"]["conv"]["w"])
-                put_bn(f"{p}.downsample.1", blk["downsample"]["bn"])
+    if config.backbone == "vgg":
+        for i, conv in zip(bb._vgg_conv_indices(config.backbone_last_layer),
+                           trunk["convs"]):
+            put(f"{root}.{i}.weight", conv["w"])
+            put(f"{root}.{i}.bias", conv["b"])
+    elif config.backbone == "densenet201":
+        put(f"{root}.conv0.weight", trunk["conv0"]["w"])
+        put_bn(f"{root}.norm0", trunk["norm0"])
+        for bi, bname in enumerate(bb.DENSENET201_BLOCKS, start=1):
+            for i, layer in enumerate(trunk[bname], start=1):
+                p = f"{root}.{bname}.denselayer{i}"
+                for j in (1, 2):
+                    put_bn(f"{p}.norm{j}", layer[f"norm{j}"])
+                    put(f"{p}.conv{j}.weight", layer[f"conv{j}"]["w"])
+            put_bn(f"{root}.transition{bi}.norm", trunk[f"transition{bi}"]["norm"])
+            put(f"{root}.transition{bi}.conv.weight",
+                trunk[f"transition{bi}"]["conv"]["w"])
+    else:
+        put(f"{root}.0.weight", trunk["conv1"]["w"])
+        put_bn(f"{root}.1", trunk["bn1"])
+        for stage in bb._resnet_stages(config.backbone_last_layer):
+            seq = _RESNET_NAME_TO_SEQ[stage]
+            for i, blk in enumerate(trunk[stage]):
+                p = f"{root}.{seq}.{i}"
+                for j in (1, 2, 3):
+                    put(f"{p}.conv{j}.weight", blk[f"conv{j}"]["w"])
+                    put_bn(f"{p}.bn{j}", blk[f"bn{j}"])
+                if "downsample" in blk:
+                    put(f"{p}.downsample.0.weight",
+                        blk["downsample"]["conv"]["w"])
+                    put_bn(f"{p}.downsample.1", blk["downsample"]["bn"])
     for j, layer in enumerate(params["nc"]):
         put(f"NeighConsensus.conv.{2 * j}.weight",
             layer["w"].permute(0, 5, 4, 1, 2, 3))
@@ -275,10 +302,15 @@ def owning_checkpoint_root(path: str) -> Optional[str]:
 def with_io_retries(fn: Callable[[], Any], attempts: int = 3,
                     backoff: float = 0.5, what: str = "checkpoint I/O") -> Any:
     """``fn()`` with bounded retry and exponential backoff, for transient
-    filesystem failures (one process: the JAX package's multi-process
-    branch, which forces one attempt, has no counterpart here).  Each retry
-    logs a warning and emits an ``io_retry`` event; the last failure
-    raises."""
+    filesystem failures.  Each retry logs a warning and emits an
+    ``io_retry`` event; the last failure raises.  In a process group of
+    more than one rank there is one attempt: a rank retrying alone would
+    fall out of step with the others, so the job-level restart is the
+    retry (``ncnet_tpu/models/checkpoint.py:240``)."""
+    from ncnet_tpu_torch.parallel import distributed as pdist
+
+    if pdist.world_size() > 1:
+        attempts = 1
     last: Optional[Exception] = None
     for i in range(max(attempts, 1)):
         try:

@@ -62,16 +62,16 @@ from ncnet_tpu_torch.utils.seeding import torch_generator
 
 def check_ported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that this slice of the port does not run.  The torchvision and
+    that the port does not run.  Every trunk runs; the torchvision and
     reference importers (``backbone_weights``, a ``.pth.tar``
-    ``checkpoint``) read the ResNet-101 trunk only, decided from the
-    names alone; a native checkpoint directory (``models/checkpoint.py``)
-    loads for every ported trunk."""
-    resnet = config.backbone == "resnet101"
+    ``checkpoint``) read ResNet-101, VGG-16 and DenseNet-201, and no file
+    of either kind exists for the ``tiny`` test trunk (decided from the
+    names alone); a native checkpoint directory (``models/checkpoint.py``)
+    loads for every trunk."""
+    tiny = config.backbone == "tiny"
     unported = [
-        ("backbone", config.backbone not in ("resnet101", "tiny")),
-        ("backbone_weights", bool(config.backbone_weights) and not resnet),
-        ("checkpoint", bool(config.checkpoint) and not resnet
+        ("backbone_weights", bool(config.backbone_weights) and tiny),
+        ("checkpoint", bool(config.checkpoint) and tiny
          and config.checkpoint.endswith(".pth.tar")),
     ]
     for name, hit in unported:
@@ -157,6 +157,14 @@ def init_ncnet(config: ModelConfig, seed: int = 1) -> Dict[str, Any]:
         from ncnet_tpu_torch.models.checkpoint import load_backbone_weights
 
         trunk = load_backbone_weights(config.backbone_weights, config)
+    elif config.backbone in ("resnet101", "vgg", "densenet201"):
+        import warnings
+
+        warnings.warn(
+            f"initializing a '{config.backbone}' trunk with RANDOM weights "
+            "— the reference always uses ImageNet-pretrained weights; pass "
+            "backbone_weights=<torchvision .pth> (or a checkpoint) for "
+            "meaningful features", stacklevel=2)
     params: Dict[str, Any] = {"backbone": trunk}
     nc: List[Dict[str, torch.Tensor]] = []
     c_in = 1

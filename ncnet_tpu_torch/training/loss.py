@@ -10,6 +10,16 @@ batch.
 Dtypes follow the JAX package at every point: under ``half_precision`` the
 volume, the softmax, max and mean run in bf16 (sums inside them in f32),
 and the chunked loss weights the bf16 pair scores with f32 weights.
+
+Data parallelism (``data_parallel=True`` inside a ``torch.distributed``
+group, ROADMAP D7): each rank holds its contiguous slice of the global
+batch, and the roll is over the global batch, as JAX's roll of a
+pair-sharded array is.  The negative of a rank's last pair is the next
+rank's first source, which every rank passes to its left neighbour
+(:func:`roll_sources`); its gradient, when the trunk trains, goes back to
+its owner.  Each rank returns its part of the global-batch loss (the
+pairs weighted ±1/B with B the global batch), so the parts, and their
+gradients, sum over the ranks to the global loss's.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ncnet_tpu_torch.config import ModelConfig
@@ -27,6 +38,7 @@ from ncnet_tpu_torch.models.ncnet import (
     tree_map,
 )
 from ncnet_tpu_torch.ops.correlation import correlation_4d
+from ncnet_tpu_torch.parallel import distributed as pdist
 
 
 def _softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -66,6 +78,45 @@ def match_score(corr: torch.Tensor, normalization: str = "softmax"
     return match_score_per_pair(corr, normalization).mean()
 
 
+class _NextRankFirst(torch.autograd.Function):
+    """The next rank's first source feature map ``(1, h, w, C)``: every
+    rank gives its own to an ``all_gather`` and takes rank r + 1's (mod
+    the world).  The backward sends the gradient of the received map back
+    to its owner the same way, rank r taking rank r − 1's."""
+
+    @staticmethod
+    def _gather(x: torch.Tensor, offset: int) -> torch.Tensor:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        bufs = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(bufs, x.contiguous())
+        return bufs[(rank + offset) % world]
+
+    @staticmethod
+    def forward(ctx, first: torch.Tensor) -> torch.Tensor:
+        return _NextRankFirst._gather(first, 1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return _NextRankFirst._gather(grad, -1)
+
+
+def data_parallel_world(data_parallel: bool) -> int:
+    """The number of ranks the batch is split over: the process group's
+    size under ``data_parallel``, else 1."""
+    return pdist.world_size() if data_parallel else 1
+
+
+def roll_sources(fa: torch.Tensor, data_parallel: bool = False
+                 ) -> torch.Tensor:
+    """The source features rolled by −1 along the batch: ``torch.roll``
+    on one rank; inside a process group under ``data_parallel``, the
+    global batch's roll (this rank's pairs 1..b−1, then the next rank's
+    pair 0, by :class:`_NextRankFirst`)."""
+    if not (data_parallel and pdist.is_initialized()):
+        return torch.roll(fa, -1, dims=0)
+    return torch.cat([fa[1:], _NextRankFirst.apply(fa[:1])], dim=0)
+
+
 def _features(config: ModelConfig, params, batch, detach: bool):
     fa = extract_features(config, params, batch["source_image"])
     fb = extract_features(config, params, batch["target_image"])
@@ -81,7 +132,8 @@ def weak_loss(config: ModelConfig, params, batch: Dict[str, torch.Tensor],
               stop_backbone_grad: bool = False,
               remat_nc_layers: bool = False, nc_custom_grad: bool = False,
               fold_pos_neg: bool = False, remat_filter: bool = True,
-              nc_pallas_vjp: bool = True) -> torch.Tensor:
+              nc_pallas_vjp: bool = True,
+              data_parallel: bool = False) -> torch.Tensor:
     """score(negative) − score(positive) on an image-pair batch
     (``source_image``/``target_image`` of shape ``(B, H, W, 3)``).
 
@@ -92,8 +144,11 @@ def weak_loss(config: ModelConfig, params, batch: Dict[str, torch.Tensor],
     ``nc_pallas_vjp`` is passed to ``ncnet_filter`` as both ``nc_pallas``
     and ``nc_pallas_vjp``, as the JAX package does.  ``remat_nc_layers``
     (a checkpoint per NC layer) and ``nc_custom_grad`` (the routed
-    ``conv4d_same`` backward) are :func:`neigh_consensus`'s memory knobs."""
+    ``conv4d_same`` backward) are :func:`neigh_consensus`'s memory knobs.
+    ``data_parallel`` (in a process group): this rank's part of the
+    global-batch loss, the negatives rolled over the global batch."""
     fa, fb = _features(config, params, batch, stop_backbone_grad)
+    world = data_parallel_world(data_parallel)
 
     def filt(corr):
         return ncnet_filter(config, params, corr,
@@ -107,15 +162,18 @@ def weak_loss(config: ModelConfig, params, batch: Dict[str, torch.Tensor],
     else:
         run = filt
     corr_pos = correlation_4d(fa, fb)
-    corr_neg = correlation_4d(torch.roll(fa, -1, dims=0), fb)
+    corr_neg = correlation_4d(roll_sources(fa, data_parallel), fb)
     if fold_pos_neg:
         b = corr_pos.shape[0]
         scores = match_score_per_pair(
             run(torch.cat([corr_pos, corr_neg], dim=0)), normalization)
-        return scores[b:].mean() - scores[:b].mean()
-    score_pos = match_score(run(corr_pos), normalization)
-    score_neg = match_score(run(corr_neg), normalization)
-    return score_neg - score_pos
+        loss = scores[b:].mean() - scores[:b].mean()
+    else:
+        score_pos = match_score(run(corr_pos), normalization)
+        score_neg = match_score(run(corr_neg), normalization)
+        loss = score_neg - score_pos
+    # the local means weigh a pair 1/b; the global batch weighs it 1/(b·W)
+    return loss if world == 1 else loss / world
 
 
 def auto_accum_chunks(batch_size: int, n_dev: int = 1) -> int:
@@ -136,7 +194,9 @@ def weak_loss_and_grads(config: ModelConfig, params,
                         accum_chunks: int = -1,
                         remat_nc_layers: bool = False,
                         nc_custom_grad: bool = False,
-                        nc_pallas_vjp: bool = True) -> Tuple[torch.Tensor, Dict]:
+                        nc_pallas_vjp: bool = True,
+                        data_parallel: bool = False
+                        ) -> Tuple[torch.Tensor, Dict]:
     """:func:`weak_loss`'s value and parameter gradients with the trunk
     frozen, by volume-chunked accumulation (``loss.py:188``).
 
@@ -146,20 +206,27 @@ def weak_loss_and_grads(config: ModelConfig, params,
     (``-1``: :func:`auto_accum_chunks`), each one's filter forward and
     backward in turn, and the NC gradients summed in f32 (the JAX scan, as
     a Python loop).  Trunk gradients come back as zeros, as JAX returns
-    them.  Requires ``2 * B % accum_chunks == 0``."""
+    them.  Requires ``2 * B % accum_chunks == 0``.  ``data_parallel`` (in
+    a process group): this rank's part of the global loss and gradients,
+    ``B`` its local batch, the pairs weighted ±1/(B·W) and the negatives
+    rolled over the global batch; ``accum_chunks`` counts the rank's own
+    chunks."""
+    world = data_parallel_world(data_parallel)
     with torch.no_grad():
         fa, fb = _features(config, params, batch, detach=True)
+        rolled = roll_sources(fa, data_parallel)
     b = fa.shape[0]
     n2 = 2 * b
     if accum_chunks == -1:
-        accum_chunks = auto_accum_chunks(b)
+        accum_chunks = auto_accum_chunks(b * world, world)
     if n2 % accum_chunks:
         raise ValueError(f"accum_chunks={accum_chunks} must divide 2*batch={n2}")
-    fa2 = torch.cat([fa, torch.roll(fa, -1, dims=0)], dim=0)
+    fa2 = torch.cat([fa, rolled], dim=0)
     fb2 = torch.cat([fb, fb], dim=0)
     # made on the card: a host tensor copied there would wait for it
-    w2 = torch.cat([torch.full((b,), -1.0 / b, device=fa.device),
-                    torch.full((b,), 1.0 / b, device=fa.device)])
+    gb = b * world
+    w2 = torch.cat([torch.full((b,), -1.0 / gb, device=fa.device),
+                    torch.full((b,), 1.0 / gb, device=fa.device)])
     nc = params["nc"]
     c = n2 // accum_chunks
     loss = torch.zeros((), dtype=torch.float32, device=fa.device)

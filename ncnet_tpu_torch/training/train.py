@@ -42,11 +42,12 @@ one loss it fetches a step and raises :class:`TrainDivergedError` after
 ``max_bad_steps``.  SIGTERM/SIGINT request a checkpoint at the next step
 boundary and a clean return (``result["preempted"]``).
 
-One process, one card: the JAX package's multi-process collective-save
-rules and its data-parallel mesh have no counterpart here (ROADMAP A9).
-Nor has its ``guarded_train_step`` (tier demotion after a device failure,
-dropped by decision D4): a device failure propagates, and resuming from
-the last committed version is the recovery.
+**Data parallelism** (ROADMAP D7): one process a GPU under
+``torch.distributed`` (``fit``'s docstring), where the JAX package
+shards the pair axis over one process's devices.  Its
+``guarded_train_step`` (tier demotion after a device failure, dropped by
+decision D4) has no counterpart: a device failure propagates, and
+resuming from the last committed version is the recovery.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ncnet_tpu_torch.config import ModelConfig, TrainConfig
 from ncnet_tpu_torch.data import DataLoader, ImagePairDataset
@@ -89,6 +91,7 @@ from ncnet_tpu_torch.observability.metrics import (
     train_step_flops,
 )
 from ncnet_tpu_torch.observability.tracing import span
+from ncnet_tpu_torch.parallel import distributed as pdist
 from ncnet_tpu_torch.training.loss import (
     auto_accum_chunks,
     weak_loss,
@@ -120,12 +123,8 @@ class TrainState(NamedTuple):
 
 def check_train_ported(config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``config``
-    that the port does not run (``distributed``: multi-process runs,
-    ROADMAP A9), and ``check_ported``'s for its model."""
-    if config.distributed:
-        raise NotImplementedError(
-            f"TrainConfig.distributed={config.distributed!r} is not ported "
-            "to ncnet_tpu_torch yet")
+    that the port does not run: every training option runs since the
+    multi-GPU slice, so only ``check_ported``'s for its model."""
     check_ported(config.model)
 
 
@@ -280,7 +279,10 @@ def _value_and_grad(loss_fn, params, trainable):
                       params, trainable)
     with torch.enable_grad():
         loss = loss_fn(leaves)
-    flat = [p for p, t in zip(tree_leaves(leaves), tree_leaves(trainable)) if t]
+    # walked by tree_map, which pairs leaves by key: the two trees' dicts
+    # may list their keys in different orders
+    flat = []
+    tree_map(lambda p, t: flat.append(p) if t else None, leaves, trainable)
     grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
 
     def grad(p, t):
@@ -298,7 +300,7 @@ def make_train_step(model_config: ModelConfig, optimizer: Adam,
                     nc_custom_grad: bool = False, fold_pos_neg: bool = False,
                     remat_filter: bool = True, accum_chunks: int = 0,
                     nan_guard: bool = False, nc_pallas_vjp: bool = True,
-                    with_grad_norm: bool = False):
+                    with_grad_norm: bool = False, data_parallel: bool = False):
     """``step(state, batch) → (state, loss)`` (``(state, loss, grad_norm)``
     with ``with_grad_norm``), with the JAX function's arguments.
 
@@ -311,7 +313,16 @@ def make_train_step(model_config: ModelConfig, optimizer: Adam,
     advances, and the loss reads NaN; nothing waits for the card.
     ``donate`` has no counterpart in eager PyTorch: the step builds new
     leaves for the trained parameters and shares the frozen ones, so the
-    old state stays valid."""
+    old state stays valid.
+
+    ``data_parallel`` inside a ``torch.distributed`` group: each rank's
+    step takes its slice of the global batch, and its loss is its part of
+    the global-batch loss (``training/loss.py``); the parts of the loss
+    and of the trainable gradients (with ``with_grad_norm``, of every
+    differentiated one, so the norm is the global batch's) are summed over
+    the ranks by one ``all_reduce`` of one flat buffer, so every rank
+    takes the same update and the NaN guard's decision, made on the
+    reduced values and still on the card, is the same everywhere."""
     if accum_chunks != 0 and not stop_backbone_grad:
         raise ValueError(
             "accum_chunks requires the frozen trunk (fe_finetune_params=0): "
@@ -321,24 +332,34 @@ def make_train_step(model_config: ModelConfig, optimizer: Adam,
     def step(state: TrainState, batch):
         dev = tree_leaves(state.params["nc"])[0].device
         batch = _to_device(batch, dev)
+        # the leaves the loss is differentiated at (zeros elsewhere)
+        differentiated = {
+            "backbone": tree_map(lambda _: not stop_backbone_grad,
+                                 state.params["backbone"]),
+            "nc": tree_map(lambda _: True, state.params["nc"])}
         if accum_chunks != 0:
             loss, grads = weak_loss_and_grads(
                 model_config, state.params, batch, accum_chunks=accum_chunks,
                 remat_nc_layers=remat_nc_layers,
-                nc_custom_grad=nc_custom_grad, nc_pallas_vjp=nc_pallas_vjp)
+                nc_custom_grad=nc_custom_grad, nc_pallas_vjp=nc_pallas_vjp,
+                data_parallel=data_parallel)
         else:
-            trainable = {
-                "backbone": tree_map(lambda _: not stop_backbone_grad,
-                                     state.params["backbone"]),
-                "nc": tree_map(lambda _: True, state.params["nc"])}
             loss, grads = _value_and_grad(
                 lambda p: weak_loss(
                     model_config, p, batch,
                     stop_backbone_grad=stop_backbone_grad,
                     remat_nc_layers=remat_nc_layers,
                     nc_custom_grad=nc_custom_grad, fold_pos_neg=fold_pos_neg,
-                    remat_filter=remat_filter, nc_pallas_vjp=nc_pallas_vjp),
-                state.params, trainable)
+                    remat_filter=remat_filter, nc_pallas_vjp=nc_pallas_vjp,
+                    data_parallel=data_parallel),
+                state.params, differentiated)
+        if data_parallel and pdist.is_initialized():
+            # the update reads the trainable leaves; the norm reads every
+            # differentiated one (a fine-tuned trunk's frozen leaves too)
+            summed = tree_map(
+                lambda lab, d: lab == "trainable" or (with_grad_norm and d),
+                optimizer.labels, differentiated)
+            loss, grads = all_reduce_sum(loss, grads, summed)
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.params)
         params = apply_updates(state.params, updates)
@@ -370,14 +391,36 @@ def make_train_step(model_config: ModelConfig, optimizer: Adam,
     return step
 
 
-def make_eval_step(model_config: ModelConfig):
+def all_reduce_sum(loss: torch.Tensor, grads, summed):
+    """The loss and the leaves of ``grads`` that the bool tree ``summed``
+    selects, summed over the process group by one ``all_reduce`` of one
+    flat f32 buffer; the other leaves are returned as they are (this
+    rank's part, read by nothing after the step)."""
+    picked = []
+    tree_map(lambda g, s: picked.append(g) if s else None, grads, summed)
+    flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                     + [g.reshape(-1).to(torch.float32) for g in picked])
+    dist.all_reduce(flat)
+    parts = iter(torch.split(flat, [1] + [g.numel() for g in picked]))
+    total = next(parts).reshape(loss.shape).to(loss.dtype)
+    reduced = {id(g): p.reshape(g.shape).to(g.dtype)
+               for g, p in zip(picked, parts)}
+    return total, tree_map(lambda g: reduced.get(id(g), g), grads)
+
+
+def make_eval_step(model_config: ModelConfig, data_parallel: bool = False):
     """``eval_step(params, batch) → loss``: :func:`weak_loss` without
-    gradients."""
+    gradients; under ``data_parallel`` in a process group, the global
+    batch's loss (the ranks' parts summed)."""
 
     @torch.no_grad()
     def eval_step(params, batch):
         dev = tree_leaves(params["nc"])[0].device
-        return weak_loss(model_config, params, _to_device(batch, dev))
+        loss = weak_loss(model_config, params, _to_device(batch, dev),
+                         data_parallel=data_parallel)
+        if data_parallel and pdist.is_initialized():
+            dist.all_reduce(loss)
+        return loss
 
     return eval_step
 
@@ -588,12 +631,38 @@ def save_train_checkpoint(path: str, config: TrainConfig,
     names the version (default ``state.step``); ``position`` is the resume
     cursor stored as ``_position``.  A crash at any point leaves every
     committed version intact.  Emits ``checkpoint_commit`` (with the
-    save's wall and payload bytes).  Returns the committed directory."""
-    t0 = time.perf_counter()
+    save's wall and payload bytes).  Returns the committed directory.
+
+    In a process group every rank calls it at the same step: rank 0 writes
+    and commits, and all ranks leave together once rank 0 has broadcast
+    the outcome, so no rank runs ahead of a save that may yet fail; a
+    failed save raises on every rank."""
     root = os.path.abspath(path)
-    os.makedirs(root, exist_ok=True)
     n = int(state.step if step is None else step)
     final = os.path.join(root, ckpt_io.checkpoint_version_name(n))
+    if pdist.rank() != 0:
+        failure = pdist.broadcast_object(None)
+        if failure is not None:
+            raise RuntimeError(
+                f"rank 0 failed to save checkpoint {final}: {failure}")
+        return final
+    try:
+        committed = _write_train_checkpoint(
+            root, final, n, config, model_config, state, epoch, train_loss,
+            test_loss, is_best, position=position, keep=keep,
+            io_retries=io_retries, io_retry_backoff=io_retry_backoff)
+    except Exception as e:
+        pdist.broadcast_object(f"{type(e).__name__}: {e}")
+        raise
+    pdist.broadcast_object(None)
+    return committed
+
+
+def _write_train_checkpoint(root, final, n, config, model_config, state,
+                            epoch, train_loss, test_loss, is_best, *,
+                            position, keep, io_retries, io_retry_backoff):
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
     tmp = final + ".tmp"
     _reclaim_carcasses(root)
     os.makedirs(tmp, exist_ok=True)
@@ -729,10 +798,13 @@ class PreemptionHandler:
         return False
 
 
-def _resolve_accum_chunks(config: TrainConfig) -> int:
-    """The chunk count of one card's step: the auto default (-1) falls back
-    to the whole-batch backward when fine-tuning the trunk, but an explicit
-    count with fine-tuning is a contradiction the user must resolve."""
+def _resolve_accum_chunks(config: TrainConfig, n_dev: int = 1) -> int:
+    """The chunk count of a step: the auto default (-1) falls back to the
+    whole-batch backward when fine-tuning the trunk, but an explicit count
+    with fine-tuning is a contradiction the user must resolve.  Over
+    ``n_dev`` data-parallel ranks a chunk of the global 2·batch volumes
+    must divide over the ranks; each rank then walks the same number of
+    chunks over its own volumes."""
     if config.fe_finetune_params > 0:
         if config.accum_chunks > 0:
             raise ValueError(
@@ -742,7 +814,7 @@ def _resolve_accum_chunks(config: TrainConfig) -> int:
                 "drop one of the two settings")
         return 0
     if config.accum_chunks == -1:
-        return auto_accum_chunks(config.batch_size)
+        return auto_accum_chunks(config.batch_size, n_dev)
     if config.accum_chunks < 0:
         raise ValueError(
             f"accum_chunks={config.accum_chunks}: use -1 (auto), 0 (off) or "
@@ -751,6 +823,14 @@ def _resolve_accum_chunks(config: TrainConfig) -> int:
         raise ValueError(
             f"accum_chunks={config.accum_chunks} must divide "
             f"2*batch_size={2 * config.batch_size}")
+    if config.accum_chunks and n_dev > 1:
+        chunk = (2 * config.batch_size) // config.accum_chunks
+        if chunk % n_dev:
+            raise ValueError(
+                f"accum_chunks={config.accum_chunks} gives chunk size "
+                f"{chunk}, which does not divide over {n_dev} data-parallel "
+                f"devices; pick a count where (2*batch_size/accum_chunks) % "
+                f"n_devices == 0, or use -1 (auto)")
     return config.accum_chunks
 
 
@@ -776,9 +856,52 @@ def fit(config: TrainConfig, progress: bool = True,
     and the NaN guard as the module docstring says.  Runs on CUDA unless
     ``device`` says otherwise.  Returns ``{state, model_config,
     train_loss, test_loss, best_test_loss, checkpoint, preempted,
-    nan_steps_skipped, quarantined}``."""
+    nan_steps_skipped, quarantined}``.
+
+    Data parallelism (ROADMAP D7) runs one process per GPU: with
+    ``distributed=True``, or with ``data_parallel`` under torchrun
+    (``WORLD_SIZE`` > 1), ``fit`` joins the process group
+    (``parallel/distributed.py``; each rank on the CUDA device of its
+    ``LOCAL_RANK`` unless ``device`` says otherwise).  ``batch_size`` stays
+    the global batch: each rank loads its shard of every epoch in local
+    batches of ``batch_size / world`` and the step sums the ranks' parts
+    of the loss and gradients (``make_train_step``).  Rank 0 alone writes
+    the checkpoints and the telemetry; the others wait for each commit.
+    The checkpoint root's name is rank 0's, the preemption stop is agreed
+    at least every 8 steps (every ``checkpoint_steps`` when fewer), and
+    I/O is not retried (a rank retrying alone would desynchronize the
+    group)."""
+    grouped = config.distributed or (config.data_parallel
+                                     and pdist.env_world_size() > 1)
+    if grouped:
+        pdist.initialize_distributed(device=device)
+        device = pdist.local_device(device)
+    world = pdist.world_size()
+    primary = pdist.rank() == 0
+    data_parallel = grouped and config.data_parallel
+    shard_kwargs = pdist.host_shard() if grouped else {}
+    local_batch = config.batch_size
+    if grouped and world > 1:
+        if not config.data_parallel:
+            # each rank would silently train its own diverging model
+            raise ValueError(
+                "distributed=True across multiple processes requires "
+                "data_parallel=True (there is no gradient sync otherwise)")
+        if config.batch_size % world:
+            raise ValueError(f"batch_size {config.batch_size} must divide "
+                             f"evenly over {world} processes")
+        if not config.val_drop_last:
+            # a partial trailing val batch would change the global batch
+            # the negatives roll over
+            raise ValueError(
+                "val_drop_last=False is incompatible with data_parallel "
+                "across multiple devices; disable one of the two")
+        local_batch = config.batch_size // world
+    if grouped and progress:
+        log.info(f"Distributed: process {pdist.rank()} of {world}")
     state, optimizer, model_config, labels = create_train_state(
         config, device=device)
+    dev = tree_leaves(state.params["nc"])[0].device
 
     # resume: a checkpoint written by fit() carries opt/: restore the full
     # train state; a root resolves to its newest COMPLETE version
@@ -812,7 +935,7 @@ def fit(config: TrainConfig, progress: bool = True,
     if progress:
         log.info(f"Trainable parameters: {n_trainable:,}")
 
-    accum = _resolve_accum_chunks(config)
+    accum = _resolve_accum_chunks(config, world if data_parallel else 1)
     if progress and accum:
         log.info(f"Gradient accumulation: {accum} chunks of "
                  f"{2 * config.batch_size // accum} volumes")
@@ -824,8 +947,10 @@ def fit(config: TrainConfig, progress: bool = True,
         fold_pos_neg=config.fold_pos_neg, remat_filter=config.remat_filter,
         accum_chunks=accum, nan_guard=config.nan_guard,
         nc_pallas_vjp=config.nc_pallas_vjp,
-        with_grad_norm=config.telemetry)
-    eval_step = make_eval_step(model_config)
+        # the same step on every rank: the grad norm is computed everywhere
+        # and read by the primary's telemetry only
+        with_grad_norm=config.telemetry, data_parallel=data_parallel)
+    eval_step = make_eval_step(model_config, data_parallel=data_parallel)
 
     decode_policy = "quarantine" if config.quarantine_decode_errors else "raise"
     size = (config.image_size, config.image_size)
@@ -837,21 +962,23 @@ def fit(config: TrainConfig, progress: bool = True,
             decode_retries=config.decode_retries)
 
     train_loader = DataLoader(
-        pairs("train_pairs.csv"), batch_size=config.batch_size, shuffle=True,
+        pairs("train_pairs.csv"), batch_size=local_batch, shuffle=True,
         num_workers=config.num_workers, seed=config.seed, drop_last=True,
-        on_decode_error=decode_policy)
+        on_decode_error=decode_policy, **shard_kwargs)
     # val: no shuffle — with drop_last a shuffle would drop a different
     # random subset each epoch, making the best-checkpoint metric noisy
     val_loader = DataLoader(
-        pairs("val_pairs.csv"), batch_size=config.batch_size, shuffle=False,
+        pairs("val_pairs.csv"), batch_size=local_batch, shuffle=False,
         num_workers=config.eval_num_workers, seed=config.seed,
-        drop_last=config.val_drop_last, on_decode_error=decode_policy)
+        drop_last=config.val_drop_last, on_decode_error=decode_policy,
+        **shard_kwargs)
 
-    # gmtime, not localtime: the name must not depend on the TZ setting
-    ckpt_name = resume_root or os.path.join(
+    # gmtime, not localtime: the name must not depend on the TZ setting;
+    # every rank takes rank 0's
+    ckpt_name = resume_root or pdist.broadcast_object(os.path.join(
         config.result_model_dir,
         time.strftime("%Y-%m-%d_%H:%M", time.gmtime(time.time()))
-        + "_" + config.result_model_fn)
+        + "_" + config.result_model_fn))
     if progress:
         log.info(f"Checkpoint name: {ckpt_name}")
 
@@ -863,10 +990,11 @@ def fit(config: TrainConfig, progress: bool = True,
     heartbeat: Optional[Heartbeat] = None
     dev_monitor: Optional[DeviceMonitor] = None
     train_registry: Optional[MetricsRegistry] = None
-    step_tracer = StepWindowTracer(config.profile_dir)
+    # rank 0 alone traces: every rank would write the same file
+    step_tracer = StepWindowTracer(config.profile_dir if primary else None)
     # the tracer rides along even without an event log
     telemetry_ctx: Dict[str, Any] = {"tracer": step_tracer}
-    if config.telemetry:
+    if config.telemetry and primary:
         tdir = config.telemetry_dir or os.path.join(ckpt_name, "telemetry")
         try:
             telemetry = EventLog(os.path.join(tdir, "events.jsonl"),
@@ -918,7 +1046,7 @@ def fit(config: TrainConfig, progress: bool = True,
 
     first_epoch = resume_epoch if resume_epoch is not None else start_epoch + 1
     steps_done = int(state.step)
-    if resume_root:
+    if resume_root and primary:
         # explicit rollback (resume from a non-newest version): newer
         # versions are stale; left in place, a crash before the new lineage
         # passes them would make the next resume pick the very checkpoint
@@ -929,6 +1057,8 @@ def fit(config: TrainConfig, progress: bool = True,
                 log.warning(f"[fault-tolerance] pruned stale version {p_v} "
                             f"(rolled back to step {steps_done})",
                             kind="validation")
+    if resume_root:
+        pdist.barrier()
     nan_streak = nan_skipped = 0
     preempted = False
     save_kwargs = dict(keep=config.keep_checkpoints,
@@ -997,7 +1127,16 @@ def fit(config: TrainConfig, progress: bool = True,
                 faults.sigterm_hook(steps_done)  # no-op unless a test armed it
                 at_ckpt = (config.checkpoint_steps > 0
                            and steps_done % config.checkpoint_steps == 0)
-                want_stop = preempt.requested
+                if world > 1:
+                    # no rank may stop (and final-save) alone: the ranks
+                    # agree, at least every 8 steps so a preemption's grace
+                    # window is kept whatever checkpoint_steps is
+                    agree_every = (min(config.checkpoint_steps, 8)
+                                   if config.checkpoint_steps else 8)
+                    want_stop = (steps_done % agree_every == 0
+                                 and pdist.global_any(preempt.requested, dev))
+                else:
+                    want_stop = preempt.requested
                 if want_stop or at_ckpt:
                     save_train_checkpoint(
                         ckpt_name, config, model_config, cur_state,
@@ -1056,7 +1195,7 @@ def fit(config: TrainConfig, progress: bool = True,
                             best=bool(is_best))
             if train_registry is not None:
                 train_registry.flush(epoch=epoch)
-            if preempt.requested:
+            if pdist.global_any(preempt.requested, dev):
                 preempted = True
                 log.info("[fault-tolerance] stopping after the epoch "
                          "checkpoint (preemption requested)",

@@ -1002,3 +1002,69 @@ def test_localization_run_on_the_card_matches_the_cpu(cuda, monkeypatch,
     assert pv[0]["topNname"][0] == "DUC1/DUC_cutout_001_0_0.jpg"
     dp, do = geometry.pose_distance(P_true, pv[0]["P"][0])
     assert dp < 0.05 and np.rad2deg(do) < 0.2
+
+
+# the VGG-16 and DenseNet-201 trunks, and the hB-sharded forward on a
+# one-card mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vgg", "densenet201"])
+def test_trunk_on_the_card_matches_the_cpu(cuda, name):
+    """Each trunk at full width on a 128² batch of 4 (cuDNN picks
+    DenseNet's small convolutions by batch size), f32 with TF32 off:
+    within 1e-4 normalized of the same weights on the CPU."""
+    from ncnet_tpu_torch.models import backbone
+
+    params = backbone.backbone_init(name, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (4, 128, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        cpu = backbone.backbone_apply(name, params, x)
+        card = backbone.backbone_apply(name, _to(params, cuda), x.to(cuda))
+    assert card.shape == cpu.shape == (4, 8, 8, backbone.OUTPUT_CHANNELS[name])
+    assert normalized_err(card, cpu.to(cuda)) <= 1e-4
+
+
+def _to(tree, dev):
+    from ncnet_tpu_torch.models.ncnet import params_to
+
+    return params_to(tree, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [False, True], ids=["fp32", "bf16"])
+def test_spatial_forward_on_one_card_matches_the_unsharded(cuda, half):
+    """``spatial_forward`` on a mesh naming the card twice (k = 2, a
+    target whose fine hB needs pad-and-mask) against the unsharded forward
+    on the card: 1e-4 normalized in f32 (the valid-dim convolutions sum in
+    another order), 7·2⁻⁷ in bf16 (the served phases' bound: the unsharded
+    forward's NC stack takes B6); the offsets equal in f32; no B6 or B5
+    launch on the sharded path."""
+    from ncnet_tpu_torch.models.ncnet import ncnet_forward
+    from ncnet_tpu_torch.parallel import make_mesh, spatial_forward
+
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3),
+                      ncons_channels=(16, 1), relocalization_k_size=2,
+                      half_precision=half)
+    params = _to(init_ncnet(cfg, seed=0), cuda)
+    for layer in params["nc"]:
+        layer["w"][1, 1, 1, 1] += 1.0 / layer["w"].shape[4]
+        layer["b"] += 0.05
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 192, 3)).astype(
+        np.float32)).to(cuda)
+    # 288 px: 18 fine rows, padded to 20 to split over 2 shards of k = 2
+    tgt = torch.from_numpy(rng.uniform(-1, 1, (1, 288, 256, 3)).astype(
+        np.float32)).to(cuda)
+    mesh = make_mesh(data=1, spatial=2, devices=[cuda, cuda])
+    with torch.no_grad():
+        before = (nc_fused_lane.launches, conv4d_pallas.launches)
+        got = spatial_forward(cfg, params, src, tgt, mesh)
+        assert (nc_fused_lane.launches, conv4d_pallas.launches) == before
+        want = ncnet_forward(cfg, params, src, tgt)
+    assert got.corr.shape == want.corr.shape == (1, 8, 6, 9, 8)
+    assert normalized_err(got.corr, want.corr) <= (7 * 2.0 ** -7 if half else 1e-4)
+    if not half:
+        for g, w in zip(got.delta4d, want.delta4d):
+            assert torch.equal(g, w)

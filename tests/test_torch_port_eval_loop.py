@@ -789,8 +789,11 @@ def test_backbone_weights_load_as_the_jax_package(resnet_ckpt, tmp_path):
 def test_checkpoint_directory_and_unported_trunks_refuse(tmp_path):
     """Directories load since the native format (ROADMAP D5): an empty one
     has no ``config.json`` (as in the JAX package), and a JAX-written
-    orbax ``params/`` is refused by name; a reference file still loads for
-    ResNet-101 only, and other trunks stay unported."""
+    orbax ``params/`` is refused by name.  A reference file loads for
+    ResNet-101, VGG-16 and DenseNet-201 since the trunk slice: a VGG-16
+    ``.pth.tar`` written by the port loads as a model, with the weights the
+    JAX importer reads from it; the ``tiny`` test trunk has no reference
+    file and stays refused."""
     with pytest.raises(FileNotFoundError, match="config.json"):
         tckpt.load_params(str(tmp_path))
     with pytest.raises(FileNotFoundError, match="config.json"):
@@ -800,9 +803,21 @@ def test_checkpoint_directory_and_unported_trunks_refuse(tmp_path):
         json.dumps(dataclasses.asdict(tcfg.ModelConfig(backbone="tiny"))))
     with pytest.raises(ValueError, match="orbax"):
         tckpt.load_params(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="backbone='vgg'"):
-        tnet.NCNet(tcfg.ModelConfig(backbone="vgg", checkpoint="x.pth.tar"),
-                   device="cpu")
+    vgg = tcfg.ModelConfig(backbone="vgg", ncons_kernel_sizes=(3,),
+                           ncons_channels=(1,))
+    with pytest.warns(UserWarning, match="RANDOM"):
+        params = tnet.init_ncnet(vgg, seed=4)
+    path = str(tmp_path / "vgg.pth.tar")
+    torch.save({"state_dict": tckpt.reference_state_dict(vgg, params),
+                "args": argparse.Namespace(feature_extraction_cnn="vgg",
+                                           ncons_kernel_sizes=[3],
+                                           ncons_channels=[1])}, path)
+    model = tnet.NCNet(tcfg.ModelConfig(backbone="vgg", checkpoint=path),
+                       device="cpu")
+    assert model.config.backbone == "vgg"
+    assert_trees_equal(tckpt.cpu_tree(model.params), params)
+    _, jp = jckpt.import_torch_checkpoint(path, jcfg.ModelConfig())
+    assert_trees_equal(params, jax.tree.map(np.asarray, jp))
     with pytest.raises(NotImplementedError, match="checkpoint"):
         tnet.NCNet(tcfg.ModelConfig(backbone="tiny", checkpoint="x.pth.tar"),
                    device="cpu")

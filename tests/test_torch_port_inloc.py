@@ -661,11 +661,49 @@ def test_device_error_is_retried_then_quarantined(rect_tree, tmp_path):
 @pytest.mark.parametrize("kw", [dict(spatial_shards=2),
                                 dict(feature_store_dir="store"),
                                 dict(retrieval_index="index.json")])
-def test_unported_options_are_refused(rect_tree, tmp_path, kw):
+def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
+    """The feature store and the retrieval shortlist (A12) are refused.
+    ``spatial_shards=2``, refused until the multi-GPU slice, now runs: on a
+    CPU mesh (the CPU named once a shard) the fp32 ``.mat`` tables hold the
+    JAX unsharded run's matches row for row, the scores within rtol 1e-5,
+    atol 1e-6 (the fp32 bound above), every pair through the sharded
+    forward; on CUDA with one card visible it raises, naming the devices
+    it needs."""
     root, shortlist = rect_tree
     name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=name):
-        run_port(root, shortlist, str(tmp_path / "m"), **kw)
+    if name != "spatial_shards":
+        with pytest.raises(NotImplementedError, match=name):
+            run_port(root, shortlist, str(tmp_path / "m"), **kw)
+        return
+    from ncnet_tpu_torch.parallel import spatial as tspatial
+
+    calls = []
+    real = tspatial.spatial_forward
+    monkeypatch.setattr(tspatial, "spatial_forward",
+                        lambda *a, **k: calls.append(a[4].shape) or real(*a, **k))
+    jc, jp, _, _ = shared_params(False)
+    jdir = jinloc.run_inloc_eval(
+        jcfg.EvalInLocConfig(output_root=str(tmp_path / "jax"),
+                             **eval_kw(root, shortlist)),
+        model_config=jc, params=jp, progress=False)
+    tdir = run_port(root, shortlist, str(tmp_path / "port"), **kw)
+    assert calls == [{"data": 1, "spatial": 2}] * 4  # 2 queries × 2 cutouts
+    assert os.path.basename(tdir) == os.path.basename(jdir)
+    grid = ((QUERY_HW[0] // 32, QUERY_HW[1] // 32, PANO_HW[0] // 32,
+             PANO_HW[1] // 32), 2)
+    for n in ("1.mat", "2.mat"):
+        g = loadmat(os.path.join(tdir, n))["matches"]
+        w = loadmat(os.path.join(jdir, n))["matches"]
+        assert g.shape == w.shape and (g[..., 4] > 0).sum() > 0
+        assert_same_matches(g[..., :4], w[..., :4], grid)
+        np.testing.assert_allclose(g[..., 4], w[..., 4], rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    _, _, tc, tp = shared_params(False)
+    cfg = tcfg.EvalInLocConfig(output_root=str(tmp_path / "gpu"),
+                               **eval_kw(root, shortlist, **kw))
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        tinloc.run_inloc_eval(cfg, model_config=tc, params=tp, progress=False)
 
 
 def test_entry_points_need_cuda(rect_tree, tmp_path, monkeypatch):

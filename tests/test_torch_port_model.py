@@ -259,8 +259,24 @@ def test_entry_points_refuse_to_run_without_a_gpu(entry, monkeypatch):
     dict(backbone_weights="resnet101.pth", backbone="tiny"),
 ])
 def test_unported_options_raise(option):
+    """The ``tiny`` trunk has no torchvision or reference weights file, and
+    both importers refuse it.  ``vgg`` and ``densenet201``, refused until
+    the trunk slice, now build an engine (their random init warns, as in
+    the JAX package; their weights are held to JAX's in
+    tests/test_torch_port_trunks.py)."""
     _, tc = configs(**option)
     name = next(iter(option))
+    if name == "backbone":
+        tc = tc.replace(ncons_kernel_sizes=(3,), ncons_channels=(1,))
+        with pytest.warns(UserWarning, match="RANDOM weights"):
+            params = tnet.init_ncnet(tc)
+        engine = BatchMatchEngine(tc, params, device="cpu")
+        x = torch.from_numpy(images(0, (1, 64, 64, 3)))
+        with torch.no_grad():
+            feats = tnet.extract_features(tc, params, x)
+        assert feats.shape == (1, 4, 4, {"vgg": 512, "densenet201": 256}[option["backbone"]])
+        assert engine is not None
+        return
     with pytest.raises(NotImplementedError, match=name):
         BatchMatchEngine(tc, {"nc": [], "backbone": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
@@ -381,6 +397,9 @@ def test_port_imports_no_jax():
         "utils/faults", "utils/profiling", "cli/common",
         "cli/eval_pf_pascal", "evaluation/inloc", "cli/eval_inloc",
         "cli/compute_localization")} <= names
+    # the multi-device layer (torch.distributed only)
+    assert {f"ncnet_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "distributed", "spatial")} <= names
     # the localization stage (numpy and torch only)
     assert {f"ncnet_tpu_torch/localization/{m}.py" for m in (
         "__init__", "geometry", "scan", "render", "p3p", "pnp", "dsift",
