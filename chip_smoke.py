@@ -86,6 +86,28 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the path's input, the filtered
      volume against the forward with the twin); a stage line and the peak
      memory;
+  S. one serving process: ``MatchService`` with phase B's model and
+     weights, the (800, 800) bucket warmed at batch 1, 2 and 4, max_batch
+     4, 2 replicas (both on ``cuda:0`` on a one-card machine, one a card
+     otherwise) and a feature store in a temporary directory, under an
+     event log: 48 raw pairs of 640–800 px a side (each target its source
+     rolled) from 2 client threads in groups of 4 submitted under the
+     service's lock (one group, one batch) with a 2 s deadline, 6 B6 and 2
+     B8 launches a batch (counted where only the worker dispatches); the
+     same 48 again, all store hits, tables bitwise the first pass's; every
+     group's batch through the engine directly, each result bit-equal to
+     its row (the first group's B8 and B6 calls against their twins), and
+     the first group's through
+     ``Replica.dispatch`` under ``torch.cuda.set_sync_debug_mode("error")``;
+     a burst of 40 over a queue of 16 (it must shed ``queue_full``) under
+     ``torch.profiler`` (the device busy share) and a request with an
+     expired deadline; rep1 failed on fetch until it goes DEAD (2
+     failures), every request meanwhile served by rep0, then resurrected
+     by a probe; a stream of 6 frames at 800² through ``stream_submit``;
+     ``request_drain`` with 8 requests in flight; the outcome identity
+     from the event log, request and batch walls, queue depth, store hit
+     rate and ms a hit, frame walls, peak memory beside the ledger's
+     predicted ladder bytes;
   T. (run right after phase A) the two probe tools' entry points, each
      with its counts set to 0 just before and read just after:
      ``tools.mosaic_probes.run()`` builds the toolchain
@@ -367,6 +389,19 @@ RESIZE_TOLERANCE = 1e-6
 # 50²: the NC stack's call is the dense 800² request's 8 × 50⁴); a warm-up
 # and 3 requests of SERVE_BATCH pairs
 RELOC_SIDE, RELOC_K, RELOC_REQUESTS = 1600, 2, 3
+# phase S: one serving process (MatchService) on the coarse-to-fine model of
+# phase B: the (C2F_SIDE, C2F_SIDE) bucket, max_batch SERVICE_BATCH, 2
+# replicas on the one card (one a card where there are more); SERVICE_REQUESTS
+# raw pairs of SERVICE_SIDES px a side from SERVICE_CLIENTS clients in
+# groups of SERVICE_BATCH (each group enters the queue at once, so it is
+# one batch), each with a SERVICE_DEADLINE_S deadline, then again (store
+# hits); a burst of SERVICE_BURST over a queue of SERVICE_MAX_QUEUE; a
+# replica failed SERVICE_MAX_FAILURES times and resurrected; a stream of
+# SERVICE_FRAMES frames; a drain with SERVICE_DRAIN requests in flight
+SERVICE_REQUESTS, SERVICE_CLIENTS, SERVICE_BATCH = 48, 2, 4
+SERVICE_SIDES, SERVICE_DEADLINE_S = (640, 800), 2.0
+SERVICE_BURST, SERVICE_MAX_QUEUE, SERVICE_MAX_FAILURES = 40, 16, 2
+SERVICE_FRAMES, SERVICE_DRAIN = 6, 8
 # phase L: the eval loop on a fixture of 12 raw pairs at EVAL_SOURCE_HW, each
 # target its source moved by EVAL_LOOP_SHIFT px (about one 16-px feature
 # cell of the EVAL_SIDE image in each axis); run_eval at batch 4, the CLI at
@@ -2053,6 +2088,387 @@ def serve_tracked(torch, nc_fused_lane, sparse_corr, engine, params,
                     "tracked serve")
     return launches
 
+
+def service_requests(seed, n):
+    """``n`` raw uint8 pairs, each side drawn from ``SERVICE_SIDES``, each
+    target its source rolled by ``TRAIN_SHIFT`` pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(SERVICE_SIDES[0],
+                                             SERVICE_SIDES[1] + 1, 2))
+        src = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        out.append((src, np.roll(src, TRAIN_SHIFT, axis=(0, 1))))
+    return out
+
+
+def submit_group(svc, group, client, deadline_s=None):
+    """Submit one group of pairs under the service's lock, so the whole
+    group enters the queue at once and the dispatcher takes it as one
+    batch (its rows in submission order)."""
+    with svc._cond:
+        return [svc.submit(s, t, client=client, deadline_s=deadline_s)
+                for s, t in group]
+
+
+def percentile(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def service_outcomes(events):
+    """The outcome identity's terms from an event log: the admitted count,
+    the terminal events by kind (results, admitted deadlines, quarantines,
+    admitted sheds) and the admitted ids that reached no outcome."""
+    import collections
+
+    admitted = {e["request"] for e in events if e["event"] == "serve_admit"}
+    terminal = [e for e in events
+                if e["event"] in ("serve_result", "serve_quarantine")
+                or (e["event"] in ("serve_deadline", "serve_shed")
+                    and e.get("admitted") is True)]
+    n = collections.Counter(e["event"] for e in terminal)
+    return len(admitted), n, sorted(admitted - {e["request"] for e in terminal})
+
+
+def serve_service(torch, nc_fused_lane, sparse_corr, params, devices=None):
+    """Phase S: one serving process end to end (``MatchService`` with two
+    replicas, the feature store, stream sessions and the drain) on the
+    coarse-to-fine PF-Pascal model of phase B with its weights.  Returns
+    the launches of the cold pass and of the stream, each window read with
+    the counts set to 0 just before it and with the worker the only thread
+    that dispatches (no replica is dead, so no probe runs)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.observability import events as obs_events
+    from ncnet_tpu_torch.observability import memory as obs_memory
+    from ncnet_tpu_torch.serving import (
+        DeadlineExceeded,
+        MatchService,
+        ServingConfig,
+        pad_to_bucket,
+    )
+    from ncnet_tpu_torch.utils import faults
+
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                      ncons_channels=(16, 16, 1), half_precision=True,
+                      backbone_bf16=True, sparse_topk=C2F_TOPK, sparse_factor=2)
+    if devices is None:
+        n_cards = torch.cuda.device_count()
+        devices = ["cuda:0"] * 2 if n_cards < 2 else [f"cuda:{i}" for i in (0, 1)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    os.environ["NCNET_TPU_MEMORY_LEDGER"] = os.path.join(tmp, "ledger.json")
+    obs_memory._reset_state()
+    side = C2F_SIDE
+    bucket = ((side, side), (side, side))
+    serving = ServingConfig(
+        buckets=((side, side),), warm_buckets=((side, side),),
+        max_batch=SERVICE_BATCH, replicas=2, max_queue=SERVICE_MAX_QUEUE,
+        max_in_flight_per_client=4 * SERVICE_BURST, retries=1,
+        replica_max_failures=SERVICE_MAX_FAILURES, resurrect_after_s=1.0,
+        max_image_side=side, feature_store_dir=os.path.join(tmp, "store"),
+        quarantine_dir=os.path.join(tmp, "quarantine"))
+    log_path = os.path.join(tmp, "events.jsonl")
+    requests = service_requests(11, SERVICE_REQUESTS)
+    per_client = SERVICE_REQUESTS // SERVICE_CLIENTS
+    groups = {c: [requests[c * per_client + g:c * per_client + g + SERVICE_BATCH]
+                  for g in range(0, per_client, SERVICE_BATCH)]
+              for c in range(SERVICE_CLIENTS)}
+    all_groups = [grp for c in range(SERVICE_CLIENTS) for grp in groups[c]]
+    log = obs_events.EventLog(log_path)
+    prev_sink = obs_events.set_global_sink(log)
+    t_phase = time.perf_counter()
+    svc = MatchService(cfg, params, serving, devices=devices).start()
+    try:
+        while svc.state == "STARTING":
+            time.sleep(0.05)
+        t_ready = time.perf_counter() - t_phase
+        store = svc._store
+        resolves = []
+        real_resolve = store.resolve
+
+        def timed_resolve(digest, compute):
+            t0 = time.perf_counter()
+            out = real_resolve(digest, compute)
+            resolves.append((out[1], (time.perf_counter() - t0) * 1e3))
+            return out
+
+        store.resolve = timed_resolve
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run_pass(name):
+            """Both clients' groups, each client closed-loop (its next group
+            after its last one resolved); returns {(client, group, row):
+            MatchResult}."""
+            out, errors = {}, []
+
+            def client(c):
+                try:
+                    for g, group in enumerate(groups[c]):
+                        futs = submit_group(svc, group, f"client{c}",
+                                            SERVICE_DEADLINE_S)
+                        for r, f in enumerate(futs):
+                            out[(c, g, r)] = f.result(timeout=120)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVICE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise SystemExit(f"service {name} pass: {errors[0]!r}")
+            return out
+
+        nc_fused_lane.launches = 0
+        sparse_corr.launches = 0
+        batches0 = svc.health()["activity"]["batches"]
+        cold = run_pass("cold")
+        launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                    "gather_tile_corr_bf16": sparse_corr.launches}
+        cold_batches = svc.health()["activity"]["batches"] - batches0
+        want = {"nc_conv4d_bf16": 6 * cold_batches,
+                "gather_tile_corr_bf16": 2 * cold_batches}
+        walls = [r.wall_s * 1e3 for r in cold.values()]
+        print(f"service: ready after {t_ready:.1f} s (warm-up of the ladder "
+              f"{svc._batch_ladder()} on {len(devices)} replicas); cold pass "
+              f"{len(cold)} requests in {cold_batches} batches, request wall "
+              f"ms p50 {percentile(walls, 50):.1f} p95 "
+              f"{percentile(walls, 95):.1f}; launches {launches}", flush=True)
+        if cold_batches != SERVICE_REQUESTS // SERVICE_BATCH or launches != want:
+            raise SystemExit(f"service: expected {SERVICE_REQUESTS // SERVICE_BATCH}"
+                             f" batches and launches {want}")
+        n_miss = len(resolves)
+        warm = run_pass("warm")
+        hits = [ms for status, ms in resolves[n_miss:] if status == "hit"]
+        misses = [ms for status, ms in resolves[:n_miss] if status == "miss"]
+        same = all(np.array_equal(cold[k].table, warm[k].table) for k in cold)
+        print(f"service: warm pass {len(warm)} requests, store hits "
+              f"{len(hits)} of {len(resolves) - n_miss} resolves, hit rate "
+              f"{store.hit_pct()} % over both passes; ms a hit "
+              f"{np.mean(hits) if hits else float('nan'):.2f}, a miss (row "
+              f"extraction and commit) {np.mean(misses) if misses else float('nan'):.2f}; "
+              f"warm tables bitwise the cold ones: {same}", flush=True)
+        if not same or len(hits) != SERVICE_REQUESTS:
+            raise SystemExit("service: the warm pass is not bitwise the cold "
+                             "pass, or missed the store")
+
+        # one group's batch through the engine directly, every kernel call
+        # recorded and held against its twin; its rows bit-equal to the
+        # service's results for that group
+        engine = svc._pool.replicas[0].engine
+        src = pad_to_bucket([s for s, _ in groups[0][0]], bucket[0])
+        tgt = pad_to_bucket([t for _, t in groups[0][0]], bucket[1])
+        g_calls, s_calls = [], []
+        with routed(sparse_corr, "gather_tile_corr_pallas",
+                    sparse_corr.gather_tile_corr_pallas, g_calls), \
+                routed(nc_fused_lane, "nc_stack_resident",
+                       nc_fused_lane.nc_stack_resident, s_calls):
+            direct = engine.split(engine.fetch(engine.dispatch(src, tgt)))[0]
+        if (len(g_calls), len(s_calls)) != (2, 2):
+            raise SystemExit(f"service: {len(g_calls)} B8 and {len(s_calls)} "
+                             "B6 stack calls in one direct dispatch, expected 2 and 2")
+        errs = []
+        with torch.no_grad():
+            for args, kw, y in g_calls:
+                errs.append(("B8", normalized_err(
+                    y, sparse_corr.gather_tile_corr_reference(*args, **kw)),
+                    GATHER_TOLERANCE))
+            for (nc, x), _, y in s_calls:
+                errs.append(("B6", normalized_err(
+                    y, nc_fused_lane.nc_stack_reference(nc, x)), TOLERANCE))
+        print(f"service: direct dispatch of group 0's batch, kernels vs twins "
+              f"on the path's inputs: {[(k, f'{e:.3e}') for k, e, _ in errs]}",
+              flush=True)
+        if not all(e <= tol for _, e, tol in errs):
+            raise SystemExit("service: a kernel disagrees with its twin")
+        # every group's batch through the engine directly: each result of
+        # the service bit-equal to the direct dispatch's row
+        unequal = []
+        for c in range(SERVICE_CLIENTS):
+            for g, group in enumerate(groups[c]):
+                rows = direct if (c, g) == (0, 0) else engine.split(
+                    engine.fetch(engine.dispatch(
+                        pad_to_bucket([s for s, _ in group], bucket[0]),
+                        pad_to_bucket([t for _, t in group], bucket[1]))))[0]
+                unequal += [(c, g, r) for r in range(len(group))
+                            if not np.array_equal(rows[r], cold[(c, g, r)].table)]
+        print(f"service: each of the {len(cold)} results against the direct "
+              f"dispatch of its batch: {len(cold) - len(unequal)} bit-equal",
+              flush=True)
+        if unequal:
+            raise SystemExit(f"service: results {unequal} are not the direct "
+                             "dispatch's on the same batch")
+        # the same batch through Replica.dispatch with host waits forbidden
+        rep = svc._pool.replicas[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = rep.dispatch(src, tgt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = engine.split(rep.fetch(handle))[0]
+        print(f"service: Replica.dispatch under set_sync_debug_mode('error'): "
+              f"no host wait; its table bit-equal to the service's: "
+              f"{all(np.array_equal(again[r], direct[r]) for r in range(SERVICE_BATCH))}",
+              flush=True)
+        if not np.array_equal(again, direct):
+            raise SystemExit("service: Replica.dispatch's table differs")
+
+        # a burst over the queue bound under the profiler, and one request
+        # whose budget is already spent
+        burst_src, burst_tgt = groups[0][0][0]
+        trace = os.path.join(tmp, "burst_trace.json")
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        futs, sheds = faults.queue_overflow_burst(
+            lambda: svc.submit(burst_src, burst_tgt, client="burst"),
+            SERVICE_BURST)
+        burst = [f.result(timeout=120) for f in futs]
+        burst_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(trace)
+        busy, window, n_dev = trace_busy_share(trace)
+        reasons = sorted({s.reason for s in sheds})
+        print(f"service: burst of {SERVICE_BURST} over max_queue "
+              f"{SERVICE_MAX_QUEUE}: {len(burst)} admitted and served, "
+              f"{len(sheds)} shed {reasons}, retry_after_s "
+              f"{sorted({round(s.retry_after_s, 4) for s in sheds})[:3]}; wall "
+              f"{burst_wall:.2f} s; device busy {busy:.3f} s of the traced "
+              f"{window:.3f} s window ({n_dev} device events): busy share "
+              f"{busy / window if window else float('nan'):.4f}", flush=True)
+        if not sheds or reasons != ["queue_full"]:
+            raise SystemExit("service: the burst did not shed queue_full")
+        try:
+            svc.submit(burst_src, burst_tgt, deadline_s=0)
+            raise SystemExit("service: an expired deadline was admitted")
+        except DeadlineExceeded as e:
+            if e.where != "admission":
+                raise SystemExit(f"service: deadline at {e.where}") from e
+
+        # a replica fails until it goes DEAD, the other serves, a probe
+        # resurrects it
+        plan = faults.FaultPlan(dead_replica_ids=("rep1",))
+        faults.install(plan)
+        fault_futs = []
+        try:
+            t0 = time.perf_counter()
+            g = 0
+            while svc._pool.replicas[1].state != "DEAD":
+                if time.perf_counter() - t0 > 60:
+                    raise SystemExit("service: rep1 never went DEAD")
+                fault_futs += submit_group(
+                    svc, all_groups[g % len(all_groups)], "fault")
+                for f in fault_futs[-SERVICE_BATCH:]:
+                    f.result(timeout=120)
+                g += 1
+        finally:
+            faults.clear()
+        degraded = svc.state
+        t0 = time.perf_counter()
+        while svc.health()["pool"]["ready"] != 2:
+            if time.perf_counter() - t0 > 60:
+                raise SystemExit("service: rep1 was not resurrected")
+            time.sleep(0.05)
+        rep1 = svc.health()["pool"]["replicas"][1]
+        print(f"service: rep1 failed {SERVICE_MAX_FAILURES} times and went DEAD "
+              f"(service {degraded}); {len(fault_futs)} requests meanwhile, all "
+              f"{sorted({f.outcome for f in fault_futs})}; resurrected by a probe "
+              f"after {time.perf_counter() - t0:.2f} s; rep1 failures "
+              f"{rep1['failures']}, deaths {rep1['deaths']}; service "
+              f"{svc.state}", flush=True)
+        if degraded != "DEGRADED" or svc.state != "READY" or \
+                any(f.outcome != "result" for f in fault_futs):
+            raise SystemExit("service: the failover lost a request or the "
+                             "health machine did not degrade and recover")
+
+        # a stream of frames at the bucket's side
+        stream_src = requests[0][0][:side, :side]
+        nc_fused_lane.launches = 0
+        sparse_corr.launches = 0
+        batches0 = svc.health()["activity"]["batches"]
+        frames = []
+        for f in range(SERVICE_FRAMES):
+            shift = (TRAIN_SHIFT[0] + 16 * f, TRAIN_SHIFT[1] + 16 * f)
+            t0 = time.perf_counter()
+            fr = svc.stream_submit("cam0", stream_src,
+                                   np.roll(stream_src, shift, axis=(0, 1)))
+            frames.append((fr, (time.perf_counter() - t0) * 1e3))
+        stream_launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                           "gather_tile_corr_bf16": sparse_corr.launches}
+        stream_batches = svc.health()["activity"]["batches"] - batches0
+        kinds = ["tracked" if fr.tracked else "fallback" if fr.fallback
+                 else "cold" for fr, _ in frames]
+        print(f"service: stream of {SERVICE_FRAMES} frames at {side}x{side}: "
+              f"{kinds}, frame wall ms {[round(w, 1) for _, w in frames]}, "
+              f"recall proxy {[fr.recall for fr, _ in frames]}; "
+              f"{stream_batches} batches, launches {stream_launches}",
+              flush=True)
+        want = {"nc_conv4d_bf16": 6 * stream_batches,
+                "gather_tile_corr_bf16": 2 * stream_batches}
+        if stream_launches != want or "tracked" not in kinds:
+            raise SystemExit(f"service: the stream expected launches {want} "
+                             "and a tracked frame")
+        for fr, _ in frames:
+            t = fr.table
+            if t.shape != (5, (side // 16) ** 2) or not np.isfinite(t).all() \
+                    or t[4].min() < 0 or t[4].max() > 1:
+                raise SystemExit(f"service stream: bad frame table {t.shape}")
+
+        mem = svc.health()["memory"]
+        print(f"service: peak memory {torch.cuda.max_memory_allocated()} "
+              f"bytes; the ladder's predicted bytes (ledger, temp + output of "
+              f"{mem['ledger_programs']} programs) {mem['predicted_ladder_bytes']}; "
+              f"rows {[(r['shape_class'], r['temp_bytes'], r['output_bytes']) for r in obs_memory.ledger_rows(program=obs_memory.SERVE_PROGRAM)]}",
+              flush=True)
+
+        # drain with work in flight
+        drain_futs = []
+        for group in all_groups[:SERVICE_DRAIN // SERVICE_BATCH]:
+            drain_futs += submit_group(svc, group, "drain")
+        svc.request_drain()
+        drained = [f.result(timeout=120) for f in drain_futs]
+        svc.stop(timeout=120)
+    finally:
+        faults.clear()
+        if svc._worker is not None and svc._worker.is_alive():
+            svc.stop(drain=False, timeout=30)
+        obs_events.set_global_sink(prev_sink)
+        log.close()
+    _, events = obs_events.replay_events(log_path)
+    admitted, n, lost = service_outcomes(events)
+    drains = [e for e in events if e["event"] == "serve_drain"]
+    batch_walls = [e["wall_s"] * 1e3 for e in events if e["event"] == "serve_batch"]
+    depths = [e["queue_depth"] for e in events if e["event"] == "serve_batch"]
+    print(f"service: drain with {len(drained)} requests in flight: "
+          f"{drains[0] if drains else None}; event log: admitted {admitted} == "
+          f"results {n['serve_result']} + deadlines {n['serve_deadline']} + "
+          f"quarantines {n['serve_quarantine']} + admitted sheds "
+          f"{n['serve_shed']}; lost {lost}; batch wall ms p50 "
+          f"{percentile(batch_walls, 50):.1f} p95 {percentile(batch_walls, 95):.1f} "
+          f"over {len(batch_walls)} batches; queue depth at a batch max "
+          f"{max(depths)} mean {np.mean(depths):.2f}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if (admitted != sum(n.values()) or lost or len(drains) != 1
+            or not drains[0]["drained"] or drains[0]["leftover"]):
+        raise SystemExit("service: the outcome identity failed, a request was "
+                         "lost, or the drain was not clean")
+    shutil.rmtree(tmp)
+    os.environ.pop("NCNET_TPU_MEMORY_LEDGER")
+    return launches, stream_launches
 
 def serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev):
     """Phase D: fp32 serving at full width, ``FP32_SIDES``: 400² (the FFT
@@ -5229,6 +5645,10 @@ def main() -> int:
                                      params, requests, tables)
     b5_by_path, b5_path_err = serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev)
     mark("B, C, D")
+    service_launches, stream_launches = serve_service(
+        torch, nc_fused_lane, sparse_corr, params)
+    del engine, params
+    mark("S")
     eval_launches = eval_phase(torch, nc_fused_lane, dev)
     reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
     loop_launches, cli_launches = eval_loop(torch, nc_fused_lane, sparse_corr,
@@ -5257,6 +5677,8 @@ def main() -> int:
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
                   "serve_tracked": tracked_launches["nc_conv4d_bf16"],
+                  "serve_service": service_launches["nc_conv4d_bf16"],
+                  "serve_stream": stream_launches["nc_conv4d_bf16"],
                   "dense_800": dense_launches,
                   "eval_400": eval_launches,
                   "reloc_1600": reloc_launches,
@@ -5274,6 +5696,8 @@ def main() -> int:
                   **trunk_b3}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
+                      "serve_service": service_launches["gather_tile_corr_bf16"],
+                      "serve_stream": stream_launches["gather_tile_corr_bf16"],
                       **{k: v["gather_tile_corr_bf16"]
                          for k, v in loop_launches.items()},
                       **trunk_b4}

@@ -3,6 +3,7 @@
 Mirrors the JAX package's module paths and function names.  It imports
 ``torch`` and ``numpy`` only, never JAX or the JAX package.  Entry points
 (``models.NCNet``, ``models.make_point_matcher``,
-``serving.engine.BatchMatchEngine``) run on the card unless the caller
-passes ``device="cpu"``.
+``serving.engine.BatchMatchEngine``, ``serving.MatchService``) run on the
+card unless the caller passes ``device="cpu"`` (``devices=`` for the
+service).
 """

@@ -7,8 +7,8 @@ Flag names and defaults are the JAX CLI's (which mirror the reference's,
 eval_inloc.py:29-40), plus ``--device`` (default ``cuda``; ``cpu`` runs on
 the host).  ``--spatial_shards N`` splits each pair's volume over N local
 devices along hB (``parallel/spatial.py``; N GPUs, or the host with
-``--device cpu``); ``--feature_store_dir`` is refused
-(``evaluation/inloc.py::check_inloc_ported``).  The images are read in
+``--device cpu``); ``--feature_store_dir`` resolves the cutouts' features
+through the persistent feature store (``store/``).  The images are read in
 their raw form (ROADMAP decision D1: ``tools/convert_images.py`` writes
 them from a JPEG tree).  A degraded run (a query quarantined in this host's
 manifest) exits 2.
@@ -70,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="open a structured event log here (per-query events "
                         "+ metrics)")
     p.add_argument("--feature_store_dir", type=str, default="",
-                   help="persistent database-side feature store (not "
-                        "ported: refused)")
+                   help="persistent database-side feature store: cutout "
+                        "features cached on disk, verified on read")
     p.add_argument("--sparse_topk", type=int, default=0,
                    help="coarse-to-fine sparse matching (requires --k_size "
                         "1; 0 = dense, the default)")

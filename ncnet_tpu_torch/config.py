@@ -123,8 +123,8 @@ class EvalPFPascalConfig:
 class EvalInLocConfig:
     """Dense matching for InLoc localization (reference eval_inloc.py:30-40),
     read by ``evaluation/inloc.py::run_inloc_eval`` and
-    ``cli/eval_inloc.py``.  ``feature_store_dir`` and ``retrieval_index``
-    (ROADMAP A12) are refused."""
+    ``cli/eval_inloc.py``.  ``retrieval_index`` (ROADMAP A12) is
+    refused."""
 
     checkpoint: str = ""
     inloc_shortlist: str = "datasets/inloc/densePE_top100_shortlist_cvpr18.mat"
@@ -166,8 +166,9 @@ class EvalInLocConfig:
     # observability: open an event log here for the run. "" = emit only to
     # an already-bound global sink, if any
     telemetry_dir: str = ""
-    feature_store_dir: str = ""          # refused: the feature store (A12)
-    feature_store_budget_mb: int = 0
+    # persistent database-side feature store (store/); "" = off
+    feature_store_dir: str = ""
+    feature_store_budget_mb: int = 0     # LRU-evict above this (0 = unbounded)
     retrieval_index: str = ""            # refused: the retrieval shortlist (A12)
     retrieval_topk: int = 0
     retrieval_min_coverage: float = 1.0

@@ -38,8 +38,11 @@ with validation, the fetch watchdog and the adaptive pipeline depth; a
 device failure re-runs the same program under the retry budget and no tier
 is ever demoted.  With ``spatial_shards`` > 1 a pair whose target shards
 runs the hB-sharded forward (``parallel/spatial.py``) over the local
-devices (ROADMAP D7); the feature store and the retrieval shortlist are not
-ported and are refused (:func:`check_inloc_ported`).
+devices (ROADMAP D7).  With ``feature_store_dir`` the pano features resolve
+through the persistent feature store (``store/``): a warm query runs one
+backbone extraction, its own; the store is off under sharding, whose
+forward takes images, as in the JAX package.  The retrieval shortlist is
+not ported and is refused (:func:`check_inloc_ported`).
 """
 
 from __future__ import annotations
@@ -139,6 +142,18 @@ class PreparedQuery(NamedTuple):
     features: torch.Tensor
 
 
+class PreparedDb(NamedTuple):
+    """A database image resolved through the persistent feature store by
+    ``matcher.prepare_db``: its backbone features on the device (a verified
+    store hit, or a recompute that was committed) and how they were
+    obtained, ``"hit"`` / ``"miss"`` / ``"recompute"``.  A ``(PreparedQuery,
+    PreparedDb)`` pair runs the feature-pair program: no backbone
+    extraction for the pair."""
+
+    features: torch.Tensor
+    status: str
+
+
 def extract_match_table(out, *, k_size: int, do_softmax: bool,
                         both_directions: bool,
                         flip_direction: bool = False) -> torch.Tensor:
@@ -170,7 +185,7 @@ def extract_match_table(out, *, k_size: int, do_softmax: bool,
 def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
                       both_directions: bool, flip_direction: bool,
                       preprocess_image_size: Optional[int] = None,
-                      quality_cb=None, device=None, mesh=None):
+                      quality_cb=None, device=None, mesh=None, store=None):
     """``matcher(src, tgt) -> (xA, yA, xB, yB, score)`` numpy arrays, with
     the weights staged on ``device`` (CUDA by default) once.
 
@@ -185,6 +200,13 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
     (the query's trunk run once); a pair with one runs the features path.
     ``matcher.feature_extractions`` counts trunk runs outside a pair's
     forward.
+
+    ``store``: a :class:`~ncnet_tpu_torch.store.FeatureStore` for the
+    database side.  ``matcher.prepare_db(raw_u8)`` resolves a pano's
+    features through it (verified hit, or the query path's preprocessing
+    and trunk, then an atomic commit) and returns a :class:`PreparedDb`; a
+    hit is bitwise what a miss computes, as both feed the committed
+    float32 bytes to the feature-pair program.
 
     ``quality_cb``: when given, every fetched pair's quality signals
     (``observability/quality.py``, computed on the same filtered volume and
@@ -206,6 +228,7 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
         check_ported,
         extract_features,
         ncnet_forward,
+        ncnet_forward_from_feature_pair,
         ncnet_forward_from_features,
         params_to,
         resolve_device,
@@ -260,6 +283,23 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
         matcher.feature_extractions += 1
         return PreparedQuery(x, extract_features(config, staged, x))
 
+    @torch.no_grad()
+    def prepare_db(img: np.ndarray) -> PreparedDb:
+        """Raw uint8 ``(1, H, W, 3)`` database image → :class:`PreparedDb`
+        through the store's ladder."""
+        if store is None:
+            raise ValueError("prepare_db needs a FeatureStore")
+        from ncnet_tpu_torch.store import content_digest
+
+        def compute() -> np.ndarray:
+            matcher.feature_extractions += 1
+            return extract_features(config, staged, prep_input(img)).to(
+                "cpu", torch.float32).numpy()
+
+        arr, status = store.resolve(content_digest(np.asarray(img)), compute)
+        return PreparedDb(torch.from_numpy(np.ascontiguousarray(arr)).to(dev),
+                          status)
+
     def to_model_input(x) -> torch.Tensor:
         if isinstance(x, PreparedQuery):
             return x.image
@@ -269,6 +309,20 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
 
     @torch.no_grad()
     def run(src, tgt) -> torch.Tensor:
+        if isinstance(tgt, PreparedDb):
+            # both sides' features precomputed (never sharded: the caller
+            # turns the store off under spatial sharding)
+            if not isinstance(src, PreparedQuery):
+                raise ValueError("a PreparedDb target needs a PreparedQuery "
+                                 "source (both sides' features precomputed)")
+            out = ncnet_forward_from_feature_pair(config, staged, src.features,
+                                                  tgt.features)
+            table = extract_match_table(out, k_size=k, do_softmax=do_softmax,
+                                        both_directions=both_directions,
+                                        flip_direction=flip_direction)
+            if quality_cb is None:
+                return table
+            return append_quality_row(table, out.corr)
         if isinstance(tgt, PreparedQuery):
             tgt_shape, tgt_raw = tgt.image.shape, False
         else:
@@ -316,9 +370,11 @@ def make_pair_matcher(config: ModelConfig, params, *, do_softmax: bool,
         return fetch(dispatch(src, tgt))
 
     matcher.preprocess = preprocess
+    matcher.prepare_db = prepare_db
     matcher.dispatch = dispatch
     matcher.fetch = fetch
     matcher.feature_extractions = 0
+    matcher.store = store
     return matcher
 
 
@@ -427,16 +483,13 @@ def load_shortlist(path: str):
 
 
 def check_inloc_ported(config: EvalInLocConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first option of ``config``
-    that the port does not run: the feature store (``feature_store_dir``)
-    and the retrieval shortlist (``retrieval_index``, both ROADMAP A12)."""
-    unported = [("feature_store_dir", bool(config.feature_store_dir)),
-                ("retrieval_index", bool(config.retrieval_index))]
-    for name, hit in unported:
-        if hit:
-            raise NotImplementedError(
-                f"EvalInLocConfig.{name}={getattr(config, name)!r} is not "
-                "ported to ncnet_tpu_torch yet")
+    """Raise ``NotImplementedError`` naming the option of ``config`` that
+    the port does not run: the retrieval shortlist (``retrieval_index``,
+    the retrieval tier of ROADMAP A12)."""
+    if config.retrieval_index:
+        raise NotImplementedError(
+            f"EvalInLocConfig.retrieval_index={config.retrieval_index!r} is "
+            "not ported to ncnet_tpu_torch yet (the retrieval tier, ROADMAP A12)")
 
 
 def run_inloc_eval(config: EvalInLocConfig,
@@ -540,6 +593,7 @@ def run_inloc_eval(config: EvalInLocConfig,
     host_index, host_count = resolve_host_stripe(config)
 
     own_sink = prev_sink = None
+    store = None  # the feature store, when configured (built below)
     n_done = 0
     if config.telemetry_dir:
         # one file per host under striping: an event log has one writer
@@ -567,13 +621,43 @@ def run_inloc_eval(config: EvalInLocConfig,
                          tier=active_tier(model_config.half_precision),
                          registry=quality_registry)
 
+        # the persistent database-side feature store: pano features resolve
+        # through verified entries keyed by (image content digest, backbone
+        # fingerprint), so a warm query pays one extraction, its own.  Off
+        # under spatial sharding (the sharded forward takes images); any
+        # store trouble only means a recompute
+        if config.feature_store_dir:
+            if mesh is not None:
+                log.warning(
+                    "feature_store_dir ignored under spatial_shards > 1 (the "
+                    "hB-sharded forward consumes images, not cached features)",
+                    kind="validation")
+            else:
+                from ncnet_tpu_torch.models.ncnet import resolve_device
+                from ncnet_tpu_torch.store import (
+                    FeatureStore,
+                    backbone_fingerprint,
+                )
+
+                fp = backbone_fingerprint(
+                    params, image_size=config.image_size, k_size=config.k_size,
+                    dtype="bf16" if model_config.half_precision else "f32",
+                    device=resolve_device(device))
+                store = FeatureStore(
+                    config.feature_store_dir, fp,
+                    budget_bytes=config.feature_store_budget_mb * 2 ** 20,
+                    scope="inloc_eval")
+                # entries of other weights can never be read again
+                store.gc_superseded()
+
         matcher = make_pair_matcher(
             model_config, params, do_softmax=config.softmax,
             both_directions=config.matching_both_directions,
             flip_direction=config.flip_matching_direction,
             # raw uint8 in, normalize and resize on the card
             preprocess_image_size=config.image_size,
-            quality_cb=on_pair_quality, device=device, mesh=mesh)
+            quality_cb=on_pair_quality, device=device, mesh=mesh,
+            store=store)
         n_cap = match_capacity(config.image_size, config.k_size,
                                config.matching_both_directions)
         manifest = None
@@ -590,6 +674,8 @@ def run_inloc_eval(config: EvalInLocConfig,
         depth_ctl = PipelineDepthController(config.pipeline_depth)
     except BaseException:
         # construction failed after the sink was bound: restore it here
+        if store is not None:
+            store.close()
         if own_sink is not None:
             obs_events.set_global_sink(prev_sink)
             own_sink.close()
@@ -652,6 +738,12 @@ def run_inloc_eval(config: EvalInLocConfig,
                 tgt = pending.result()
             if idx + 1 < len(jobs):
                 pending = io_pool.submit(load_raw, jobs[idx + 1])
+            if store is not None:
+                # the database side through the store: verified hit, or
+                # recompute + commit; the pair then runs the feature-pair
+                # program either way
+                with span("store_resolve", pair=idx):
+                    tgt = matcher.prepare_db(tgt)
             with span("dispatch", pair=idx):
                 in_flight.append((idx, matcher.dispatch(src, tgt)))
             # a depth shrunk mid-query drains its extra slots too; only the
@@ -726,11 +818,20 @@ def run_inloc_eval(config: EvalInLocConfig,
                         f"{manifest_name(host_index, host_count)}): "
                         + ", ".join(manifest.quarantined_ids),
                         kind="quarantine")
+        # a warm run's summary shows hits == pairs, misses == 0 and one
+        # extraction a completed query
+        summary_extra = {}
+        if store is not None:
+            summary_extra = {"store": store.health(),
+                             "feature_extractions": matcher.feature_extractions}
         quality_registry.flush(
             event="eval_summary", eval="inloc", completed=n_done,
             quarantined=(list(manifest.quarantined_ids)
-                         if manifest is not None else []))
+                         if manifest is not None else []), **summary_extra)
     finally:
+        if store is not None:
+            store.flush_stats(eval="inloc")
+            store.close()
         if own_sink is not None:
             obs_events.set_global_sink(prev_sink)
             own_sink.close()

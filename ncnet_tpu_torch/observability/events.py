@@ -32,6 +32,21 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 SCHEMA_VERSION = 1
 _LOG_KIND = "ncnet_tpu_events"
 
+# injected wall-clock skew (seconds), read once at import: every wall stamp
+# this process publishes goes through wall_now, so NCNET_TPU_CLOCK_SKEW_S
+# makes the process behave as a host whose clock is off by that much
+try:
+    _WALL_SKEW_S = float(os.environ.get("NCNET_TPU_CLOCK_SKEW_S", "") or 0.0)
+except ValueError:
+    _WALL_SKEW_S = 0.0
+
+
+def wall_now() -> float:
+    """This process's wall clock as published in telemetry: ``time.time()``
+    plus the injected test skew (``NCNET_TPU_CLOCK_SKEW_S``, normally 0).
+    Every stamp that another process compares goes through it."""
+    return time.time() + _WALL_SKEW_S
+
 
 def make_run_id() -> str:
     """Run id: seconds + pid + a random suffix (readable, and unique across
@@ -167,6 +182,7 @@ class EventLog:
         self.path = path
         self.run_id = run_id or make_run_id()
         self._seq = 0
+        self._appends = 0
         self._dirty = False
         self._lock = threading.Lock()
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -207,7 +223,9 @@ class EventLog:
     def emit(self, event: str, **fields) -> None:
         """Append one typed event: fully on disk (fsynced), or detectably
         torn on replay."""
-        rec = {"t": time.time(), "run": self.run_id, "seq": self._seq,
+        from ncnet_tpu_torch.utils import faults
+
+        rec = {"t": wall_now(), "run": self.run_id, "seq": self._seq,
                "event": str(event)}
         for k, v in fields.items():
             rec[k] = _jsonable(v)
@@ -216,6 +234,11 @@ class EventLog:
             if self._dirty:
                 self._write_raw("\n")  # seal a torn previous write
             self._seq += 1
+            self._appends += 1
+            # an injected SIGKILL mid-append flushes a torn prefix first
+            faults.event_kill_hook(
+                self._appends,
+                lambda: self._write_raw(line[: max(1, len(line) // 2)]))
             self._write_raw(line + "\n")
 
     def close(self) -> None:

@@ -14,9 +14,14 @@ as ordinary events into the bound
      rides on the ``B`` event.
 
 Span ids are process-unique monotonic ints; consumers key spans by
-``(run, span)``.  The JAX module's cross-process trace context (the
-traceparent-style header its router and pod carry) has no caller in the
-port yet and is not ported.
+``(run, span)``.
+
+A request that crosses processes needs an identity that survives the
+wire: :class:`TraceContext`, a traceparent-style triple (``trace_id``, the
+sender's ``parent_span``, the ``origin`` host) rendered as one header
+string, ``00-<trace_id>-<parent hex>-<origin>``, the JAX package's format.
+The service stamps the bare trace id (:func:`normalize_trace`) on every
+event a request touches.
 """
 
 from __future__ import annotations
@@ -31,6 +36,93 @@ from ncnet_tpu_torch.observability import events as _events
 
 _ids = itertools.count(1)  # next() is atomic in CPython; no lock needed
 _tls = threading.local()
+
+# the header version; an unknown version parses as no trace (a trace header
+# never makes a request fail)
+TRACE_VERSION = "00"
+
+
+class TraceContext:
+    """One request identity across processes: ``trace_id`` (32 hex chars),
+    the sender's ``parent_span`` (a process-local span id, or None) and the
+    ``origin`` host that stamped it."""
+
+    __slots__ = ("trace_id", "parent_span", "origin")
+
+    def __init__(self, trace_id: str, parent_span: Optional[int] = None,
+                 origin: Optional[str] = None):
+        import socket
+
+        self.trace_id = str(trace_id)
+        self.parent_span = parent_span
+        self.origin = origin if origin is not None else socket.gethostname()
+
+    def to_header(self) -> str:
+        """``00-<trace_id>-<parent_span hex>-<origin>``; the origin rides
+        last so a hostname with ``-`` still parses."""
+        parent = (f"{self.parent_span:x}"
+                  if isinstance(self.parent_span, int) else "0")
+        return f"{TRACE_VERSION}-{self.trace_id}-{parent}-{self.origin}"
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"TraceContext({self.to_header()!r})"
+
+
+def new_trace(origin: Optional[str] = None) -> TraceContext:
+    """A fresh trace: 16 random bytes as 32 hex chars, parented to this
+    thread's innermost open span (None outside any span)."""
+    import os as _os
+
+    return TraceContext(_os.urandom(16).hex(),
+                        parent_span=current_span_id(), origin=origin)
+
+
+def parse_trace(header: Optional[str]) -> Optional[TraceContext]:
+    """A :class:`TraceContext` from a header, or None for anything this
+    build does not understand (missing, malformed, unknown version).
+    Never raises."""
+    if not header or not isinstance(header, str):
+        return None
+    parts = header.split("-", 3)
+    if len(parts) != 4 or parts[0] != TRACE_VERSION or not parts[1]:
+        return None
+    try:
+        parent = int(parts[2], 16) or None
+    except ValueError:
+        return None
+    return TraceContext(parts[1], parent_span=parent, origin=parts[3])
+
+
+def trace_id_of(header: Optional[str]) -> Optional[str]:
+    """The trace id out of a header, or None when it does not parse."""
+    ctx = parse_trace(header)
+    return ctx.trace_id if ctx is not None else None
+
+
+def adopt_trace(value, origin: Optional[str] = None) -> TraceContext:
+    """Stamp or adopt: a caller's context (a :class:`TraceContext`, a
+    header or a bare id) becomes the context; anything unusable mints a
+    fresh trace.  Always returns a context."""
+    if isinstance(value, TraceContext):
+        return value
+    if value:
+        ctx = parse_trace(str(value))
+        if ctx is not None:
+            return ctx
+        return TraceContext(str(value), parent_span=current_span_id(),
+                            origin=origin)
+    return new_trace(origin)
+
+
+def normalize_trace(value) -> Optional[str]:
+    """The bare trace id out of a :class:`TraceContext`, a header, a bare
+    id or nothing; a junk value degrades to itself as an opaque id."""
+    if value is None:
+        return None
+    if isinstance(value, TraceContext):
+        return value.trace_id
+    s = str(value)
+    return trace_id_of(s) or (s or None)
 
 
 def _stack() -> list:

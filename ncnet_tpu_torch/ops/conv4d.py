@@ -60,9 +60,21 @@ def _pads3(kwa: int, kb: int, kwb: int, pad_hb: bool, pad_wa: bool = True,
 def _conv3d(x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
     """A channels-last 3D conv: ``x`` ``(N, D, H, W, C_in)``, ``w`` ``(kD,
     kH, kW, C_in, C_out)`` (the JAX DHWIO layout) → ``(N, D', H', W',
-    C_out)``."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
-                 padding=padding)
+    C_out)``.
+
+    On a CPU tensor in bf16 the product runs in f32 and is rounded once to
+    bf16 (ROADMAP C3): the CPU library's bf16 conv3d computes a wrong,
+    nondeterministic weight gradient whenever the kernel is wider than an
+    input side.  Autograd then differentiates the f32 conv, so the CPU path
+    rounds at three points, each once: the output, the input gradient and
+    the weight gradient, each an f32 sum of bf16 operands rounded to bf16.
+    Those are XLA:CPU's rounding points for a bf16 conv and its VJP.  A CUDA
+    tensor runs the bf16 conv as given."""
+    xt, wt = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        y = F.conv3d(xt.float(), wt.float(), padding=padding).to(x.dtype)
+    else:
+        y = F.conv3d(xt, wt, padding=padding)
     return y.permute(0, 2, 3, 4, 1)
 
 

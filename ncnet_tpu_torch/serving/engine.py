@@ -10,8 +10,18 @@ Two programs: ``dispatch`` (the pair forward; with ``sparse_topk`` > 0 it
 runs the coarse-to-fine pipeline, coarse pass included) and
 ``dispatch_tracked`` (a streaming frame: source features resolved once per
 stream through a digest memo, the target extracted per frame, candidates
-from the previous frame's priors, no coarse pass).  The feature-store path
-(``store=``) and the retrace/weight-swap seams come in later slices.
+from the previous frame's priors, no coarse pass).
+
+**Store-backed pair path** (``store=``, ``ncnet_tpu_torch/store/``): with a
+persistent feature store attached, each dispatched batch resolves its
+SOURCE rows' backbone features through verified cached entries (content
+digest of the padded uint8 row, under the store's fingerprint) and runs the
+feature-pair program (``ncnet_forward_from_features``).  A miss extracts
+the row alone, copies its float32 features to the host, commits them and
+feeds those bytes to the same program a hit feeds, so a hit is bitwise
+what a miss computes.  The store's ladder (``FeatureStore.resolve``) can
+only make a batch slower, never wrong.  The weight swap comes with the
+rollout and the JAX retrace seam is not ported (ROADMAP D4).
 """
 
 from __future__ import annotations
@@ -23,11 +33,13 @@ import numpy as np
 import torch
 
 from ncnet_tpu_torch.config import ModelConfig
+from ncnet_tpu_torch.data.loader import stage_array
 from ncnet_tpu_torch.models.ncnet import (
     NCNetOutput,
     check_ported,
     extract_features,
     ncnet_forward,
+    ncnet_forward_from_features,
     ncnet_forward_tracked,
     params_to,
     resolve_device,
@@ -38,6 +50,7 @@ from ncnet_tpu_torch.observability.quality import (
 )
 from ncnet_tpu_torch.ops.image import normalize_imagenet
 from ncnet_tpu_torch.ops.matching import corr_to_matches
+from ncnet_tpu_torch.utils import faults
 
 # the digest→features memo of the tracked path: a stream re-matches one
 # reference image for many frames, so a few entries cover a replica's streams
@@ -57,22 +70,22 @@ class BatchMatchEngine:
 
     Spies: ``coarse_passes`` counts pair dispatches (each pays the coarse
     or the dense filter), ``tracked_dispatches`` tracked ones, and
-    ``feature_extractions`` the source rows the tracked path extracted.
+    ``feature_extractions`` the source rows the store and tracked paths
+    extracted.  Each dispatch passes ``faults.device_error_hook``
+    (label ``serve_batch``), the JAX engine's injected-failure seam.
     """
 
     def __init__(self, config: ModelConfig, params, *,
                  do_softmax: bool = True, scale: str = "centered",
                  device=None, store=None):
         check_ported(config)
-        if store is not None:
-            raise NotImplementedError(
-                "BatchMatchEngine(store=...): the feature store is not ported "
-                "to ncnet_tpu_torch yet")
         self.config = config
         self.device = resolve_device(device)
         self.do_softmax = do_softmax
         self.scale = scale
         self._params = params_to(params, self.device)  # staged once
+        # the persistent feature store (fail-open: trouble means recompute)
+        self._store = store
         self.feature_extractions = 0
         self.coarse_passes = 0
         self.tracked_dispatches = 0
@@ -80,8 +93,10 @@ class BatchMatchEngine:
             collections.OrderedDict())
 
     def _upload(self, u8) -> torch.Tensor:
-        return normalize_imagenet(
-            torch.as_tensor(np.asarray(u8)).to(self.device))
+        """A host uint8 batch normalized on the device; on CUDA staged from
+        pinned memory without waiting, so a dispatch never waits for the
+        card."""
+        return normalize_imagenet(stage_array(u8, self.device))
 
     def _tables(self, out: NCNetOutput) -> torch.Tensor:
         """The match-extraction tail of both programs (the JAX
@@ -94,31 +109,72 @@ class BatchMatchEngine:
         return append_quality_rows(table, out.corr)
 
     @torch.no_grad()
-    def dispatch(self, src_u8: np.ndarray, tgt_u8: np.ndarray) -> torch.Tensor:
+    def dispatch(self, src_u8: np.ndarray, tgt_u8: np.ndarray,
+                 src_digests: Optional[Sequence[Optional[str]]] = None
+                 ) -> torch.Tensor:
         """Enqueue upload + forward + match extraction; returns the
-        on-device table (the CUDA work runs asynchronously)."""
+        on-device table (the CUDA work runs asynchronously).
+
+        With a feature store attached, each SOURCE row resolves through it
+        first (verified hit, or extract + commit) and the batch runs the
+        feature-pair program; a miss is the one host wait (its features
+        are copied to the host to be committed).  ``src_digests`` lets a
+        caller that already knows a row's content digest skip its sha256;
+        ``None`` entries are hashed."""
         self.coarse_passes += 1
-        out = ncnet_forward(self.config, self._params, self._upload(src_u8),
-                            self._upload(tgt_u8))
+        if self._store is None:
+            faults.device_error_hook("serve_batch")
+            out = ncnet_forward(self.config, self._params,
+                                self._upload(src_u8), self._upload(tgt_u8))
+            return self._tables(out)
+        fa = torch.stack([
+            self._store_features(
+                src_u8[i], src_digests[i] if src_digests is not None
+                else None)
+            for i in range(src_u8.shape[0])])
+        faults.device_error_hook("serve_batch")
+        out = ncnet_forward_from_features(self.config, self._params, fa,
+                                          self._upload(tgt_u8))
         return self._tables(out)
+
+    def _extract_row(self, row: np.ndarray) -> torch.Tensor:
+        """One source row's float32 backbone features ``(h, w, C)`` on the
+        device (the program a store miss replays)."""
+        self.feature_extractions += 1
+        return extract_features(self.config, self._params,
+                                self._upload(row[None]))[0]
+
+    def _store_features(self, row: np.ndarray,
+                        digest: Optional[str]) -> torch.Tensor:
+        """One source row's features through the store: the committed
+        float32 bytes on the device, hit or miss alike."""
+        from ncnet_tpu_torch.store import content_digest
+
+        row = np.ascontiguousarray(row)
+        if digest is None:
+            digest = content_digest(row)
+        arr, _status = self._store.resolve(
+            digest, lambda: self._extract_row(row).cpu().numpy())
+        return stage_array(arr, self.device)
 
     def _resolve_src_features(self, row: np.ndarray,
                               digest: Optional[str]) -> torch.Tensor:
         """One source row's float32 backbone features ``(h, w, C)`` on the
-        device, through the digest memo: a steady stream extracts its
+        device for the tracked path: the persistent store when attached,
+        else a small digest memo; either way a steady stream extracts its
         reference trunk once, not per frame."""
         from ncnet_tpu_torch.store import content_digest
 
         row = np.ascontiguousarray(row)
         if digest is None:
             digest = content_digest(row)
+        if self._store is not None:
+            return self._store_features(row, digest)
         hit = self._feat_cache.get(digest)
         if hit is not None:
             self._feat_cache.move_to_end(digest)
             return hit
-        self.feature_extractions += 1
-        feats = extract_features(self.config, self._params,
-                                 self._upload(row[None]))[0]
+        feats = self._extract_row(row)
         self._feat_cache[digest] = feats
         while len(self._feat_cache) > _TRACKED_FEATURE_CACHE_ENTRIES:
             self._feat_cache.popitem(last=False)
@@ -139,6 +195,7 @@ class BatchMatchEngine:
             self._resolve_src_features(
                 src_u8[i], src_digests[i] if src_digests is not None else None)
             for i in range(src_u8.shape[0])])
+        faults.device_error_hook("serve_batch")
         out = ncnet_forward_tracked(
             self.config, self._params, fa, self._upload(tgt_u8),
             torch.as_tensor(np.asarray(prior_ab, dtype=np.int32)),
@@ -173,6 +230,14 @@ class BatchMatchEngine:
     def fetch(self, handle: torch.Tensor) -> np.ndarray:
         """Wait for the device result; one copy per batch."""
         return handle.to("cpu", torch.float32).numpy()
+
+    def attach_store(self, store) -> None:
+        """Attach (or detach with ``None``) the persistent feature store."""
+        self._store = store
+
+    @property
+    def half_precision(self) -> bool:
+        return bool(self.config.half_precision)
 
     @staticmethod
     def split(table: np.ndarray

@@ -1,24 +1,30 @@
-"""The port's own copy of what it needs from ``ncnet_tpu/store/``.
+"""Persistent database-side feature store, the port of ``ncnet_tpu/store/``.
 
-Only :func:`content_digest` so far (``ncnet_tpu/store/feature_store.py``):
-the tracked serving path keys its memo of source features by it.  The
-persistent feature store itself is not ported yet.
+Public surface: :class:`FeatureStore` (verified reads, two-phase atomic
+commits, fail-open degradation, LRU eviction, generation GC) and the key
+helpers :func:`content_digest` / :func:`backbone_fingerprint` /
+:func:`weights_digest` / :func:`coarse_fingerprint`; see
+``feature_store.py``.
 """
 
-from __future__ import annotations
+from ncnet_tpu_torch.store.feature_store import (  # noqa: F401
+    SCHEMA_VERSION,
+    STORE_DEGRADED,
+    STORE_OK,
+    FeatureStore,
+    backbone_fingerprint,
+    coarse_fingerprint,
+    content_digest,
+    weights_digest,
+)
 
-import hashlib
-
-import numpy as np
-
-
-def content_digest(array: np.ndarray) -> str:
-    """Content address of one array: sha256 over its dtype, shape and raw
-    bytes, the first 32 hex digits (the JAX package's digest, bit for
-    bit)."""
-    a = np.ascontiguousarray(array)
-    h = hashlib.sha256()
-    h.update(str(a.dtype.str).encode())
-    h.update(str(tuple(a.shape)).encode())
-    h.update(a.tobytes())
-    return h.hexdigest()[:32]
+__all__ = [
+    "SCHEMA_VERSION",
+    "STORE_DEGRADED",
+    "STORE_OK",
+    "FeatureStore",
+    "backbone_fingerprint",
+    "coarse_fingerprint",
+    "content_digest",
+    "weights_digest",
+]

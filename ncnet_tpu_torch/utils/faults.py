@@ -1,6 +1,8 @@
-"""Deterministic fault injection for the training and eval paths' fault
-tolerance, the part of ``ncnet_tpu/utils/faults.py`` that the port's data,
-training, eval and ``utils/io`` paths call.
+"""Deterministic fault injection for the fault tolerance of the training,
+eval, serving and feature-store paths, the part of
+``ncnet_tpu/utils/faults.py`` that the port's data, training, eval,
+``utils/io``, ``observability/events``, ``serving/`` and ``store/`` paths
+call.
 
 Claims about crash paths rot unless they are executed, so the production
 code carries tiny hook call sites and this module arms them
@@ -35,6 +37,20 @@ deterministically from tests:
   * ``journal_kill_hook(n, w)``  — ``evaluation/resilience.EvalJournal``:
     SIGKILLs mid-append of the Nth journal record, after flushing a torn
     prefix of the line via ``w()``.
+  * ``event_kill_hook(n, w)``    — ``observability/events.EventLog``: the
+    same torn-append kill for the Nth event record of a log.
+  * ``serve_drain_kill_hook(n)`` — ``serving/service.MatchService``:
+    SIGKILLs the process after the Nth terminal request outcome of a drain.
+  * ``replica_fault_hook(id, phase)`` — ``serving/replica.py`` dispatch and
+    fetch: kills (``dead_replica_ids``: InjectedDeviceError until cleared)
+    or slows (``slow_replica_ids``: a sleep a fetch) single replicas.
+  * ``queue_overflow_burst`` / ``paced_burst`` — not hooks but the chaos
+    traffic: N submissions back to back or paced, returning the admitted
+    futures and the classified sheds.
+  * ``store_io_hook(op, path)``, ``store_commit_kill_hook(path)``,
+    ``store_bitflip_hook(path)`` — ``store/feature_store.py``: an ENOSPC on
+    an armed store operation, a SIGKILL between an entry's payload write
+    and its commit rename, and one payload bit flipped after a commit.
 
 Arming: :func:`install`/:func:`clear` (or the :func:`injected` context
 manager) in-process, or the ``NCNET_TPU_FAULTS`` environment variable (a
@@ -106,6 +122,30 @@ class FaultPlan:
     # SIGKILL self mid-append of the Nth EvalJournal record (1-based),
     # flushing a torn prefix of the line first
     kill_at_journal_append: int = -1
+    # SIGKILL self mid-append of the Nth EventLog record (1-based, per
+    # EventLog instance), flushing a torn prefix first
+    kill_at_event_append: int = -1
+    # SIGKILL self after the Nth terminal request outcome of a service
+    # drain (1-based)
+    kill_at_drain_result: int = -1
+    # these replica ids fail every armed-phase call with
+    # InjectedDeviceError until the plan is cleared
+    dead_replica_ids: Tuple[str, ...] = ()
+    # which calls die: "fetch" (the dispatch succeeded, the in-flight batch
+    # must fail over), "dispatch" or "both"
+    dead_replica_phase: str = "fetch"
+    # these replica ids sleep slow_replica_seconds inside every fetch
+    slow_replica_ids: Tuple[str, ...] = ()
+    slow_replica_seconds: float = 0.25
+    # store entry paths containing any of these substrings get one payload
+    # bit flipped right after their commit rename
+    store_bitflip_paths: Tuple[str, ...] = ()
+    # store operations ("read", "write", "evict", "journal") that raise
+    # OSError(ENOSPC) at their hook site
+    store_io_error_ops: Tuple[str, ...] = ()
+    # SIGKILL self during the Nth store entry commit (1-based, process-
+    # global), between the payload write and the rename
+    kill_at_store_commit: int = -1
 
 
 _plan: Optional[FaultPlan] = None
@@ -114,15 +154,17 @@ _decode_attempts: Dict[str, int] = {}
 _savemat_attempts: Dict[str, int] = {}
 _device_calls = 0
 _watchdog_calls = 0
+_store_commits = 0
 _lock = threading.Lock()
 
 
 def _reset_counters_locked() -> None:
-    global _device_calls, _watchdog_calls
+    global _device_calls, _watchdog_calls, _store_commits
     _decode_attempts.clear()
     _savemat_attempts.clear()
     _device_calls = 0
     _watchdog_calls = 0
+    _store_commits = 0
 
 
 def install(plan: FaultPlan) -> None:
@@ -280,3 +322,111 @@ def journal_kill_hook(n_append: int, write_partial: Callable[[], None]) -> None:
         return
     write_partial()
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+def event_kill_hook(n_append: int, write_partial: Callable[[], None]) -> None:
+    """SIGKILL self mid-append of event record ``n_append`` (if armed),
+    flushing a torn prefix via ``write_partial`` first."""
+    p = _active()
+    if p is None or p.kill_at_event_append < 0 \
+            or n_append != p.kill_at_event_append:
+        return
+    write_partial()
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def serve_drain_kill_hook(n_resolved: int) -> None:
+    """SIGKILL self after the ``n_resolved``-th terminal request outcome of
+    a serving drain (if armed): the event log must still account for every
+    admitted request."""
+    p = _active()
+    if p is None or p.kill_at_drain_result < 0 \
+            or n_resolved != p.kill_at_drain_result:
+        return
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def replica_fault_hook(replica_id: str, phase: str) -> None:
+    """The replica-pool chaos seam: ``slow_replica_ids`` sleep on fetch,
+    ``dead_replica_ids`` raise :class:`InjectedDeviceError` on the armed
+    phase(s), a replica-local death the service must fail over."""
+    p = _active()
+    if p is None:
+        return
+    if phase == "fetch" and replica_id in p.slow_replica_ids:
+        time.sleep(p.slow_replica_seconds)
+    if replica_id in p.dead_replica_ids and \
+            p.dead_replica_phase in (phase, "both"):
+        raise InjectedDeviceError(
+            f"injected replica death ({replica_id}, {phase})")
+
+
+def queue_overflow_burst(submit: Callable[[], object], n: int):
+    """``n`` back-to-back submissions: ``(futures, sheds)``, the admitted
+    futures and the classified ``Overloaded`` rejections in submission
+    order.  Any other exception propagates."""
+    return paced_burst(submit, rate_qps=0.0, n=n)
+
+
+def paced_burst(submit: Callable[[], object], rate_qps: float, n: int):
+    """Open-loop paced traffic: one submission every ``1/rate_qps`` seconds
+    whatever the completions (``rate_qps <= 0``: back to back).  Returns
+    ``(futures, sheds)`` like :func:`queue_overflow_burst`."""
+    from ncnet_tpu_torch.serving.request import Overloaded
+
+    futures, sheds = [], []
+    t0 = time.perf_counter()
+    for i in range(int(n)):
+        if rate_qps > 0:
+            dt = t0 + i / rate_qps - time.perf_counter()
+            if dt > 0:
+                time.sleep(dt)
+        try:
+            futures.append(submit())
+        except Overloaded as e:
+            sheds.append(e)
+    return futures, sheds
+
+
+def store_io_hook(op: str, path: str = "") -> None:
+    """Raise ``OSError(ENOSPC)`` when store operation ``op`` ("read",
+    "write", "evict", "journal") is armed: the store must answer through a
+    recompute and go DEGRADED."""
+    p = _active()
+    if p is None or not p.store_io_error_ops:
+        return
+    if op in p.store_io_error_ops:
+        import errno
+
+        raise OSError(errno.ENOSPC,
+                      f"injected store {op} failure (no space left)", path)
+
+
+def store_commit_kill_hook(path: str) -> None:
+    """SIGKILL self between the payload write and the commit rename of the
+    Nth store entry commit (1-based, if armed)."""
+    p = _active()
+    if p is None or p.kill_at_store_commit < 0:
+        return
+    global _store_commits
+    with _lock:
+        _store_commits += 1
+        n = _store_commits
+    if n == p.kill_at_store_commit:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def store_bitflip_hook(path: str) -> None:
+    """Flip one bit of a committed store entry's payload (the file's last
+    byte) for matching paths: the next verified read must fail the
+    checksum, quarantine the entry and recompute."""
+    p = _active()
+    if p is None or not p.store_bitflip_paths:
+        return
+    if not any(s and s in path for s in p.store_bitflip_paths):
+        return
+    with open(path, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 0x01]))

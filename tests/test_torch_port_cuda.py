@@ -45,6 +45,8 @@ moves a match, as between the port and the JAX package in
 ``tests/test_torch_port_inloc.py``).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1068,3 +1070,142 @@ def test_spatial_forward_on_one_card_matches_the_unsharded(cuda, half):
     if not half:
         for g, w in zip(got.delta4d, want.delta4d):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_bf16_weight_gradients_of_a_wide_kernel_on_the_card(cuda):
+    """ROADMAP C3 on the card: the CPU library's bf16 conv3d gives a wrong,
+    nondeterministic weight gradient when the kernel is wider than the
+    volume, and the port's CPU path computes that product in f32, rounding
+    once (XLA:CPU's rounding points).  On the card the bf16 conv runs as
+    given (cuDNN): the k = 7 (16, 16, 1) stack on a 5⁴ volume, per layer
+    through the formulations, gives the same gradients from one call to
+    the next, and each leaf lies within max(2 d, 1e-2) normalized of the
+    f32 autograd gradient of the same bf16-valued weights and input, where
+    d is the repaired CPU path's distance from that f32 gradient on the
+    same inputs (bf16 rounding amplified through the stack: d is about
+    0.11 for the first layer's weights, the CPU fault 0.5 and more)."""
+    from ncnet_tpu_torch.models.ncnet import neigh_consensus
+
+    params, x = random_stack(np.random.default_rng(31), (1, 5, 5, 5, 5),
+                             (7, 7, 7), (16, 16, 1), cuda)
+
+    def grads(dtype, device):
+        leaves = [{k: v.to(device, dtype).clone().requires_grad_()
+                   for k, v in p.items()} for p in params]
+        neigh_consensus(leaves, x[..., 0].to(device, dtype), allow_pallas=False,
+                        require_vjp=True).float().square().sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return [g.grad.float().cpu() for p in leaves for g in (p["w"], p["b"])]
+
+    cpu = torch.device("cpu")
+    first, second = grads(torch.bfloat16, cuda), grads(torch.bfloat16, cuda)
+    f32, cpu_bf16 = grads(torch.float32, cuda), grads(torch.bfloat16, cpu)
+    for g1, g2, gf, gc in zip(first, second, f32, cpu_bf16):
+        assert torch.equal(g1, g2)
+        assert normalized_err(g1, gf) <= max(2 * normalized_err(gc, gf), 1e-2)
+
+
+def _service_model():
+    cfg = ModelConfig(backbone="tiny", ncons_kernel_sizes=(3, 3),
+                      ncons_channels=(4, 1), half_precision=True,
+                      sparse_topk=4)
+    return cfg, init_ncnet(cfg, seed=0)
+
+
+def _service_pairs(n, side=192):
+    rng = np.random.default_rng(12)
+    out = []
+    for _ in range(n):
+        src = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+        out.append((src, np.roll(src, 16, axis=1)))
+    return out
+
+
+@pytest.mark.cuda
+def test_two_replica_service_answers_on_the_card(cuda, tmp_path, monkeypatch):
+    """``MatchService`` with two replicas on one card and a feature store:
+    groups of two pairs (each one batch) answer with tables bit-equal to
+    the engine's direct dispatch of the same batch, the coarse-to-fine
+    kernels launch (B8 and B6), a warm second pass is bitwise the cold
+    one, and the warm-up measured one ledger row a batch size (ROADMAP
+    D9) with temp bytes on the card."""
+    from ncnet_tpu_torch.observability import memory as obs_memory
+    from ncnet_tpu_torch.serving import MatchService, ServingConfig, pad_to_bucket
+
+    monkeypatch.setenv("NCNET_TPU_MEMORY_LEDGER", str(tmp_path / "ledger.json"))
+    obs_memory._reset_state()
+    cfg, params = _service_model()
+    svc = MatchService(cfg, params, ServingConfig(
+        buckets=((192, 192),), warm_buckets=((192, 192),), max_batch=2,
+        replicas=2, max_image_side=192,
+        feature_store_dir=str(tmp_path / "store")),
+        devices=["cuda:0", "cuda:0"]).start()
+    pairs = _service_pairs(6)
+    try:
+        def one_pass():
+            tables = []
+            for g in range(0, len(pairs), 2):
+                with svc._cond:  # the group enters the queue as one batch
+                    futs = [svc.submit(s, t) for s, t in pairs[g:g + 2]]
+                tables += [f.result(timeout=300).table for f in futs]
+            return tables
+
+        while svc.state == "STARTING":  # the warm-up launches too
+            time.sleep(0.05)
+        before = sparse_corr.launches, nc_fused_lane.launches
+        cold = one_pass()
+        launched = (sparse_corr.launches - before[0],
+                    nc_fused_lane.launches - before[1])
+        warm = one_pass()
+        engine = svc._pool.replicas[1].engine
+        src = pad_to_bucket([s for s, _ in pairs[:2]], (192, 192))
+        tgt = pad_to_bucket([t for _, t in pairs[:2]], (192, 192))
+        direct = engine.split(engine.fetch(engine.dispatch(src, tgt)))[0]
+        health = svc.health()
+    finally:
+        svc.stop(timeout=120)
+    assert launched[0] == 2 * 3 and launched[1] > 0
+    for c, w in zip(cold, warm):
+        assert np.array_equal(c, w)
+    assert np.array_equal(direct[0], cold[0]) and np.array_equal(direct[1], cold[1])
+    rows = obs_memory.ledger_rows(program=obs_memory.SERVE_PROGRAM)
+    assert sorted(r["shape_class"] for r in rows) == [
+        "192x192-192x192xb1", "192x192-192x192xb2"]
+    assert all(r["temp_bytes"] > 0 and r["output_bytes"] > 0 for r in rows)
+    assert health["memory"]["predicted_ladder_bytes"] == sum(
+        r["temp_bytes"] + r["output_bytes"] for r in rows)
+    assert health["store"]["counters"]["hits"] >= 6
+    obs_memory._reset_state()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_store", [False, True])
+def test_replica_dispatch_does_not_wait_for_the_card(cuda, tmp_path,
+                                                     with_store):
+    """After a first call, ``Replica.dispatch`` of a coarse-to-fine batch
+    (with the feature store: its rows hits) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the upload is staged from
+    pinned memory and nothing makes the host wait, so the service's
+    dispatcher queues batch i+1 behind batch i.  Its table is the first
+    call's bit for bit."""
+    from ncnet_tpu_torch.serving import Replica
+    from ncnet_tpu_torch.store import FeatureStore
+
+    cfg, params = _service_model()
+    store = (FeatureStore(str(tmp_path / "s"), "x-s0-k1-bf16-torch.cuda")
+             if with_store else None)
+    rep = Replica("rep0", BatchMatchEngine(cfg, params, store=store),
+                  device=cuda)
+    pairs = _service_pairs(2)
+    src = np.stack([s for s, _ in pairs])
+    tgt = np.stack([t for _, t in pairs])
+    want = rep.fetch(rep.dispatch(src, tgt))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = rep.dispatch(src, tgt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.array_equal(rep.fetch(handle), want)

@@ -662,18 +662,24 @@ def test_device_error_is_retried_then_quarantined(rect_tree, tmp_path):
                                 dict(feature_store_dir="store"),
                                 dict(retrieval_index="index.json")])
 def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
-    """The feature store and the retrieval shortlist (A12) are refused.
-    ``spatial_shards=2``, refused until the multi-GPU slice, now runs: on a
-    CPU mesh (the CPU named once a shard) the fp32 ``.mat`` tables hold the
-    JAX unsharded run's matches row for row, the scores within rtol 1e-5,
-    atol 1e-6 (the fp32 bound above), every pair through the sharded
-    forward; on CUDA with one card visible it raises, naming the devices
-    it needs."""
+    """The retrieval shortlist (A12) is refused.  ``spatial_shards=2``,
+    refused until the multi-GPU slice, now runs: on a CPU mesh (the CPU
+    named once a shard) the fp32 ``.mat`` tables hold the JAX unsharded
+    run's matches row for row, the scores within rtol 1e-5, atol 1e-6 (the
+    fp32 bound above), every pair through the sharded forward; on CUDA with
+    one card visible it raises, naming the devices it needs.
+    ``feature_store_dir``, refused until the serving slice, now runs: the
+    store runs' tables hold the JAX store run's within the same bound, and
+    a warm second run of the port extracts one trunk a query and writes
+    the cold run's tables bit for bit."""
     root, shortlist = rect_tree
     name = next(iter(kw))
-    if name != "spatial_shards":
+    if name == "retrieval_index":
         with pytest.raises(NotImplementedError, match=name):
             run_port(root, shortlist, str(tmp_path / "m"), **kw)
+        return
+    if name == "feature_store_dir":
+        check_store_runs(root, shortlist, tmp_path, monkeypatch)
         return
     from ncnet_tpu_torch.parallel import spatial as tspatial
 
@@ -704,6 +710,40 @@ def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
                                **eval_kw(root, shortlist, **kw))
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         tinloc.run_inloc_eval(cfg, model_config=tc, params=tp, progress=False)
+
+
+def check_store_runs(root, shortlist, tmp_path, monkeypatch):
+    """Both packages' ``run_inloc_eval`` with a feature store, then a warm
+    rerun of the port (see ``test_unported_options_are_refused``)."""
+    matchers = []
+    real = tinloc.make_pair_matcher
+    monkeypatch.setattr(tinloc, "make_pair_matcher",
+                        lambda *a, **k: matchers.append(real(*a, **k))
+                        or matchers[-1])
+    jc, jp, _, _ = shared_params(False)
+    jdir = jinloc.run_inloc_eval(
+        jcfg.EvalInLocConfig(output_root=str(tmp_path / "jax"),
+                             feature_store_dir=str(tmp_path / "jstore"),
+                             **eval_kw(root, shortlist)),
+        model_config=jc, params=jp, progress=False)
+    store = str(tmp_path / "tstore")
+    cold = run_port(root, shortlist, str(tmp_path / "cold"),
+                    feature_store_dir=store)
+    warm = run_port(root, shortlist, str(tmp_path / "warm"),
+                    feature_store_dir=store)
+    assert [m.feature_extractions for m in matchers] == [2 + 4, 2]
+    assert matchers[1].store.counters["hits"] == 4
+    assert matchers[1].store.counters["misses"] == 0
+    grid = ((QUERY_HW[0] // 32, QUERY_HW[1] // 32, PANO_HW[0] // 32,
+             PANO_HW[1] // 32), 2)
+    for n in ("1.mat", "2.mat"):
+        g = loadmat(os.path.join(cold, n))["matches"]
+        w = loadmat(os.path.join(jdir, n))["matches"]
+        assert g.shape == w.shape and (g[..., 4] > 0).sum() > 0
+        assert_same_matches(g[..., :4], w[..., :4], grid)
+        np.testing.assert_allclose(g[..., 4], w[..., 4], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(
+            loadmat(os.path.join(warm, n))["matches"], g)
 
 
 def test_entry_points_need_cuda(rect_tree, tmp_path, monkeypatch):

@@ -176,10 +176,28 @@ def test_engine_tracked_dispatch_skips_coarse_pass():
     assert (eng.coarse_passes, eng.tracked_dispatches) == (cp, 2)
 
 
-def test_engine_feature_store_is_not_ported():
+def test_engine_feature_store_is_not_ported(tmp_path):
+    """Refused until the serving slice; the engine now takes a feature
+    store, and the tracked path resolves its reference features through
+    it: a second engine on the same store extracts nothing and serves the
+    first one's table bit for bit."""
+    from ncnet_tpu_torch.store import FeatureStore
+
     _, tc, _, tp = shared()
-    with pytest.raises(NotImplementedError, match="store"):
-        BatchMatchEngine(tc, tp, device="cpu", store=object())
+    store = FeatureStore(str(tmp_path / "s"), "x-s0-k1-f32-torch.cpu")
+    src, tgt = u8(1), u8(2)
+    plain = BatchMatchEngine(tc, tp, device="cpu")
+    pab, pba = ttm.prior_from_table(plain.fetch(plain.dispatch(src, tgt))[0],
+                                    (6, 6), (6, 6), 2)
+    tables = []
+    for _ in range(2):
+        eng = BatchMatchEngine(tc, tp, device="cpu", store=store)
+        tables.append(eng.fetch(eng.dispatch_tracked(src, u8(3), pab[None],
+                                                     pba[None])))
+        assert eng.coarse_passes == 0
+    assert eng.feature_extractions == 0
+    assert (store.counters["misses"], store.counters["hits"]) == (1, 1)
+    np.testing.assert_array_equal(tables[0], tables[1])
 
 
 @pytest.mark.parametrize("track_radius", [0, 1])
