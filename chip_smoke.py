@@ -108,6 +108,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      from the event log, request and batch walls, queue depth, store hit
      rate and ms a hit, frame walls, peak memory beside the ledger's
      predicted ladder bytes;
+  N. (run right after phase S) the network plane: two backend processes
+     on the card (``chip_smoke.py --pod-backend``), each a ``MatchService``
+     with phase S's model and weights, written here as a native checkpoint
+     and loaded through ``load_params``, and its introspection plane on an
+     ephemeral port: A with 2 replicas and ``max_batch`` 4, B with 1
+     replica and ``max_batch`` 1; the port's ``MatchRouter`` in this
+     process with its own plane.  24 raw pairs of 640–800 px from 2
+     ``MatchClient``s through the router (5 s deadline), each table finite
+     with scores and quality in [0, 1], each pair B served bit-equal to a
+     direct batch-1 dispatch here; B SIGKILLed under a stream (no request
+     lost, the failover off-budget, B DEAD) and restarted at its port (the
+     probes resurrect it); B SIGTERMed holding 12 admitted requests (the
+     router demotes it before its drain completes, no edge error); three
+     rollouts on A over ``POST /rollout`` under a stream: a seed-1
+     candidate promoted to COMPLETE, the same weights as ``step_000002``
+     with the canary quality shift armed rolled back by the PSI gate, and
+     ``step_000003`` with a flipped payload refused before any replica;
+     ``/metrics`` of the router and of A scraped under load (counters
+     monotone, parsed); the router's outcome identity from its event log;
+     each backend's launches, 6 B6 and 2 B8 a dispatch, read at its exit;
   T. (run right after phase A) the two probe tools' entry points, each
      with its counts set to 0 just before and read just after:
      ``tools.mosaic_probes.run()`` builds the toolchain
@@ -255,6 +275,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -402,6 +423,14 @@ SERVICE_REQUESTS, SERVICE_CLIENTS, SERVICE_BATCH = 48, 2, 4
 SERVICE_SIDES, SERVICE_DEADLINE_S = (640, 800), 2.0
 SERVICE_BURST, SERVICE_MAX_QUEUE, SERVICE_MAX_FAILURES = 40, 16, 2
 SERVICE_FRAMES, SERVICE_DRAIN = 6, 8
+# phase N: the network plane.  Backend A (POD_A_REPLICAS replicas, max_batch
+# SERVICE_BATCH) takes the rollouts, backend B (1 replica, max_batch 1) the
+# bitwise check; POD_REQUESTS raw pairs from POD_CLIENTS clients through the
+# router with a POD_DEADLINE_S budget; POD_HELD requests held on B when it
+# is SIGTERMed; the judged canary needs POD_CANARY_MIN results a version
+POD_A_REPLICAS, POD_REQUESTS, POD_CLIENTS = 2, 24, 2
+POD_DEADLINE_S, POD_HELD, POD_CANARY_MIN = 5.0, 12, 4
+POD_SHIFT = 0.4  # the canary quality shift armed for step_000002
 # phase L: the eval loop on a fixture of 12 raw pairs at EVAL_SOURCE_HW, each
 # target its source moved by EVAL_LOOP_SHIFT px (about one 16-px feature
 # cell of the EVAL_SIDE image in each axis); run_eval at batch 4, the CLI at
@@ -1753,9 +1782,10 @@ def fine_pass_check(torch, cfg, params, fa, fb, cand_ab, cand_ba, where):
         raise SystemExit(f"{where}: the fine pass disagrees with the plain path")
 
 
-def serving_params(torch, cfg, dev, side):
+def serving_params(torch, cfg, dev, side, seed=0):
     """The PF-Pascal model's parameters on ``dev`` for the served phases (B,
-    E, R): random from seed 0, the trunk's BatchNorm statistics from one
+    E, R; phase N's candidate with ``seed`` 1): random from ``seed``, the
+    trunk's BatchNorm statistics from one
     seeded batch at ``side`` through the f32 trunk (the bf16 trunk runs on
     a cast copy of the parameters), NC kernels centre-peaked with biases
     off zero, as in phase 5."""
@@ -1764,7 +1794,7 @@ def serving_params(torch, cfg, dev, side):
     from ncnet_tpu_torch.models.ncnet import init_ncnet, params_to
     from ncnet_tpu_torch.ops.image import normalize_imagenet
 
-    params = params_to(init_ncnet(cfg, seed=0), dev)
+    params = params_to(init_ncnet(cfg, seed=seed), dev)
     calib = np.random.default_rng(3).integers(
         0, 256, (SERVE_BATCH, side, side, 3), dtype=np.uint8)
     calibrate_trunk(cfg.replace(backbone_bf16=False), params,
@@ -2469,6 +2499,595 @@ def serve_service(torch, nc_fused_lane, sparse_corr, params, devices=None):
     shutil.rmtree(tmp)
     os.environ.pop("NCNET_TPU_MEMORY_LEDGER")
     return launches, stream_launches
+
+def pod_model_config():
+    """Phase S's coarse-to-fine PF-Pascal model, which phase N serves."""
+    from ncnet_tpu_torch.config import ModelConfig
+
+    return ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                       ncons_channels=(16, 16, 1), half_precision=True,
+                       backbone_bf16=True, sparse_topk=C2F_TOPK,
+                       sparse_factor=2)
+
+
+def pod_backend(spec) -> int:
+    """One of phase N's backend processes (``chip_smoke.py --pod-backend
+    <spec>``): a ``MatchService`` on the card with the introspection plane
+    on ``spec["port"]`` (0: ephemeral), serving the native checkpoint
+    ``spec["checkpoint"]`` with ``spec["replicas"]`` replicas on ``cuda:0``
+    and ``spec["max_batch"]``, under an event log at ``spec["events"]``.
+    The kernel counts are set to 0 before the service is built, so they
+    cover the process's whole path (its warm-up, the requests, the
+    rollouts' re-warms); once READY it prints the ``{"url", "pid"}`` line;
+    SIGTERM drains it, and at exit it prints its launches and engine
+    dispatches as one JSON line.  Without a card it
+    raises: a backend started for the card never serves on the CPU."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("pod backend: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ncnet_tpu_torch.models.checkpoint import load_params
+    from ncnet_tpu_torch.observability import EventLog
+    from ncnet_tpu_torch.observability import events as obs_events
+    from ncnet_tpu_torch.ops import kernel_build, nc_fused_lane, sparse_corr
+    from ncnet_tpu_torch.serving import (BatchMatchEngine, MatchService,
+                                         ServingConfig)
+
+    kernel_build.build()
+    obs_events.set_global_sink(EventLog(spec["events"]))
+    cfg, params = load_params(spec["checkpoint"], pod_model_config())
+    dispatches = [0]
+    dispatch = BatchMatchEngine.dispatch
+
+    def counted(self, *args, **kw):
+        dispatches[0] += 1
+        return dispatch(self, *args, **kw)
+
+    BatchMatchEngine.dispatch = counted
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    side = C2F_SIDE
+    svc = MatchService(cfg, params, ServingConfig(
+        buckets=((side, side),), warm_buckets=((side, side),),
+        max_image_side=side, max_batch=spec["max_batch"],
+        replicas=spec["replicas"], max_queue=64, max_in_flight_per_client=64,
+        retries=1, install_sigterm=True, introspect_port=spec["port"]),
+        devices=["cuda:0"] * spec["replicas"]).start()
+    while svc.state == "STARTING":
+        time.sleep(0.05)
+    if svc.introspect_url is None:
+        svc.stop(drain=False)
+        raise SystemExit(f"pod backend: port {spec['port']} did not bind")
+    print(json.dumps({"url": svc.introspect_url, "pid": os.getpid()}),
+          flush=True)
+    while svc.state != "STOPPED":
+        time.sleep(0.05)
+        if svc.state == "DRAINING":
+            svc.stop()
+    print(json.dumps({"pod_backend": {
+        "nc_conv4d_bf16": nc_fused_lane.launches,
+        "gather_tile_corr_bf16": sparse_corr.launches,
+        "dispatches": dispatches[0]}}), flush=True)
+    return 0
+
+
+class PodBackend:
+    """A phase N backend process seen from the script: started at once,
+    its URL read when it is READY, its counts read when it exits."""
+
+    def __init__(self, name, tmp, checkpoint, replicas, max_batch, port=0,
+                 faults=None):
+        self.name, self.tmp = name, tmp
+        self.events = os.path.join(tmp, f"{name}.jsonl")
+        self.stderr_path = os.path.join(tmp, f"{name}.stderr")
+        spec = {"checkpoint": checkpoint, "replicas": replicas,
+                "max_batch": max_batch, "port": port, "events": self.events}
+        env = dict(os.environ, NCNET_TPU_PERF_STORE="off",
+                   NCNET_TPU_MEMORY_LEDGER=os.path.join(tmp, f"{name}.ledger"))
+        if faults:
+            env["NCNET_TPU_FAULTS"] = json.dumps(faults)
+        self._err = open(self.stderr_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--pod-backend", json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=self._err, text=True, cwd=HERE,
+            env=env)
+        self.url = None
+        self.counts = None
+
+    def fail(self, msg):
+        with open(self.stderr_path) as f:
+            tail = f.read()[-3000:]
+        raise SystemExit(f"pod: backend {self.name}: {msg}\n{tail}")
+
+    def ready(self):
+        line = self.proc.stdout.readline()
+        if not line:
+            self.fail(f"exited with {self.proc.wait()} before READY")
+        self.url = json.loads(line)["url"]
+        return self.url
+
+    def finish(self, timeout=120):
+        try:
+            out, _ = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            self.fail("did not exit after its drain")
+        self._err.close()
+        if self.proc.returncode != 0:
+            self.fail(f"exit code {self.proc.returncode}")
+        for line in out.splitlines():
+            if line.startswith('{"pod_backend"'):
+                self.counts = json.loads(line)["pod_backend"]
+        if self.counts is None:
+            self.fail("printed no counts")
+        return self.counts
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._err.close()
+
+
+def healthz(url):
+    """A backend's or the router's health document (503 while draining)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.load(r)
+    except urllib.error.HTTPError as e:
+        return json.load(e)
+
+
+def get_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.load(r)
+
+
+def wait_for(pred, what, timeout=120.0):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"pod: timed out waiting for {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+class PodStream:
+    """Closed-loop clients through the router's wire until stopped: each
+    a ``MatchClient`` sending ``pairs`` in turn with ``POD_DEADLINE_S``;
+    every outcome kept (a result's table, or the exception)."""
+
+    def __init__(self, url, pairs, clients=POD_CLIENTS, limit=None):
+        import threading
+
+        self.outcomes = []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(
+            target=self._client, args=(url, pairs, c, limit), daemon=True)
+            for c in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, url, pairs, c, limit):
+        from ncnet_tpu_torch.serving import MatchClient
+
+        client = MatchClient(url, timeout_s=60.0)
+        i = c
+        try:
+            while not self._stop.is_set() and (limit is None or i < limit):
+                src, tgt = pairs[i % len(pairs)]
+                t0 = time.perf_counter()
+                try:
+                    r = client.match(src, tgt, client=f"client{c}",
+                                     budget_s=POD_DEADLINE_S)
+                    out = (i, r, (time.perf_counter() - t0) * 1e3)
+                except Exception as e:  # noqa: BLE001 — counted as lost
+                    out = (i, e, (time.perf_counter() - t0) * 1e3)
+                with self._lock:
+                    self.outcomes.append(out)
+                i += len(self._threads)
+        finally:
+            client.close()
+
+    def count(self):
+        with self._lock:
+            return len(self.outcomes)
+
+    def stop(self, wait=False):
+        """Stop the clients (``wait``: let each reach its ``limit`` first)
+        and return ``(outcomes, errors)``."""
+        if not wait:
+            self._stop.set()
+        for t in self._threads:
+            t.join(300 if wait else 120)
+        errors = [o for _, o, _ in self.outcomes if isinstance(o, Exception)]
+        return self.outcomes, errors
+
+
+def router_outcomes(events):
+    """The router's outcome identity from its event log: admitted, the
+    terminal events by kind, and the admitted ids with no outcome."""
+    import collections
+
+    admitted = {e["request"] for e in events if e["event"] == "route_admit"}
+    terminal = [e for e in events
+                if e["event"] in ("route_result", "route_quarantine")
+                or (e["event"] in ("route_deadline", "route_shed")
+                    and e.get("admitted") is True)]
+    n = collections.Counter(e["event"] for e in terminal)
+    return len(admitted), n, sorted(admitted - {e["request"] for e in terminal})
+
+
+def check_pod_tables(results, n_cells, where):
+    """Each result a finite ``(5, n_cells)`` table with scores in [0, 1]
+    and its 5 quality signals in [0, 1] up to f32 rounding (the entropy is
+    normalized by a logarithm: 1 + 1e-6 at a uniform distribution)."""
+    import numpy as np
+
+    for r in results:
+        t = r.table
+        q = np.asarray(list((r.quality or {}).values()), np.float64)
+        if t.shape != (5, n_cells) or not np.isfinite(t).all() \
+                or t[4].min() < 0 or t[4].max() > 1 or q.size != 5 \
+                or not np.isfinite(q).all() or q.min() < 0 \
+                or q.max() > 1 + 1e-6:
+            raise SystemExit(f"pod {where}: bad table {t.shape} or quality "
+                             f"{r.quality}")
+
+
+def scrape(url):
+    import urllib.request
+
+    from ncnet_tpu_torch.observability.export import parse_prometheus
+
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        return parse_prometheus(r.read().decode("utf-8"))
+
+
+def monotone(f1, f2):
+    """Counters of the first scrape that fell by the second."""
+    bad = []
+    for name, fam in f1.items():
+        if fam["type"] != "counter":
+            continue
+        later = {(n, tuple(sorted(lb.items()))): v
+                 for n, lb, v in f2.get(name, {}).get("samples", [])}
+        for n, lb, v in fam["samples"]:
+            key = (n, tuple(sorted(lb.items())))
+            if later.get(key, v) < v:
+                bad.append((key, v, later.get(key)))
+    return bad
+
+
+def rollout(url, candidate, **knobs):
+    """``POST /rollout`` on a backend, then its ``GET /rollout`` until this
+    rollout is over; returns (status, wall s)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        url + "/rollout", method="POST",
+        data=json.dumps({"checkpoint": candidate, **knobs}).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        if r.status != 202:
+            raise SystemExit(f"pod: POST /rollout answered {r.status}")
+    version = os.path.basename(candidate)
+    while True:
+        st = get_json(url + "/rollout")
+        if st.get("phase") in ("COMPLETE", "ROLLED_BACK") and \
+                st.get("new_version") == version:
+            break
+        if st.get("phase") == "IDLE" and (st.get("reason") or "").startswith(
+                "refused"):
+            break
+        if time.perf_counter() - t0 > 180:
+            raise SystemExit(f"pod: rollout to {version} stuck in {st}")
+        time.sleep(0.05)
+    return st, time.perf_counter() - t0
+
+
+def pod_phase(torch, params):
+    """Phase N: the network plane on the card.  Two backend processes with
+    phase S's model and weights (written here as a native checkpoint and
+    loaded through ``load_params``) behind the port's ``MatchRouter`` in
+    this process: traffic over the wire, a bitwise check of backend B's
+    pairs against a direct batch-1 dispatch here, a SIGKILL of B and its
+    restart at the same port, a SIGTERM drain of B, three rollouts on A
+    over ``POST /rollout`` (promoted, rolled back by the canary's quality
+    gate, refused for a flipped payload), and ``/metrics`` scrapes.
+    Returns the backends' launches (those of processes that exited after a
+    drain; the SIGKILLed one cannot report)."""
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.models.checkpoint import load_params, save_params
+    from ncnet_tpu_torch.observability import EventLog
+    from ncnet_tpu_torch.observability import events as obs_events
+    from ncnet_tpu_torch.serving import (BatchMatchEngine, MatchRouter,
+                                         RouterConfig, pad_to_bucket)
+    from ncnet_tpu_torch.serving.introspect import scrape_wall_ms
+
+    t_phase = time.perf_counter()
+    cfg = pod_model_config()
+    side = C2F_SIDE
+    n_cells = (side // 16) ** 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    base = os.path.join(tmp, "base")
+    save_params(base, cfg, params)
+    plan = {"canary_quality_shift": POD_SHIFT,
+            "canary_shift_version": "step_000002",
+            "corrupt_candidate_checkpoint": "step_000003"}
+    backends = {"A": PodBackend("A", tmp, base, POD_A_REPLICAS,
+                                SERVICE_BATCH, faults=plan),
+                "B": PodBackend("B", tmp, base, 1, 1)}
+    router = log = prev_sink = None
+    streams = []
+    try:
+        # while the backends start: the candidates (seed-1 weights as
+        # step_000001; step_000002 and step_000003 the same files) and
+        # this process's engine for the bitwise check
+        cands = os.path.join(tmp, "candidates")
+        cand_params = serving_params(torch, cfg, torch.device("cuda", 0),
+                                     side, seed=1)
+        save_params(os.path.join(cands, "step_000001"), cfg, cand_params)
+        del cand_params
+        for v in ("step_000002", "step_000003"):
+            shutil.copytree(os.path.join(cands, "step_000001"),
+                            os.path.join(cands, v))
+        engine = BatchMatchEngine(*load_params(base, cfg))
+        for b in backends.values():
+            b.ready()
+        print(f"pod: backends ready after {time.perf_counter() - t_phase:.1f} s "
+              f"(A: {POD_A_REPLICAS} replicas, max_batch {SERVICE_BATCH}; B: 1 "
+              f"replica, max_batch 1; each warmed its ladder on the card); "
+              f"{card_line()}", flush=True)
+
+        router_log = os.path.join(tmp, "router.jsonl")
+        log = EventLog(router_log)
+        prev_sink = obs_events.set_global_sink(log)
+        router = MatchRouter([backends["A"].url, backends["B"].url],
+                             RouterConfig(
+            introspect_port=0, probe_period_s=0.1, resurrect_after_s=0.5,
+            backend_max_failures=2, retries=1, request_timeout_s=30.0,
+            # one wire request in flight a backend: two clients keep both
+            # backends busy, so B serves pairs and holds one when killed
+            per_backend_depth=1, max_queue=256,
+            max_in_flight_per_client=256)).start()
+        rurl = router.introspect_url
+        bid = {b.url: b.id for b in router.backends}
+        id_a, id_b = bid[backends["A"].url], bid[backends["B"].url]
+
+        # 2. 24 raw pairs from 2 clients through the router
+        pairs = service_requests(23, POD_REQUESTS)
+        outs, errors = PodStream(rurl, pairs, limit=POD_REQUESTS).stop(
+            wait=True)
+        if errors or len(outs) != POD_REQUESTS:
+            raise SystemExit(f"pod: {len(errors)} of {len(outs)} requests "
+                             f"failed: {errors[:3]!r}")
+        results = {r.request_id: (i, r, ms) for i, r, ms in outs}
+        check_pod_tables([r for _, r, _ in results.values()], n_cells,
+                         "traffic")
+        walls = [ms for _, _, ms in results.values()]
+        _, ev = obs_events.replay_events(router_log)
+        served = {e["request"]: e for e in ev if e["event"] == "route_result"}
+        overhead = [e["wall_ms"] - e["backend_wall_ms"] for e in served.values()]
+        on_b = [rid for rid, e in served.items()
+                if rid in results and e["backend"] == id_b]
+        print(f"pod: {POD_REQUESTS} pairs through the router: wire walls ms "
+              f"p50 {percentile(walls, 50):.1f} p95 {percentile(walls, 95):.1f};"
+              f" router overhead (route wall - backend serve wall) ms p50 "
+              f"{percentile(overhead, 50):.2f} p95 {percentile(overhead, 95):.2f};"
+              f" served by A {sum(e['backend'] == id_a for e in served.values())},"
+              f" by B {len(on_b)}; {card_line()}", flush=True)
+        if not on_b:
+            raise SystemExit("pod: backend B served no pair")
+        unequal = []
+        for rid in on_b:
+            i, r, _ = results[rid]
+            src, tgt = pairs[i]
+            direct = engine.split(engine.fetch(engine.dispatch(
+                pad_to_bucket([src], (side, side)),
+                pad_to_bucket([tgt], (side, side)))))[0][0]
+            if not np.array_equal(direct, r.table):
+                unequal.append((rid, float(np.abs(direct - r.table).max())))
+        print(f"pod: B's {len(on_b)} pairs against a direct batch-1 dispatch "
+              f"in this process: {len(on_b) - len(unequal)} bit-equal "
+              f"{unequal[:4]}", flush=True)
+        if unequal:
+            raise SystemExit("pod: a pair B served differs from the direct "
+                             "dispatch")
+        del engine
+
+        # 3. SIGKILL B mid-stream, restart it at the same port
+        b_port = int(backends["B"].url.rsplit(":", 1)[1])
+        victim = next(b for b in router.backends if b.id == id_b)
+        s = PodStream(rurl, pairs)
+        streams.append(s)
+        wait_for(lambda: victim.inflight > 0, "B to hold requests")
+        t_kill = obs_events.wall_now()
+        backends["B"].kill()
+        wait_for(lambda: victim.state == "DEAD", "B DEAD in the router")
+        t_dead = obs_events.wall_now()
+        backends["B2"] = PodBackend("B2", tmp, base, 1, 1, port=b_port)
+        backends["B2"].ready()
+        t_up = obs_events.wall_now()
+        wait_for(lambda: victim.state == "READY", "B resurrected")
+        t_back = obs_events.wall_now()
+        n_before = s.count()
+        wait_for(lambda: s.count() > n_before + 4, "traffic after B's return")
+        streams.pop()
+        outs, errors = s.stop()
+        _, ev = obs_events.replay_events(router_log)
+        reroutes = [e for e in ev if e["event"] == "retry"
+                    and e.get("scope") == "router" and e.get("via") == "reroute"]
+        moved = [e for e in ev if e["event"] == "route_backend"
+                 and e.get("backend") == id_b]
+        print(f"pod: SIGKILL of B under a stream: {len(outs)} requests, "
+              f"{len(errors)} failed; {len(reroutes)} re-routed, on_budget "
+              f"{sorted({e['on_budget'] for e in reroutes})}; B DEAD "
+              f"{(t_dead - t_kill) * 1e3:.1f} ms after the kill; restarted at "
+              f"port {b_port}, READY in its process "
+              f"{t_up - t_kill:.1f} s after the kill, resurrected by the "
+              f"router's probes {(t_back - t_up) * 1e3:.1f} ms after that; "
+              f"B's states {[e['state'] for e in moved]}; {card_line()}",
+              flush=True)
+        if errors or not reroutes or any(e["on_budget"] for e in reroutes) \
+                or [e["state"] for e in moved][-2:] != ["DEAD", "READY"]:
+            raise SystemExit("pod: the failover lost a request, charged a "
+                             "budget, or B was not DEAD then READY")
+
+        # 4. SIGTERM B while it holds admitted work: demoted before its
+        # drain completes, no edge error
+        admitted0 = healthz(backends["B2"].url)["counters"]["admitted"]
+        held = PodStream(backends["B2"].url, pairs[:POD_HELD],
+                         clients=POD_HELD, limit=POD_HELD)
+        wait_for(lambda: healthz(backends["B2"].url)["counters"]["admitted"]
+                 >= admitted0 + POD_HELD, "B to admit the held requests")
+        s = PodStream(rurl, pairs)
+        streams.append(s)
+        t_term = obs_events.wall_now()
+        backends["B2"].proc.send_signal(signal.SIGTERM)
+        b_counts = backends["B2"].finish()
+        wait_for(lambda: victim.state == "DEAD", "B DEAD after its drain")
+        held_outs, held_errors = held.stop(wait=True)
+        streams.pop()
+        outs, errors = s.stop()
+        _, ev = obs_events.replay_events(router_log)
+        _, bev = obs_events.replay_events(backends["B2"].events)
+        drain_t = [e["t"] for e in bev if e["event"] == "serve_drain"]
+        states = [(e["state"], e["t"]) for e in ev
+                  if e["event"] == "route_backend" and e.get("backend") == id_b
+                  and e["t"] >= t_term]
+        demoted = [t for st, t in states if st == "DRAINING"]
+        print(f"pod: SIGTERM of B with {POD_HELD} held requests: held "
+              f"{len(held_outs) - len(held_errors)} results; router stream "
+              f"{len(outs)} requests, {len(errors)} failed; B's states "
+              f"{[st for st, _ in states]}, DRAINING "
+              f"{(demoted[0] - t_term) * 1e3 if demoted else float('nan'):.1f} "
+              f"ms after the signal, its drain done "
+              f"{(drain_t[0] - t_term) * 1e3 if drain_t else float('nan'):.1f} "
+              f"ms after it; B's launches {b_counts}", flush=True)
+        if held_errors or len(held_outs) != POD_HELD or errors \
+                or not demoted or not drain_t \
+                or demoted[0] >= drain_t[0]:
+            rel = lambda t: round((t - t_term) * 1e3, 1)  # noqa: E731
+            print(f"pod: B's events after the signal, ms: router "
+                  f"{[(e['event'], e.get('state'), e.get('ok'), rel(e['t'])) for e in ev if e.get('backend') == id_b and e['t'] >= t_term - 1]}"
+                  f"; B {[(e['event'], e.get('state'), e.get('reason'), rel(e['t'])) for e in bev if e['event'] in ('serve_health', 'serve_drain', 'serve_start')]}",
+                  flush=True)
+            raise SystemExit("pod: the drain lost a request or B was not "
+                             "demoted before its drain completed")
+
+        # 5. three rollouts on A under a stream of one repeated pair, and 6.
+        # scrapes of the router and A under that load
+        aurl = backends["A"].url
+        one = [pairs[0]]
+        s = PodStream(rurl, one)
+        streams.append(s)
+        wait_for(lambda: s.count() >= 4, "the rollout stream")
+        r1, a1 = scrape(rurl), scrape(aurl)
+        v0 = healthz(aurl)["model_version"]
+        st1, w1 = rollout(aurl, os.path.join(cands, "step_000001"),
+                          canary_fraction=0.5, canary_min_results=0,
+                          drain_timeout_s=60.0)
+        v1 = healthz(aurl)["model_version"]
+        a2 = scrape(aurl)
+        st2, w2 = rollout(aurl, os.path.join(cands, "step_000002"),
+                          canary_fraction=0.5,
+                          canary_min_results=POD_CANARY_MIN,
+                          canary_timeout_s=120.0, drain_timeout_s=60.0)
+        st3, w3 = rollout(aurl, os.path.join(cands, "step_000003"))
+        v3 = healthz(aurl)["model_version"]
+        r2, a3 = scrape(rurl), scrape(aurl)
+        router_scrape_ms = scrape_wall_ms(rurl, n=5)
+        backend_scrape_ms = scrape_wall_ms(aurl, n=5)
+        streams.pop()
+        outs, errors = s.stop()
+        check_pod_tables([r for _, r, _ in outs if not isinstance(r, Exception)],
+                         n_cells, "rollout stream")
+        ver_lat = {lb.get("model_version"): v for n, lb, v in
+                   a3["ncnet_serve_version_latency_ms"]["samples"]
+                   if n.endswith("_count")}
+        bad = monotone(r1, r2) + monotone(a1, a2) + monotone(a2, a3)
+        print(f"pod: rollouts on A under a stream of {len(outs)} requests "
+              f"({len(errors)} failed): {v0} -> step_000001 "
+              f"{st1['phase']} in {w1:.2f} s (/healthz model_version {v1}); "
+              f"step_000002 {st2['phase']} ({st2['reason']}, psi "
+              f"{(st2.get('verdict') or {}).get('psi')}) in {w2:.2f} s; "
+              f"step_000003 {st3['phase']} ({st3['reason']}) in {w3:.2f} s; "
+              f"model_version after {v3}; per-version latency counts on "
+              f"/metrics {ver_lat}; {card_line()}", flush=True)
+        print(f"pod: /metrics scrapes under load: router "
+              f"{len(r2)} families, A {len(a3)}; counters that fell {bad}; "
+              f"scrape_wall_ms router {router_scrape_ms:.2f}, A "
+              f"{backend_scrape_ms:.2f}; {card_line()}", flush=True)
+        if (errors or st1["phase"] != "COMPLETE" or v1 != "step_000001"
+                or st2["phase"] != "ROLLED_BACK"
+                or not (st2["reason"] or "").startswith("quality_drift")
+                or st3["phase"] != "IDLE"
+                or st3["reason"] != "refused:payload_sha_mismatch"
+                or v3 != "step_000001" or bad
+                or not {v0, "step_000001"} <= set(ver_lat)):
+            raise SystemExit("pod: a rollout did not end as it should, lost "
+                             "a request, or a scrape failed")
+
+        # the end: the router drains, A drains and reports
+        router.request_drain("phase N done")
+        wait_for(lambda: router.state == "STOPPED", "the router's drain")
+        backends["A"].proc.send_signal(signal.SIGTERM)
+        a_counts = backends["A"].finish()
+    finally:
+        for s in streams:
+            s.stop()
+        if router is not None:
+            router.stop(drain=False)
+        if log is not None:
+            obs_events.set_global_sink(prev_sink)
+            log.close()
+        for b in backends.values():
+            if b.proc.poll() is None:
+                b.kill()
+    _, ev = obs_events.replay_events(router_log)
+    admitted, n, lost = router_outcomes(ev)
+    _, aev = obs_events.replay_events(backends["A"].events)
+    phases = [(e["phase"], e["t"]) for e in aev if e["event"] == "rollout_phase"]
+    phase_walls = [(p, round((t2 - t1) * 1e3, 1)) for (p, t1), (_, t2)
+                   in zip(phases, phases[1:]) if p not in ("COMPLETE",
+                                                          "ROLLED_BACK")]
+    swaps = [(e["replica"], e["version"], e.get("swap_ms"), e.get("warm_ms"))
+             for e in aev if e["event"] == "rollout_swap"]
+    launches = {k: a_counts[k] + b_counts[k]
+                for k in ("nc_conv4d_bf16", "gather_tile_corr_bf16")}
+    per = {name: c for name, c in (("A", a_counts), ("B", b_counts))}
+    print(f"pod: router event log: admitted {admitted} == results "
+          f"{n['route_result']} + deadlines {n['route_deadline']} + "
+          f"quarantines {n['route_quarantine']} + admitted sheds "
+          f"{n['route_shed']}; lost {lost}; A's rollout phases "
+          f"{[p for p, _ in phases]}, phase walls ms {phase_walls}; swaps "
+          f"(replica, version, swap ms, re-warm ms) {swaps}; launches {per}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; {card_line()}",
+          flush=True)
+    if admitted != sum(n.values()) or lost or n["route_result"] != admitted:
+        raise SystemExit("pod: the router's outcome identity failed")
+    for name, c in per.items():
+        if not c["dispatches"] or c["nc_conv4d_bf16"] != 6 * c["dispatches"] \
+                or c["gather_tile_corr_bf16"] != 2 * c["dispatches"]:
+            raise SystemExit(f"pod: backend {name}'s launches {c} are not 6 "
+                             "B6 and 2 B8 a dispatch")
+    shutil.rmtree(tmp)
+    return launches
+
 
 def serve_fp32(torch, nc_fused_lane, conv4d_pallas, dev):
     """Phase D: fp32 serving at full width, ``FP32_SIDES``: 400² (the FFT
@@ -5647,8 +6266,10 @@ def main() -> int:
     mark("B, C, D")
     service_launches, stream_launches = serve_service(
         torch, nc_fused_lane, sparse_corr, params)
-    del engine, params
     mark("S")
+    pod_launches = pod_phase(torch, params)
+    del engine, params
+    mark("N")
     eval_launches = eval_phase(torch, nc_fused_lane, dev)
     reloc_launches = serve_reloc(torch, nc_fused_lane, dev)
     loop_launches, cli_launches = eval_loop(torch, nc_fused_lane, sparse_corr,
@@ -5679,6 +6300,9 @@ def main() -> int:
                   "serve_tracked": tracked_launches["nc_conv4d_bf16"],
                   "serve_service": service_launches["nc_conv4d_bf16"],
                   "serve_stream": stream_launches["nc_conv4d_bf16"],
+                  # phase N: the backends' launches, each backend process
+                  # counting from its READY to its exit
+                  "serve_pod": pod_launches["nc_conv4d_bf16"],
                   "dense_800": dense_launches,
                   "eval_400": eval_launches,
                   "reloc_1600": reloc_launches,
@@ -5698,6 +6322,7 @@ def main() -> int:
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
                       "serve_service": service_launches["gather_tile_corr_bf16"],
                       "serve_stream": stream_launches["gather_tile_corr_bf16"],
+                      "serve_pod": pod_launches["gather_tile_corr_bf16"],
                       **{k: v["gather_tile_corr_bf16"]
                          for k, v in loop_launches.items()},
                       **trunk_b4}
@@ -5808,4 +6433,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--pod-backend":
+        sys.exit(pod_backend(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -2,9 +2,10 @@
 span tracing, the perf store, the match-quality signals, and the device
 and memory planes (``observability/device.py``, ``memory.py``).
 
-The JAX package's ``observability/__init__.py`` names, for the parts
-ported so far (the quality drift gate, the program ledger and the
-exporters are not ported yet).
+The JAX package's ``observability/__init__.py`` names.  The quality drift
+gate (``observability/quality.py``) and the Prometheus exposition
+(``observability/export.py``) are imported from their modules, as in the
+JAX package.
 """
 
 from ncnet_tpu_torch.observability.events import (  # noqa: F401

@@ -156,6 +156,14 @@ class Histogram:
             self.min = v if self.min is None else min(self.min, v)
             self.max = v if self.max is None else max(self.max, v)
 
+    def bucket_edges(self) -> list:
+        """Upper edge of each finite bin (``lo + (i+1)·width``) — the
+        Prometheus exporter's ``le`` values.  Edge-bin clamping means the
+        first/last bins absorb out-of-range observations, so the cumulative
+        ``_bucket`` series stays consistent with ``count`` by construction."""
+        w = (self.hi - self.lo) / self.bins
+        return [self.lo + (i + 1) * w for i in range(self.bins)]
+
     def merge(self, other: "Histogram") -> None:
         if (other.lo, other.hi, other.bins) != (self.lo, self.hi, self.bins):
             raise ValueError("cannot merge histograms with different binning")

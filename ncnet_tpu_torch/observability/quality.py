@@ -1,10 +1,15 @@
 """Match-quality signals over the filtered 4D volume, the port of
 ``ncnet_tpu/observability/quality.py``: the in-graph half
 (:data:`QUALITY_SIGNALS`, the signal extractor and the ``(B, 6, N)`` wire
-row) and the host half the eval loop calls (:data:`SIGNAL_RANGE`,
-:data:`DIGEST_BINS`, :func:`active_tier`, :func:`emit_quality`,
-:func:`spearman`).  The drift gate (``psi``, ``write_reference``,
-``check_drift``) waits in ROADMAP A11.
+row), the host half the eval loop and the service call
+(:data:`SIGNAL_RANGE`, :data:`DIGEST_BINS`, :func:`active_tier`,
+:func:`emit_quality`, :func:`spearman`), and the drift gate the live
+rollout judges by (:func:`digests_from_events`, :func:`psi`,
+:func:`write_reference`, :func:`load_reference`, :func:`check_drift`).
+Reference files keep the JAX record format, keyed by device kind, so a
+file either package writes is read by the other; a device kind the file
+has no series for is judged as the JAX gate judges it (every series
+skipped with its reason).
 
 Signals, all per pair and in [0, 1], over the B→A direction that
 :func:`~ncnet_tpu_torch.ops.matching.corr_to_matches` scores by:
@@ -16,12 +21,15 @@ adjacent B cells whose matched A cells advance within 0.9 of a grid step).
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Any, Dict, Iterable, Optional, Tuple
+import os
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ncnet_tpu_torch.observability.metrics import Histogram
 from ncnet_tpu_torch.ops.matching import mutual_argmax_agreement
 
 # signal order IS the wire order of the quality row
@@ -34,6 +42,9 @@ SIGNAL_RANGE: Dict[str, Tuple[float, float]] = {
     "score_gap": (-1.0, 1.0),
 }
 DIGEST_BINS = 32
+
+REF_KIND = "ncnet_tpu_quality_ref"
+REF_SCHEMA = 1
 
 
 def quality_signals(corr: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -189,6 +200,204 @@ def emit_quality(scope: str, signals: Dict[str, Any], *,
                              for v in np.atleast_1d(np.asarray(pck))]
         _events.emit("quality", scope=scope, tier=tier,
                      signals=sig_lists, **fields)
+
+
+def digests_from_events(events: Iterable[dict],
+                        bins_like: Optional[dict] = None
+                        ) -> Dict[Tuple[str, str], Histogram]:
+    """Aggregate ``quality`` events into digests keyed ``(tier, signal)``.
+
+    ``bins_like`` optionally maps signal name → snapshot dict whose binning
+    must be matched (the drift check bins the current run exactly like the
+    reference it is judged against)."""
+    out: Dict[Tuple[str, str], Histogram] = {}
+    for e in events:
+        if e.get("event") != "quality":
+            continue
+        tier = str(e.get("tier") or "xla")
+        for name, vals in (e.get("signals") or {}).items():
+            key = (tier, name)
+            h = out.get(key)
+            if h is None:
+                if bins_like is not None and name in bins_like:
+                    ref = bins_like[name]
+                    h = Histogram(float(ref["lo"]), float(ref["hi"]),
+                                  len(ref["counts"]))
+                else:
+                    lo, hi = SIGNAL_RANGE.get(name, (0.0, 1.0))
+                    h = Histogram(lo, hi, DIGEST_BINS)
+                out[key] = h
+            arr = np.atleast_1d(np.asarray(vals, dtype=np.float64))
+            h.add(arr[np.isfinite(arr)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# drift: PSI divergence against a committed reference distribution
+# ---------------------------------------------------------------------------
+
+
+def psi(ref: Histogram, cur: Histogram, eps: float = 1e-3) -> float:
+    """Population Stability Index between two same-binned digests.
+
+    ``sum((q_i - p_i) * ln(q_i / p_i))`` over bins with ``eps`` flooring
+    (empty bins must not produce infinities).  Standard reading: < 0.1 no
+    shift, 0.1-0.25 moderate, > 0.25 major — the drift gate defaults to
+    0.25.  Symmetric and 0 for identical distributions.
+    """
+    if (ref.lo, ref.hi, ref.bins) != (cur.lo, cur.hi, cur.bins):
+        raise ValueError("PSI requires identically-binned digests")
+    if not ref.count or not cur.count:
+        raise ValueError("PSI over an empty digest")
+    p = np.maximum(np.asarray(ref.counts, np.float64) / ref.count, eps)
+    q = np.maximum(np.asarray(cur.counts, np.float64) / cur.count, eps)
+    p, q = p / p.sum(), q / q.sum()
+    return float(np.sum((q - p) * np.log(q / p)))
+
+
+DEFAULT_PSI_THRESHOLD = 0.25
+
+
+def default_reference_path() -> str:
+    """``<repo>/perf/quality_ref.jsonl`` — beside the perf history it is the
+    accuracy twin of."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(repo, "perf", "quality_ref.jsonl")
+
+
+def write_reference(path: str,
+                    digests: Dict[Tuple[str, str], Histogram], *,
+                    device_kind: Optional[str],
+                    meta: Optional[dict] = None) -> int:
+    """Write (replace) a reference-distribution file: one self-describing
+    JSONL record per (device_kind, tier, signal) series.  Returns the record
+    count.  The file is the drift gate's committed baseline — re-seed it
+    only from a CLEAN eval of the committed weights (README "Quality
+    observability" documents the policy)."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    n = 0
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        for (tier, signal), h in sorted(digests.items()):
+            if not h.count:
+                continue
+            rec = {"kind": REF_KIND, "schema": REF_SCHEMA,
+                   "device_kind": device_kind or "unknown",
+                   "tier": tier, "signal": signal,
+                   "digest": h.snapshot()}
+            if meta:
+                rec["meta"] = meta
+            f.write(json.dumps(rec, sort_keys=True) + "\n")
+            n += 1
+    os.replace(tmp, path)
+    return n
+
+
+def load_reference(path: str) -> Dict[Tuple[str, str, str], Histogram]:
+    """Reference digests keyed ``(device_kind, tier, signal)``.  Foreign or
+    newer-schema lines are skipped (the perf-store tolerance discipline);
+    a missing file is an empty reference, not an error — the drift tool
+    reports the series it could not judge."""
+    out: Dict[Tuple[str, str, str], Histogram] = {}
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except FileNotFoundError:
+        return out
+    for line in raw.split(b"\n"):
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if (not isinstance(rec, dict) or rec.get("kind") != REF_KIND
+                or rec.get("schema", 0) > REF_SCHEMA):
+            continue
+        try:
+            h = Histogram.from_snapshot(rec["digest"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        out[(str(rec.get("device_kind", "unknown")),
+             str(rec.get("tier", "xla")),
+             str(rec.get("signal", "")))] = h
+    return out
+
+
+def reference_binning(
+        reference: Dict[Tuple[str, str, str], Histogram]) -> Dict[str, dict]:
+    """Per-signal binning spec (``bins_like`` for
+    :func:`digests_from_events`) from :func:`load_reference` output — THE
+    rule both the standalone drift gate and ``run_report --quality`` bin
+    current runs by, so their verdicts can never diverge.  First entry
+    wins when one signal is binned differently across device kinds."""
+    out: Dict[str, dict] = {}
+    for (_dk, _tier, signal), h in reference.items():
+        out.setdefault(signal, {"lo": h.lo, "hi": h.hi,
+                                "counts": [0] * h.bins})
+    return out
+
+
+def check_drift(reference: Dict[Tuple[str, str, str], Histogram],
+                current: Dict[Tuple[str, str], Histogram], *,
+                device_kind: Optional[str],
+                threshold: float = DEFAULT_PSI_THRESHOLD,
+                min_count: int = 4) -> List[Dict[str, Any]]:
+    """Judge every current (tier, signal) digest against the reference.
+
+    Returns one finding per series — ``{"tier", "signal", "status":
+    "ok"|"drift"|"skipped", "psi", ...}``, drifts first.  Series absent from
+    the reference, binned differently, or with fewer than ``min_count``
+    samples are ``skipped`` with a reason (a gate that guesses is worse
+    than no gate) — and so are reference series this device kind SHOULD
+    have produced but the run did not: a tier that silently stopped
+    emitting must surface in the findings, not vanish from them.
+    ``device_kind`` keys the reference lookup: digests are only comparable
+    within one backend (the very shifts the gate hunts — bf16 tiers,
+    kernel rewrites — are device-kind-shaped).
+    """
+    dk = device_kind or "unknown"
+    findings: List[Dict[str, Any]] = []
+    for (rdk, tier, signal) in sorted(reference):
+        if rdk == dk and (tier, signal) not in current:
+            findings.append({
+                "tier": tier, "signal": signal, "device_kind": dk,
+                "count": 0, "mean": None, "status": "skipped",
+                "reason": "series present in the reference but absent "
+                          "from this run (emitter broken, or the tier "
+                          "never executed here)",
+            })
+    for (tier, signal), cur in sorted(current.items()):
+        finding: Dict[str, Any] = {
+            "tier": tier, "signal": signal, "device_kind": dk,
+            "count": cur.count, "mean": cur.mean(),
+        }
+        ref = reference.get((dk, tier, signal))
+        if ref is None:
+            finding.update(status="skipped",
+                           reason="no reference series for "
+                                  f"({dk}, {tier}, {signal})")
+        elif cur.count < min_count:
+            finding.update(status="skipped",
+                           reason=f"only {cur.count} sample(s) "
+                                  f"(< min_count={min_count})")
+        elif (ref.lo, ref.hi, ref.bins) != (cur.lo, cur.hi, cur.bins):
+            finding.update(status="skipped",
+                           reason="binning mismatch vs reference")
+        else:
+            d = psi(ref, cur)
+            finding.update(
+                psi=round(d, 6), threshold=threshold,
+                ref_mean=ref.mean(), ref_count=ref.count,
+                status="drift" if d > threshold else "ok",
+            )
+        findings.append(finding)
+    findings.sort(key=lambda f: (f["status"] != "drift",
+                                 f["status"] == "skipped",
+                                 f["tier"], f["signal"]))
+    return findings
 
 
 def spearman(a, b) -> float:

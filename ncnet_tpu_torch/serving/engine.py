@@ -20,8 +20,12 @@ feature-pair program (``ncnet_forward_from_features``).  A miss extracts
 the row alone, copies its float32 features to the host, commits them and
 feeds those bytes to the same program a hit feeds, so a hit is bitwise
 what a miss computes.  The store's ladder (``FeatureStore.resolve``) can
-only make a batch slower, never wrong.  The weight swap comes with the
-rollout and the JAX retrace seam is not ported (ROADMAP D4).
+only make a batch slower, never wrong.
+
+**Live weight swap** (:meth:`BatchMatchEngine.swap_params`, the rollout's
+per-replica seam) re-stages a new tree on the engine's device.  The JAX
+retrace seam is not ported (ROADMAP D4): the port compiles no program, and
+its NC route is decided from the shapes at every call.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ncnet_tpu_torch.models.ncnet import (
     ncnet_forward_tracked,
     params_to,
     resolve_device,
+    tree_map,
 )
 from ncnet_tpu_torch.observability.quality import (
     append_quality_rows,
@@ -55,6 +60,18 @@ from ncnet_tpu_torch.utils import faults
 # the digest→features memo of the tracked path: a stream re-matches one
 # reference image for many frames, so a few entries cover a replica's streams
 _TRACKED_FEATURE_CACHE_ENTRIES = 16
+
+
+def _tree_signature(tree):
+    """A tree's structure: its leaf paths with each tensor's shape and
+    dtype (the JAX engine's abstract-value comparison)."""
+    if isinstance(tree, dict):
+        return tuple((k, _tree_signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return ("seq",) + tuple(_tree_signature(v) for v in tree)
+    if torch.is_tensor(tree):
+        return (tuple(tree.shape), tree.dtype)
+    return (type(tree).__name__,)
 
 
 class BatchMatchEngine:
@@ -89,6 +106,9 @@ class BatchMatchEngine:
         self.feature_extractions = 0
         self.coarse_passes = 0
         self.tracked_dispatches = 0
+        # same-structure weight swaps (the JAX engine's fast-path count;
+        # the port has no compiled program to keep, see swap_params)
+        self.swap_fastpath_hits = 0
         self._feat_cache: "collections.OrderedDict[str, torch.Tensor]" = (
             collections.OrderedDict())
 
@@ -231,8 +251,35 @@ class BatchMatchEngine:
         """Wait for the device result; one copy per batch."""
         return handle.to("cpu", torch.float32).numpy()
 
+    def swap_params(self, params) -> None:
+        """Live weight swap (the rollout controller's per-replica seam):
+        stage ``params`` on this engine's device and drop every reference
+        to the old tree.
+
+        Each host tensor goes up from pinned memory with a non-blocking
+        copy on the device's current stream (``data/loader.stage_array``),
+        the stream every dispatch of this engine enqueues on, so the next
+        dispatch is ordered after the copy without a host wait.  The
+        digest→features memo is flushed: its features were computed under
+        the old trunk.  A tree of the same structure (leaf paths, shapes
+        and dtypes) counts ``swap_fastpath_hits``, the JAX engine's event
+        field; a structurally different tree (a CP-rank fine-tune) needs
+        nothing more, as the NC route is chosen from the new shapes at the
+        next call and no decision outlives the tree it was made for.  Must
+        only be called on a DRAINED replica: a dispatch racing the swap
+        would mix old and new weights."""
+        same = _tree_signature(self._params) == _tree_signature(params)
+        self._params = tree_map(lambda t: stage_array(t, self.device), params)
+        self._feat_cache.clear()
+        if same:
+            self.swap_fastpath_hits += 1
+
     def attach_store(self, store) -> None:
-        """Attach (or detach with ``None``) the persistent feature store."""
+        """Attach (or detach with ``None``) the persistent feature store.
+        The rollout controller detaches it from a replica swapped to
+        different trunk weights: resolving through the old generation would
+        commit features of the new weights under the old fingerprint;
+        recompute-only until the pod converges is the safe degradation."""
         self._store = store
 
     @property

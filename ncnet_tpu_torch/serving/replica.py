@@ -26,8 +26,10 @@ availability.
 Replica state is mutated only under the owning service's condition lock
 (the pool holds no lock of its own); the chaos seams live in
 ``utils/faults.py`` (``dead_replica_ids`` / ``slow_replica_ids``), called
-from :meth:`Replica.dispatch`/:meth:`Replica.fetch`.  The rollout's
-DRAINING state and canary routing come with the rollout (ROADMAP A12).
+from :meth:`Replica.dispatch`/:meth:`Replica.fetch`.  The live rollout
+(``serving/rollout.py``) adds DRAINING and canary routing: a replica
+drained for a weight swap gets no traffic and no resurrection probe, and a
+canary takes a set share of routing decisions.
 """
 
 from __future__ import annotations
@@ -41,9 +43,14 @@ from ncnet_tpu_torch.observability import events as obs_events
 from ncnet_tpu_torch.serving.request import Bucket
 
 # replica lifecycle states (distinct from the service-level health machine:
-# replicas cycle READY <-> DEAD, the service machine is monotone)
+# replicas cycle READY <-> DEAD, the service machine is monotone).
+# DRAINING is the live-rollout holding state: the router treats it like
+# DEAD (no new traffic) but resurrection probes leave it alone — the
+# rollout controller owns the replica until it re-admits it via
+# ``resurrect``.
 REPLICA_READY = "READY"
 REPLICA_DEAD = "DEAD"
+REPLICA_DRAINING = "DRAINING"
 
 # routing prior for a replica with no measured wall yet (fresh or just
 # resurrected): small enough that an idle unknown replica wins against a
@@ -80,8 +87,9 @@ class Replica:
         self.last_probe_t: Optional[float] = None
         self.probing = False   # a probe thread is out on this replica
         self.last_bucket: Optional[Bucket] = None
-        # which model generation this replica's engine is serving, stamped
-        # by the service at construction (version-tags results + metrics)
+        # which model generation this replica's engine is serving; stamped
+        # by the service at construction and advanced by the rollout
+        # controller at each drained swap (version-tags results + /metrics)
         self.model_version: str = ""
 
     # -- device-facing (no service lock; the chaos seams live here) ---------
@@ -166,6 +174,10 @@ class Replica:
             "batches": self.batches,
             "failures": self.failures,
             "deaths": self.deaths,
+            # the JAX row's tier-demotion count, always 0 here (the port
+            # demotes no tier, ROADMAP D4): a pod's /healthz documents keep
+            # one key set whichever package a host runs
+            "demotions": 0,
             # how long it has been dead (None while READY): the /statusz
             # operator signal for "is resurrection overdue"
             "dead_age_s": (round(time.monotonic() - self.dead_since, 3)
@@ -190,6 +202,13 @@ class ReplicaPool:
         if len(set(ids)) != len(ids):
             raise ValueError(f"duplicate replica ids: {ids}")
         self.on_change = on_change
+        # canary routing (rollout-controller owned, service-lock guarded):
+        # while set, ``canary_id`` receives ``canary_fraction`` of routing
+        # decisions via a deterministic credit accumulator and is excluded
+        # from the general health-scored scan
+        self.canary_id: Optional[str] = None
+        self.canary_fraction: float = 0.0
+        self._canary_credit: float = 0.0
 
     @classmethod
     def from_model(cls, model_config, params, n_replicas: int = 0,
@@ -226,8 +245,17 @@ class ReplicaPool:
     def ready(self) -> List[Replica]:
         return [r for r in self.replicas if r.state == REPLICA_READY]
 
+    def dead(self) -> List[Replica]:
+        return [r for r in self.replicas if r.state == REPLICA_DEAD]
+
     def inflight_total(self) -> int:
         return sum(r.load for r in self.replicas)
+
+    def get(self, rid: str) -> Optional[Replica]:
+        for r in self.replicas:
+            if r.id == rid:
+                return r
+        return None
 
     def _notify_change(self) -> None:
         if self.on_change is not None:
@@ -261,6 +289,34 @@ class ReplicaPool:
                         state=REPLICA_READY, reason=reason)
         self._notify_change()
 
+    def drain_for_swap(self, replica: Replica, reason: str) -> None:
+        """Pull a READY replica out of rotation for a live weight swap:
+        DRAINING gets no new traffic (routing only considers READY) but —
+        unlike DEAD — resurrection probes skip it, so the rollout
+        controller alone decides when it rejoins (via :meth:`resurrect`).
+        In-flight batches it already owns finish normally; the caller
+        waits for ``load == 0`` before touching the engine."""
+        if replica.state != REPLICA_READY:
+            return
+        replica.state = REPLICA_DRAINING
+        obs_events.emit("serve_health", replica=replica.id,
+                        state=REPLICA_DRAINING, reason=reason)
+        self._notify_change()
+
+    # -- canary routing (rollout controller seam) ---------------------------
+
+    def set_canary(self, replica: Replica, fraction: float) -> None:
+        """Route ``fraction`` of decisions to ``replica`` (the freshly
+        swapped version) and everything else away from it."""
+        self.canary_id = replica.id
+        self.canary_fraction = max(0.0, min(1.0, float(fraction)))
+        self._canary_credit = 0.0
+
+    def clear_canary(self) -> None:
+        self.canary_id = None
+        self.canary_fraction = 0.0
+        self._canary_credit = 0.0
+
     def due_probes(self, now: float, period_s: float) -> List[Replica]:
         """DEAD replicas whose next resurrection probe is due (and whose
         backlog has fully failed over — probing a replica that still owns
@@ -290,11 +346,29 @@ class ReplicaPool:
         preferring replicas the batch has NOT already failed on
         (``exclude``); when every candidate is excluded the least-cost
         READY one is returned anyway — retrying a replica beats stranding
-        the batch.  None = no READY replica has spare depth."""
+        the batch.  None = no READY replica has spare depth.
+
+        While a canary is set, it is carved OUT of the general scan and
+        receives exactly ``canary_fraction`` of decisions through a
+        deterministic credit accumulator (no RNG: every ``1/fraction``-th
+        routable decision goes to the canary) — except when the rest of
+        the pool has no spare depth, where the canary takes the batch
+        anyway: availability beats holding the fraction exact."""
+        canary = self.get(self.canary_id) if self.canary_id else None
+        canary_ok = (canary is not None
+                     and canary.state == REPLICA_READY
+                     and canary.load < max_load)
+        if canary_ok and canary.id not in exclude:
+            self._canary_credit += self.canary_fraction
+            if self._canary_credit >= 1.0:
+                self._canary_credit -= 1.0
+                return canary
         best = fallback = None
         best_s = fb_s = float("inf")
         for r in self.replicas:
             if r.state != REPLICA_READY or r.load >= max_load:
+                continue
+            if r is canary:
                 continue
             s = r.health_score()
             if r.id in exclude:
@@ -302,4 +376,7 @@ class ReplicaPool:
                     fallback, fb_s = r, s
             elif s < best_s:
                 best, best_s = r, s
-        return best if best is not None else fallback
+        chosen = best if best is not None else fallback
+        if chosen is None and canary_ok:
+            return canary
+        return chosen

@@ -48,8 +48,13 @@ Pieces:
 
 The outcome-total contract (``serving/request.py``): every admitted request
 terminates in exactly one of {result, deadline, overloaded, quarantined}.
-The introspection plane (``introspect_port``) and the live rollout come in
-a later slice (ROADMAP A12) and are refused by name.
+
+The network plane sits on top: ``introspect_port`` starts the live
+introspection server (``serving/introspect.py``: ``/metrics``,
+``/healthz``, ``/statusz``, ``/rollout`` and the ``POST /match`` wire data
+plane a ``MatchRouter`` fans out to), fail-open, and the ``rollout_*``
+seams let a ``RolloutController`` (``serving/rollout.py``) swap weights
+into drained replicas while the rest of the pool serves.
 """
 
 from __future__ import annotations
@@ -151,8 +156,9 @@ class ServingConfig:
     slo_budget_pct: float = 1.0         # allowed SLO-bad fraction of admitted (%)
     slo_window: int = 256               # sliding window for the live burn signal
     slo_emit_every: int = 32            # `slo` event cadence (terminal outcomes)
-    # live introspection plane (/metrics + /healthz + /statusz): not
-    # ported yet (ROADMAP A12); anything but None is refused
+    # live introspection plane (serving/introspect.py): /metrics + /healthz
+    # + /statusz + POST /match.  None = off; 0 = ephemeral port (read back
+    # via MatchService.introspect_url)
     introspect_port: Optional[int] = None
     introspect_host: str = "127.0.0.1"
     # persistent database-side feature store (ncnet_tpu_torch/store/):
@@ -178,8 +184,10 @@ class ServingConfig:
     # match extraction
     do_softmax: bool = True
     scale: str = "centered"
-    # the version label stamped on every replica at construction:
-    # serve_result/quality events and metrics families carry it
+    # live rollout (serving/rollout.py): the version label stamped on every
+    # replica at construction — serve_result/quality events and /metrics
+    # families carry it, and the rollout controller advances it per
+    # drained swap
     model_version: str = "v0"
 
 
@@ -219,11 +227,10 @@ class MatchService:
                  serving: ServingConfig = ServingConfig(), *,
                  engine=None, registry: Optional[MetricsRegistry] = None,
                  store=None, devices=None):
-        if serving.introspect_port is not None:
-            raise NotImplementedError(
-                "ServingConfig.introspect_port: the introspection plane is "
-                "not ported to ncnet_tpu_torch yet (the network plane, ROADMAP A12)")
         self.cfg = serving
+        # the device the store's fingerprint names (ROADMAP D8); a rollout
+        # that changes the trunk fingerprints the new weights the same way
+        self._store_device = devices[0] if devices else "cuda"
         # one persistent feature store SHARED across the pool (the store is
         # thread-safe).  Built from the config when a model is given, or
         # injected (chaos tests attach one beside fake engines to exercise
@@ -237,15 +244,23 @@ class MatchService:
                 params, image_size="serve",
                 k_size=max(model_config.relocalization_k_size, 1),
                 dtype="bf16" if model_config.half_precision else "f32",
-                device=devices[0] if devices else "cuda")
+                device=self._store_device)
             store = FeatureStore(
                 serving.feature_store_dir, fp,
                 budget_bytes=serving.feature_store_budget_mb * 2 ** 20,
                 scope="serving")
             store.gc_superseded()
         self._store = store
+        # live-rollout state (serving/rollout.py): the model identity the
+        # pod currently serves, the resident params a rollback swaps back
+        # to, and the attached controller (None = no rollout in progress)
         self._model_config = model_config
+        self._model_params = params
         self._model_version = serving.model_version
+        self._rollout = None
+        self._rollout_thread: Optional[threading.Thread] = None
+        # test seam: replaces the controller's default checkpoint loader
+        self.rollout_loader = None
         if engine is not None:
             engines = list(engine) if isinstance(engine, (list, tuple)) \
                 else [engine]
@@ -329,6 +344,7 @@ class MatchService:
         # stall_watchdog --url — same semantics as the heartbeat beats
         # (a wedged fetch with nothing else dispatching stops advancing it)
         self._activity_t = time.monotonic()
+        self._introspect = None
         # memory observability (observability/memory.py): per-replica card
         # memory watermarks sampled at every dispatched batch (a CPU
         # replica has none — the plane stays silent), a rate-limited
@@ -358,6 +374,23 @@ class MatchService:
     def start(self) -> "MatchService":
         if self._worker is not None:
             raise RuntimeError("service already started")
+        if self.cfg.introspect_port is not None:
+            # fail-open: a port clash (or any bind failure) costs the
+            # introspection plane, never the serving plane
+            from ncnet_tpu_torch.serving.introspect import IntrospectionServer
+
+            try:
+                self._introspect = IntrospectionServer(
+                    self, host=self.cfg.introspect_host,
+                    port=self.cfg.introspect_port).start()
+            except Exception as e:  # noqa: BLE001 — telemetry never
+                # kills the service it observes
+                self._introspect = None
+                log.warning(
+                    f"introspection endpoint failed to bind "
+                    f"{self.cfg.introspect_host}:{self.cfg.introspect_port}"
+                    f" ({type(e).__name__}: {e}); serving without "
+                    "/metrics + /healthz", kind="io")
         obs_events.emit(
             "serve_start",
             max_queue=self.cfg.max_queue, max_batch=self.cfg.max_batch,
@@ -368,6 +401,8 @@ class MatchService:
             # the SLO objectives ride in the log so run_report --slo can
             # replay a dead service with the exact live thresholds
             slo=self._slo.config(),
+            introspect_port=(self._introspect.port
+                             if self._introspect is not None else None),
         )
         if self.cfg.install_sigterm and \
                 threading.current_thread() is threading.main_thread():
@@ -805,6 +840,8 @@ class MatchService:
                 store=(self._store.health()
                        if self._store is not None else None),
                 model_version=self._model_version,
+                rollout=(self._rollout.status()
+                         if self._rollout is not None else None),
                 streams=self._streams.doc(now),
             )
 
@@ -831,6 +868,12 @@ class MatchService:
     @property
     def state(self) -> str:
         return self._health.state
+
+    @property
+    def introspect_url(self) -> Optional[str]:
+        """Base URL of the live introspection plane (None when disabled or
+        bind failed) — ``<url>/metrics`` etc."""
+        return self._introspect.url if self._introspect is not None else None
 
     def metrics(self) -> Dict[str, Any]:
         return self._registry.snapshot()
@@ -1034,6 +1077,14 @@ class MatchService:
             with self._cond:
                 if self._stop_now:
                     return
+                if self._drain_requested:
+                    # a SIGTERM closes admission at the next batch edge,
+                    # not only at the worker's loop edge: a dispatch that
+                    # waits on the host (a pinned-buffer allocation, a full
+                    # launch queue) can keep this loop filling the
+                    # pipeline for the whole backlog, and the health
+                    # document must say DRAINING while that backlog drains
+                    self._begin_drain_locked("sigterm")
                 bucket = self._pick_bucket_locked()
                 if bucket is None:
                     return
@@ -1239,8 +1290,15 @@ class MatchService:
         tables, quality = self._split_table(inf.replica, table)
         tier = self._active_tier(inf.replica)
         # which model generation produced this batch — stamped on every
-        # result/quality event and per-version metric
+        # result/quality event and per-version metric so the canary judge
+        # can split old from new
         ver = inf.replica.model_version
+        if quality:
+            from ncnet_tpu_torch.utils import faults
+
+            # chaos seam: shift the NEW version's quality signals so the
+            # canary judge's PSI gate has a real regression to catch
+            quality = faults.canary_quality_shift_hook(ver, quality)
         for i, req in enumerate(inf.batch):
             if req.expired(now):
                 # deadline check at FETCH: the caller's budget is gone —
@@ -1285,6 +1343,12 @@ class MatchService:
                 emit_quality("serving", quality[i], tier=tier,
                              registry=self._registry, request=req.id,
                              replica=rid, model_version=ver)
+            rollout = self._rollout
+            if rollout is not None:
+                # feed the canary judge (controller takes its OWN lock;
+                # never called under self._cond — see rollout.py)
+                rollout.observe_result(
+                    ver, wall_ms, quality[i] if quality else None)
             self._terminal(req)
 
     @staticmethod
@@ -1357,6 +1421,9 @@ class MatchService:
                 req.failed_on.add(replica.id)
             survivors = [r for r in self._pool.ready() if r is not replica]
             any_ready = bool(self._pool.ready())
+        rollout = self._rollout
+        if rollout is not None:
+            rollout.observe_failure(replica.model_version)
         requeue: List[MatchRequest] = []
         quarantine: List[MatchRequest] = []
         for req in pending:
@@ -1507,24 +1574,192 @@ class MatchService:
             faults.serve_drain_kill_hook(n)
 
     # ------------------------------------------------------------------
-    # the live rollout (a later slice; refused by name)
+    # live rollout seam (serving/rollout.py drives these; each method
+    # takes the service lock itself — the controller NEVER holds its own
+    # lock while calling in, and the service never calls controller
+    # methods under self._cond except status()/observe_* which take only
+    # the controller's lock: one consistent lock order, no deadlock)
     # ------------------------------------------------------------------
 
     def attach_rollout(self, controller) -> None:
-        raise NotImplementedError(
-            "MatchService.attach_rollout: the live rollout is not ported to "
-            "ncnet_tpu_torch yet (the network plane, ROADMAP A12)")
+        self._rollout = controller
+
+    def detach_rollout(self) -> None:
+        self._rollout = None
 
     def start_rollout(self, candidate: str, config=None):
-        raise NotImplementedError(
-            "MatchService.start_rollout: the live rollout is not ported to "
-            "ncnet_tpu_torch yet (the network plane, ROADMAP A12)")
+        """Kick a rollout to ``candidate`` (a checkpoint dir or versioned
+        root) on a background thread — the POST /rollout entry point.
+        Returns the attached controller; raises if one is already live."""
+        from ncnet_tpu_torch.serving.rollout import (RolloutConfig,
+                                                     RolloutController)
+
+        with self._cond:
+            if self._rollout_thread is not None \
+                    and self._rollout_thread.is_alive():
+                raise RuntimeError("a rollout is already in progress")
+        ctl = RolloutController(self, config or RolloutConfig(),
+                                loader=self.rollout_loader)
+        t = threading.Thread(target=ctl.run, args=(candidate,),
+                             name="match-rollout", daemon=True)
+        self._rollout_thread = t
+        t.start()
+        return ctl
+
+    def rollout_pick_canary(self) -> Replica:
+        """The replica staging borrows: READY with the lowest load.  A
+        pool with fewer than two READY replicas refuses — draining the
+        sole survivor would trade a model update for an outage."""
+        with self._cond:
+            ready = self._pool.ready()
+            if len(ready) < 2:
+                raise RuntimeError(
+                    f"rollout needs >= 2 READY replicas to keep serving "
+                    f"during the swap (have {len(ready)})")
+            return min(ready, key=lambda r: r.load)
+
+    def rollout_drain(self, rep: Replica, timeout_s: float) -> bool:
+        """DRAINING + wait for the replica's in-flight batches to finish.
+        Returns False on timeout (the replica is left DRAINING for the
+        caller to re-admit or roll back)."""
+        with self._cond:
+            self._pool.drain_for_swap(rep, "rollout_swap")
+            self._cond.notify_all()
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while rep.load > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(min(0.2, remaining))
+        return True
 
     def rollout_swap(self, rep: Replica, params, version: str, *,
                      detach_store: bool = False) -> None:
-        raise NotImplementedError(
-            "MatchService.rollout_swap: the live rollout is not ported to "
-            "ncnet_tpu_torch yet (the network plane, ROADMAP A12)")
+        """Swap one DRAINED replica's weights and warm it off the dispatch
+        path: ``engine.swap_params`` stages the new tree on the replica's
+        device, then the registered bucket ladder runs at every batch size
+        on this thread, re-recording each program's memory-ledger row on a
+        card as the start-up warm-up does (:meth:`_warm_one`).  The
+        ``kill_at_weight_swap`` chaos seam fires between the staging and
+        the version stamp: a SIGKILL there leaves the pod restartable on
+        the OLD version (the state file's pointer only advances at
+        COMPLETE).  A failed swap or warm run raises into the rollout's
+        rollback; nothing carries on on another device."""
+        from ncnet_tpu_torch.utils import faults
+
+        engine = rep.engine
+        swap = getattr(engine, "swap_params", None)
+        if swap is None:
+            raise RuntimeError(
+                f"replica {rep.id} engine cannot swap params")
+        fast0 = getattr(engine, "swap_fastpath_hits", 0)
+        t0 = time.perf_counter()
+        swap(params)
+        # host wall of the staging (the copies themselves finish on the
+        # device's stream, ahead of the warm-up's first dispatch)
+        swap_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        fastpath = getattr(engine, "swap_fastpath_hits", 0) > fast0
+        faults.weight_swap_kill_hook()
+        if detach_store and hasattr(engine, "attach_store"):
+            # new weights must not commit features into the old
+            # fingerprint's generation (cache poisoning); recompute-only
+            # until the pod converges and the store generation advances
+            engine.attach_store(None)
+        with self._cond:
+            rep.model_version = version
+            buckets = list(self._bucketer.buckets)
+        warmed = []
+        t0 = time.perf_counter()
+        # swap_ms and warm_ms are the port's additive fields of the event
+        try:
+            for bucket in buckets:
+                for b in self._batch_ladder():
+                    self._warm_one(rep, bucket, b)
+                warmed.append(bucket_label(bucket))
+        except Exception:
+            obs_events.emit("rollout_swap", replica=rep.id, version=version,
+                            warmed=warmed, fastpath=fastpath, ok=False,
+                            swap_ms=swap_ms)
+            raise
+        obs_events.emit("rollout_swap", replica=rep.id, version=version,
+                        warmed=warmed, fastpath=fastpath, ok=True,
+                        swap_ms=swap_ms,
+                        warm_ms=round((time.perf_counter() - t0) * 1e3, 3))
+
+    def rollout_readmit(self, rep: Replica, reason: str) -> None:
+        with self._cond:
+            self._pool.resurrect(rep, reason=reason)
+            self._cond.notify_all()
+
+    def rollout_set_canary(self, rep: Replica, fraction: float) -> None:
+        with self._cond:
+            self._pool.set_canary(rep, fraction)
+            self._cond.notify_all()
+
+    def rollout_clear_canary(self) -> None:
+        with self._cond:
+            self._pool.clear_canary()
+            self._cond.notify_all()
+
+    def rollout_replicas(self) -> List[Replica]:
+        with self._cond:
+            return list(self._pool.replicas)
+
+    def rollout_set_version(self, version: str, params) -> None:
+        """The pod's converged identity: health docs and future replicas
+        report ``version``; ``params`` become what a later rollback (or
+        the next rollout's old side) swaps back to."""
+        with self._cond:
+            self._model_version = version
+            self._model_params = params
+
+    def rollout_switch_store(self, params) -> None:
+        """Advance the shared feature store to the new weights' fingerprint
+        generation (the port's, naming the device's program: ROADMAP D8)
+        and re-attach it to every engine (promotion committed), GC'ing
+        superseded generations with the configured grace so the rollback
+        target's cache survives.  No store configured = no-op."""
+        old = self._store
+        if old is None:
+            return
+        from ncnet_tpu_torch.store import FeatureStore, backbone_fingerprint
+
+        mc = self._model_config
+        fp = backbone_fingerprint(
+            params, image_size="serve",
+            k_size=max(mc.relocalization_k_size, 1) if mc is not None else 1,
+            dtype="bf16" if mc is not None and mc.half_precision else "f32",
+            device=self._store_device)
+        if fp == old.fingerprint:
+            # same backbone (an NC-filter-only fine-tune): the generation
+            # is still valid everywhere — just re-attach where detached
+            new = old
+        else:
+            new = FeatureStore(old.root, fp, budget_bytes=old.budget_bytes,
+                               scope="serving")
+        with self._cond:
+            self._store = new
+            for rep in self._pool.replicas:
+                if hasattr(rep.engine, "attach_store"):
+                    rep.engine.attach_store(new)
+        if new is not old:
+            old.flush_stats()
+            old.close()
+
+    def rollout_reattach_store(self) -> None:
+        """Rollback path: the store generation never advanced — re-attach
+        the existing store to any engine the canary swap detached."""
+        if self._store is None:
+            return
+        with self._cond:
+            for rep in self._pool.replicas:
+                if hasattr(rep.engine, "attach_store"):
+                    rep.engine.attach_store(self._store)
+
+    def rollout_gc_store(self, keep_generations: int) -> None:
+        if self._store is not None:
+            self._store.gc_superseded(keep_generations=keep_generations)
 
     @property
     def model_version(self) -> str:
@@ -1663,5 +1898,9 @@ class MatchService:
                     STOPPED, "crashed" if crashed is not None else "clean")
             self._cond.notify_all()
         # last act of the worker: durably record the unified health
-        # document (run_report --serving renders it)
+        # document (run_report --serving renders it), then take the
+        # introspection plane down with the service it describes
         obs_events.emit("serve_health_doc", doc=self.health())
+        if self._introspect is not None:
+            self._introspect.stop()
+            self._introspect = None

@@ -51,6 +51,15 @@ deterministically from tests:
     ``store_bitflip_hook(path)`` — ``store/feature_store.py``: an ENOSPC on
     an armed store operation, a SIGKILL between an entry's payload write
     and its commit rename, and one payload bit flipped after a commit.
+  * ``backend_fault_hook(url, phase)`` — ``serving/wire.MatchClient.match``:
+    kills (``dead_backend_urls``: ConnectionError) or stalls
+    (``hang_backend_urls``: a sleep before the send) a backend host, the
+    router's failover seam without a process to kill.
+  * ``weight_swap_kill_hook()``, ``corrupt_candidate_hook(path, params)``,
+    ``canary_quality_shift_hook(version, quality)`` — the live rollout
+    (``serving/rollout.py``, ``MatchService.rollout_swap``): a SIGKILL in
+    the Nth weight swap, one bit flipped in a loaded candidate, and a
+    shifted quality signal for a canary version.
 
 Arming: :func:`install`/:func:`clear` (or the :func:`injected` context
 manager) in-process, or the ``NCNET_TPU_FAULTS`` environment variable (a
@@ -146,6 +155,28 @@ class FaultPlan:
     # SIGKILL self during the Nth store entry commit (1-based, process-
     # global), between the payload write and the rename
     kill_at_store_commit: int = -1
+    # backend base-url substrings whose wire sends raise ConnectionError
+    # (a dead host: the router must fail over off-budget, quarantine the
+    # backend and resurrect it by probe once the plan clears)
+    dead_backend_urls: Tuple[str, ...] = ()
+    # backend base-url substrings whose wire sends sleep
+    # hang_backend_seconds before the request leaves (a stalled peer)
+    hang_backend_urls: Tuple[str, ...] = ()
+    hang_backend_seconds: float = 0.5
+    # SIGKILL self during the Nth rollout weight swap (1-based, process-
+    # global), after the new params are staged on the drained replica and
+    # before its warm-up and readmission: the restart must come back on
+    # the old version
+    kill_at_weight_swap: int = -1
+    # candidate checkpoint paths containing this substring get one param
+    # leaf bit-flipped after a successful load: the payload sha256 must
+    # refuse the candidate before any replica is touched
+    corrupt_candidate_checkpoint: str = ""
+    # additive shift of every quality signal of batches served by replicas
+    # whose model_version contains canary_shift_version: the rollout's PSI
+    # gate must breach and roll back.  0.0 = disarmed.
+    canary_quality_shift: float = 0.0
+    canary_shift_version: str = ""
 
 
 _plan: Optional[FaultPlan] = None
@@ -155,16 +186,18 @@ _savemat_attempts: Dict[str, int] = {}
 _device_calls = 0
 _watchdog_calls = 0
 _store_commits = 0
+_weight_swaps = 0
 _lock = threading.Lock()
 
 
 def _reset_counters_locked() -> None:
-    global _device_calls, _watchdog_calls, _store_commits
+    global _device_calls, _watchdog_calls, _store_commits, _weight_swaps
     _decode_attempts.clear()
     _savemat_attempts.clear()
     _device_calls = 0
     _watchdog_calls = 0
     _store_commits = 0
+    _weight_swaps = 0
 
 
 def install(plan: FaultPlan) -> None:
@@ -430,3 +463,90 @@ def store_bitflip_hook(path: str) -> None:
         byte = f.read(1)
         f.seek(-1, os.SEEK_END)
         f.write(bytes([byte[0] ^ 0x01]))
+
+
+def backend_fault_hook(base_url: str, phase: str) -> None:
+    """The multi-host chaos seam (``serving/wire.MatchClient.match``):
+    ``hang_backend_urls`` sleep before the request leaves (the stalled
+    peer whose late result the router's post-flight deadline check must
+    classify); ``dead_backend_urls`` raise ``ConnectionError`` (a dead host:
+    the router must re-route off-budget, quarantine the backend after its
+    failure streak and resurrect it by a ``/healthz`` probe once the plan
+    clears)."""
+    p = _active()
+    if p is None:
+        return
+    if any(s and s in base_url for s in p.hang_backend_urls):
+        time.sleep(p.hang_backend_seconds)
+    if any(s and s in base_url for s in p.dead_backend_urls):
+        raise ConnectionError(
+            f"injected backend death ({base_url}, {phase})")
+
+
+def weight_swap_kill_hook() -> None:
+    """SIGKILL self during the Nth rollout weight swap (1-based, if armed),
+    after the candidate params are staged on the drained replica and
+    before its warm-up and readmission: the serving-version pointer only
+    advances at COMPLETE, so the restart must serve the old version."""
+    p = _active()
+    if p is None or p.kill_at_weight_swap < 0:
+        return
+    global _weight_swaps
+    with _lock:
+        _weight_swaps += 1
+        n = _weight_swaps
+    if n == p.kill_at_weight_swap:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def corrupt_candidate_hook(path: str, params):
+    """Flip one bit of the first non-empty param leaf of a just-loaded
+    rollout candidate whose path matches: the bit-rotted checkpoint that
+    loading alone does not catch, so the payload sha256 must refuse it
+    before any replica is touched.  Other trees come back unchanged."""
+    p = _active()
+    if p is None or not p.corrupt_candidate_checkpoint:
+        return params
+    if p.corrupt_candidate_checkpoint not in path:
+        return params
+    import torch
+
+    flipped = [False]
+
+    def flip(leaf):
+        if not torch.is_tensor(leaf):
+            return leaf
+        t = leaf.detach().clone()
+        if not flipped[0] and t.numel():
+            raw = t.view(-1).view(torch.uint8)
+            raw[0] ^= 0x01
+            flipped[0] = True
+        return t
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return flip(tree)
+
+    return walk(params)
+
+
+def canary_quality_shift_hook(model_version: str, quality):
+    """Add ``canary_quality_shift`` to every quality signal of a batch
+    served by a matching ``model_version``, clipped to [0, 1]: the injected
+    canary regression the rollout's PSI gate must catch.  ``quality`` is
+    the per-pair signal-dict list of ``BatchMatchEngine.split`` (or None
+    for narrow grids); returned unchanged when not armed or not matching."""
+    p = _active()
+    if p is None or not p.canary_quality_shift or not quality:
+        return quality
+    if not p.canary_shift_version \
+            or p.canary_shift_version not in (model_version or ""):
+        return quality
+    return [
+        {k: min(1.0, max(0.0, float(v) + p.canary_quality_shift))
+         for k, v in row.items()} if row else row
+        for row in quality
+    ]

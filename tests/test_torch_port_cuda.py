@@ -1209,3 +1209,81 @@ def test_replica_dispatch_does_not_wait_for_the_card(cuda, tmp_path,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert np.array_equal(rep.fetch(handle), want)
+
+
+@pytest.mark.cuda
+def test_swap_params_on_a_drained_replica_is_ordered_before_the_next_dispatch(
+        cuda):
+    """A weight swap on a drained CUDA replica, followed at once by a
+    dispatch, gives the table a fresh engine built with the new weights
+    gives, bit for bit (a copy not ordered with the dispatch's stream would
+    read old or torn weights), and that dispatch runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the swap leaves no host
+    wait to the next dispatch.  The old tree is no longer referenced."""
+    from ncnet_tpu_torch.serving import Replica
+
+    cfg, old = _service_model()
+    new = init_ncnet(cfg, seed=1)
+    pairs = _service_pairs(2)
+    src = np.stack([s for s, _ in pairs])
+    tgt = np.stack([t for _, t in pairs])
+    fresh = BatchMatchEngine(cfg, new)
+    want = fresh.fetch(fresh.dispatch(src, tgt))
+    del fresh
+    engine = BatchMatchEngine(cfg, old)
+    rep = Replica("rep0", engine, device=cuda)
+    before = rep.fetch(rep.dispatch(src, tgt))
+    stale = engine._params["nc"][0]["w"]
+    # a large queue of work ahead of the swap: the copies must wait for it
+    # on the stream, not race it
+    busy = torch.randn(4096, 4096, device=cuda)
+    for _ in range(8):
+        busy = busy @ busy / 64.0
+    engine.swap_params(new)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = rep.dispatch(src, tgt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = rep.fetch(handle)
+    assert np.array_equal(got, want)
+    assert not np.array_equal(got, before)
+    assert engine.swap_fastpath_hits == 1
+    import weakref
+
+    gone = weakref.ref(stale)
+    del stale
+    assert gone() is None  # nothing else held the old weights
+
+
+@pytest.mark.cuda
+def test_router_over_a_real_model_cuda_service_answers_a_pair(cuda):
+    """The port's router in front of one real-model service on the card
+    (its introspection plane on an ephemeral port) answers a pair over
+    HTTP with the table the service's engine gives in process."""
+    from ncnet_tpu_torch.serving import (MatchClient, MatchRouter,
+                                         MatchService, RouterConfig,
+                                         ServingConfig, pad_to_bucket)
+
+    cfg, params = _service_model()
+    svc = MatchService(cfg, params, ServingConfig(
+        buckets=((192, 192),), warm_buckets=((192, 192),), max_batch=1,
+        max_image_side=192, introspect_port=0), devices=["cuda:0"]).start()
+    router = None
+    try:
+        router = MatchRouter([svc.introspect_url], RouterConfig(
+            introspect_port=0, probe_period_s=0.2)).start()
+        src, tgt = _service_pairs(1)[0]
+        with MatchClient(router.introspect_url) as client:
+            res = client.match(src, tgt, budget_s=120.0)
+        engine = svc._pool.replicas[0].engine
+        direct = engine.split(engine.fetch(engine.dispatch(
+            pad_to_bucket([src], (192, 192)),
+            pad_to_bucket([tgt], (192, 192)))))[0][0]
+    finally:
+        if router is not None:
+            router.stop()
+        svc.stop(timeout=120)
+    assert res.table.shape == direct.shape
+    assert np.array_equal(res.table, direct)
+    assert res.quality and set(res.quality) >= {"score", "entropy"}

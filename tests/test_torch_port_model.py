@@ -397,6 +397,12 @@ def test_port_imports_no_jax():
         "utils/faults", "utils/profiling", "cli/common",
         "cli/eval_pf_pascal", "evaluation/inloc", "cli/eval_inloc",
         "cli/compute_localization")} <= names
+    # the network plane (host code: http.server, urllib, numpy)
+    assert {f"ncnet_tpu_torch/{m}.py" for m in (
+        "observability/export", "observability/quality", "serving/wire",
+        "serving/introspect", "serving/router", "serving/rollout",
+        "serving/replica", "serving/engine", "serving/service",
+        "tools/serve_backend")} <= names
     # the multi-device layer (torch.distributed only)
     assert {f"ncnet_tpu_torch/parallel/{m}.py" for m in (
         "__init__", "mesh", "distributed", "spatial")} <= names

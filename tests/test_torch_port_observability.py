@@ -596,12 +596,13 @@ def test_fault_plan_from_the_environment(monkeypatch):
             faults.device_error_hook("step")
         faults.clear()
         faults._env_read = False
-        # nan_loss_steps has its hook since the training slice and the
-        # event log's kill hook since the serving slice; the router's
-        # backend hook has none in the port yet
+        # nan_loss_steps has its hook since the training slice, the event
+        # log's kill hook since the serving slice and the router's backend
+        # hook since the network plane; the retrieval shards' hooks have
+        # none in the port yet
         monkeypatch.setenv("NCNET_TPU_FAULTS",
-                           json.dumps({"dead_backend_urls": ["b0"]}))
-        with pytest.raises(ValueError, match="dead_backend_urls"):
+                           json.dumps({"dead_shard_urls": ["s0"]}))
+        with pytest.raises(ValueError, match="dead_shard_urls"):
             faults.device_error_hook()
     finally:
         faults.clear()

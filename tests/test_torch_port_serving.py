@@ -854,7 +854,8 @@ def test_single_replica_pool_device_failure(pkg):
     if pkg.name == "jax":
         assert engines[0].retraces == 1 and rep["demotions"] == 1
     else:
-        assert engines[0].retraces == 0 and "demotions" not in rep
+        # the port demotes no tier (ROADMAP D4); its row keeps the JAX key
+        assert engines[0].retraces == 0 and rep["demotions"] == 0
 
 
 def test_wedged_replica_does_not_stall_healthy_pool(pkg, tmp_path):
@@ -882,19 +883,61 @@ def test_wedged_replica_does_not_stall_healthy_pool(pkg, tmp_path):
 
 
 def test_unported_options_are_refused_by_name():
+    """The network plane's options, refused by name before it was ported,
+    now work: ``introspect_port`` starts the plane, ``attach_rollout``
+    attaches a controller, ``rollout_swap`` swaps a drained replica and
+    ``start_rollout`` runs a rollout to COMPLETE.  What stays refused is
+    refused by name: ``POST /retrieve`` answers 404."""
+    import json
+    import urllib.error
+    import urllib.request
+
     from ncnet_tpu_torch.serving import MatchService, ServingConfig
 
-    with pytest.raises(NotImplementedError, match="introspect_port"):
-        MatchService(engine=object(),
-                     serving=ServingConfig(introspect_port=0))
-    svc = MatchService(engine=make_fake(load("torch"))(),
-                       serving=ServingConfig())
-    for name, call in (("attach_rollout", lambda: svc.attach_rollout(None)),
-                       ("start_rollout", lambda: svc.start_rollout("x")),
-                       ("rollout_swap",
-                        lambda: svc.rollout_swap(None, None, "v1"))):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+    Fake = make_fake(load("torch"))
+
+    class SwapFake(Fake):
+        def __init__(self):
+            super().__init__()
+            self.swapped = []
+
+        def swap_params(self, params):
+            self.swapped.append(params)
+
+    engines = [SwapFake(), SwapFake()]
+    svc = MatchService(engine=engines, serving=ServingConfig(
+        bucket_multiple=32, max_image_side=64, max_batch=2,
+        introspect_port=0)).start()
+    try:
+        url = svc.introspect_url
+        assert url is not None
+        with urllib.request.urlopen(url + "/healthz") as r:
+            assert r.status == 200 and json.load(r)["state"] == "READY"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(
+                url + "/retrieve", data=b"x", method="POST"))
+        assert e.value.code == 404 and b"no /retrieve" in e.value.read()
+
+        marker = object()
+        svc.attach_rollout(marker)
+        assert svc._rollout is marker
+        svc.detach_rollout()
+
+        rep = svc.rollout_replicas()[1]
+        assert svc.rollout_drain(rep, 5.0)
+        svc.rollout_swap(rep, {"w": 1}, "v1")
+        svc.rollout_readmit(rep, reason="test")
+        assert engines[1].swapped == [{"w": 1}] and rep.model_version == "v1"
+
+        svc.rollout_loader = lambda c: (c, "v2", None, {"w": 2})
+        from ncnet_tpu_torch.serving import RolloutConfig
+
+        ctl = svc.start_rollout("/ckpt/v2", RolloutConfig(canary_min_results=0))
+        assert wait_until(lambda: ctl.status()["phase"] == "COMPLETE", 20)
+        assert svc.model_version == "v2"
+        assert all(r.model_version == "v2" for r in svc.rollout_replicas())
+    finally:
+        svc.stop(timeout=30)
 
 
 # ---------------------------------------------------------------------------
