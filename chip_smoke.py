@@ -262,6 +262,44 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the CLI once through, again (its artifacts reloaded, the ImgLists
      bit-equal) and with one query's matches ``.mat`` corrupted (that query
      quarantined, exit 2);
+  Q. sharded retrieval at InLoc's shortlist width, the IVD model as in
+     phase I, written as a native checkpoint and loaded as the tool and the
+     CLI load it (bf16 volume and NC stack, the f32 trunk under PyTorch's
+     default TF32 settings, the tool's): two structured raw queries (hue
+     levels and a stripe cadence of their own under a seeded texture: the
+     raw extractor scores noise images all alike), each with a row of 100
+     cutouts (the same 100 in both rows, in other orders): 10 crops of the
+     query made on the card at the row's last ranks, the other query's 10
+     before them, 80 structured distractors.  ``python -m
+     ncnet_tpu_torch.tools.build_coarse_index`` builds the backbone index
+     (factor 4, at 3200) as stripes 0 and 1 of 2, then stripe 0 again
+     (nothing built), and the ``--raw`` index; one entry against the
+     matcher's features here at batch 1 (bit-equal, or within 1e-5 of the
+     largest value), the raw digests and entries against the images and
+     the raw extractor here.  ``run_inloc_eval`` with ``retrieval_index``
+     (top 10 of the 100, coverage 1.0 required) on the backbone and the raw
+     index: 2 B6 launches a shortlisted pair (40, where the whole rows
+     would take 400), each ``.mat``'s ``shortlist`` equal to
+     ``local_shortlist`` here, a ``retrieval_shortlist`` event a query, the
+     raw index's recall of a query's own crops at least 0.8 (the backbone
+     index's printed: random weights); an index missing 20 of the row falls
+     back to the ``.mat`` order (a ``retrieval_fallback`` event, reason
+     ``coverage``, 40 launches).  ``run_localization`` on the raw run's
+     matches (wall geometry for the shortlisted cutouts): each query's PnP
+     top-N is its ``.mat``'s shortlist.  Three ``serve_shard`` processes
+     at R = 2 over the backbone store (no CUDA context in them: no
+     ``/dev/nvidia<N>`` open, not in ``nvidia-smi``'s compute apps) behind
+     a ``RetrievalCoordinator`` here: 40 queries equal to ``local_shortlist``
+     with the scores bit-equal; s1 SIGKILLed under a stream (every answer
+     at coverage 1.0, none lost, s1 DEAD) and restarted at its port (the
+     probes resurrect it); s2 slowed by 1 s (hedges, the same answers); the
+     coordinator's own ``POST /retrieve``; ``/metrics`` of the coordinator
+     and a shard parsed; the outcome identity from its event log.  Then one
+     bit of a committed entry flipped: ``local_shortlist`` with the card's
+     trunk as ``compute`` quarantines it, recomputes it and returns the same
+     shortlist.  Index build ms a pano by stage, bytes an entry, retrieval
+     plan ms, pair walls, retrieve walls, failover and resurrection times,
+     the hedge share and the shards' startup printed beside the card;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -478,6 +516,18 @@ LOC_POSE_BOUND = (0.05, 0.2)
 # faces a wall at LOC_TREE_DEPTH
 LOC_ROOM = ((-2.0, 2.2), (-2.2, 2.0), (-1.0, 5.0))
 LOC_TEXTURE_CELL, LOC_TREE_DEPTH = 0.05, 5.0
+# phase Q: the retrieval tier at InLoc's shortlist width.  Two raw queries
+# of INLOC_QUERY_HW, each with a DensePE-style row of RETR_ROW cutouts of
+# INLOC_PANO_HW (densePE_top100's width; the same panos in both rows, in
+# other orders): RETR_OWN crops of the row's query at its last ranks, the
+# other query's RETR_OWN crops before them, the rest seeded distractors.
+# Coarse volumes pooled by RETR_FACTOR; RETR_OWN cutouts shortlisted and
+# matched a query; an index missing RETR_MISSING of the row; a pod of
+# RETR_SHARDS shard processes at replication RETR_R answering
+# RETR_POD_QUERIES queries; the raw index's recall of a query's own crops
+# gated at RETR_MIN_RECALL
+RETR_ROW, RETR_OWN, RETR_FACTOR, RETR_MISSING = 100, 10, 4, 20
+RETR_SHARDS, RETR_R, RETR_POD_QUERIES, RETR_MIN_RECALL = 3, 2, 40, 0.8
 # The training step, kernels vs twins in both directions (phase 5): the
 # relative L2 distance of the step's NC gradients.  The kernels' step is the
 # twins' arithmetic with the f32 sums in another order, so a bf16 activation
@@ -5722,6 +5772,708 @@ def localization_phase(torch, dev, tree):
     return {"scene": scene, "composition": composed}
 
 # ---------------------------------------------------------------------------
+# phase Q: sharded retrieval (the coarse index built on the card, the shard
+# hosts and the coordinator, the InLoc in-system shortlist feeding B6)
+# ---------------------------------------------------------------------------
+
+
+def retrieval_hue(i):
+    """The two hue levels of structure ``i`` (``retrieval_image``)."""
+    return (37 * i + 20) % 256, (91 * i + 13) % 256
+
+
+def retrieval_distractor_ids(n):
+    """``n`` structure indices whose hue levels lie at least 40 levels
+    (L1 over the two hue channels) from both queries' (indices 0 and 1)."""
+    out, i = [], 2
+    while len(out) < n:
+        if all(sum(abs(a - b) for a, b in zip(retrieval_hue(i),
+                                               retrieval_hue(q))) >= 40
+               for q in (0, 1)):
+            out.append(i)
+        i += 1
+    return out
+
+
+def retrieval_image(torch, dev, hw, i, seed):
+    """A structured uint8 ``(H, W, 3)`` image made on the card: the hue
+    levels and stripe cadence of structure ``i`` under a seeded smooth
+    texture (phase I's) at 0.4.  The raw extractor scores pure noise images
+    all alike (cosine ~0.9999), so a noise tree could show no ranking."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = hw
+    base = torch.zeros((3, h, w), device=dev)
+    base[0], base[1] = retrieval_hue(i)
+    base[2, :: (i % 5) + 2, :] = 255
+    low = torch.rand((1, 3, h // 8, w // 8), generator=g, device=dev)
+    tex = torch.nn.functional.interpolate(
+        low * 255, size=(h, w), mode="bilinear", align_corners=False)[0]
+    tex = tex + (torch.rand((3, h, w), generator=g, device=dev) - 0.5) * 24
+    img = (0.6 * base + 0.4 * tex).clamp(0, 255).to(torch.uint8)
+    return img.permute(1, 2, 0).contiguous().cpu().numpy()
+
+
+def write_retrieval_tree(torch, dev, root, seed=61):
+    """Phase Q's InLoc tree of raw images (``write_inloc_like``'s layout):
+    two structured portrait queries, ``RETR_OWN`` crops of each (made on
+    the card, ``inloc_images``) and ``RETR_ROW - 2 RETR_OWN`` structured
+    distractors; row ``q`` holds the distractors in a seeded order, then
+    the other query's crops, then its own at the last ranks.  Returns the
+    shortlist's path, ``{q: own crop names}``, every cutout's origin in its
+    query (``(0, 0)`` for a distractor, for the wall geometry of
+    ``write_tree_geometry``) and the rows."""
+    import numpy as np
+    from scipy.io import savemat
+
+    from ncnet_tpu_torch.data.datasets import raw_path
+
+    qdir = os.path.join(root, "query", "iphone7")
+    os.makedirs(qdir, exist_ok=True)
+    os.makedirs(os.path.join(root, "pano", "DUC1"), exist_ok=True)
+    own, origins = {}, {}
+    for q in range(2):
+        query = retrieval_image(torch, dev, INLOC_QUERY_HW, q, seed + q)
+        np.save(raw_path(os.path.join(qdir, f"query_{q}.jpg")), query)
+        corners = []
+        crops = inloc_images(torch, dev, INLOC_PANO_HW, RETR_OWN,
+                             seed + 10 + q, query, corners)
+        own[q] = []
+        for p, (img, corner) in enumerate(zip(crops, corners)):
+            name = f"DUC1/DUC_cutout_{q:03d}_{p * 30}_0.jpg"
+            np.save(raw_path(os.path.join(root, "pano", name)), img)
+            own[q].append(name)
+            origins[name] = corner
+    n_d = RETR_ROW - 2 * RETR_OWN
+    distractors = []
+    for d, i in enumerate(retrieval_distractor_ids(n_d)):
+        # the scan ids of the queries' crops, so the wall geometry has one
+        # scan a query
+        name = f"DUC1/DUC_cutout_{d % 2:03d}_{d // 2 * 30}_30.jpg"
+        np.save(raw_path(os.path.join(root, "pano", name)),
+                retrieval_image(torch, dev, INLOC_PANO_HW, i, seed + 100 + d))
+        distractors.append(name)
+        origins[name] = (0, 0)
+    rng = np.random.default_rng(seed)
+    rows = [[distractors[j] for j in rng.permutation(n_d)] + own[1 - q]
+            + own[q] for q in range(2)]
+    entries = np.zeros((1, 2), dtype=np.dtype(
+        [("queryname", object), ("topNname", object)]))
+    for q in range(2):
+        entries[0, q] = (np.array([f"query_{q}.jpg"]),
+                         np.array(rows[q], dtype=object)[:, None])
+    shortlist = os.path.join(root, "shortlist.mat")
+    savemat(shortlist, {"ImgList": entries})
+    return shortlist, own, origins, rows
+
+
+def compute_app_pids():
+    """The pids ``nvidia-smi`` lists with a compute context on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return {int(t) for t in out.stdout.split() if t.strip().isdigit()}
+
+
+def card_files_open(pid):
+    """The card device files (``/dev/nvidia<N>``, which a CUDA context
+    opens) process ``pid`` holds open."""
+    fds = os.path.join("/proc", str(pid), "fd")
+    out = []
+    for f in os.listdir(fds):
+        try:
+            target = os.readlink(os.path.join(fds, f))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia") and target[11:].isdigit():
+            out.append(target)
+    return out
+
+
+def retrieval_outcomes(events):
+    """The coordinator's outcome identity from its event log: admitted, the
+    terminal events by kind, and the admitted ids with no outcome."""
+    import collections
+
+    admitted = {e["request"] for e in events if e["event"] == "retrieve_admit"}
+    terminal = [e for e in events if e["event"] in (
+        "retrieve_result", "retrieve_deadline", "retrieve_shed")]
+    n = collections.Counter(e["event"] for e in terminal)
+    return len(admitted), n, sorted(admitted - {e["request"] for e in terminal})
+
+
+class CachedStore:
+    """A store's verified reads, each entry read once (the reference
+    shortlists of phase Q score the same 100 entries many times)."""
+
+    def __init__(self, store):
+        self.store, self._hits = store, {}
+
+    def get(self, digest):
+        if digest not in self._hits:
+            self._hits[digest] = self.store.get(digest)
+        return self._hits[digest]
+
+
+def row_index(index, row):
+    """``index`` restricted to the panos of one shortlist row, as
+    ``run_inloc_eval``'s retrieval plan scores them."""
+    return {**index, "panos": {n: index["panos"][n] for n in row
+                               if n in index["panos"]}}
+
+
+def retrieval_phase(torch, nc_fused_lane, dev):
+    """Phase Q: the retrieval tier end to end (see the module docstring).
+    Returns B6's launches by path."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    from scipy.io import loadmat
+
+    from ncnet_tpu_torch.config import EvalInLocConfig, LocalizationConfig
+    from ncnet_tpu_torch.data.datasets import load_image
+    from ncnet_tpu_torch.evaluation.inloc import (
+        _as_str,
+        make_pair_matcher,
+        run_inloc_eval,
+    )
+    from ncnet_tpu_torch.localization import driver
+    from ncnet_tpu_torch.models.checkpoint import load_params, save_params
+    from ncnet_tpu_torch.observability import EventLog, events
+    from ncnet_tpu_torch.retrieval import (
+        RetrievalConfig,
+        RetrievalCoordinator,
+        RetrieveClient,
+        coarse_volume_from_features,
+        load_index_manifests,
+        local_shortlist,
+        pooled_descriptor,
+        raw_coarse_volume,
+        write_index_manifest,
+    )
+    from ncnet_tpu_torch.store import FeatureStore, content_digest
+    from ncnet_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_retrieval_")
+    pano = os.path.join(tmp, "pano")
+    qpath = os.path.join(tmp, "query", "iphone7")
+    runs = {}
+    # the index tool is a process of its own with PyTorch's default TF32
+    # settings (its f32 trunk's convolutions in TF32); the phase takes them
+    # too, so its trunk computes the tool's bytes
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # 1. the tree
+        t0 = time.perf_counter()
+        shortlist, own, origins, rows = write_retrieval_tree(torch, dev, tmp)
+        tree_s = time.perf_counter() - t0
+        queries = [load_image(os.path.join(qpath, f"query_{q}.jpg"))
+                   for q in range(2)]
+
+        # 2. the weights, written as a native checkpoint and loaded back;
+        # the index built by the tool in subprocesses, stripes 0 and 1,
+        # then stripe 0 again (it builds nothing)
+        cfg = inloc_config()
+        params = inloc_params(torch, cfg, dev, queries[0])
+        ckpt = os.path.join(tmp, "ivd")
+        save_params(ckpt, cfg, params)
+        del params
+        # loaded as the tool and the CLI load it: bf16 volume and NC stack
+        # at k = INLOC_K, the trunk in f32 (the reference's)
+        cfg, params = load_params(ckpt)
+        cfg = cfg.replace(half_precision=True, relocalization_k_size=INLOC_K)
+        bstore, rstore = os.path.join(tmp, "backbone"), os.path.join(tmp, "raw")
+        bglob = os.path.join(bstore, "coarse_index.*.json")
+        rglob = os.path.join(rstore, "coarse_index.*.json")
+        common = ["--inloc_shortlist", shortlist, "--pano_path", pano,
+                  "--n_panos", str(RETR_ROW), "--factor", str(RETR_FACTOR)]
+
+        def build(*argv):
+            """Start the tool: a ``finish()`` that waits for it and returns
+            its summary line and its wall."""
+            t0 = time.perf_counter()
+            err = tempfile.TemporaryFile("w+", dir=tmp)
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ncnet_tpu_torch.tools.build_coarse_index",
+                 *common, *argv], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=err, text=True)
+
+            def finish():
+                out, _ = proc.communicate(timeout=900)
+                wall = time.perf_counter() - t0
+                err.seek(0)
+                tail = err.read()[-3000:]
+                err.close()
+                if proc.returncode != 0:
+                    raise SystemExit(f"retrieval: build_coarse_index {argv} "
+                                     f"exited {proc.returncode}: {tail}")
+                return json.loads(out.strip().splitlines()[-1]), wall
+            return finish
+
+        backbone = ["--store_dir", bstore, "--image_size", str(INLOC_SIDE),
+                    "--k_size", str(INLOC_K), "--checkpoint", ckpt]
+        # the raw index (numpy, on the host) builds beside the backbone
+        # stripes, which run one after the other; stripe 0 again beside
+        # stripe 1
+        raw_build = build("--store_dir", rstore, "--raw")
+        stripes = [build(*backbone, "--shard_index", "0",
+                         "--shard_count", "2")()]
+        second = build(*backbone, "--shard_index", "1", "--shard_count", "2")
+        again, again_s = build(*backbone, "--shard_index", "0",
+                               "--shard_count", "2")()
+        stripes.append(second())
+        docs = [d for d, _ in stripes]
+        built = sum(d["built"] for d in docs)
+        bfp = docs[0]["fingerprint"]
+        stage = {k: sum(d["stage_ms"][k] for d in docs) / max(1, built)
+                 for k in docs[0]["stage_ms"]}
+        bindex = load_index_manifests(bglob)
+        some = next(iter(bindex["panos"].values()))
+        entry_bytes = os.path.getsize(os.path.join(bstore, bfp,
+                                                   some + ".feat"))
+        print(f"retrieval: tree of 2 queries {INLOC_QUERY_HW} and "
+              f"{RETR_ROW} cutouts {INLOC_PANO_HW} written in {tree_s:.2f} s; "
+              f"backbone index by build_coarse_index in 2 stripes: built "
+              f"{[d['built'] for d in docs]} panos, tool walls "
+              f"{[round(w, 2) for _, w in stripes]} s (process start, model "
+              f"load and {RETR_ROW // 2} panos each), ms a pano {stage} "
+              f"(decode, trunk, device-to-host with pooling, commit), "
+              f"{entry_bytes} bytes an entry, fingerprint {bfp}; stripe 0 "
+              f"again: built {again['built']}, skipped "
+              f"{again['skipped_indexed']} in {again_s:.2f} s; on "
+              f"{card_line()}", flush=True)
+        if built != RETR_ROW or len(bindex["panos"]) != RETR_ROW \
+                or any(d["quarantined"] for d in docs) \
+                or again["built"] != 0 \
+                or again["skipped_indexed"] != docs[0]["stripe_panos"] \
+                or docs[1]["fingerprint"] != bfp \
+                or not bfp.endswith(f"-bf16-torch.{dev.type}-c{RETR_FACTOR}"):
+            raise SystemExit("retrieval: the backbone index did not build "
+                             "every pano once under the port's fingerprint")
+
+        # the shard hosts start now, beside the runs below; the pod reads
+        # their startup lines (each one's arrival time kept) in step 5
+        shard_ids = [f"s{i}" for i in range(RETR_SHARDS)]
+        procs, urls, startup = {}, {}, {}
+
+        def spawn(sids, ports=None):
+            """Start shard processes: a ``ready()`` that waits for their
+            startup lines (the wall from the start to each kept)."""
+            t0 = time.perf_counter()
+            started, lines = {}, {}
+            for sid in sids:
+                started[sid] = subprocess.Popen(
+                    [sys.executable, "-m", "ncnet_tpu_torch.tools.serve_shard",
+                     "--shard-id", sid, "--shards", ",".join(shard_ids),
+                     "--store", bstore, "--index", bglob, "--replication",
+                     str(RETR_R), "--topk", str(RETR_OWN), "--port",
+                     str((ports or {}).get(sid, 0))],
+                    cwd=HERE, stdout=subprocess.PIPE, text=True,
+                    stderr=open(os.path.join(tmp, f"{sid}.stderr"), "ab"))
+
+            def read(sid, proc):
+                line = proc.stdout.readline()
+                lines[sid] = (line, time.perf_counter() - t0)
+
+            readers = [threading.Thread(target=read, args=item, daemon=True)
+                       for item in started.items()]
+            for th in readers:
+                th.start()
+
+            def ready():
+                for th in readers:
+                    th.join(timeout=300)
+                for sid, proc in started.items():
+                    line, wall = lines.get(sid, ("", None))
+                    doc = json.loads(line) if line.strip() else {}
+                    procs[sid] = proc
+                    if "url" not in doc:
+                        raise SystemExit(f"retrieval: shard {sid} did not "
+                                         f"start: {doc}")
+                    urls[sid], startup[sid] = doc["url"], round(wall, 3)
+            return ready
+
+        shards_ready = spawn(shard_ids)
+
+        raw_doc, raw_s = raw_build()
+        rindex = load_index_manifests(rglob)
+        rstore_obj = FeatureStore(rstore, rindex["fingerprint"],
+                                  scope="chip_smoke_raw")
+        try:
+            digests_ok = all(
+                content_digest(load_image(os.path.join(pano, n))) == d
+                for n, d in rindex["panos"].items())
+            held = own[0][:2] + rows[0][:2]
+            volumes_ok = all(np.array_equal(
+                rstore_obj.get(rindex["panos"][n]),
+                raw_coarse_volume(load_image(os.path.join(pano, n)),
+                                  RETR_FACTOR)) for n in held)
+        finally:
+            rstore_obj.close()
+        print(f"retrieval: raw index built by the tool beside the backbone "
+              f"stripes: its loop {raw_doc['wall_s']} s, the process done "
+              f"{raw_s:.2f} s after its start ({raw_doc['built']} "
+              f"panos, fingerprint {raw_doc['fingerprint']}); its digests "
+              f"equal the images' content digests: {digests_ok}; the entries "
+              f"of {len(held)} panos bit-equal to raw_coarse_volume computed "
+              f"here: {volumes_ok}", flush=True)
+        if raw_doc["built"] != RETR_ROW or not digests_ok \
+                or not volumes_ok or set(rindex["panos"]) != set(bindex["panos"]):
+            raise SystemExit("retrieval: the raw index differs from the raw "
+                             "extractor run here")
+
+        # one pano's entry against the matcher's features at batch 1 here
+        matcher = make_pair_matcher(
+            cfg, params, do_softmax=True, both_directions=True,
+            flip_direction=False, preprocess_image_size=INLOC_SIDE)
+
+        def volume_of(img):
+            feats = matcher.preprocess(img[None]).features
+            return coarse_volume_from_features(feats.float().cpu().numpy(),
+                                               RETR_FACTOR)
+
+        bstore_obj = FeatureStore(bstore, bfp, scope="chip_smoke_backbone")
+        cached = CachedStore(bstore_obj)
+        probe = own[0][0]
+        here = volume_of(load_image(os.path.join(pano, probe)))
+        entry = cached.get(bindex["panos"][probe])
+        entry_diff = float(np.abs(here - entry).max())
+        print(f"retrieval: the tool's entry of {probe} {entry.shape} vs the "
+              f"coarse volume of the matcher's features here at batch 1: "
+              f"{'bit-equal' if np.array_equal(here, entry) else 'differ'}, "
+              f"max difference {entry_diff:.3e} of the largest "
+              f"{float(np.abs(entry).max()):.3e}", flush=True)
+        if entry.shape != here.shape or \
+                entry_diff > 1e-5 * float(np.abs(entry).max()):
+            raise SystemExit("retrieval: the tool's entry differs from the "
+                             "card's trunk here")
+        descs = [pooled_descriptor(volume_of(img)) for img in queries]
+        raw_descs = [pooled_descriptor(raw_coarse_volume(img, RETR_FACTOR))
+                     for img in queries]
+
+        # 3. the in-system shortlist
+        def eval_run(name, index, **kw):
+            config = EvalInLocConfig(
+                output_root=os.path.join(tmp, name),
+                telemetry_dir=os.path.join(tmp, name + "_events"),
+                inloc_shortlist=shortlist, k_size=INLOC_K,
+                image_size=INLOC_SIDE, n_queries=2, n_panos=RETR_OWN,
+                pano_path=pano, query_path=qpath, retrieval_index=index,
+                retrieval_topk=RETR_OWN, retrieval_min_coverage=1.0, **kw)
+            torch.cuda.synchronize()
+            nc_fused_lane.launches = 0
+            t0 = time.perf_counter()
+            out_dir = run_inloc_eval(config, model_config=cfg, params=params,
+                                     progress=False)
+            wall = time.perf_counter() - t0
+            runs[name] = nc_fused_lane.launches
+            _, ev = events.replay_events(
+                os.path.join(config.telemetry_dir, "events.jsonl"))
+            mats = [loadmat(os.path.join(out_dir, f"{q + 1}.mat"))
+                    for q in range(2)]
+            plan_ms = [round(e["dur_s"] * 1e3, 3) for e in ev
+                       if e["event"] == "span" and e.get("ph") == "E"
+                       and e["name"] == "retrieval_plan"]
+            q_walls = [e["wall_s"] for e in ev if e["event"] == "eval_query"]
+            kinds = [(e["event"], e["query"], e.get("reason"))
+                     for e in ev if e["event"] in ("retrieval_shortlist",
+                                                   "retrieval_fallback")]
+            return out_dir, mats, wall, plan_ms, q_walls, kinds
+
+        def names_of(mat):
+            return ([_as_str(n) for n in mat["shortlist"].ravel()]
+                    if "shortlist" in mat else None)
+
+        pairs = 2 * RETR_OWN
+        recalls = {}
+        for name, index, store, ds in (
+                ("inloc_retrieval", bglob, cached, descs),
+                ("inloc_retrieval_raw", rglob, None, raw_descs)):
+            out_dir, mats, wall, plan_ms, q_walls, kinds = eval_run(name, index)
+            if store is None:
+                store = FeatureStore(rstore, rindex["fingerprint"],
+                                     scope="chip_smoke_raw")
+            try:
+                idx = bindex if index == bglob else rindex
+                refs = [[p for p, _ in local_shortlist(
+                    store, row_index(idx, rows[q]), ds[q],
+                    topk=RETR_OWN)["scores"]] for q in range(2)]
+            finally:
+                if store is not cached:
+                    store.close()
+            got = [names_of(m) for m in mats]
+            cover = [float(np.ravel(m["retrieval_coverage"])[0]) for m in mats]
+            recalls[name] = [len(set(got[q]) & set(own[q])) / RETR_OWN
+                             for q in range(2)]
+            # the pair walls: a query's wall less its retrieval plan
+            pair_ms = [round((w - p / 1e3) / RETR_OWN * 1e3, 3)
+                       for w, p in zip(q_walls, plan_ms)]
+            in_mat_top = [len(set(got[q]) & set(rows[q][:RETR_OWN]))
+                          for q in range(2)]
+            print(f"retrieval: run_inloc_eval on the {name} index "
+                  f"({RETR_ROW}-wide rows, top {RETR_OWN}): {wall:.3f} s, B6 "
+                  f"launches {runs[name]} (matching the whole rows would take "
+                  f"{2 * 2 * RETR_ROW}); retrieval_plan ms a query {plan_ms} "
+                  f"(descriptor and scoring), mean pair wall ms a query "
+                  f"{pair_ms}; shortlists equal local_shortlist here: "
+                  f"{got == refs}; coverage {cover}; recall of the query's "
+                  f"own crops {recalls[name]}; of the .mat order's top "
+                  f"{RETR_OWN}, {in_mat_top} shortlisted; events {kinds}; on "
+                  f"{card_line()}", flush=True)
+            if runs[name] != 2 * pairs or got != refs or cover != [1.0, 1.0] \
+                    or kinds != [("retrieval_shortlist", 1, None),
+                                 ("retrieval_shortlist", 2, None)]:
+                raise SystemExit(f"retrieval: the {name} run did not match "
+                                 "the shortlist at 2 B6 launches a pair")
+            if name == "inloc_retrieval":
+                b_names = got
+            else:
+                raw_dir, raw_names = out_dir, got
+        if min(recalls["inloc_retrieval_raw"]) < RETR_MIN_RECALL:
+            raise SystemExit("retrieval: the raw index's recall of the "
+                             "queries' own crops is below "
+                             f"{RETR_MIN_RECALL}")
+
+        # an index missing RETR_MISSING of the row: each query falls back to
+        # the .mat order
+        partial = os.path.join(bstore, "partial.json")
+        dropped = set(rows[0][:RETR_MISSING])
+        write_index_manifest(partial, fingerprint=bfp, factor=RETR_FACTOR,
+                             extractor="backbone",
+                             panos={n: d for n, d in bindex["panos"].items()
+                                    if n not in dropped})
+        name = "inloc_retrieval_fallback"
+        _, mats, wall, _, _, kinds = eval_run(name, partial)
+        print(f"retrieval: an index missing {RETR_MISSING} of the row: "
+              f"{wall:.3f} s, B6 launches {runs[name]}, events {kinds}, "
+              f"shortlist keys {['shortlist' in m for m in mats]}", flush=True)
+        if runs[name] != 2 * pairs or any("shortlist" in m for m in mats) \
+                or kinds != [("retrieval_fallback", 1, "coverage"),
+                             ("retrieval_fallback", 2, "coverage")]:
+            raise SystemExit("retrieval: the coverage fallback did not match "
+                             "the .mat order")
+
+        # 4. localization on the raw index's run: wall geometry for the
+        # cutouts each query shortlisted; the PnP pairs each .mat row with
+        # the shortlist's name, not the DensePE row's
+        t0 = time.perf_counter()
+        kw = write_tree_geometry({
+            "root": tmp, "matches_dir": raw_dir, "shortlist": shortlist,
+            "origins": {n: origins[n] for q in range(2) for n in raw_names[q]},
+            "query_path": qpath, "pano_path": pano})
+        loc = LocalizationConfig(output_dir=os.path.join(tmp, "loc"),
+                                 progress=False, **kw)
+        driver.run_localization(loc)
+        loc_s = time.perf_counter() - t0
+        readable = 0
+        for d, _, fs in os.walk(loc.output_dir):
+            for f in fs:
+                if f.endswith(".mat"):
+                    loadmat(os.path.join(d, f))
+                    readable += 1
+        pe, _ = stage_imglists(loc)
+        top = {e["queryname"]: list(e["topNname"]) for e in pe}
+        print(f"retrieval: run_localization on the raw run's matches in "
+              f"{loc_s:.2f} s (geometry included): {readable} .mat files "
+              f"readable; each query's PnP top-N is its .mat's shortlist: "
+              f"{[top.get(f'query_{q}.jpg') == raw_names[q] for q in range(2)]}"
+              f", not the DensePE row's first {RETR_OWN}: "
+              f"{[top.get(f'query_{q}.jpg') != rows[q][:RETR_OWN] for q in range(2)]}",
+              flush=True)
+        if any(top.get(f"query_{q}.jpg") != raw_names[q]
+               or raw_names[q] == rows[q][:RETR_OWN] for q in range(2)):
+            raise SystemExit("retrieval: localization did not pair the "
+                             "retrieval-ordered rows with their cutouts")
+
+        # 5. a shard pod over the backbone index's store
+        rng = np.random.default_rng(71)
+        dim = descs[0].shape[0]
+        pod_descs = list(descs) + [
+            (v / np.linalg.norm(v)).astype(np.float32)
+            for v in rng.normal(size=(RETR_POD_QUERIES - 2, dim))]
+        refs = [[[p, s] for p, s in local_shortlist(
+            cached, bindex, d, topk=RETR_OWN)["scores"]] for d in pod_descs]
+        log_path = os.path.join(tmp, "coordinator_events.jsonl")
+        sink = EventLog(log_path)
+        coord = None
+        try:
+            shards_ready()
+            # the shards do numpy work only: no CUDA context in them
+            apps = compute_app_pids()
+            ctx = {sid: [procs[sid].pid in apps, card_files_open(procs[sid].pid)]
+                   for sid in shard_ids}
+            self_listed = os.getpid() in apps
+            with events.bound(sink):
+                coord = RetrievalCoordinator(
+                    urls, list(bindex["panos"]), RetrievalConfig(
+                        replication=RETR_R, topk=RETR_OWN, probe_period_s=0.2,
+                        resurrect_after_s=0.3, max_failures=2,
+                        introspect_port=0)).start()
+                walls, bad = [], []
+                for i, d in enumerate(pod_descs):
+                    t0 = time.perf_counter()
+                    ans = coord.retrieve(d, budget_s=60.0,
+                                         request_id=f"steady-{i}")
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    if ans["coverage"] != 1.0 or ans["scores"] != refs[i]:
+                        bad.append(i)
+                # SIGKILL s1 under a stream of queries
+                stream, errors, stop = [], [], threading.Event()
+
+                def pump():
+                    i = 0
+                    while not stop.is_set():
+                        k = i % len(pod_descs)
+                        try:
+                            a = coord.retrieve(pod_descs[k], budget_s=60.0,
+                                               request_id=f"stream-{i}")
+                            stream.append((k, a))
+                        except Exception as e:  # noqa: BLE001 — counted
+                            errors.append(repr(e))
+                        i += 1
+
+                th = threading.Thread(target=pump, daemon=True)
+                th.start()
+                wait_for(lambda: len(stream) >= 5, "the stream's first answers")
+                t_kill = time.monotonic()
+                procs["s1"].kill()
+                wait_for(lambda: coord._backends["s1"].state == "DEAD",
+                         "s1 DEAD")
+                failover_s = time.monotonic() - t_kill
+                n_dead = len(stream)
+                wait_for(lambda: len(stream) >= n_dead + 5,
+                         "answers with s1 dead")
+                stop.set()
+                th.join(timeout=120)
+                procs["s1"].wait(timeout=30)
+                procs["s1"].stdout.close()
+                port = int(urls["s1"].rsplit(":", 1)[1])
+                t_restart = time.monotonic()
+                spawn(["s1"], ports={"s1": port})()
+                wait_for(lambda: coord._backends["s1"].state == "READY",
+                         "s1 READY again")
+                resurrect_s = time.monotonic() - t_restart
+                wait_for(lambda: coord.state == "READY", "the pod READY")
+                stream_bad = [k for k, a in stream if a["coverage"] != 1.0
+                              or a["scores"] != refs[k]]
+                # a straggler: s2's sends slowed past hedge_after_s
+                hedges0 = coord.counters()["hedges"]
+                faults.install(faults.FaultPlan(
+                    slow_shard_urls=(urls["s2"].replace("http://", ""),),
+                    slow_shard_seconds=1.0))
+                try:
+                    slow = [coord.retrieve(pod_descs[i], budget_s=60.0,
+                                           request_id=f"slow-{i}")
+                            for i in range(8)]
+                finally:
+                    faults.clear()
+                hedged = coord.counters()["hedges"] - hedges0
+                slow_bad = [i for i, a in enumerate(slow)
+                            if a["coverage"] != 1.0 or a["scores"] != refs[i]]
+                hedge_share = sum(a["hedges"] > 0 for a in slow) / len(slow)
+                # the coordinator's own POST /retrieve
+                with RetrieveClient(coord.introspect_url) as client:
+                    via_wire = client.retrieve(pod_descs[0], budget_s=60.0,
+                                               request_id="wire-0")
+                fams = (scrape(coord.introspect_url), scrape(urls["s0"]))
+                doc = coord.health()
+                coord.stop()
+                coord = None
+        finally:
+            if coord is not None:
+                coord.stop()
+            sink.close()
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.terminate()
+            for proc in procs.values():
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                if proc.stdout is not None and not proc.stdout.closed:
+                    proc.stdout.close()
+        _, ev = events.replay_events(log_path)
+        admitted, n, lost = retrieval_outcomes(ev)
+        exits = {sid: procs[sid].returncode for sid in shard_ids}
+        print(f"retrieval pod: {RETR_SHARDS} serve_shard processes at R = "
+              f"{RETR_R} over the backbone store, startup to READY s "
+              f"{startup}; card context (nvidia-smi lists the pid, card "
+              f"files open) {ctx} (nvidia-smi lists this process: "
+              f"{self_listed}); {len(pod_descs)} queries: walls ms p50 "
+              f"{percentile(walls, 50):.3f} p95 {percentile(walls, 95):.3f}, "
+              f"answers unequal to local_shortlist {bad}; SIGKILL of s1 under "
+              f"a stream: {len(stream)} answers, errors {errors}, answers "
+              f"unequal or below full coverage {stream_bad}, DEAD after "
+              f"{failover_s:.3f} s, restarted at its port READY after "
+              f"{resurrect_s:.3f} s; s2 slowed by 1 s: {hedged} hedges, "
+              f"hedge share {hedge_share}, answers unequal {slow_bad}; POST "
+              f"/retrieve of the coordinator equal: "
+              f"{via_wire['scores'] == refs[0]}; /metrics parsed: "
+              f"{len(fams[0])} coordinator and {len(fams[1])} shard "
+              f"families; outcome identity admitted {admitted} = {dict(n)}, "
+              f"lost {lost}; shard exits {exits}; on {card_line()}",
+              flush=True)
+        if bad or errors or stream_bad or slow_bad or hedged < 1 \
+                or via_wire["scores"] != refs[0] \
+                or any(a or f for a, f in ctx.values()) \
+                or "ncnet_retrieve_requests_total" not in fams[0] \
+                or "ncnet_retrieve_shard_up" not in fams[1] \
+                or lost or admitted != n["retrieve_result"] \
+                or doc["state"] not in ("READY", "STOPPED", "DEGRADED"):
+            raise SystemExit("retrieval pod: an answer differed, a query was "
+                             "lost, a shard held a CUDA context or no hedge "
+                             "fired")
+
+        # 6. a bit flip of one committed entry: quarantined, recomputed on
+        # the card, the same shortlist
+        victim = b_names[0][0]
+        digest = bindex["panos"][victim]
+        path = os.path.join(bstore, bfp, digest + ".feat")
+        with open(path, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0x01]))
+        recomputed = []
+
+        def compute(name):
+            recomputed.append(name)
+            return volume_of(load_image(os.path.join(pano, name)))
+
+        corrupt0 = bstore_obj.counters["corrupt"]
+        t0 = time.perf_counter()
+        res = local_shortlist(bstore_obj, row_index(bindex, rows[0]),
+                              descs[0], topk=RETR_OWN, compute=compute)
+        flip_s = time.perf_counter() - t0
+        names = [p for p, _ in res["scores"]]
+        print(f"retrieval: one bit of {victim}'s committed entry flipped: "
+              f"corrupt reads {bstore_obj.counters['corrupt'] - corrupt0}, "
+              f"recomputed on the card {recomputed}, the shortlist the same: "
+              f"{names == b_names[0]}, coverage {res['coverage']}, "
+              f"{flip_s:.2f} s", flush=True)
+        bstore_obj.close()
+        if bstore_obj.counters["corrupt"] - corrupt0 != 1 \
+                or recomputed != [victim] or names != b_names[0] \
+                or res["coverage"] != 1.0:
+            raise SystemExit("retrieval: the flipped entry was not "
+                             "quarantined and recomputed to the same "
+                             "shortlist")
+        print(f"retrieval: phase Q in {time.perf_counter() - t_phase:.1f} s "
+              f"on {card_line()}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase V: the VGG-16 and DenseNet-201 trunks at full width
 # ---------------------------------------------------------------------------
 
@@ -6287,6 +7039,8 @@ def main() -> int:
     if nc_fused_lane.launches:
         raise SystemExit("localization: phase P launched an NC kernel")
     mark("P")
+    retrieval_launches = retrieval_phase(torch, nc_fused_lane, dev)
+    mark("Q")
     trunk_nc, trunk_b3, trunk_b4, trunk_gather = trunks_phase(
         torch, nc_fused_lane, nc_fused_lane_vjp, sparse_corr, dev, f_run)
     mark("V")
@@ -6309,6 +7063,9 @@ def main() -> int:
                   **{k: v["nc_conv4d_bf16"] for k, v in loop_launches.items()},
                   "eval_cli_400": cli_launches,
                   **inloc_launches,
+                  # phase Q: the retrieval shortlist's runs (backbone and
+                  # raw index) and the coverage fallback to the .mat order
+                  **retrieval_launches,
                   **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()},
                   **trunk_nc,
                   # the hB-sharded InLoc forward runs the conv4d formulations

@@ -5,7 +5,7 @@
 ``ncnet_tpu/config.py`` field for field (same names, same defaults), so a configuration written for the JAX package
 means the same model and run here.  Options the port does not run yet are
 still fields; the code rejects them loudly (``models/ncnet.py::
-check_ported``, ``evaluation/inloc.py::check_inloc_ported``).  The other config
+check_ported``).  The other config
 dataclasses come with the slices that use them.
 """
 
@@ -123,8 +123,7 @@ class EvalPFPascalConfig:
 class EvalInLocConfig:
     """Dense matching for InLoc localization (reference eval_inloc.py:30-40),
     read by ``evaluation/inloc.py::run_inloc_eval`` and
-    ``cli/eval_inloc.py``.  ``retrieval_index`` (ROADMAP A12) is
-    refused."""
+    ``cli/eval_inloc.py``."""
 
     checkpoint: str = ""
     inloc_shortlist: str = "datasets/inloc/densePE_top100_shortlist_cvpr18.mat"
@@ -169,8 +168,14 @@ class EvalInLocConfig:
     # persistent database-side feature store (store/); "" = off
     feature_store_dir: str = ""
     feature_store_budget_mb: int = 0     # LRU-evict above this (0 = unbounded)
-    retrieval_index: str = ""            # refused: the retrieval shortlist (A12)
-    retrieval_topk: int = 0
+    # in-system retrieval shortlist (retrieval/): a coarse index manifest
+    # (or a glob of per-stripe manifests, build_coarse_index's output) whose
+    # store re-ranks each query's whole .mat row by coarse similarity; the
+    # top retrieval_topk are matched, in retrieval order.  A row that
+    # cannot be scored to retrieval_min_coverage is matched in the .mat
+    # order, with a warning and a retrieval_fallback event.  "" = off
+    retrieval_index: str = ""
+    retrieval_topk: int = 0              # 0 → n_panos
     retrieval_min_coverage: float = 1.0
 
 

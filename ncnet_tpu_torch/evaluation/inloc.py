@@ -41,8 +41,14 @@ runs the hB-sharded forward (``parallel/spatial.py``) over the local
 devices (ROADMAP D7).  With ``feature_store_dir`` the pano features resolve
 through the persistent feature store (``store/``): a warm query runs one
 backbone extraction, its own; the store is off under sharding, whose
-forward takes images, as in the JAX package.  The retrieval shortlist is
-not ported and is refused (:func:`check_inloc_ported`).
+forward takes images, as in the JAX package.  With ``retrieval_index`` a
+coarse index (``retrieval/``) re-ranks each query's whole ``.mat`` row
+before matching: the query's descriptor comes from its own trunk features
+(or its pixels, for a raw index), scoring is numpy through the verified
+coarse store, and the top ``retrieval_topk`` cutouts are matched in
+retrieval order, recorded as the ``.mat``'s ``shortlist``; a row that
+cannot be scored to ``retrieval_min_coverage`` falls back to the ``.mat``
+order with a ``retrieval_fallback`` event.
 """
 
 from __future__ import annotations
@@ -482,16 +488,6 @@ def load_shortlist(path: str):
     return query_fns, pano_fns
 
 
-def check_inloc_ported(config: EvalInLocConfig) -> None:
-    """Raise ``NotImplementedError`` naming the option of ``config`` that
-    the port does not run: the retrieval shortlist (``retrieval_index``,
-    the retrieval tier of ROADMAP A12)."""
-    if config.retrieval_index:
-        raise NotImplementedError(
-            f"EvalInLocConfig.retrieval_index={config.retrieval_index!r} is "
-            "not ported to ncnet_tpu_torch yet (the retrieval tier, ROADMAP A12)")
-
-
 def run_inloc_eval(config: EvalInLocConfig,
                    model_config: Optional[ModelConfig] = None, params=None,
                    progress: bool = True, device=None) -> str:
@@ -530,7 +526,6 @@ def run_inloc_eval(config: EvalInLocConfig,
     from ncnet_tpu_torch.observability.quality import active_tier, emit_quality
     from ncnet_tpu_torch.utils.io import atomic_savemat
 
-    check_inloc_ported(config)
     if params is None:
         base = ModelConfig(
             checkpoint=config.checkpoint,
@@ -594,6 +589,7 @@ def run_inloc_eval(config: EvalInLocConfig,
 
     own_sink = prev_sink = None
     store = None  # the feature store, when configured (built below)
+    retrieval = retrieval_store = None  # the coarse index, when configured
     n_done = 0
     if config.telemetry_dir:
         # one file per host under striping: an event log has one writer
@@ -650,6 +646,35 @@ def run_inloc_eval(config: EvalInLocConfig,
                 # entries of other weights can never be read again
                 store.gc_superseded()
 
+        # the in-system retrieval shortlist: a coarse index and its
+        # verified store re-rank each query's whole .mat row before fine
+        # matching.  Fail-open like the feature store: index, store or
+        # descriptor trouble falls back to the .mat order with a warning
+        # and a retrieval_fallback event, never failing or silently
+        # truncating a query.  The store opens under the index's own
+        # fingerprint, so an index either package built is read alike
+        if config.retrieval_index:
+            import re
+
+            from ncnet_tpu_torch.retrieval.index import load_index_manifests
+            from ncnet_tpu_torch.store import FeatureStore as CoarseStore
+
+            r_index = load_index_manifests(config.retrieval_index)
+            # a raw index names its fine grid in its synthetic fingerprint
+            # (raw-s<grid>-k0-f32-c<factor>); the query pools from the same
+            m = re.search(r"^raw-s(\d+)-", r_index["fingerprint"])
+            retrieval_store = CoarseStore(
+                os.path.dirname(os.path.abspath(r_index["sources"][0])),
+                r_index["fingerprint"], scope="inloc_retrieval")
+            retrieval = {"index": r_index,
+                         "grid": int(m.group(1)) if m else 16,
+                         "topk": int(config.retrieval_topk or config.n_panos)}
+            log.info(
+                f"retrieval shortlist on: {len(r_index['panos'])} indexed "
+                f"panos, extractor={r_index['extractor']}, topk="
+                f"{retrieval['topk']}, min_coverage="
+                f"{config.retrieval_min_coverage}")
+
         matcher = make_pair_matcher(
             model_config, params, do_softmax=config.softmax,
             both_directions=config.matching_both_directions,
@@ -676,6 +701,8 @@ def run_inloc_eval(config: EvalInLocConfig,
         # construction failed after the sink was bound: restore it here
         if store is not None:
             store.close()
+        if retrieval_store is not None:
+            retrieval_store.close()
         if own_sink is not None:
             obs_events.set_global_sink(prev_sink)
             own_sink.close()
@@ -686,18 +713,89 @@ def run_inloc_eval(config: EvalInLocConfig,
         return [os.path.join(config.pano_path, _as_str(pano_fns[q][idx]))
                 for idx in range(n_panos)]
 
+    def retrieval_plan(q, raw_q, src):
+        """Score query ``q``'s whole ``.mat`` row by coarse similarity
+        (``retrieval/index.py::local_shortlist`` through the verified store)
+        and return ``(top-k pano names, coverage)``, or ``(None,
+        coverage)`` when the row cannot be covered to
+        ``config.retrieval_min_coverage`` (the caller then matches the
+        ``.mat`` order: a reported fallback, never a silent truncation)."""
+        from ncnet_tpu_torch.retrieval.index import local_shortlist
+        from ncnet_tpu_torch.retrieval.scoring import (
+            coarse_volume_from_features,
+            pooled_descriptor,
+            raw_coarse_volume,
+        )
+
+        row = [_as_str(pano_fns[q][i]) for i in range(len(pano_fns[q]))]
+        r_index = retrieval["index"]
+        sub = dict(r_index)
+        sub["panos"] = {n: r_index["panos"][n] for n in row
+                        if n in r_index["panos"]}
+        try:
+            if r_index["extractor"] == "raw":
+                desc = pooled_descriptor(raw_coarse_volume(
+                    raw_q, r_index["factor"], grid=retrieval["grid"]))
+            else:
+                # the query's trunk features, channels-last, to the host
+                desc = pooled_descriptor(coarse_volume_from_features(
+                    src.features.float().cpu().numpy(), r_index["factor"]))
+            res = local_shortlist(retrieval_store, sub, desc,
+                                  topk=retrieval["topk"])
+        except Exception as e:  # noqa: BLE001 — fail-open: retrieval
+            # trouble must never fail a query, only un-reorder it
+            log.warning(f"retrieval scoring failed for query {q + 1} ({e}); "
+                        "matching the precomputed .mat order",
+                        kind="retrieval")
+            obs_events.emit("retrieval_fallback", query=q + 1,
+                            reason="error", error=str(e)[:200])
+            return None, 0.0
+        # outcome-total coverage over the row: panos absent from the index
+        # count against it exactly like unreadable entries
+        coverage = res["consulted"] / max(1, len(row))
+        if coverage < config.retrieval_min_coverage:
+            log.warning(
+                f"retrieval coverage {coverage:.3f} < "
+                f"{config.retrieval_min_coverage} for query {q + 1} "
+                f"({res['consulted']}/{len(row)} row panos scored); "
+                "matching the precomputed .mat order", kind="retrieval")
+            obs_events.emit("retrieval_fallback", query=q + 1,
+                            reason="coverage", coverage=round(coverage, 6),
+                            consulted=res["consulted"], row=len(row))
+            return None, coverage
+        names = [p for p, _s in res["scores"]][:config.n_panos]
+        obs_events.emit("retrieval_shortlist", query=q + 1,
+                        coverage=round(coverage, 6),
+                        consulted=res["consulted"], row=len(row),
+                        topk=len(names), unavailable=len(res["unavailable"]))
+        return names, coverage
+
     def process_query(q, io_pool):
         out_path = os.path.join(out_dir, f"{q + 1}.mat")
         if progress:
             log.info(str(q))
         matches = np.zeros((1, config.n_panos, n_cap, 5))
         jobs = pano_jobs(q)
-        # one decode-ahead worker: the next cutout decodes while the card
-        # works on the current pair (an empty row still writes its table)
-        pending = io_pool.submit(load_raw, jobs[0]) if jobs else None
-        # the query's trunk once, reused across its pairs
-        src = matcher.preprocess(
-            load_raw(os.path.join(config.query_path, query_fns[q])))
+        shortlist_names = retrieval_coverage = None
+        if retrieval is None:
+            # one decode-ahead worker: the next cutout decodes while the
+            # card works on the current pair (an empty row still writes
+            # its table)
+            pending = io_pool.submit(load_raw, jobs[0]) if jobs else None
+            # the query's trunk once, reused across its pairs
+            src = matcher.preprocess(
+                load_raw(os.path.join(config.query_path, query_fns[q])))
+        else:
+            # retrieval may reorder the jobs, so the decode-ahead submit
+            # waits for the plan; the descriptor needs the query first
+            raw_q = load_raw(os.path.join(config.query_path, query_fns[q]))
+            src = matcher.preprocess(raw_q)
+            with span("retrieval_plan", query=q + 1):
+                names, retrieval_coverage = retrieval_plan(q, raw_q, src)
+            if names is not None:
+                shortlist_names = names
+                jobs = [os.path.join(config.pano_path, n) for n in names]
+            pending = io_pool.submit(load_raw, jobs[0]) if jobs else None
         depth_ctl.note_gap()  # the query's preprocess is not a pair wall
         in_flight = []  # [(idx, handle)]
 
@@ -754,9 +852,15 @@ def run_inloc_eval(config: EvalInLocConfig,
                 first = False
         while in_flight:
             drain_one(sample=False)
-        atomic_savemat(out_path, {"matches": matches, "query_fn": query_fns[q],
-                                  "pano_fn": pano_fn_all},
-                       do_compression=True)
+        payload = {"matches": matches, "query_fn": query_fns[q],
+                   "pano_fn": pano_fn_all}
+        if shortlist_names is not None:
+            # retrieval reordered the row: the matches rows follow this
+            # list (not pano_fn), recorded with the coverage it was made at
+            payload["shortlist"] = np.asarray(
+                [[n] for n in shortlist_names], dtype=object)
+            payload["retrieval_coverage"] = float(retrieval_coverage)
+        atomic_savemat(out_path, payload, do_compression=True)
 
     def query_loop(io_pool):
         nonlocal n_done
@@ -824,6 +928,8 @@ def run_inloc_eval(config: EvalInLocConfig,
         if store is not None:
             summary_extra = {"store": store.health(),
                              "feature_extractions": matcher.feature_extractions}
+        if retrieval_store is not None:
+            summary_extra["retrieval_store"] = retrieval_store.health()
         quality_registry.flush(
             event="eval_summary", eval="inloc", completed=n_done,
             quarantined=(list(manifest.quarantined_ids)
@@ -832,6 +938,9 @@ def run_inloc_eval(config: EvalInLocConfig,
         if store is not None:
             store.flush_stats(eval="inloc")
             store.close()
+        if retrieval_store is not None:
+            retrieval_store.flush_stats(eval="inloc_retrieval")
+            retrieval_store.close()
         if own_sink is not None:
             obs_events.set_global_sink(prev_sink)
             own_sink.close()

@@ -150,15 +150,25 @@ def _pnp_one_query(config: LocalizationConfig, qi: int, qname: str,
                    top_names: List[str], device: str) -> dict:
     """All top-N pose estimates for one query — the unit of host-side task
     parallelism (the reference's ``parfor ii = 1:Nq``,
-    ir_top100_NC4D_localization_pnponly.m)."""
+    ir_top100_NC4D_localization_pnponly.m).
+
+    A ``.mat`` written under the retrieval shortlist holds its ``matches``
+    rows in retrieval order and records that order as ``shortlist``: the
+    cutout names then come from it, so row ``jj`` is lifted through its own
+    cutout's ``XYZcut`` and transformation.  (The JAX driver pairs rows with
+    the DensePE row's names whatever the ``.mat`` says: ROADMAP C4.)
+    Without the key the names are the DensePE row's, ``top_names``."""
     from scipy.io import loadmat
+
+    from ncnet_tpu_torch.evaluation.inloc import _as_str
 
     pnp_dir = os.path.join(config.output_dir, _pnp_dirname(config))
     qsize = image_size(os.path.join(config.query_path, qname))
     focal = query_focal(config, qsize[0], qsize[1])
-    match_mat = loadmat(
-        os.path.join(config.matches_dir, f"{qi + 1}.mat")
-    )["matches"]
+    mat = loadmat(os.path.join(config.matches_dir, f"{qi + 1}.mat"))
+    match_mat = mat["matches"]
+    if "shortlist" in mat:
+        top_names = [_as_str(n) for n in np.asarray(mat["shortlist"]).ravel()]
     # the match table's pano depth bounds how many candidates exist
     top_names = top_names[: min(config.pnp_topN, match_mat.shape[1])]
     poses: List[np.ndarray] = []

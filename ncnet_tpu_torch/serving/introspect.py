@@ -528,10 +528,9 @@ class _Handler(BaseHTTPRequestHandler):
         one framed request against the fronted service/router and blocks
         this connection's thread until its terminal outcome — the
         multi-host twin of a local ``submit(...).result()``.  ``POST
-        /retrieve`` is the scatter-gather shortlist plane of the JAX
-        package's retrieval hosts; a host that fronts no retrieval
-        service answers 404 there, not 500 (every host of the port, whose
-        retrieval is not ported yet)."""
+        /retrieve`` (``retrieval/wire.py``) is the same contract for the
+        scatter-gather shortlist plane of a shard host or a coordinator; a
+        host that fronts no retrieval service answers 404 there, not 500."""
         intro = getattr(self.server, "introspect", None)
         path = self.path.split("?", 1)[0].rstrip("/")
         if intro is None or path not in ("/match", "/retrieve", "/rollout"):
@@ -702,9 +701,15 @@ class IntrospectionServer:
                 payload.encode("utf-8"))
 
     def retrieve_payload(self, body: bytes):
-        """``POST /retrieve`` body → ``(status, content_type, payload)``.
-        The JAX package serves it on hosts that expose a ``retrieve`` data
-        plane; the port has none yet (ROADMAP A12), so every
-        port host gives the JAX answer of a host without one: 404."""
-        return (404, "text/plain; charset=utf-8",
-                b"this host serves no /retrieve\n")
+        """``POST /retrieve`` body → ``(status, content_type, payload)``
+        — one framed retrieval request against the fronted service
+        (``retrieval/wire.py::serve_retrieve``).  Any service exposing a
+        ``retrieve(desc, ...)`` data plane (a shard host, the coordinator)
+        joins the wire; everything else answers 404."""
+        retrieve = getattr(self._service, "retrieve", None)
+        if not callable(retrieve):
+            return (404, "text/plain; charset=utf-8",
+                    b"this host serves no /retrieve\n")
+        from ncnet_tpu_torch.retrieval.wire import serve_retrieve
+
+        return serve_retrieve(retrieve, body)

@@ -1,8 +1,8 @@
 """Deterministic fault injection for the fault tolerance of the training,
-eval, serving and feature-store paths, the part of
+eval, serving, feature-store and retrieval paths, the part of
 ``ncnet_tpu/utils/faults.py`` that the port's data, training, eval,
-``utils/io``, ``observability/events``, ``serving/`` and ``store/`` paths
-call.
+``utils/io``, ``observability/events``, ``serving/``, ``store/`` and
+``retrieval/`` paths call.
 
 Claims about crash paths rot unless they are executed, so the production
 code carries tiny hook call sites and this module arms them
@@ -55,6 +55,12 @@ deterministically from tests:
     kills (``dead_backend_urls``: ConnectionError) or stalls
     (``hang_backend_urls``: a sleep before the send) a backend host, the
     router's failover seam without a process to kill.
+  * ``shard_fault_hook(url, phase)``, ``shard_payload_hook(url, data)`` —
+    ``retrieval/wire.RetrieveClient.retrieve``: kills
+    (``dead_shard_urls``), stalls then kills (``hang_shard_urls``) or slows
+    (``slow_shard_urls``) a shard host, and flips a bit of its response
+    (``shard_bitflip_urls``), the coordinator's failover, hedging and
+    checksum seams.
   * ``weight_swap_kill_hook()``, ``corrupt_candidate_hook(path, params)``,
     ``canary_quality_shift_hook(version, quality)`` — the live rollout
     (``serving/rollout.py``, ``MatchService.rollout_swap``): a SIGKILL in
@@ -163,6 +169,23 @@ class FaultPlan:
     # hang_backend_seconds before the request leaves (a stalled peer)
     hang_backend_urls: Tuple[str, ...] = ()
     hang_backend_seconds: float = 0.5
+    # shard base-url substrings whose retrieval wire sends raise
+    # ConnectionError (a dead shard: the coordinator must fail the pano
+    # group over to replica shards, keep coverage and resurrect the shard
+    # by probe once the plan clears)
+    dead_shard_urls: Tuple[str, ...] = ()
+    # shard base-url substrings whose retrieval wire sends sleep
+    # hang_shard_seconds and then die (the stalled-then-lost peer)
+    hang_shard_urls: Tuple[str, ...] = ()
+    hang_shard_seconds: float = 0.5
+    # shard base-url substrings whose retrieval wire sends sleep
+    # slow_shard_seconds and then proceed (the straggler the coordinator
+    # hedges around without marking it dead)
+    slow_shard_urls: Tuple[str, ...] = ()
+    slow_shard_seconds: float = 0.25
+    # shard base-url substrings whose retrieval wire responses get one bit
+    # flipped before decode: the response checksum must refuse them
+    shard_bitflip_urls: Tuple[str, ...] = ()
     # SIGKILL self during the Nth rollout weight swap (1-based, process-
     # global), after the new params are staged on the drained replica and
     # before its warm-up and readmission: the restart must come back on
@@ -481,6 +504,45 @@ def backend_fault_hook(base_url: str, phase: str) -> None:
     if any(s and s in base_url for s in p.dead_backend_urls):
         raise ConnectionError(
             f"injected backend death ({base_url}, {phase})")
+
+
+def shard_fault_hook(base_url: str, phase: str) -> None:
+    """The retrieval tier's chaos seam (``retrieval/wire.py``
+    ``RetrieveClient.retrieve``): ``slow_shard_urls`` sleep then proceed
+    (the straggler the coordinator hedges around; its late answer still
+    counts), ``hang_shard_urls`` sleep then raise ``ConnectionError`` (the
+    stalled-then-lost peer), ``dead_shard_urls`` raise ``ConnectionError``
+    (shard death without a process: the coordinator re-routes the pano
+    group to replicas and a probe resurrects the shard once the plan
+    clears)."""
+    p = _active()
+    if p is None:
+        return
+    if any(s and s in base_url for s in p.slow_shard_urls):
+        time.sleep(p.slow_shard_seconds)
+    if any(s and s in base_url for s in p.hang_shard_urls):
+        time.sleep(p.hang_shard_seconds)
+        raise ConnectionError(
+            f"injected shard hang-death ({base_url}, {phase})")
+    if any(s and s in base_url for s in p.dead_shard_urls):
+        raise ConnectionError(
+            f"injected shard death ({base_url}, {phase})")
+
+
+def shard_payload_hook(base_url: str, data: bytes) -> bytes:
+    """Flip the last bit of a retrieval wire response for matching shard
+    urls (corruption in flight): the client's checksum must refuse it and
+    the coordinator re-cover the pano group from replicas.  Returns
+    ``data`` unchanged when the fault is not armed."""
+    p = _active()
+    if p is None or not p.shard_bitflip_urls:
+        return data
+    if not any(s and s in base_url for s in p.shard_bitflip_urls) \
+            or not data:
+        return data
+    flipped = bytearray(data)
+    flipped[-1] ^= 0x01
+    return bytes(flipped)
 
 
 def weight_swap_kill_hook() -> None:

@@ -1287,3 +1287,115 @@ def test_router_over_a_real_model_cuda_service_answers_a_pair(cuda):
     assert res.table.shape == direct.shape
     assert np.array_equal(res.table, direct)
     assert res.quality and set(res.quality) >= {"score", "entropy"}
+
+
+def _retrieval_tree(root, n=4):
+    """A shortlist row of ``n`` structured cutouts (raw arrays beside
+    their ``.jpg`` names): ``(shortlist path, pano root)``."""
+    import os
+
+    from scipy.io import savemat
+
+    pano_root = os.path.join(root, "pano")
+    names = []
+    for i in range(n):
+        img = np.zeros((192, 256, 3), np.uint8)
+        img[..., 0] = (37 * i + 20) % 256
+        img[..., 1] = (91 * i + 13) % 256
+        img[:: (i % 5) + 2, :, 2] = 255
+        img[:, :: (i % 3) + 3, 0] //= 2
+        name = f"DUC1/DUC_cutout_{i:03d}_0_0.jpg"
+        os.makedirs(os.path.dirname(os.path.join(pano_root, name)),
+                    exist_ok=True)
+        np.save(os.path.join(pano_root, name) + ".npy", img)
+        names.append(name)
+    entries = np.zeros((1, 1), dtype=np.dtype(
+        [("queryname", object), ("topNname", object)]))
+    entries[0, 0] = (np.array(["q.jpg"]),
+                     np.array(names, dtype=object)[:, None])
+    shortlist = os.path.join(root, "shortlist.mat")
+    savemat(shortlist, {"ImgList": entries})
+    return shortlist, pano_root
+
+
+@pytest.mark.cuda
+def test_coarse_index_on_the_card_matches_the_cpu(cuda, tmp_path, capsys):
+    """``build_coarse_index`` with the trunk on the card (TF32 off) writes
+    every pano's coarse volume within 1e-4 of the same tool's on the CPU;
+    the two indexes are two store generations (the program token)."""
+    import json
+
+    from ncnet_tpu_torch.retrieval import load_index_manifests
+    from ncnet_tpu_torch.store import FeatureStore
+    from ncnet_tpu_torch.tools import build_coarse_index
+
+    shortlist, pano_root = _retrieval_tree(str(tmp_path))
+    docs = {}
+    for dev in ("cuda", "cpu"):
+        assert build_coarse_index.main([
+            "--store_dir", str(tmp_path / dev), "--inloc_shortlist",
+            shortlist, "--pano_path", pano_root, "--backbone", "tiny",
+            "--image_size", "256", "--factor", "2", "--device", dev]) == 0
+        docs[dev] = json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1])
+    assert docs["cuda"]["fingerprint"].endswith("-torch.cuda-c2")
+    assert docs["cpu"]["fingerprint"] == docs["cuda"]["fingerprint"].replace(
+        "torch.cuda", "torch.cpu")
+    index = load_index_manifests(str(tmp_path / "cuda" / "coarse_index.*"))
+    stores = {dev: FeatureStore(str(tmp_path / dev), docs[dev]["fingerprint"],
+                                scope="t") for dev in docs}
+    try:
+        for digest in index["panos"].values():
+            a, b = (stores[d].get(digest) for d in ("cuda", "cpu"))
+            assert a.shape == b.shape and a.shape[-1] == 32
+            assert float(np.abs(a - b).max()) <= 1e-4
+    finally:
+        for s in stores.values():
+            s.close()
+
+
+@pytest.mark.cuda
+def test_serve_shard_holds_no_cuda_context(cuda, tmp_path, capsys):
+    """A shard host does numpy work only: after it answered a retrieve, its
+    process holds no open card device file (a context opens
+    ``/dev/nvidia<N>``) and ``nvidia-smi`` lists no compute context for its
+    pid."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from ncnet_tpu_torch.retrieval import RetrieveClient
+    from ncnet_tpu_torch.tools import build_coarse_index
+
+    shortlist, pano_root = _retrieval_tree(str(tmp_path))
+    store = str(tmp_path / "raw")
+    assert build_coarse_index.main([
+        "--store_dir", store, "--inloc_shortlist", shortlist, "--pano_path",
+        pano_root, "--raw"]) == 0
+    capsys.readouterr()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ncnet_tpu_torch.tools.serve_shard",
+         "--shard-id", "s0", "--shards", "s0", "--store", store, "--index",
+         os.path.join(store, "coarse_index.*.json"), "--replication", "1"],
+        stdout=subprocess.PIPE, text=True, env=env, cwd=repo)
+    try:
+        doc = json.loads(proc.stdout.readline())
+        with RetrieveClient(doc["url"]) as client:
+            ans = client.retrieve(np.full(8, 8 ** -0.5, np.float32),
+                                  budget_s=30.0)
+        assert len(ans["consulted"]) == 4
+        fds = os.path.join("/proc", str(doc["pid"]), "fd")
+        opened = [os.readlink(os.path.join(fds, f)) for f in os.listdir(fds)]
+        assert not [f for f in opened
+                    if f.startswith("/dev/nvidia") and f[11:].isdigit()]
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        assert str(doc["pid"]) not in smi.stdout.split()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stdout.close()

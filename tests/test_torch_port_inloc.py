@@ -662,7 +662,11 @@ def test_device_error_is_retried_then_quarantined(rect_tree, tmp_path):
                                 dict(feature_store_dir="store"),
                                 dict(retrieval_index="index.json")])
 def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
-    """The retrieval shortlist (A12) is refused.  ``spatial_shards=2``,
+    """``retrieval_index``, refused until the retrieval slice, now runs: on
+    a raw index of the tree's cutouts the port's ``.mat`` files hold the
+    JAX run's ``shortlist`` and ``retrieval_coverage``, and tables within
+    the fp32 bound below (``tests/test_torch_port_inloc_retrieval.py``
+    holds the rest).  ``spatial_shards=2``,
     refused until the multi-GPU slice, now runs: on a CPU mesh (the CPU
     named once a shard) the fp32 ``.mat`` tables hold the JAX unsharded
     run's matches row for row, the scores within rtol 1e-5, atol 1e-6 (the
@@ -675,8 +679,7 @@ def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
     root, shortlist = rect_tree
     name = next(iter(kw))
     if name == "retrieval_index":
-        with pytest.raises(NotImplementedError, match=name):
-            run_port(root, shortlist, str(tmp_path / "m"), **kw)
+        check_retrieval_runs(root, shortlist, tmp_path)
         return
     if name == "feature_store_dir":
         check_store_runs(root, shortlist, tmp_path, monkeypatch)
@@ -710,6 +713,40 @@ def test_unported_options_are_refused(rect_tree, tmp_path, kw, monkeypatch):
                                **eval_kw(root, shortlist, **kw))
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         tinloc.run_inloc_eval(cfg, model_config=tc, params=tp, progress=False)
+
+
+def check_retrieval_runs(root, shortlist, tmp_path):
+    """The retrieval shortlist on a raw index the port's tool built (the
+    JAX tool's bytes): both loops write the same shortlist and coverage,
+    and the same tables (see ``test_unported_options_are_refused``)."""
+    from ncnet_tpu_torch.tools import build_coarse_index
+
+    store = str(tmp_path / "index")
+    assert build_coarse_index.main([
+        "--store_dir", store, "--inloc_shortlist", shortlist, "--pano_path",
+        os.path.join(root, "pano"), "--raw", "--n_panos", "2"]) == 0
+    index = os.path.join(store, "coarse_index.*.json")
+    jc, jp, _, _ = shared_params(False)
+    jdir = jinloc.run_inloc_eval(
+        jcfg.EvalInLocConfig(output_root=str(tmp_path / "jax"),
+                             retrieval_index=index,
+                             **eval_kw(root, shortlist)),
+        model_config=jc, params=jp, progress=False)
+    tdir = run_port(root, shortlist, str(tmp_path / "port"),
+                    retrieval_index=index)
+    assert os.path.basename(tdir) == os.path.basename(jdir)
+    grid = ((QUERY_HW[0] // 32, QUERY_HW[1] // 32, PANO_HW[0] // 32,
+             PANO_HW[1] // 32), 2)
+    for n in ("1.mat", "2.mat"):
+        g, w = loadmat(os.path.join(tdir, n)), loadmat(os.path.join(jdir, n))
+        assert [tinloc._as_str(x) for x in g["shortlist"].ravel()] == \
+            [tinloc._as_str(x) for x in w["shortlist"].ravel()]
+        assert float(np.ravel(g["retrieval_coverage"])[0]) == \
+            float(np.ravel(w["retrieval_coverage"])[0]) == 1.0
+        assert (g["matches"][..., 4] > 0).sum() > 0
+        assert_same_matches(g["matches"][..., :4], w["matches"][..., :4], grid)
+        np.testing.assert_allclose(g["matches"][..., 4], w["matches"][..., 4],
+                                   rtol=1e-5, atol=1e-6)
 
 
 def check_store_runs(root, shortlist, tmp_path, monkeypatch):

@@ -806,6 +806,48 @@ def test_inloc_eval_feeds_localization(tmp_path):
                       stage_files(os.path.join(root, "out_j")))
 
 
+def test_retrieval_ordered_mat_pairs_rows_with_their_cutouts(tmp_path):
+    """ROADMAP C4: a ``.mat`` written under the retrieval shortlist holds
+    its ``matches`` rows in retrieval order and records it as
+    ``shortlist``.  Here the true cutout's rows come first, retrieval
+    having moved it ahead of the decoy that leads the DensePE row, and the
+    decoy's ``XYZcut`` is the scene moved 0.5 m.  The port reads the
+    names from ``shortlist``: the true cutout's rows go through its own
+    ``XYZcut`` and its pose is the truth.  The JAX driver pairs row 0 with
+    the DensePE row's first name, the decoy: the same rows lift through
+    the decoy's points to a pose 0.5 m off, and the true cutout gets the
+    junk rows.  The difference is the reference's fault; it stays
+    visible here."""
+    root = str(tmp_path)
+    kw, P_q = write_scene(root, np.random.default_rng(0))
+    good = "DUC1/DUC_cutout_001_0_0.jpg"
+    decoy = "DUC1/DUC_cutout_001_30_0.jpg"
+    cut = os.path.join(root, "cutouts")
+    xyz = loadmat(os.path.join(cut, good + ".mat"))["XYZcut"]
+    savemat(os.path.join(cut, decoy + ".mat"),
+            {"XYZcut": xyz + np.array([0.5, 0.0, 0.0])})
+    mat = loadmat(os.path.join(root, "matches", "1.mat"))
+    table = mat["matches"][:, ::-1]  # the good rows first, then the junk
+    savemat(os.path.join(root, "matches", "1.mat"),
+            {"matches": table, "shortlist": np.asarray(
+                [[good], [decoy]], dtype=object),
+             "retrieval_coverage": 1.0})
+    t_list = T["driver"].run_pnp_stage(
+        tcfg.LocalizationConfig(**dict(kw, output_dir=str(tmp_path / "t"))),
+        device=CPU)
+    j_list = J["driver"].run_pnp_stage(
+        jcfg.LocalizationConfig(**dict(kw, output_dir=str(tmp_path / "j"))))
+    assert t_list[0]["topNname"] == [good, decoy]
+    dp, do = T["geometry"].pose_distance(P_q, t_list[0]["P"][0])
+    assert dp < 0.02 and np.rad2deg(do) < 0.2
+    # the JAX driver: the DensePE order, the good rows under the decoy
+    assert list(j_list[0]["topNname"]) == [decoy, good]
+    dp_j, _ = T["geometry"].pose_distance(P_q, j_list[0]["P"][0])
+    assert dp_j > 0.3
+    assert not np.all(np.isfinite(j_list[0]["P"][1])) or \
+        T["geometry"].pose_distance(P_q, j_list[0]["P"][1])[0] > 0.3
+
+
 def test_curves_without_matplotlib(jax_scene, tmp_path, monkeypatch, capsys):
     """Without matplotlib the curves and the error files are written as
     JAX writes them, and a warning names the figure not drawn."""

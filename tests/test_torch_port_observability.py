@@ -585,7 +585,8 @@ def test_savemat_kill_leaves_a_carcass_and_no_file(tmp_path):
 
 def test_fault_plan_from_the_environment(monkeypatch):
     """A plan armed through ``NCNET_TPU_FAULTS``; a field the port has no
-    hook for raises instead of passing as armed."""
+    hook for raises instead of passing as armed (since the retrieval slice
+    the port has every field of the JAX plan, so an unknown one)."""
     from ncnet_tpu_torch.utils import faults
 
     faults._plan, faults._env_read = None, False
@@ -596,13 +597,17 @@ def test_fault_plan_from_the_environment(monkeypatch):
             faults.device_error_hook("step")
         faults.clear()
         faults._env_read = False
-        # nan_loss_steps has its hook since the training slice, the event
-        # log's kill hook since the serving slice and the router's backend
-        # hook since the network plane; the retrieval shards' hooks have
-        # none in the port yet
+        # the retrieval shards' hooks came with the retrieval slice: the
+        # field arms them
         monkeypatch.setenv("NCNET_TPU_FAULTS",
                            json.dumps({"dead_shard_urls": ["s0"]}))
-        with pytest.raises(ValueError, match="dead_shard_urls"):
+        with pytest.raises(ConnectionError, match="shard death"):
+            faults.shard_fault_hook("http://s0:1", "send")
+        faults.clear()
+        faults._env_read = False
+        monkeypatch.setenv("NCNET_TPU_FAULTS",
+                           json.dumps({"dead_shard_url": ["s0"]}))
+        with pytest.raises(ValueError, match="dead_shard_url"):
             faults.device_error_hook()
     finally:
         faults.clear()
