@@ -276,7 +276,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (nothing built), and the ``--raw`` index; one entry against the
      matcher's features here at batch 1 (bit-equal, or within 1e-5 of the
      largest value), the raw digests and entries against the images and
-     the raw extractor here.  ``run_inloc_eval`` with ``retrieval_index``
+     the raw extractor here.  The port's ``build_feature_store`` (in this
+     process) builds the dense store of the rows' first panos on the card,
+     and a matcher over it reads each warm, the trunk's features here
+     within 1e-5.  ``run_inloc_eval`` with ``retrieval_index``
      (top 10 of the 100, coverage 1.0 required) on the backbone and the raw
      index: 2 B6 launches a shortlisted pair (40, where the whole rows
      would take 400), each ``.mat``'s ``shortlist`` equal to
@@ -288,7 +291,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      matches (wall geometry for the shortlisted cutouts): each query's PnP
      top-N is its ``.mat``'s shortlist.  Three ``serve_shard`` processes
      at R = 2 over the backbone store (no CUDA context in them: no
-     ``/dev/nvidia<N>`` open, not in ``nvidia-smi``'s compute apps) behind
+     ``/dev/nvidia<N>`` open, not in ``nvidia-smi``'s compute apps; this
+     process, which holds one, must show such files open) behind
      a ``RetrievalCoordinator`` here: 40 queries equal to ``local_shortlist``
      with the scores bit-equal; s1 SIGKILLed under a stream (every answer
      at coverage 1.0, none lost, s1 DEAD) and restarted at its port (the
@@ -5924,6 +5928,7 @@ def row_index(index, row):
 def retrieval_phase(torch, nc_fused_lane, dev):
     """Phase Q: the retrieval tier end to end (see the module docstring).
     Returns B6's launches by path."""
+    import io
     import tempfile
     import threading
 
@@ -5951,7 +5956,12 @@ def retrieval_phase(torch, nc_fused_lane, dev):
         raw_coarse_volume,
         write_index_manifest,
     )
-    from ncnet_tpu_torch.store import FeatureStore, content_digest
+    from ncnet_tpu_torch.store import (
+        FeatureStore,
+        backbone_fingerprint,
+        content_digest,
+    )
+    from ncnet_tpu_torch.tools import build_feature_store
     from ncnet_tpu_torch.utils import faults
 
     t_phase = time.perf_counter()
@@ -6040,8 +6050,8 @@ def retrieval_phase(torch, nc_fused_lane, dev):
               f"backbone index by build_coarse_index in 2 stripes: built "
               f"{[d['built'] for d in docs]} panos, tool walls "
               f"{[round(w, 2) for _, w in stripes]} s (process start, model "
-              f"load and {RETR_ROW // 2} panos each), ms a pano {stage} "
-              f"(decode, trunk, device-to-host with pooling, commit), "
+              f"load and {RETR_ROW // 2} panos each), ms a pano by stage "
+              f"{stage}, "
               f"{entry_bytes} bytes an entry, fingerprint {bfp}; stripe 0 "
               f"again: built {again['built']}, skipped "
               f"{again['skipped_indexed']} in {again_s:.2f} s; on "
@@ -6154,6 +6164,53 @@ def retrieval_phase(torch, nc_fused_lane, dev):
         descs = [pooled_descriptor(volume_of(img)) for img in queries]
         raw_descs = [pooled_descriptor(raw_coarse_volume(img, RETR_FACTOR))
                      for img in queries]
+
+        # the dense feature store of the rows' first panos, built on the
+        # card by the port's build_feature_store (in this process: the
+        # tool's process start is phase Q's index build's); a matcher over
+        # it reads each one warm, the features the trunk computes here
+        fdir = os.path.join(tmp, "fstore")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            frc = build_feature_store.main([
+                "--store_dir", fdir, "--inloc_shortlist", shortlist,
+                "--pano_path", pano, "--checkpoint", ckpt, "--image_size",
+                str(INLOC_SIDE), "--k_size", str(INLOC_K), "--n_panos", "1"])
+        fs_s = time.perf_counter() - t0
+        fdoc = json.loads(said.getvalue().strip().splitlines()[-1])
+        ffp = backbone_fingerprint(params, image_size=INLOC_SIDE,
+                                   k_size=INLOC_K, dtype="bf16", device=dev)
+        fstore = FeatureStore(fdir, ffp, scope="chip_smoke_dense")
+        try:
+            warm = make_pair_matcher(
+                cfg, params, do_softmax=True, both_directions=True,
+                flip_direction=False, preprocess_image_size=INLOC_SIDE,
+                store=fstore)
+            firsts = list(dict.fromkeys(r[0] for r in rows))
+            fdiff, fstatus = [], []
+            for n in firsts:
+                img = load_image(os.path.join(pano, n))[None]
+                got = warm.prepare_db(img)
+                fstatus.append(got.status)
+                want = matcher.preprocess(img).features.float()
+                fdiff.append(float((got.features - want).abs().max()
+                                   / want.abs().max()))
+        finally:
+            fstore.close()
+        print(f"retrieval: build_feature_store on the card over the rows' "
+              f"first panos: exit {frc}, built {fdoc['built']} of "
+              f"{fdoc['stripe_panos']} in {fs_s:.2f} s (checkpoint load "
+              f"included; its loop {fdoc['wall_s']} s), fingerprint "
+              f"{fdoc['fingerprint']}; a matcher over the store reads "
+              f"{fstatus} with {warm.feature_extractions} trunk runs, the "
+              f"features within {max(fdiff):.3e} of the largest of the "
+              f"trunk's here; on {card_line()}", flush=True)
+        if frc != 0 or fdoc["built"] != len(firsts) \
+                or fdoc["fingerprint"] != ffp \
+                or fstatus != ["hit"] * len(firsts) \
+                or warm.feature_extractions or max(fdiff) > 1e-5:
+            raise SystemExit("retrieval: build_feature_store's store was "
+                             "not read warm with the trunk's features")
 
         # 3. the in-system shortlist
         def eval_run(name, index, **kw):
@@ -6307,6 +6364,9 @@ def retrieval_phase(torch, nc_fused_lane, dev):
             ctx = {sid: [procs[sid].pid in apps, card_files_open(procs[sid].pid)]
                    for sid in shard_ids}
             self_listed = os.getpid() in apps
+            # the control: this process holds a context, so the check must
+            # find its card files, or it cannot see a shard's either
+            own_files = len(card_files_open(os.getpid()))
             with events.bound(sink):
                 coord = RetrievalCoordinator(
                     urls, list(bindex["panos"]), RetrievalConfig(
@@ -6405,7 +6465,8 @@ def retrieval_phase(torch, nc_fused_lane, dev):
               f"{RETR_R} over the backbone store, startup to READY s "
               f"{startup}; card context (nvidia-smi lists the pid, card "
               f"files open) {ctx} (nvidia-smi lists this process: "
-              f"{self_listed}); {len(pod_descs)} queries: walls ms p50 "
+              f"{self_listed}; this process, which holds a context, holds "
+              f"{own_files} card files); {len(pod_descs)} queries: walls ms p50 "
               f"{percentile(walls, 50):.3f} p95 {percentile(walls, 95):.3f}, "
               f"answers unequal to local_shortlist {bad}; SIGKILL of s1 under "
               f"a stream: {len(stream)} answers, errors {errors}, answers "
@@ -6421,14 +6482,14 @@ def retrieval_phase(torch, nc_fused_lane, dev):
               flush=True)
         if bad or errors or stream_bad or slow_bad or hedged < 1 \
                 or via_wire["scores"] != refs[0] \
-                or any(a or f for a, f in ctx.values()) \
+                or any(a or f for a, f in ctx.values()) or not own_files \
                 or "ncnet_retrieve_requests_total" not in fams[0] \
                 or "ncnet_retrieve_shard_up" not in fams[1] \
                 or lost or admitted != n["retrieve_result"] \
                 or doc["state"] not in ("READY", "STOPPED", "DEGRADED"):
             raise SystemExit("retrieval pod: an answer differed, a query was "
-                             "lost, a shard held a CUDA context or no hedge "
-                             "fired")
+                             "lost, a shard held a CUDA context (or this "
+                             "process's own went unseen) or no hedge fired")
 
         # 6. a bit flip of one committed entry: quarantined, recomputed on
         # the card, the same shortlist

@@ -32,9 +32,12 @@ A backbone index's fingerprint carries the port's program token
 the store under whatever fingerprint the index carries (ROADMAP D10).
 
 The summary line adds ``stage_ms`` beside the JAX tool's keys: the
-summed walls of the built panos' decode, trunk (preprocess and features,
-synchronized; the whole extractor under ``--raw``), device→host copy with
-the pooling, and store commit.
+summed walls of the built panos' stages.  A backbone index books
+``decode``, ``trunk`` (preprocess and features, synchronized),
+``to_host`` (the features' device→host copy), ``pool`` (the numpy
+pooling into coarse cells) and ``commit`` (the store's write); a raw
+index books ``decode``, ``extract`` (the numpy extractor) and
+``commit``.
 
 Usage::
 
@@ -144,15 +147,15 @@ def main(argv=None) -> int:
                       "shard_count": args.shard_count})
         obs_events.set_global_sink(own_sink)
 
-    stage_ms = {"decode": 0.0, "trunk": 0.0, "to_host": 0.0, "commit": 0.0}
     if args.raw:
         extractor = "raw"
         base_fp = raw_base_fingerprint(args.raw_grid)
+        stage_ms = {"decode": 0.0, "extract": 0.0, "commit": 0.0}
 
         def volume_of(raw):
             t = time.perf_counter()
             vol = raw_coarse_volume(raw, args.factor, grid=args.raw_grid)
-            stage_ms["trunk"] += (time.perf_counter() - t) * 1e3
+            stage_ms["extract"] += (time.perf_counter() - t) * 1e3
             return vol
     else:
         import torch
@@ -163,6 +166,8 @@ def main(argv=None) -> int:
         from ncnet_tpu_torch.tools.build_feature_store import load_model
 
         extractor = "backbone"
+        stage_ms = {"decode": 0.0, "trunk": 0.0, "to_host": 0.0,
+                    "pool": 0.0, "commit": 0.0}
         device = resolve_device(args.device)
         model_config, params = load_model(args)
         base_fp = backbone_fingerprint(
@@ -179,11 +184,12 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t1 = time.perf_counter()
-            vol = coarse_volume_from_features(
-                prepared.features.float().cpu().numpy(), args.factor)
+            features = prepared.features.float().cpu().numpy()
             t2 = time.perf_counter()
+            vol = coarse_volume_from_features(features, args.factor)
             stage_ms["trunk"] += (t1 - t) * 1e3
             stage_ms["to_host"] += (t2 - t1) * 1e3
+            stage_ms["pool"] += (time.perf_counter() - t2) * 1e3
             return vol
 
     fingerprint = coarse_fingerprint(base_fp, args.factor)
@@ -231,9 +237,9 @@ def main(argv=None) -> int:
             raw = load_image(os.path.join(args.pano_path, name))
             digest = content_digest(raw)
             t1 = time.perf_counter()
-            before = stage_ms["trunk"] + stage_ms["to_host"]
+            before = sum(stage_ms.values())
             store.resolve(digest, lambda raw=raw: volume_of(raw))
-            computed = stage_ms["trunk"] + stage_ms["to_host"] - before
+            computed = sum(stage_ms.values()) - before
             stage_ms["decode"] += (t1 - t) * 1e3
             stage_ms["commit"] += (time.perf_counter() - t1) * 1e3 - computed
             return digest

@@ -1359,7 +1359,8 @@ def test_serve_shard_holds_no_cuda_context(cuda, tmp_path, capsys):
     """A shard host does numpy work only: after it answered a retrieve, its
     process holds no open card device file (a context opens
     ``/dev/nvidia<N>``) and ``nvidia-smi`` lists no compute context for its
-    pid."""
+    pid.  The control: this process, which holds a context, holds such
+    files, so the check can see one."""
     import json
     import os
     import subprocess
@@ -1387,10 +1388,22 @@ def test_serve_shard_holds_no_cuda_context(cuda, tmp_path, capsys):
             ans = client.retrieve(np.full(8, 8 ** -0.5, np.float32),
                                   budget_s=30.0)
         assert len(ans["consulted"]) == 4
-        fds = os.path.join("/proc", str(doc["pid"]), "fd")
-        opened = [os.readlink(os.path.join(fds, f)) for f in os.listdir(fds)]
-        assert not [f for f in opened
+
+        def card_files(pid):
+            fds = os.path.join("/proc", str(pid), "fd")
+            opened = []
+            for f in os.listdir(fds):
+                try:  # the listing's own descriptor is gone by now
+                    opened.append(os.readlink(os.path.join(fds, f)))
+                except OSError:
+                    continue
+            return [f for f in opened
                     if f.startswith("/dev/nvidia") and f[11:].isdigit()]
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        assert card_files(os.getpid())
+        assert not card_files(doc["pid"])
         smi = subprocess.run(
             ["nvidia-smi", "--query-compute-apps=pid",
              "--format=csv,noheader"], capture_output=True, text=True)
