@@ -304,6 +304,33 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      shortlist.  Index build ms a pano by stage, bytes an entry, retrieval
      plan ms, pair walls, retrieve walls, failover and resurrection times,
      the hedge share and the shards' startup printed beside the card;
+     Phase O, the operator tools of ``ncnet_tpu_torch/tools`` on what the
+     earlier phases left behind (their logs, heartbeat and perf stores
+     copied aside as each phase ends): ``run_report`` (every section) and
+     ``trace_export`` replay phase S's log, phase N's three (router,
+     backends A and B), phase Q's coordinator log and phase F's
+     ``events.jsonl``; N's federated (``--federate``) with every backend
+     slice starting inside its router slice (its end, stamped after the
+     backend answered, is printed), and ``run_report --pod``'s identity
+     equal to what N counted live, 0 lost; ``stall_watchdog`` judges F's
+     fresh heartbeat alive (exit 0, as F ends) and its stopped run stalled
+     with ``--min-age 0`` (exit 3); while N's pod serves, ``serve_top
+     --once`` on backend A and ``stall_watchdog --url`` on the router and A
+     (N's rollouts go through ``tools/rollout.py``: ``post_rollout`` and
+     ``watch``); ``perf_regress --check`` on the stores L and F filled,
+     its findings those of ``check_regressions`` called here, and
+     ``--seed`` refused; ``quality_drift`` green on L's log against a
+     reference ``--seed-ref`` wrote from it, red (exit 1) against one from
+     a perturbed copy.  Then ``stream_probe`` at full width (ResNet-101,
+     the (5, 5, 5) / (16, 16, 1) bf16 stack, ``sparse_topk=4``; 2 streams
+     of 8 frames at 192²): the steady segment's coarse passes those of its
+     fallback frames alone, its B8 and B6 launches as the tracked path's
+     structure gives them (2 and 6 a tracked dispatch, a coarse dispatch's
+     as its cold segment measured), the frame identity from its log;
+     ``serve_probe`` on one 400² bucket with an injected device failure
+     (nothing lost; the dense bf16 400² stack takes the FFT tier, so no
+     kernel launches); ``cli/point_transfer_demo --synthetic --device
+     cuda`` (its points and PCK as JSON);
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -2550,6 +2577,7 @@ def serve_service(torch, nc_fused_lane, sparse_corr, params, devices=None):
             or not drains[0]["drained"] or drains[0]["leftover"]):
         raise SystemExit("service: the outcome identity failed, a request was "
                          "lost, or the drain was not clean")
+    leave("S", events=log_path)
     shutil.rmtree(tmp)
     os.environ.pop("NCNET_TPU_MEMORY_LEDGER")
     return launches, stream_launches
@@ -2824,29 +2852,19 @@ def monotone(f1, f2):
 
 
 def rollout(url, candidate, **knobs):
-    """``POST /rollout`` on a backend, then its ``GET /rollout`` until this
-    rollout is over; returns (status, wall s)."""
-    import urllib.request
+    """A rollout through the port's operator tool (``tools/rollout.py``:
+    ``post_rollout``, then ``watch`` to the terminal phase, which prints
+    each transition); returns (status, wall s)."""
+    from ncnet_tpu_torch.tools import rollout as tool
 
     t0 = time.perf_counter()
-    req = urllib.request.Request(
-        url + "/rollout", method="POST",
-        data=json.dumps({"checkpoint": candidate, **knobs}).encode())
-    with urllib.request.urlopen(req, timeout=30) as r:
-        if r.status != 202:
-            raise SystemExit(f"pod: POST /rollout answered {r.status}")
-    version = os.path.basename(candidate)
-    while True:
-        st = get_json(url + "/rollout")
-        if st.get("phase") in ("COMPLETE", "ROLLED_BACK") and \
-                st.get("new_version") == version:
-            break
-        if st.get("phase") == "IDLE" and (st.get("reason") or "").startswith(
-                "refused"):
-            break
-        if time.perf_counter() - t0 > 180:
-            raise SystemExit(f"pod: rollout to {version} stuck in {st}")
-        time.sleep(0.05)
+    code, doc = tool.post_rollout(url, candidate, knobs, timeout=30.0)
+    if code != 202:
+        raise SystemExit(f"pod: POST /rollout answered {code}: {doc}")
+    st = tool.watch(url, 0.05, 180.0)
+    if st is None or (st.get("phase") != "IDLE" and st.get(
+            "new_version") != os.path.basename(candidate)):
+        raise SystemExit(f"pod: rollout to {candidate} ended in {st}")
     return st, time.perf_counter() - t0
 
 
@@ -3096,6 +3114,9 @@ def pod_phase(torch, params):
             raise SystemExit("pod: a rollout did not end as it should, lost "
                              "a request, or a scrape failed")
 
+        # phase O's live half: serve_top and the watchdog on A's plane
+        live_plane_tools(rurl, aurl)
+
         # the end: the router drains, A drains and reports
         router.request_drain("phase N done")
         wait_for(lambda: router.state == "STOPPED", "the router's drain")
@@ -3139,6 +3160,9 @@ def pod_phase(torch, params):
                 or c["gather_tile_corr_bf16"] != 2 * c["dispatches"]:
             raise SystemExit(f"pod: backend {name}'s launches {c} are not 6 "
                              "B6 and 2 B8 a dispatch")
+    leave("N", {"admitted": admitted, "results": n["route_result"],
+                "terminals": sum(n.values()), "lost": len(lost)},
+          router=router_log, A=backends["A"].events, B=backends["B"].events)
     shutil.rmtree(tmp)
     return launches
 
@@ -3938,6 +3962,8 @@ def eval_loop(torch, nc_fused_lane, sparse_corr, dev):
     if not any(r["metric"] == "pf_pascal_pck" for r in recorded):
         raise SystemExit("eval loop: the perf store holds no PCK record")
     del os.environ[perfstore.STORE_ENV]
+    leave("L", store=store,
+          events=os.path.join(tmp, "eval_loop_400", "events.jsonl"))
     shutil.rmtree(tmp)
     return ({name: launches for name, (_, launches, _) in runs.items()},
             cli_launches)
@@ -4222,6 +4248,12 @@ def fit_phase(torch, nc_fused_lane, vjp, dev, start, step5_walls,
                           "checkpoint_commit": steps + FIT_EPOCHS,
                           "epoch_end": FIT_EPOCHS, "run_end": 1}:
         raise SystemExit(f"fit: a check failed (events {counts})")
+    telemetry = os.path.join(a_root, "telemetry")
+    fresh_heartbeat(os.path.join(telemetry, "heartbeat.json"),
+                    os.path.join(telemetry, "events.jsonl"))
+    leave("F", store=store,
+          events=os.path.join(telemetry, "events.jsonl"),
+          heartbeat=os.path.join(telemetry, "heartbeat.json"))
 
     # the steady state without checkpoints: host waits of one step of fit,
     # and the device's busy share over it
@@ -6026,15 +6058,16 @@ def retrieval_phase(torch, nc_fused_lane, dev):
 
         backbone = ["--store_dir", bstore, "--image_size", str(INLOC_SIDE),
                     "--k_size", str(INLOC_K), "--checkpoint", ckpt]
-        # the raw index (numpy, on the host) builds beside the backbone
-        # stripes, which run one after the other; stripe 0 again beside
-        # stripe 1
+        # the raw index (numpy, on the host) and the two backbone stripes
+        # build side by side; stripe 0 again once it is done, beside the
+        # rest of stripe 1 and the in-system shortlist runs (step 3), read
+        # before step 4
         raw_build = build("--store_dir", rstore, "--raw")
-        stripes = [build(*backbone, "--shard_index", "0",
-                         "--shard_count", "2")()]
+        first = build(*backbone, "--shard_index", "0", "--shard_count", "2")
         second = build(*backbone, "--shard_index", "1", "--shard_count", "2")
-        again, again_s = build(*backbone, "--shard_index", "0",
-                               "--shard_count", "2")()
+        stripes = [first()]
+        again_run = build(*backbone, "--shard_index", "0",
+                          "--shard_count", "2")
         stripes.append(second())
         docs = [d for d, _ in stripes]
         built = sum(d["built"] for d in docs)
@@ -6052,14 +6085,10 @@ def retrieval_phase(torch, nc_fused_lane, dev):
               f"{[round(w, 2) for _, w in stripes]} s (process start, model "
               f"load and {RETR_ROW // 2} panos each), ms a pano by stage "
               f"{stage}, "
-              f"{entry_bytes} bytes an entry, fingerprint {bfp}; stripe 0 "
-              f"again: built {again['built']}, skipped "
-              f"{again['skipped_indexed']} in {again_s:.2f} s; on "
+              f"{entry_bytes} bytes an entry, fingerprint {bfp}; on "
               f"{card_line()}", flush=True)
         if built != RETR_ROW or len(bindex["panos"]) != RETR_ROW \
                 or any(d["quarantined"] for d in docs) \
-                or again["built"] != 0 \
-                or again["skipped_indexed"] != docs[0]["stripe_panos"] \
                 or docs[1]["fingerprint"] != bfp \
                 or not bfp.endswith(f"-bf16-torch.{dev.type}-c{RETR_FACTOR}"):
             raise SystemExit("retrieval: the backbone index did not build "
@@ -6314,6 +6343,15 @@ def retrieval_phase(torch, nc_fused_lane, dev):
             raise SystemExit("retrieval: the coverage fallback did not match "
                              "the .mat order")
 
+        # stripe 0 again (started when it was done): it builds nothing
+        again, again_s = again_run()
+        print(f"retrieval: stripe 0 of the backbone index again: built "
+              f"{again['built']}, skipped {again['skipped_indexed']} in "
+              f"{again_s:.2f} s (beside stripe 1 and step 3)", flush=True)
+        if again["built"] != 0 \
+                or again["skipped_indexed"] != docs[0]["stripe_panos"]:
+            raise SystemExit("retrieval: stripe 0's rerun built a pano")
+
         # 4. localization on the raw index's run: wall geometry for the
         # cutouts each query shortlisted; the PnP pairs each .mat row with
         # the shortlist's name, not the DensePE row's
@@ -6525,6 +6563,7 @@ def retrieval_phase(torch, nc_fused_lane, dev):
             raise SystemExit("retrieval: the flipped entry was not "
                              "quarantined and recomputed to the same "
                              "shortlist")
+        leave("Q", coordinator=log_path)
         print(f"retrieval: phase Q in {time.perf_counter() - t_phase:.1f} s "
               f"on {card_line()}", flush=True)
     finally:
@@ -7018,6 +7057,351 @@ def multi_gpu_phase(torch, nc_fused_lane, conv4d_pallas, dev, f_run):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase O: the operator tools (ncnet_tpu_torch/tools, cli/point_transfer_demo)
+# on what the earlier phases left behind, and the probes at full width
+# ---------------------------------------------------------------------------
+
+# phase -> {name: path kept for phase O, "facts": what the phase counted}
+LEFT = {}
+STREAM_PROBE = dict(streams=2, frames=8, side=192)
+SERVE_PROBE_SIDE, SERVE_PROBE_PAIRS = 400, 8
+
+
+def leave(phase, facts=None, **files):
+    """Copy a phase's ``files`` (name -> path; mtimes kept) into phase O's
+    directory, beside what the phase counted (``facts``)."""
+    import tempfile
+
+    if "dir" not in LEFT:
+        LEFT["dir"] = tempfile.mkdtemp(prefix="chip_smoke_left_")
+    os.makedirs(os.path.join(LEFT["dir"], phase), exist_ok=True)
+    kept = LEFT.setdefault(phase, {"facts": facts or {}})
+    for name, path in files.items():
+        kept[name] = os.path.join(LEFT["dir"], phase, name + ".jsonl")
+        shutil.copy2(path, kept[name])
+
+
+def tool_run(module, argv):
+    """An operator tool's ``main(argv)`` in this process: (exit code, what
+    it printed)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(list(argv))
+    return rc, out.getvalue()
+
+
+def fresh_heartbeat(heartbeat, events):
+    """Phase O, at the end of phase F's fit: the port's ``stall_watchdog``
+    judges the fresh heartbeat alive (exit 0)."""
+    from ncnet_tpu_torch.tools import stall_watchdog
+
+    rc, out = tool_run(stall_watchdog, [heartbeat, "--events", events,
+                                        "--json"])
+    v = json.loads(out)
+    print(f"tools: stall_watchdog on fit's fresh heartbeat: exit {rc}, "
+          f"{v['status']} (age {v.get('age_s')} s against "
+          f"{v.get('threshold_s')} s, median step wall "
+          f"{v.get('median_step_wall_s')} s)", flush=True)
+    if rc != 0 or v["status"] != "alive":
+        raise SystemExit("tools: the watchdog did not judge fit alive")
+
+
+def live_plane_tools(rurl, aurl):
+    """Phase O, inside phase N while its pod serves: ``serve_top --once``
+    on backend A and ``stall_watchdog --url`` on the router and A."""
+    from ncnet_tpu_torch.tools import serve_top, stall_watchdog
+
+    t0 = time.perf_counter()
+    rc_top, frame = tool_run(serve_top, [aurl, "--once"])
+    rc_wd, out = tool_run(stall_watchdog, ["--url", rurl, "--url", aurl,
+                                           "--json"])
+    pod = json.loads(out)
+    states = {u: (v["status"], v.get("state"), v.get("role"))
+              for u, v in pod["targets"].items()}
+    print(f"tools: serve_top --once on backend A: exit {rc_top}, "
+          f"{len(frame.splitlines())} lines, '{frame.splitlines()[1]}'; "
+          f"stall_watchdog --url router --url A: exit {rc_wd}, {states} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if rc_top != 0 or "state: READY" not in frame or rc_wd != 0 \
+            or pod["status"] != "alive":
+        raise SystemExit("tools: the live plane's tools did not see a "
+                         "serving pod")
+
+
+def federation_nests(doc, eps_us=10_000.0):
+    """(backend slices, the traces of those that do not start inside their
+    router slice, the largest overhang of a slice's end in ms, flow
+    starts) of a federated trace document.  A backend admits a request
+    after the router sent it, so its slice starts inside the router's on
+    aligned clocks (within ``eps_us``, the pod test's bound); its end is
+    the backend's result event, stamped after it answered and racing the
+    router's own, so the end is reported, not ordered."""
+    route = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "route_request" and e["ph"] == "X" \
+                and e["args"].get("trace"):
+            route[e["args"]["trace"]] = (e["ts"], e["ts"] + e["dur"])
+    slices, loose, over = 0, [], 0.0
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "serve_request" and e["ph"] == "X":
+            slices += 1
+            r = route.get(e["args"].get("trace"))
+            if r:
+                over = max(over, e["ts"] + e["dur"] - r[1])
+            if not (r and r[0] - eps_us <= e["ts"] <= r[1] + eps_us):
+                loose.append(e["args"].get("trace"))
+    return slices, loose, over / 1e3, sum(1 for e in doc["traceEvents"]
+                                          if e["ph"] == "s")
+
+
+def perturbed_quality(src, dst, shift=0.35):
+    """``src`` with every quality signal moved up by ``shift`` (clipped)."""
+    with open(src) as f, open(dst, "w") as g:
+        for line in f:
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            if e.get("event") == "quality":
+                e["signals"] = {k: [min(1.0, v + shift) for v in vs]
+                                for k, vs in e["signals"].items()}
+            g.write(json.dumps(e) + "\n")
+
+
+def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
+    """Phase O: the port's operator tools replay phases S, N, Q and F
+    (``run_report``, ``trace_export``, ``--federate`` and ``--pod`` on N's
+    three logs against what N counted live), judge F's stopped run stalled,
+    gate the perf store of L and F and L's quality log, then the probes at
+    full width (``stream_probe``: B8 and B6 in its steady segment, no
+    coarse pass for a tracked frame; ``serve_probe`` with an injected
+    device failure, nothing lost) and the point-transfer demo.  Returns
+    the kernels' launches by the probes."""
+    import collections
+    import tempfile
+
+    import numpy as np
+
+    from ncnet_tpu_torch.cli import point_transfer_demo
+    from ncnet_tpu_torch.observability import perfstore
+    from ncnet_tpu_torch.observability.events import replay_events
+    from ncnet_tpu_torch.tools import (
+        perf_regress,
+        quality_drift,
+        run_report,
+        serve_probe,
+        stall_watchdog,
+        stream_probe,
+        trace_export,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+
+    # 1. replays: every kept log through run_report (all sections) and
+    # trace_export
+    t0 = time.perf_counter()
+    replayed = {}
+    for phase, names in (("S", ("events",)), ("N", ("router", "A", "B")),
+                         ("Q", ("coordinator",)), ("F", ("events",))):
+        for name in names:
+            path = LEFT[phase][name]
+            rc, text = tool_run(run_report, [
+                path, "--spans", "--serving", "--rollout", "--memory",
+                "--slo", "--retrieval", "--store", "--pod"])
+            out = os.path.join(tmp, f"{phase}_{name}.trace.json")
+            rc2, _ = tool_run(trace_export, [path, "-o", out])
+            with open(out) as f:
+                n_events = len(json.load(f)["traceEvents"])
+            if rc or rc2 or not n_events:
+                raise SystemExit(f"tools: replaying {phase}'s {name} log "
+                                 f"failed ({rc}, {rc2}, {n_events} events)")
+            replayed[f"{phase}:{name}"] = (len(text.splitlines()), n_events)
+    s_rep = run_report.build_report([LEFT["S"]["events"]])["serving"]
+    q_rep = run_report.build_report([LEFT["Q"]["coordinator"]])["retrieval"]
+    f_rep = run_report.build_report([LEFT["F"]["events"]])
+    n_logs = [LEFT["N"][k] for k in ("router", "A", "B")]
+    warns = []
+    fed = trace_export.build_federated_trace(n_logs, warn=warns.append)
+    out = os.path.join(tmp, "pod.trace.json")
+    rc_fed, _ = tool_run(trace_export, n_logs + ["--federate", "-o", out])
+    slices, loose, over_ms, flows = federation_nests(fed)
+    events = []
+    for path in n_logs:
+        events += replay_events(path)[1]
+    pod = run_report.build_pod_section(events)
+    rc_pod, _ = tool_run(run_report, n_logs + ["--pod"])
+    live = LEFT["N"]["facts"]
+    po = pod["outcomes"]
+    runs = fed["otherData"]["federation"]["runs"]
+    print(f"tools: run_report and trace_export replayed {len(replayed)} logs "
+          f"(text lines, trace events) {replayed} in "
+          f"{time.perf_counter() - t0:.2f} s; S: admitted "
+          f"{s_rep['outcomes']['admitted']} = terminals "
+          f"{s_rep['outcomes']['terminals']}, lost "
+          f"{len(s_rep['lost_requests'])}; Q: admitted "
+          f"{q_rep['outcomes']['admitted']} = terminals "
+          f"{q_rep['outcomes']['terminals']}, lost "
+          f"{len(q_rep['lost_requests'])}; F: {f_rep['counts']['steps']} "
+          f"steps, {f_rep['counts']['checkpoint_commits']} commits, step "
+          f"wall p50 {f_rep['step_wall_s'].get('p50')} s", flush=True)
+    print(f"tools: N federated (exit {rc_fed}): {slices} backend slices, "
+          f"{slices - len(loose)} starting inside their router slice "
+          f"(others {loose}; the latest end {over_ms:.3f} ms after its "
+          f"router slice's), {flows} flows, "
+          f"corrections s {[r.get('correction_s') for r in runs.values()]}, "
+          f"warnings {warns}; run_report --pod (exit {rc_pod}): admitted "
+          f"{po['admitted']}, results {po['results']}, terminals "
+          f"{po['terminals']}, lost {len(pod['lost_requests'])}, against "
+          f"N's live count {live}", flush=True)
+    if (s_rep["outcomes"]["unresolved"] or s_rep["lost_requests"]
+            or q_rep["outcomes"]["unresolved"] or q_rep["lost_requests"]
+            or not f_rep["counts"]["steps"] or rc_fed or rc_pod
+            or not slices or loose or not flows
+            or (po["admitted"], po["results"], po["terminals"],
+                len(pod["lost_requests"]))
+            != (live["admitted"], live["results"], live["terminals"],
+                live["lost"])):
+        raise SystemExit("tools: a replay disagrees with what its phase "
+                         "counted")
+
+    # 2. the watchdog on F's stopped run: stalled once its floor is 0
+    hb, f_events = LEFT["F"]["heartbeat"], LEFT["F"]["events"]
+    rc_st, text = tool_run(stall_watchdog, [hb, "--events", f_events,
+                                            "--min-age", "0", "--json"])
+    v = json.loads(text)
+    print(f"tools: stall_watchdog --min-age 0 on fit's stopped run: exit "
+          f"{rc_st}, {v['status']} (age {v['age_s']} s against "
+          f"{v['threshold_s']} s)", flush=True)
+    if rc_st != 3 or v["status"] != "stalled":
+        raise SystemExit("tools: the watchdog did not judge the stopped "
+                         "run stalled")
+
+    # 3. the gates: perf_regress --check on L's and F's store, its findings
+    # check_regressions' own; quality_drift green on a reference seeded
+    # from L's log, red on one seeded from a perturbed copy
+    store = os.path.join(tmp, "perf_history.jsonl")
+    with open(store, "w") as g:
+        for phase in ("L", "F"):
+            with open(LEFT[phase]["store"]) as f:
+                g.write(f.read())
+    records = perfstore.PerfStore(store).records()
+    rc_pr, text = tool_run(perf_regress, ["--check", "--store", store,
+                                          "--json"])
+    found = json.loads(text)["findings"]
+    direct = json.loads(json.dumps(perfstore.check_regressions(records)))
+    rc_seed, _ = tool_run(perf_regress, ["--seed", "BENCH.json",
+                                         "--store", store])
+    log = LEFT["L"]["events"]
+    green, red = (os.path.join(tmp, f"ref_{n}.jsonl") for n in ("green", "red"))
+    bad = os.path.join(tmp, "perturbed.jsonl")
+    perturbed_quality(log, bad)
+    rc_g1, _ = tool_run(quality_drift, ["--seed-ref", log, "--ref", green])
+    rc_g2, _ = tool_run(quality_drift, ["--check", log, "--ref", green])
+    rc_r1, _ = tool_run(quality_drift, ["--seed-ref", bad, "--ref", red])
+    rc_r2, _ = tool_run(quality_drift, ["--check", log, "--ref", red])
+    print(f"tools: perf_regress --check on {len(records)} records of "
+          f"phases L and F: exit {rc_pr}, {len(found)} findings "
+          f"({sorted({f['status'] for f in found})}), equal to "
+          f"check_regressions: {found == direct}; --seed refused with exit "
+          f"{rc_seed}; quality_drift on L's log: seeded {rc_g1}, checked "
+          f"{rc_g2} (green), against a perturbed copy's reference "
+          f"{rc_r2} (red)", flush=True)
+    if rc_pr not in (0, 1) or found != direct or rc_seed != 2 \
+            or (rc_g1, rc_g2, rc_r1, rc_r2) != (0, 0, 0, 1):
+        raise SystemExit("tools: a gate did not answer as it should")
+
+    # 4. the probes at full width, and the demo
+    def counts():
+        return {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "gather_tile_corr_bf16": sparse_corr.launches}
+
+    nc_fused_lane.launches = sparse_corr.launches = 0
+    t0 = time.perf_counter()
+    sd = stream_probe.probe(**STREAM_PROBE, device=dev,
+                            events_path=os.path.join(tmp, "stream.jsonl"))
+    stream_launches = counts()
+    stream_s = time.perf_counter() - t0
+    kinds = [e.get("kind") for e in replay_events(sd["events_path"])[1]
+             if e.get("event") == "stream_frame"]
+    doc = sd["streams_doc"]
+    steady, cold = sd["launches_steady"], sd["launches_cold"]
+    per_coarse = {k: v // max(1, sd["coarse_passes_cold"])
+                  for k, v in cold.items()}
+    want = {"gather_tile_corr_bf16":
+            2 * sd["tracked_dispatches_steady"]
+            + per_coarse["gather_tile_corr_bf16"]
+            * sd["coarse_passes_steady_delta"],
+            "nc_conv4d_bf16":
+            6 * sd["tracked_dispatches_steady"]
+            + per_coarse["nc_conv4d_bf16"] * sd["coarse_passes_steady_delta"]}
+    print(f"tools: stream_probe at full width ({STREAM_PROBE}) in "
+          f"{stream_s:.1f} s: steady frame walls ms {sd['steady_wall_ms']}, "
+          f"cut recovery ms {sd['cut_recovery_ms']}, per-frame "
+          f"coarse-to-fine ms {sd['c2f_frame_ms']}; frames {doc}; coarse "
+          f"passes in the steady segment {sd['coarse_passes_steady_delta']} "
+          f"for {sd['expected_coarse_passes']} fallback frames, tracked "
+          f"dispatches {sd['tracked_dispatches_steady']}; launches cold "
+          f"{cold} ({sd['coarse_passes_cold']} dispatches), steady {steady} "
+          f"(the structure gives {want}), all {stream_launches}; frame "
+          f"kinds from its log {dict(collections.Counter(kinds))}; "
+          f"{card_line()}",
+          flush=True)
+    if (not sd["tracking_feasible"] or not doc["tracked_frames"]
+            or sd["coarse_passes_steady_delta"] != sd["expected_coarse_passes"]
+            or steady != want or not all(steady.values())
+            or len(kinds) != doc["frames"]
+            or doc["frames"] != doc["tracked_frames"] + doc["fallback_frames"]
+            + doc["cold_frames"]
+            or not sd["replay_outcome_identity_ok"]
+            or not sd["replay_ordering_ok"]):
+        raise SystemExit("tools: the stream probe's tracked frames did not "
+                         "run as the path's structure says")
+
+    nc_fused_lane.launches = sparse_corr.launches = 0
+    t0 = time.perf_counter()
+    vd = serve_probe.probe([SERVE_PROBE_SIDE], SERVE_PROBE_PAIRS, False,
+                           True, 1.5, device=dev)
+    serve_launches = counts()
+    bucket = vd["buckets"][f"{SERVE_PROBE_SIDE}x{SERVE_PROBE_SIDE}"]
+    print(f"tools: serve_probe at {SERVE_PROBE_SIDE}x{SERVE_PROBE_SIDE}, "
+          f"{SERVE_PROBE_PAIRS} pairs, in {time.perf_counter() - t0:.1f} s: "
+          f"request ms {bucket['latency_ms']}, {bucket['qps']} qps, batch "
+          f"p50 {bucket['batch_wall_p50_ms']} ms; injected device failure: "
+          f"{vd['demotion']}; burst {vd['burst']}; scrape "
+          f"{vd.get('scrape_wall_ms')} ms; launches {serve_launches} (the "
+          f"dense bf16 400² stack takes the FFT tier); {card_line()}",
+          flush=True)
+    if vd["demotion"]["lost"] or vd["demotion"]["outcomes"]["other"] \
+            or bucket["latency_ms"]["n"] != SERVE_PROBE_PAIRS \
+            or any(serve_launches.values()):
+        raise SystemExit("tools: the service probe lost a request or "
+                         "launched a kernel at the FFT tier's shape")
+
+    t0 = time.perf_counter()
+    demo = os.path.join(tmp, "demo.png")
+    rc_demo, text = tool_run(point_transfer_demo, [
+        "--synthetic", "--device", "cuda", "--out", demo])
+    with open(os.path.join(tmp, "demo.json")) as f:
+        dj = json.load(f)
+    pts = np.asarray(dj["transferred_points"])
+    print(f"tools: point_transfer_demo --synthetic --device cuda: exit "
+          f"{rc_demo} in {time.perf_counter() - t0:.1f} s, "
+          f"{text.strip()}; {dj['n_valid']} points, PCK@{dj['alpha']} "
+          f"{dj['pck']} (random weights)", flush=True)
+    if rc_demo or pts.shape != (2, dj["n_valid"]) or not dj["n_valid"] \
+            or not np.isfinite(pts).all() or not 0 <= dj["pck"] <= 1:
+        raise SystemExit("tools: the demo did not transfer its points")
+    shutil.rmtree(tmp)
+    shutil.rmtree(LEFT.pop("dir"))
+    print(f"tools: phase O in {time.perf_counter() - t_phase:.1f} s on "
+          f"{card_line()}", flush=True)
+    return {"stream_probe": stream_launches, "serve_probe": serve_launches}
+
+
 def main() -> int:
     import torch
 
@@ -7109,6 +7493,8 @@ def main() -> int:
                                       dev, f_run)
     shutil.rmtree(f_run["tmp"])
     mark("M")
+    probe_launches = tools_phase(torch, nc_fused_lane, sparse_corr, dev)
+    mark("O")
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -7130,7 +7516,9 @@ def main() -> int:
                   **{k: v["nc_conv4d_bf16"] for k, v in fit_launches.items()},
                   **trunk_nc,
                   # the hB-sharded InLoc forward runs the conv4d formulations
-                  "inloc_sharded": sharded_numbers["launches"]["nc_conv4d_bf16"]}
+                  "inloc_sharded": sharded_numbers["launches"]["nc_conv4d_bf16"],
+                  # phase O: the operator tools' probes at full width
+                  **{k: v["nc_conv4d_bf16"] for k, v in probe_launches.items()}}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
@@ -7143,7 +7531,9 @@ def main() -> int:
                       "serve_pod": pod_launches["gather_tile_corr_bf16"],
                       **{k: v["gather_tile_corr_bf16"]
                          for k, v in loop_launches.items()},
-                      **trunk_b4}
+                      **trunk_b4,
+                      **{k: v["gather_tile_corr_bf16"]
+                         for k, v in probe_launches.items()}}
 
     kernels = [{
         "name": "nc_conv4d_bf16",

@@ -426,3 +426,22 @@ def spearman(a, b) -> float:
     if sa == 0 or sb == 0:
         return float("nan")
     return float(np.mean((ra - np.mean(ra)) * (rb - np.mean(rb))) / (sa * sb))
+
+
+def signal_pck_correlation(events: Iterable[dict]) -> Dict[str, float]:
+    """Per-signal Spearman rank correlation between quality signals and
+    per-pair PCK, over every ``quality`` event that carries both (the
+    PF-Pascal eval emits them side by side).  The check that validates the
+    signals as label-free PCK proxies; ``run_report --quality`` reads it."""
+    pairs: Dict[str, List[Tuple[float, float]]] = {}
+    for e in events:
+        if e.get("event") != "quality" or not e.get("pck"):
+            continue
+        pck = e["pck"]
+        for name, vals in (e.get("signals") or {}).items():
+            if isinstance(vals, list) and len(vals) == len(pck):
+                pairs.setdefault(name, []).extend(zip(vals, pck))
+    return {
+        name: spearman([p[0] for p in ps], [p[1] for p in ps])
+        for name, ps in sorted(pairs.items())
+    }

@@ -1412,3 +1412,92 @@ def test_serve_shard_holds_no_cuda_context(cuda, tmp_path, capsys):
         proc.terminate()
         proc.wait(timeout=30)
         proc.stdout.close()
+
+
+@pytest.mark.cuda
+def test_model_tools_refuse_without_a_visible_gpu(cuda, tmp_path):
+    """With no card visible, each model-driving tool run as a user runs it
+    exits non-zero naming CUDA: none carries on on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               NCNET_TPU_PERF_STORE="off")
+    for argv in (
+            ["ncnet_tpu_torch.tools.stream_probe", "--tiny", "--frames", "3"],
+            ["ncnet_tpu_torch.tools.serve_probe", "--tiny", "--sides", "32",
+             "--pairs", "4"],
+            ["ncnet_tpu_torch.tools.quality_drift", "--seed-ref",
+             "--synthetic", "--ref", str(tmp_path / "ref.jsonl")],
+            ["ncnet_tpu_torch.cli.point_transfer_demo", "--synthetic",
+             "--backbone", "tiny", "--image_size", "96",
+             "--out", str(tmp_path / "demo.png")]):
+        r = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=repo,
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode != 0, argv
+        assert "CUDA is not available" in r.stderr, (argv, r.stderr[-2000:])
+    assert not os.path.exists(str(tmp_path / "ref.jsonl"))
+    assert not os.path.exists(str(tmp_path / "demo.json"))
+
+
+@pytest.mark.cuda
+def test_stream_probe_launches_b8_and_b6_in_its_steady_segment(cuda):
+    """``stream_probe`` at full width on the card: its tracked frames run
+    B8 and B6 (2 and 6 launches a tracked dispatch), its steady segment's
+    coarse passes are its fallback frames' alone, and the frame identity
+    holds in its log."""
+    from ncnet_tpu_torch.tools import stream_probe
+
+    d = stream_probe.probe(streams=2, frames=8, side=192, device=cuda)
+    doc = d["streams_doc"]
+    assert d["tracking_feasible"] and doc["tracked_frames"] > 0
+    assert d["coarse_passes_steady_delta"] == d["expected_coarse_passes"]
+    per_coarse = {k: v // max(1, d["coarse_passes_cold"])
+                  for k, v in d["launches_cold"].items()}
+    n_tracked = d["tracked_dispatches_steady"]
+    n_coarse = d["coarse_passes_steady_delta"]
+    assert d["launches_steady"] == {
+        "gather_tile_corr_bf16": 2 * n_tracked
+        + per_coarse["gather_tile_corr_bf16"] * n_coarse,
+        "nc_conv4d_bf16": 6 * n_tracked
+        + per_coarse["nc_conv4d_bf16"] * n_coarse}
+    assert all(d["launches_steady"].values())
+    assert doc["frames"] == (doc["tracked_frames"] + doc["fallback_frames"]
+                             + doc["cold_frames"])
+    assert d["replay_outcome_identity_ok"] and d["replay_ordering_ok"]
+
+
+@pytest.mark.cuda
+def test_perf_regress_check_on_the_cards_store(cuda, tmp_path):
+    """``perf_regress --check`` on a store of walls measured on the card,
+    under its device kind: the findings ``check_regressions`` gives."""
+    import contextlib
+    import io
+    import json
+
+    from ncnet_tpu_torch.observability import perfstore
+    from ncnet_tpu_torch.observability.events import local_device_kind
+    from ncnet_tpu_torch.tools import perf_regress
+
+    path = str(tmp_path / "history.jsonl")
+    store = perfstore.PerfStore(path)
+    x = torch.randn(2048, 2048, device=cuda)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (x @ x).sum().item()
+        store.append_many(
+            {"matmul_wall_ms": (time.perf_counter() - t0) * 1e3,
+             "matmul_tflops": 2 * 2048 ** 3 / 1e12},
+            device_kind=local_device_kind(), source="card test")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = perf_regress.main(["--check", "--store", path, "--json"])
+    direct = perfstore.check_regressions(store.records())
+    assert json.loads(out.getvalue())["findings"] == json.loads(
+        json.dumps(direct))
+    assert rc == (1 if any(f["status"] == "regression" for f in direct)
+                  else 0)
+    assert direct and direct[0]["device_kind"] == torch.cuda.get_device_name(0)

@@ -410,8 +410,21 @@ def test_port_imports_no_jax():
     assert {f"ncnet_tpu_torch/localization/{m}.py" for m in (
         "__init__", "geometry", "scan", "render", "p3p", "pnp", "dsift",
         "verification", "curves", "driver")} <= names
+    # the operator tools, the demo and the plot helpers (A14)
+    assert {f"ncnet_tpu_torch/{m}.py" for m in (
+        "tools/run_report", "tools/trace_export", "tools/stall_watchdog",
+        "tools/perf_regress", "tools/quality_drift", "tools/serve_top",
+        "tools/rollout", "tools/stream_probe", "tools/serve_probe",
+        "utils/plot", "localization/visualize",
+        "cli/point_transfer_demo")} <= names
     bad = []
     for path in files:
+        # matplotlib (not on the card) only inside the functions that draw
+        for node in ast.parse(path.read_text(), str(path)).body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)) and any(
+                    (getattr(node, "module", None) or a.name).split(".")[0]
+                    == "matplotlib" for a in node.names):
+                bad.append(f"{path.relative_to(REPO)}: matplotlib at import")
         for name in _imported_modules(path):
             root = name.split(".")[0]
             if (root in ("jax", "jaxlib", "ncnet_tpu", "tools", "_timing",

@@ -5,11 +5,20 @@ port router fronting two port backends
 
 Each backend's wall clock is skewed by ±50 ms (``NCNET_TPU_CLOCK_SKEW_S``,
 read by the port's ``observability/events.py`` as by JAX's); one backend
-is SIGKILLed while it holds requests.  The root ``tools/trace_export.py``
-federates the three event logs into the same span tree as the JAX pod's:
-the skew recovered from the wire's clock-sync samples, every backend slice
-nested in its router slice, flows drawn; and ``tools/run_report.py --pod``
-recomputes the pod's outcome identity from the merged logs alone.
+is SIGKILLed while it holds requests.  The port's ``trace_export`` and the
+root ``tools/trace_export.py`` federate the three event logs into the same
+span tree as the JAX pod's: the skew recovered from the wire's clock-sync
+samples, every backend slice nested in its router slice, flows drawn; and
+both packages' ``run_report --pod`` recompute the pod's outcome identity
+from the merged logs alone.
+
+The router samples the clock on every round trip here
+(``CLOCK_SYNC_INTERVAL_S`` 0 instead of one sample a second and client):
+an NTP sample's offset error is bounded by half its RTT, and the backend
+stamps ``recv_t`` after its thread reads the request, so the error comes
+close to that bound.  The ±20 ms window needs a sample of RTT ≤ 40 ms per
+backend; the throttled plane left two a backend in the test's second of
+traffic, and under a loaded machine both could be slower (ROADMAP C5).
 """
 
 import json
@@ -30,6 +39,12 @@ sys.path.insert(0, os.path.join(_REPO, "tools"))
 
 import run_report  # noqa: E402
 import trace_export  # noqa: E402
+
+from ncnet_tpu_torch.serving import wire  # noqa: E402
+from ncnet_tpu_torch.tools import run_report as port_run_report  # noqa: E402
+from ncnet_tpu_torch.tools import trace_export as port_trace_export  # noqa: E402
+
+from torch_port_tool_twins import canon  # noqa: E402
 
 
 def u8(side=32, seed=0):
@@ -70,7 +85,8 @@ def run_id_of(log_path):
     return str(head.get("header", {}).get("run_id"))
 
 
-def test_port_pod_trace_federation(tmp_path):
+def test_port_pod_trace_federation(tmp_path, monkeypatch):
+    monkeypatch.setattr(wire, "CLOCK_SYNC_INTERVAL_S", 0.0)
     faults.clear()
     obs_events.set_global_sink(None)
     router_log = str(tmp_path / "router.jsonl")
@@ -113,9 +129,18 @@ def test_port_pod_trace_federation(tmp_path):
     logs = [router_log, procs["bplus"][2], procs["bminus"][2]]
     run_router, run_plus, run_minus = (run_id_of(p) for p in logs)
 
-    warns = []
+    # the offset error of the kept (min-RTT) sample is at most half its RTT
+    samples = {}
+    for e in obs_events.replay_events(router_log)[1]:
+        if e.get("event") == "clock_sync":
+            samples.setdefault(str(e.get("peer_run")), []).append(e["rtt_s"])
+    assert min(samples[run_plus]) <= 0.04 and min(samples[run_minus]) <= 0.04
+
+    warns, port_warns = [], []
     doc = trace_export.build_federated_trace(logs, warn=warns.append)
-    assert warns == [], warns
+    assert canon(port_trace_export.build_federated_trace(
+        logs, warn=port_warns.append)) == canon(doc)
+    assert warns == [] and port_warns == [], warns
     json.loads(json.dumps(doc))
     fed = doc["otherData"]["federation"]
     assert fed["unaligned"] == []
@@ -149,6 +174,7 @@ def test_port_pod_trace_federation(tmp_path):
     for p in logs:
         events.extend(obs_events.replay_events(p)[1])
     pod = run_report.build_pod_section(events)
+    assert canon(port_run_report.build_pod_section(events)) == canon(pod)
     out = pod["outcomes"]
     assert out["admitted"] == out["results"] == out["terminals"] == 24
     assert out["unresolved"] == 0 and pod["lost_requests"] == []
@@ -164,7 +190,12 @@ def test_port_pod_trace_federation(tmp_path):
     assert pod["overhead_joined_by_trace"] >= 12
 
     out_path = str(tmp_path / "pod.trace.json")
+    port_path = str(tmp_path / "pod.port.trace.json")
     assert trace_export.main(logs + ["--federate", "-o", out_path]) == 0
-    with open(out_path) as f:
-        json.loads(f.read())
+    assert port_trace_export.main(logs + ["--federate", "-o", port_path]) == 0
+    with open(out_path) as f, open(port_path) as g:
+        text = f.read()
+        assert g.read() == text
+        json.loads(text)
     assert run_report.main(logs + ["--pod"]) == 0
+    assert port_run_report.main(logs + ["--pod"]) == 0

@@ -5,10 +5,12 @@ Every in-process case of ``tests/test_retrieval.py`` runs once with each
 package's modules (``pkg``): assignment, scoring, the index manifests, the
 verified store under a bit flip, the wire, in-process shard pods behind a
 coordinator (R = 1 honesty, hedging, a corrupt shard, a zero budget), the
-shard's control plane, and the JAX root tools reading either package's
-event log and coordinator document (``run_report``, ``stall_watchdog``).
-The fixtures are the JAX tool's (``serve_probe.build_coarse_fixture``):
-its raw index is shared bytewise, so both packages serve the same store.
+shard's control plane, and both packages' tools reading either package's
+event log and coordinator document (``run_report``, ``stall_watchdog``),
+which must agree.  The fixtures are the port's
+(``serve_probe.build_coarse_fixture``, whose bytes are the JAX tool's:
+``tests/test_torch_port_probe_tools.py``), so both packages serve the
+same store.
 The process cases (real shard hosts, SIGKILL, mixed pods) are in
 ``tests/test_torch_port_retrieval_pod.py``.
 
@@ -37,9 +39,12 @@ from scipy.io import savemat
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
-import run_report  # noqa: E402
-import serve_probe  # noqa: E402
 import stall_watchdog  # noqa: E402
+
+from ncnet_tpu_torch.tools import serve_probe as port_serve_probe  # noqa: E402
+from ncnet_tpu_torch.tools import stall_watchdog as port_stall_watchdog  # noqa: E402
+
+from torch_port_tool_twins import both, both_judge_url, same  # noqa: E402
 
 PKGS = ("jax", "torch")
 FACTOR = 4
@@ -112,8 +117,8 @@ def descriptor(p, img):
 
 
 def build_fixture(root, n_panos=12):
-    return serve_probe.build_coarse_fixture(str(root), n_panos,
-                                            factor=FACTOR, grid=GRID)
+    return port_serve_probe.build_coarse_fixture(str(root), n_panos,
+                                                 factor=FACTOR, grid=GRID)
 
 
 def start_inproc_pod(p, root, n_shards, replication, n_panos=12):
@@ -414,14 +419,15 @@ def test_run_report_retrieval_identity_flags_lost(pkg, tmp_path):
         pkg.events.emit("retrieve_admit", request="q2", client="t",
                         panos=4, budget_s=1.0)
     sink.close()
-    r = run_report.build_report([log_path])["retrieval"]
+    r = both("run_report", "build_report", [log_path])["retrieval"]
     assert r["outcomes"]["admitted"] == 2
     assert r["outcomes"]["results"] == 1
     assert r["outcomes"]["results_degraded"] == 1
     assert r["outcomes"]["unresolved"] == 1
     assert len(r["lost_requests"]) == 1
     assert r["coverage"]["below_full"] == 1
-    assert "VIOLATED" in run_report.render_retrieval({"retrieval": r})
+    assert "VIOLATED" in both("run_report", "render_retrieval",
+                              {"retrieval": r})
 
 
 def test_stall_watchdog_retrieval_advisory(pkg, tmp_path):
@@ -447,18 +453,21 @@ def test_stall_watchdog_retrieval_advisory(pkg, tmp_path):
                        request_id="wd-q1")
         assert wait_until(lambda: coord._backends["s1"].state == "DEAD")
         doc = pkg.r.build_retrieval_document(coord)
-        verdict = {"status": "alive"}
+        verdict, port_verdict = {"status": "alive"}, {"status": "alive"}
         stall_watchdog._apply_retrieval_advisory(verdict, doc)
+        port_stall_watchdog._apply_retrieval_advisory(port_verdict, doc)
+        assert same(port_verdict, verdict)
         rt = verdict["retrieval"]
         assert rt["shards_ready"] == 1 and rt["shards_total"] == 2
         assert rt["replication"] == 2 and rt["min_coverage"] == 1.0
         assert rt["coverage_min"] == 1.0
-        v = stall_watchdog.judge_url(coord.introspect_url, factor=5,
-                                     min_age=30.0)
+        v = both_judge_url(coord.introspect_url, factor=5, min_age=30.0)
         assert v["status"] == "alive" and v["role"] == "retrieval"
         assert v["retrieval"]["shards_total"] == 2
         verdict2 = {"status": "alive"}
         stall_watchdog._apply_retrieval_advisory(verdict2, {"role": "router"})
+        port_stall_watchdog._apply_retrieval_advisory(verdict2,
+                                                      {"role": "router"})
         assert "retrieval" not in verdict2
     finally:
         pkg.faults.clear()

@@ -6,10 +6,11 @@ package (``pkg``): four shard hosts at R = 2 (``tools/serve_shard.py`` for
 JAX, ``python -m ncnet_tpu_torch.tools.serve_shard`` for the port) behind a
 coordinator of the same package; SIGKILL one under a stream of queries,
 every answer at coverage 1.0 with the right top-1, the victim DEAD, a
-restart at its port resurrected by the probes, and the JAX ``run_report``
-replaying the outcome identity from the event log with zero lost queries.
+restart at its port resurrected by the probes, and both packages'
+``run_report`` replaying the outcome identity from the event log with zero
+lost queries.
 
-Mixed pods on one raw index (shared bytewise: ``serve_probe.
+Mixed pods on one raw index (shared bytewise: the port's ``serve_probe.
 build_coarse_fixture``): a JAX coordinator over port shards, a port
 coordinator over JAX shards, and a port coordinator over shards of both;
 every answer equals ``local_shortlist`` over the same store, scores bit for
@@ -28,9 +29,10 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
-import run_report  # noqa: E402
-import serve_probe  # noqa: E402
-import stall_watchdog  # noqa: E402
+
+from ncnet_tpu_torch.tools import serve_probe as port_serve_probe  # noqa: E402
+
+from torch_port_tool_twins import both, both_judge_url, both_main  # noqa: E402
 
 PKGS = ("jax", "torch")
 FACTOR = 4
@@ -131,7 +133,7 @@ def test_acceptance_sigkill_full_coverage(name, tmp_path):
     JAX ``run_report`` replays the identity with zero lost queries and
     ``stall_watchdog`` reads the coordinator's document."""
     p = load(name)
-    index_path, images = serve_probe.build_coarse_fixture(
+    index_path, images = port_serve_probe.build_coarse_fixture(
         str(tmp_path), 12, factor=FACTOR, grid=GRID)
     index = p.r.load_index_manifests(index_path)
     names = sorted(images)
@@ -184,8 +186,8 @@ def test_acceptance_sigkill_full_coverage(name, tmp_path):
                 ans = query(0, "revived")
                 assert ans["coverage"] == 1.0
 
-                v = stall_watchdog.judge_url(coord.introspect_url, factor=5,
-                                             min_age=30.0)
+                v = both_judge_url(coord.introspect_url, factor=5,
+                                   min_age=30.0)
                 assert v["status"] == "alive" and v["role"] == "retrieval"
                 assert v["retrieval"]["shards_total"] == 4
                 assert set(v["backends"]) == set(shard_ids)
@@ -195,7 +197,7 @@ def test_acceptance_sigkill_full_coverage(name, tmp_path):
         sink.close()
         stop_shards(procs)
 
-    report = run_report.build_report([log_path])
+    report = both("run_report", "build_report", [log_path])
     r = report["retrieval"]
     o = r["outcomes"]
     assert o["admitted"] == 25
@@ -206,7 +208,7 @@ def test_acceptance_sigkill_full_coverage(name, tmp_path):
     assert r["shards"]["s1"]["deaths"] >= 1
     assert r["shards"]["s1"]["resurrections"] >= 1
     assert r["final_health_doc"] is not None
-    assert run_report.main([log_path, "--retrieval"]) == 0
+    assert both_main("run_report", [log_path, "--retrieval"]) == 0
     _, events = p.events.replay_events(log_path)
     assert any(e.get("event") == "retrieve_backend" and e.get("state") ==
                "DEAD" and e.get("shard") == "s1" for e in events)
@@ -225,7 +227,7 @@ def test_mixed_pod_answers_equal_local_shortlist(coord_pkg, shard_pkgs,
     the same store, scores bit for bit, at coverage 1.0 — and stays so
     with one shard dead."""
     c = load(coord_pkg)
-    index_path, images = serve_probe.build_coarse_fixture(
+    index_path, images = port_serve_probe.build_coarse_fixture(
         str(tmp_path), 16, factor=FACTOR, grid=GRID)
     index = c.r.load_index_manifests(index_path)
     shard_ids = [f"s{i}" for i in range(len(shard_pkgs))]

@@ -31,7 +31,8 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
-import run_report  # noqa: E402
+
+from torch_port_tool_twins import both  # noqa: E402
 
 PKGS = ("jax", "torch")
 TOL = dict(rtol=1e-4, atol=1e-7)  # the serving tests' fp32 bound
@@ -285,14 +286,14 @@ def test_rollout_promotes_under_stream_zero_lost(pkg, tmp_path):
     phases = [e["phase"] for e in events if e.get("event") == "rollout_phase"]
     assert phases == [R.ROLLOUT_STAGING, R.ROLLOUT_CANARY,
                       R.ROLLOUT_PROMOTING, R.ROLLOUT_COMPLETE]
-    sec = run_report.build_rollout_section(events)
+    sec = both("run_report", "build_rollout_section", events)
     assert sec["terminal_phase"] == "COMPLETE"
     assert len(sec["swaps"]) == 4 and sec["swaps_failed"] == 0
     assert not sec["refusals"] and not sec["rollbacks"]
     assert sec["canary_verdicts"][0]["breach"] is None
     assert sec["versions"]["v0"]["failures"] == 0
     assert sec["versions"]["v1"]["failures"] == 0
-    serving = run_report.build_serving_section(events)
+    serving = both("run_report", "build_serving_section", events)
     assert sorted(serving["results_by_version"]) == ["v0", "v1"]
 
 
@@ -336,7 +337,7 @@ def test_canary_quality_shift_triggers_auto_rollback(pkg, tmp_path):
     phases = [e["phase"] for e in events if e.get("event") == "rollout_phase"]
     assert phases == [R.ROLLOUT_STAGING, R.ROLLOUT_CANARY,
                       R.ROLLOUT_ROLLING_BACK, R.ROLLOUT_ROLLED_BACK]
-    sec = run_report.build_rollout_section(events)
+    sec = both("run_report", "build_rollout_section", events)
     assert sec["terminal_phase"] == "ROLLED_BACK"
     assert sec["rollbacks"][0]["reason"].startswith("quality_drift:")
     verdict = sec["canary_verdicts"][0]

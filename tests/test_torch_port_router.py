@@ -5,7 +5,8 @@ package's.
 Every in-process case of ``tests/test_router.py`` runs once with each
 package's modules (``pkg``): fake-engine backends behind real services,
 the router fronting them, outcome counts recomputed from the event log by
-the JAX package's ``tools/run_report.py`` (the logs share one format).
+both packages' ``run_report``, which must agree (the logs share one
+format).
 The process cases spawn real backends (``tools/serve_backend.py`` for JAX,
 ``python -m ncnet_tpu_torch.tools.serve_backend`` for the port) behind a
 router of either package: a mixed pod must give the outcome counts of a
@@ -31,7 +32,8 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
-import run_report  # noqa: E402
+
+from torch_port_tool_twins import both, both_main  # noqa: E402
 
 PKGS = ("jax", "torch")
 
@@ -245,7 +247,7 @@ def test_router_routes_and_recomputes_outcome_totals(pkg, tmp_path):
             s1.stop()
             s2.stop()
     _, events = pkg.events.replay_events(log_path)
-    sec = run_report.build_router_section(events)
+    sec = both("run_report", "build_router_section", events)
     assert sec["outcomes"]["admitted"] == 16
     assert sec["outcomes"]["results"] == 16
     assert sec["outcomes"]["unresolved"] == 0 and not sec["lost_requests"]
@@ -254,7 +256,7 @@ def test_router_routes_and_recomputes_outcome_totals(pkg, tmp_path):
     assert all(b["backend_wall_ms"]["n"] == b["results"]
                for b in sec["backends"].values())
     assert sec["drains"] and sec["drains"][0]["drained"] is True
-    assert run_report.main([log_path, "--serving"]) == 0
+    assert both_main("run_report", [log_path, "--serving"]) == 0
 
 
 def test_injected_backend_death_fails_over_and_resurrects(pkg, tmp_path):
@@ -306,7 +308,7 @@ def test_injected_backend_death_fails_over_and_resurrects(pkg, tmp_path):
     assert ("b0", S.BACKEND_DEAD) in states
     assert states.index(("b0", S.BACKEND_READY)) \
         > states.index(("b0", S.BACKEND_DEAD))
-    sec = run_report.build_router_section(events)
+    sec = both("run_report", "build_router_section", events)
     assert sec["outcomes"]["unresolved"] == 0
     assert sec["backends"]["b0"]["deaths"] == 1
     assert sec["backends"]["b0"]["resurrections"] == 1
@@ -416,7 +418,7 @@ def test_edge_deadline_never_a_silent_timeout(pkg, tmp_path):
     assert {e["where"] for e in deadlines} <= {
         "dequeue", "fetch", "backend_admission", "backend_dequeue",
         "backend_fetch", "backend_failure", "backpressure"}
-    assert run_report.build_router_section(events)["outcomes"][
+    assert both("run_report", "build_router_section", events)["outcomes"][
         "unresolved"] == 0
 
 
@@ -681,7 +683,7 @@ def pod_chain(router_pkg, backend_pkg, tmp_path):
             router.stop()
             stop_procs(procs)
     _, events = r.events.replay_events(log_path)
-    sec = run_report.build_router_section(events)
+    sec = both("run_report", "build_router_section", events)
     states = [(e.get("backend"), e.get("state")) for e in events
               if e.get("event") == "route_backend"]
     vid = victim.id

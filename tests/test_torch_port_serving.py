@@ -6,8 +6,9 @@ Every case runs once with each package's modules (``pkg`` is ``"jax"`` or
 ``"torch"``), the cases of ``tests/test_serving.py`` and
 ``tests/test_serving_pool.py`` that need no device.  Both must make the
 same decisions: shed reasons, retry hints, buckets, health transitions,
-routing, and the same outcome counts, recomputed from each event log by the
-JAX package's ``tools/run_report.py`` (the logs share one format).
+routing, and the same outcome counts, recomputed from each event log by
+both packages' ``run_report``, which must agree (the logs share one
+format).
 
 ROADMAP D4: the port has no demote-and-retrace.  Where the JAX service
 grants a free retry after a tier demotion (a single replica, or a request
@@ -31,6 +32,10 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_REPO, "tools"))
 
 import run_report  # noqa: E402
+
+from ncnet_tpu_torch.tools import run_report as port_run_report  # noqa: E402
+
+from torch_port_tool_twins import same  # noqa: E402
 
 PKGS = ("jax", "torch")
 
@@ -148,7 +153,9 @@ def logged(p, tmp_path):
 
 def section(p, path):
     _, events = p.events.replay_events(path)
-    return run_report.build_serving_section(events), events
+    sec = run_report.build_serving_section(events)
+    assert same(port_run_report.build_serving_section(events), sec)
+    return sec, events
 
 
 # ---------------------------------------------------------------------------
