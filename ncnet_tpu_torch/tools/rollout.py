@@ -13,8 +13,8 @@ observed.  The whole exchange is plain HTTP against the introspection
 port, so the tool runs from ANY host that can reach the pod — no shared
 filesystem, no in-process access.
 
-The candidate checkpoint path is resolved ON THE SERVING HOST (PR 1's
-newest-complete resolution), so pass a path meaningful there.  Judge
+The candidate checkpoint path is resolved ON THE SERVING HOST (its
+newest-complete version), so pass a path meaningful there.  Judge
 knobs (canary fraction, PSI threshold, ...) ride along in the same JSON
 body; unset knobs take the ``RolloutConfig`` defaults.
 

@@ -342,7 +342,7 @@ def build_serving_section(events: List[dict]) -> Dict[str, Any]:
             "probes": r["probes"],
         }
 
-    # per-model-version result counts (the PR 18 rollout stamps every
+    # per-model-version result counts (the rollout stamps every
     # serve_result with the serving replica's model_version): a pod that
     # served under more than one version mid-log renders as mixed-version
     by_version: Dict[str, int] = {}
@@ -619,7 +619,7 @@ def build_store_section(events: List[dict]) -> Dict[str, Any]:
 
 
 def build_router_section(events: List[dict]) -> Dict[str, Any]:
-    """The router-tier postmortem (the PR 12 multi-host twin of
+    """The router-tier postmortem (the multi-host twin of
     :func:`build_serving_section`): the outcome-total identity recomputed
     at the ROUTER level (``route_admit == route_result + admitted
     route_deadline + route_quarantine + admitted route_shed``; nonzero

@@ -129,7 +129,7 @@ def probe(sides: List[int], n_pairs: int, tiny: bool, demote: bool,
         buckets=buckets, max_buckets=len(buckets) ** 2,
         warm_buckets=buckets,
         # the live plane rides along so the probe prices a real-device
-        # /metrics scrape under load (ISSUE 11's "the plane must be free")
+        # /metrics scrape under load (the plane must be free)
         introspect_port=0,
     )
     out: Dict[str, Any] = {
@@ -251,7 +251,7 @@ def probe(sides: List[int], n_pairs: int, tiny: bool, demote: bool,
     finally:
         service.stop()
 
-    # 4. replica-pool scaling sweep (ISSUE 10): closed-loop capacity per
+    # 4. replica-pool scaling sweep: closed-loop capacity per
     # pool size — the serving twin of the bench's serve_capacity_qps_r{k}
     # family.  Each pool gets a FRESH service (its own engines, committed
     # per device); capacity numbers only mean something at one replica per

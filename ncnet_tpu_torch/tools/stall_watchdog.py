@@ -31,7 +31,7 @@ HTTP — ``/healthz``'s ``activity.age_s`` is seconds since the pool last
 dispatched a batch or deliberately idled, exactly the heartbeat-mtime
 semantics.  ``--url http://host:port`` polls that instead of a local file,
 so the watchdog runs from ANOTHER host (the multi-host deployment shape)
-with no shared filesystem.  The event-log cadence backstop keeps its PR 10
+with no shared filesystem.  The event-log cadence backstop keeps its
 semantics in BOTH modes: when ``--events`` is readable, the stall
 threshold derives from the run's own batch cadence and a recent
 per-replica lane overrides a stale primary signal (one wedged replica
@@ -147,7 +147,7 @@ def replica_batch_cadence(events_path: str,
 
 def _apply_replica_backstop(verdict: Dict[str, Any], events_path: str,
                             factor: float, min_age: float) -> None:
-    """The PR 10 backstop, shared by both modes: per-replica ``serve_batch``
+    """The per-replica backstop, shared by both modes: per-replica ``serve_batch``
     cadence always ships in the verdict, and a recent lane overrides a
     stale primary signal (heartbeat mtime or HTTP activity age) — one
     wedged replica must not flag a healthy pool STALLED."""
@@ -180,7 +180,7 @@ def _apply_replica_backstop(verdict: Dict[str, Any], events_path: str,
 
 def _apply_backend_backstop(verdict: Dict[str, Any], doc: Dict[str, Any],
                             factor: float, min_age: float) -> None:
-    """The router-tier backstop (mirror of the PR 10 per-replica one, but
+    """The router-tier backstop (mirror of the per-replica one, but
     sourced from the ``/healthz`` document itself — cross-host, no shared
     filesystem needed): a router document carries per-backend rows with
     ``last_result_age_s`` and the backend's wall EWMA, so the verdict
@@ -261,8 +261,8 @@ def _apply_retrieval_advisory(verdict: Dict[str, Any],
 
 def _apply_rollout_advisory(verdict: Dict[str, Any],
                             doc: Dict[str, Any]) -> None:
-    """Model-version / live-rollout advisory (PR 18,
-    ncnet_tpu_torch/serving/rollout.py).  A pod mid-rollout is INTENTIONALLY
+    """Model-version / live-rollout advisory
+    (ncnet_tpu_torch/serving/rollout.py).  A pod mid-rollout is INTENTIONALLY
     mixed-version — one canary or rolling-swap replica on the candidate
     while the rest serve the incumbent — so this surfaces the phase and
     the version split instead of letting an operator read the drained
