@@ -2481,11 +2481,15 @@ def serve_service(torch, nc_fused_lane, sparse_corr, params, devices=None):
             while svc._pool.replicas[1].state != "DEAD":
                 if time.perf_counter() - t0 > 60:
                     raise SystemExit("service: rep1 never went DEAD")
-                fault_futs += submit_group(
-                    svc, all_groups[g % len(all_groups)], "fault")
-                for f in fault_futs[-SERVICE_BATCH:]:
+                # three groups at once: a failure doubles rep1's routing
+                # cost, and one group at a time can always find rep0 idle
+                # and cheaper; rep0's load makes rep1 the cheaper again
+                for _ in range(3):
+                    fault_futs += submit_group(
+                        svc, all_groups[g % len(all_groups)], "fault")
+                    g += 1
+                for f in fault_futs[-3 * SERVICE_BATCH:]:
                     f.result(timeout=120)
-                g += 1
         finally:
             faults.clear()
         degraded = svc.state
@@ -7132,13 +7136,13 @@ def live_plane_tools(rurl, aurl):
 
 
 def federation_nests(doc, eps_us=10_000.0):
-    """(backend slices, the traces of those that do not start inside their
-    router slice, the largest overhang of a slice's end in ms, flow
-    starts) of a federated trace document.  A backend admits a request
-    after the router sent it, so its slice starts inside the router's on
-    aligned clocks (within ``eps_us``, the pod test's bound); its end is
-    the backend's result event, stamped after it answered and racing the
-    router's own, so the end is reported, not ordered."""
+    """(backend slices, the traces of those not nested in their router
+    slice, the largest overhang of a slice's end past its router slice's in
+    ms, flow starts) of a federated trace document.  A backend admits a
+    request after the router sent it and ends its slice where it settled
+    the request, before the reply leaves, so on aligned clocks each slice
+    lies inside its router slice within ``eps_us`` at both ends (the pod
+    test's bound)."""
     route = {}
     for e in doc["traceEvents"]:
         if e.get("cat") == "route_request" and e["ph"] == "X" \
@@ -7149,26 +7153,31 @@ def federation_nests(doc, eps_us=10_000.0):
         if e.get("cat") == "serve_request" and e["ph"] == "X":
             slices += 1
             r = route.get(e["args"].get("trace"))
+            end = e["ts"] + e["dur"]
             if r:
-                over = max(over, e["ts"] + e["dur"] - r[1])
-            if not (r and r[0] - eps_us <= e["ts"] <= r[1] + eps_us):
+                over = max(over, end - r[1])
+            if not (r and e["ts"] >= r[0] - eps_us and end <= r[1] + eps_us):
                 loose.append(e["args"].get("trace"))
     return slices, loose, over / 1e3, sum(1 for e in doc["traceEvents"]
                                           if e["ph"] == "s")
 
 
-def perturbed_quality(src, dst, shift=0.35):
-    """``src`` with every quality signal moved up by ``shift`` (clipped)."""
-    with open(src) as f, open(dst, "w") as g:
-        for line in f:
-            try:
-                e = json.loads(line)
-            except ValueError:
-                continue
-            if e.get("event") == "quality":
-                e["signals"] = {k: [min(1.0, v + shift) for v in vs]
-                                for k, vs in e["signals"].items()}
-            g.write(json.dumps(e) + "\n")
+def settle_leads_ms(events):
+    """For each result of a backend log, how long after the settle that
+    ends its ``request_timeline`` slice its ``serve_result`` was stamped,
+    in ms: (count, least, largest).  The largest is what the slice would
+    have outlasted its reply by, had it ended at the timeline's own
+    append."""
+    ends, stamps = {}, {}
+    for e in events:
+        key = (e.get("run"), e.get("request"))
+        if e.get("event") == "request_timeline" \
+                and e.get("outcome") == "result":
+            ends[key] = e["t0"] + e["total_ms"] * 1e-3
+        elif e.get("event") == "serve_result":
+            stamps[key] = e["t"]
+    leads = [(stamps[k] - t) * 1e3 for k, t in ends.items() if k in stamps]
+    return len(leads), min(leads, default=0.0), max(leads, default=0.0)
 
 
 def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
@@ -7234,6 +7243,7 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
         events += replay_events(path)[1]
     pod = run_report.build_pod_section(events)
     rc_pod, _ = tool_run(run_report, n_logs + ["--pod"])
+    n_leads, lead_lo, lead_hi = settle_leads_ms(events)
     live = LEFT["N"]["facts"]
     po = pod["outcomes"]
     runs = fed["otherData"]["federation"]["runs"]
@@ -7249,9 +7259,11 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
           f"steps, {f_rep['counts']['checkpoint_commits']} commits, step "
           f"wall p50 {f_rep['step_wall_s'].get('p50')} s", flush=True)
     print(f"tools: N federated (exit {rc_fed}): {slices} backend slices, "
-          f"{slices - len(loose)} starting inside their router slice "
-          f"(others {loose}; the latest end {over_ms:.3f} ms after its "
-          f"router slice's), {flows} flows, "
+          f"{slices - len(loose)} nested in their router slice at both "
+          f"ends within 10 ms (others {loose}; the largest overhang of an "
+          f"end {over_ms:.3f} ms; of {n_leads} results, serve_result "
+          f"stamped {lead_lo:.3f} to {lead_hi:.3f} ms after the settle "
+          f"that ends its slice), {flows} flows, "
           f"corrections s {[r.get('correction_s') for r in runs.values()]}, "
           f"warnings {warns}; run_report --pod (exit {rc_pod}): admitted "
           f"{po['admitted']}, results {po['results']}, terminals "
@@ -7260,7 +7272,8 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
     if (s_rep["outcomes"]["unresolved"] or s_rep["lost_requests"]
             or q_rep["outcomes"]["unresolved"] or q_rep["lost_requests"]
             or not f_rep["counts"]["steps"] or rc_fed or rc_pod
-            or not slices or loose or not flows
+            or not slices or loose or not flows or not n_leads
+            or lead_lo < -0.002
             or (po["admitted"], po["results"], po["terminals"],
                 len(pod["lost_requests"]))
             != (live["admitted"], live["results"], live["terminals"],
@@ -7298,7 +7311,7 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
     log = LEFT["L"]["events"]
     green, red = (os.path.join(tmp, f"ref_{n}.jsonl") for n in ("green", "red"))
     bad = os.path.join(tmp, "perturbed.jsonl")
-    perturbed_quality(log, bad)
+    quality_drift.perturbed_log(log, bad)
     rc_g1, _ = tool_run(quality_drift, ["--seed-ref", log, "--ref", green])
     rc_g2, _ = tool_run(quality_drift, ["--check", log, "--ref", green])
     rc_r1, _ = tool_run(quality_drift, ["--seed-ref", bad, "--ref", red])
@@ -7329,15 +7342,7 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
              if e.get("event") == "stream_frame"]
     doc = sd["streams_doc"]
     steady, cold = sd["launches_steady"], sd["launches_cold"]
-    per_coarse = {k: v // max(1, sd["coarse_passes_cold"])
-                  for k, v in cold.items()}
-    want = {"gather_tile_corr_bf16":
-            2 * sd["tracked_dispatches_steady"]
-            + per_coarse["gather_tile_corr_bf16"]
-            * sd["coarse_passes_steady_delta"],
-            "nc_conv4d_bf16":
-            6 * sd["tracked_dispatches_steady"]
-            + per_coarse["nc_conv4d_bf16"] * sd["coarse_passes_steady_delta"]}
+    want = sd["launches_steady_expected"]
     print(f"tools: stream_probe at full width ({STREAM_PROBE}) in "
           f"{stream_s:.1f} s: steady frame walls ms {sd['steady_wall_ms']}, "
           f"cut recovery ms {sd['cut_recovery_ms']}, per-frame "
@@ -7375,11 +7380,13 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
           f"{vd.get('scrape_wall_ms')} ms; launches {serve_launches} (the "
           f"dense bf16 400² stack takes the FFT tier); {card_line()}",
           flush=True)
-    if vd["demotion"]["lost"] or vd["demotion"]["outcomes"]["other"] \
+    if vd["demotion"]["replica_failures"] < 1 or vd["demotion"]["lost"] \
+            or vd["demotion"]["outcomes"]["other"] \
             or bucket["latency_ms"]["n"] != SERVE_PROBE_PAIRS \
             or any(serve_launches.values()):
-        raise SystemExit("tools: the service probe lost a request or "
-                         "launched a kernel at the FFT tier's shape")
+        raise SystemExit("tools: the service probe's device failure did not "
+                         "fire, it lost a request, or it launched a kernel "
+                         "at the FFT tier's shape")
 
     t0 = time.perf_counter()
     demo = os.path.join(tmp, "demo.png")

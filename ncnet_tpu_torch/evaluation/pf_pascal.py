@@ -75,11 +75,8 @@ def make_eval_step(net, alpha: float, device_normalize: bool = False):
     normalized floats.  The step runs under ``torch.no_grad`` inside a
     ``pf_pascal_eval_step`` profiler range (``utils/profiling.annotate``),
     and its dispatch passes ``utils/faults.device_error_hook``.  It returns
-    without waiting for the card.  A ``forward_fn(params, src, tgt)`` a
-    caller set on ``net`` replaces the forward (the JAX ``NCNet``'s seam;
-    ``tools/quality_drift.py`` perturbs its synthetic run through it)."""
+    without waiting for the card."""
     config = net.config
-    forward_fn = getattr(net, "forward_fn", None)
 
     @torch.no_grad()
     def forward(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -89,8 +86,7 @@ def make_eval_step(net, alpha: float, device_normalize: bool = False):
             if config.backbone_bf16:
                 src = src.to(torch.bfloat16)
                 tgt = tgt.to(torch.bfloat16)
-        out = (forward_fn(params, src, tgt) if forward_fn is not None
-               else ncnet_forward(config, params, src, tgt))
+        out = ncnet_forward(config, params, src, tgt)
         matches = corr_to_matches(out.corr, do_softmax=True)
         scores = pck_metric(batch, matches, alpha)
         return torch.cat([scores.to(torch.float32)[:, None],

@@ -28,7 +28,6 @@ import hashlib
 import http.client
 import json
 import socket
-import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 from urllib.parse import urlsplit
 
@@ -44,10 +43,9 @@ from ncnet_tpu_torch.serving.wire import (
     _frame,
     _unframe,
     _OUTCOME_STATUS,
-    CLOCK_SYNC_INTERVAL_S,
     WIRE_SETTLE_MARGIN_S,
+    ClockSampler,
     WireError,
-    emit_clock_sync,
     sync_stamps,
 )
 
@@ -310,7 +308,7 @@ class RetrieveClient:
         self._port = int(parts.port)
         self.timeout_s = float(timeout_s)
         self._conn: Optional[http.client.HTTPConnection] = None
-        self._last_sync_t = 0.0  # monotonic; clock_sync emission throttle
+        self._clock = ClockSampler()
 
     def _connection(self, timeout: float) -> http.client.HTTPConnection:
         if self._conn is None:
@@ -357,9 +355,7 @@ class RetrieveClient:
         # checksum in decode_retrieve_response, never reorder a shortlist
         data = faults.shard_payload_hook(self.base_url, data)
         header, payload = _unframe(data)
-        if time.monotonic() - self._last_sync_t >= CLOCK_SYNC_INTERVAL_S:
-            self._last_sync_t = time.monotonic()
-            emit_clock_sync(self.base_url, header, t_send, t_recv)
+        self._clock.observe(self.base_url, header, t_send, t_recv)
         return _retrieve_response_from(header, payload)
 
     def close(self) -> None:

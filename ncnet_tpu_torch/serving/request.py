@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -135,11 +136,15 @@ class MatchFuture:
     terminal error.  ``outcome`` is None until settled, then one of
     :data:`TERMINAL_OUTCOMES`.  Settling twice is a programming error in
     the service and raises — the outcome-total contract means exactly one.
+    ``settled_t`` is the ``time.monotonic`` instant of the settle, taken
+    before any waiter can wake: the request's timeline ends there, so a
+    backend's slice never outlasts the reply its caller reads.
     """
 
     def __init__(self, request_id: str):
         self.request_id = request_id
         self.outcome: Optional[str] = None
+        self.settled_t: Optional[float] = None
         self._event = threading.Event()
         self._lock = threading.Lock()
         self._result: Optional[MatchResult] = None
@@ -168,6 +173,7 @@ class MatchFuture:
                 return False
             self._result, self._error = result, error
             self.outcome = outcome
+            self.settled_t = time.monotonic()
         self._event.set()
         return True
 

@@ -1554,7 +1554,10 @@ class MatchService:
             fields["replica"] = replica
         if where is not None:
             fields["where"] = where
-        fields.update(req.timeline_ms(now_m))
+        # every caller settled the request first; the timeline ends at that
+        # settle, not here: the terminal event and its fsync come between,
+        # and by then the caller may hold its reply
+        fields.update(req.timeline_ms(req.future.settled_t))
         obs_events.emit("request_timeline", **fields)
 
     def _terminal(self, req: MatchRequest) -> None:

@@ -49,8 +49,10 @@ from __future__ import annotations
 
 import http.client
 import json
+import math
 import socket
 import struct
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import urlsplit
 
@@ -88,8 +90,9 @@ WIRE_CONTENT_TYPE = "application/x-ncnet-match"
 
 # clock-sync sampling cadence per client connection: one NTP-style offset
 # sample (half-RTT from the request/response wall stamps already on the
-# wire) per this many seconds.  Every response CARRIES the stamps; the
-# throttle only bounds the event-log fsync traffic.
+# wire) per this many seconds, plus every new minimum of the RTT
+# (ClockSampler).  Every response CARRIES the stamps; the throttle only
+# bounds the event-log fsync traffic.
 CLOCK_SYNC_INTERVAL_S = 1.0
 
 
@@ -115,14 +118,53 @@ def emit_clock_sync(peer: str, header: Dict[str, Any],
     clock is ahead), ``rtt_s`` is the wire time with the peer's serve time
     subtracted out.  A response without stamps (an old peer) is a no-op —
     the sync plane is additive end to end."""
-    t1, t2 = header.get("recv_t"), header.get("resp_t")
-    if not isinstance(t1, (int, float)) or not isinstance(t2, (int, float)):
+    sample = _round_trip(header, t_send, t_recv)
+    if sample is None:
         return
-    offset = ((float(t1) - t_send) + (float(t2) - t_recv)) / 2.0
-    rtt = (t_recv - t_send) - (float(t2) - float(t1))
+    offset, rtt = sample
     obs_events.emit(
         "clock_sync", peer=peer, peer_run=header.get("peer_run"),
-        offset_s=round(offset, 6), rtt_s=round(max(0.0, rtt), 6))
+        offset_s=offset, rtt_s=rtt)
+
+
+def _round_trip(header: Dict[str, Any], t_send: float,
+                t_recv: float) -> Optional[Tuple[float, float]]:
+    """``(offset_s, rtt_s)`` of one round trip as ``clock_sync`` records
+    them, or None for a response without stamps."""
+    t1, t2 = header.get("recv_t"), header.get("resp_t")
+    if not isinstance(t1, (int, float)) or not isinstance(t2, (int, float)):
+        return None
+    offset = ((float(t1) - t_send) + (float(t2) - t_recv)) / 2.0
+    rtt = (t_recv - t_send) - (float(t2) - float(t1))
+    return round(offset, 6), round(max(0.0, rtt), 6)
+
+
+class ClockSampler:
+    """Which round trips of one client become ``clock_sync`` events: one
+    every ``CLOCK_SYNC_INTERVAL_S``, and besides each round trip whose RTT
+    is below every RTT this client emitted before.  The federation keeps
+    the minimum-RTT sample of a pair, whose offset error is at most half
+    its RTT; a throttle alone keeps only the samples that fall on its
+    ticks, and on a loaded host all of those can be slow.  New minima are
+    few (about ln n of n round trips), so the fsync traffic stays
+    bounded."""
+
+    def __init__(self) -> None:
+        self._last_t = -math.inf  # monotonic instant of the last emission
+        self._best_rtt = math.inf
+
+    def observe(self, peer: str, header: Dict[str, Any],
+                t_send: float, t_recv: float) -> None:
+        sample = _round_trip(header, t_send, t_recv)
+        if sample is None:
+            return
+        now = time.monotonic()
+        if now - self._last_t < CLOCK_SYNC_INTERVAL_S \
+                and sample[1] >= self._best_rtt:
+            return
+        self._last_t = now
+        self._best_rtt = min(self._best_rtt, sample[1])
+        emit_clock_sync(peer, header, t_send, t_recv)
 
 
 class WireError(ValueError):
@@ -441,7 +483,7 @@ class MatchClient:
         self._port = int(parts.port)
         self.timeout_s = float(timeout_s)
         self._conn: Optional[http.client.HTTPConnection] = None
-        self._last_sync_t = 0.0  # monotonic; throttles clock_sync events
+        self._clock = ClockSampler()
 
     def _connection(self, timeout: float) -> http.client.HTTPConnection:
         if self._conn is None:
@@ -463,10 +505,8 @@ class MatchClient:
         the hung-socket backstop the router relies on to keep a wedged host
         from absorbing its workers.  ``trace`` propagates the caller's
         traceparent header; each round trip also yields one NTP-style
-        clock-offset sample against this peer, emitted as a throttled
-        ``clock_sync`` event."""
-        import time as _time
-
+        clock-offset sample against this peer, which ``ClockSampler``
+        may emit as a ``clock_sync`` event."""
         from ncnet_tpu_torch.utils import faults
 
         # the multi-host chaos seam: injected backend death / socket hang
@@ -489,10 +529,7 @@ class MatchClient:
             raise
         t_recv = obs_events.wall_now()
         header, payload = _unframe(data)
-        now_m = _time.monotonic()
-        if now_m - self._last_sync_t >= CLOCK_SYNC_INTERVAL_S:
-            self._last_sync_t = now_m
-            emit_clock_sync(self.base_url, header, t_send, t_recv)
+        self._clock.observe(self.base_url, header, t_send, t_recv)
         return _response_from(header, payload)
 
     def close(self) -> None:

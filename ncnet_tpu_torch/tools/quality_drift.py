@@ -117,7 +117,7 @@ def synthetic_reference_run(workdir: str, perturb: bool = False,
     from ncnet_tpu_torch.config import EvalPFPascalConfig, ModelConfig
     from ncnet_tpu_torch.data.datasets import raw_path
     from ncnet_tpu_torch.data.synthetic import _textured_image, write_pf_pascal_like
-    from ncnet_tpu_torch.evaluation.pf_pascal import run_eval
+    from ncnet_tpu_torch.evaluation import pf_pascal
 
     data = os.path.join(workdir, "data")
     shift = SYNTH_SPARSE_SHIFT if sparse else SYNTH_SHIFT
@@ -147,19 +147,6 @@ def synthetic_reference_run(workdir: str, perturb: bool = False,
         from ncnet_tpu_torch.ops.cp_als import decompose_stack
 
         net.params["nc"], _ = decompose_stack(net.params["nc"], 1)
-    if perturb:
-        from ncnet_tpu_torch.models.ncnet import ncnet_forward
-
-        def forward_fn(params, src, tgt):
-            out = ncnet_forward(net.config, params, src, tgt)
-            # coarse value quantization of the filtered volume: the shape
-            # of a numeric-precision regression (scores flatten, margins
-            # shrink) without modeling any one kernel's exact rounding
-            step = 0.05 * torch.max(torch.abs(out.corr))
-            return out._replace(corr=torch.round(out.corr / step) * step)
-
-        net.forward_fn = forward_fn
-
     tdir = os.path.join(workdir, "telemetry")
     ecfg = EvalPFPascalConfig(eval_dataset_path=data, image_size=96,
                               telemetry_dir=tdir)
@@ -170,15 +157,50 @@ def synthetic_reference_run(workdir: str, perturb: bool = False,
 
     prev = os.environ.get(STORE_ENV)
     os.environ[STORE_ENV] = "off"
+    forward = pf_pascal.ncnet_forward
+    if perturb:
+        def quantized(config, params, src, tgt):
+            out = forward(config, params, src, tgt)
+            # coarse value quantization of the filtered volume: the shape
+            # of a numeric-precision regression (scores flatten, margins
+            # shrink) without modeling any one kernel's exact rounding
+            step = 0.05 * torch.max(torch.abs(out.corr))
+            return out._replace(corr=torch.round(out.corr / step) * step)
+
+        # the eval step calls the module's forward: swapped for this run
+        pf_pascal.ncnet_forward = quantized
     try:
-        stats = run_eval(ecfg, net=net, batch_size=SYNTH_BATCH,
-                         num_workers=0, progress=False)
+        stats = pf_pascal.run_eval(ecfg, net=net, batch_size=SYNTH_BATCH,
+                                   num_workers=0, progress=False)
     finally:
+        pf_pascal.ncnet_forward = forward
         if prev is None:
             os.environ.pop(STORE_ENV, None)
         else:
             os.environ[STORE_ENV] = prev
     return stats, os.path.join(tdir, "events.jsonl")
+
+
+def perturbed_log(src: str, dst: str, shift: float = 0.35) -> None:
+    """Write ``dst``: the event log ``src`` with every quality signal moved
+    up by ``shift`` (clipped at 1), other lines byte for byte.  A reference
+    seeded from it must turn ``--check`` of ``src`` red: the gate's
+    positive control."""
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")
+    out = []
+    for raw in lines:
+        try:
+            e = json.loads(raw)
+        except ValueError:
+            out.append(raw)
+            continue
+        if e.get("event") == "quality":
+            e["signals"] = {k: [min(1.0, v + shift) for v in vs]
+                            for k, vs in e["signals"].items()}
+        out.append(json.dumps(e).encode())
+    with open(dst, "wb") as f:
+        f.write(b"\n".join(out))
 
 
 def _load_logs(paths: List[str]):

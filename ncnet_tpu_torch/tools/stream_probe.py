@@ -61,6 +61,21 @@ def _percentiles(xs: List[float]) -> Dict[str, float]:
     }
 
 
+def _steady_launches(cfg, dev, cold: Dict[str, int], cold_passes: int,
+                     tracked: int, passes: int) -> Dict[str, int]:
+    """The kernel launches the steady segment's structure gives.  A tracked
+    dispatch runs the fine pass alone, in both match directions: one B8
+    gather and one B6 launch a layer of the NC stack each way.  A coarse
+    pass (a fallback frame's) launches what a cold frame's did.  The bf16
+    kernels launch only on a card, for a bf16 model."""
+    kernels = dev.type == "cuda" and cfg.half_precision
+    per_tracked = {"gather_tile_corr_bf16": 2 if kernels else 0,
+                   "nc_conv4d_bf16": (2 * len(cfg.ncons_kernel_sizes)
+                                      if kernels else 0)}
+    return {k: per_tracked[k] * tracked
+            + cold[k] // max(1, cold_passes) * passes for k in cold}
+
+
 def probe(tiny: bool = False, streams: int = 2, frames: int = 14,
           rate_hz: float = 8.0, side: int = 192,
           events_path: str = "", device=None) -> Dict[str, Any]:
@@ -165,6 +180,10 @@ def probe(tiny: bool = False, streams: int = 2, frames: int = 14,
             out["launches_steady"] = since(l0)
             out["tracked_dispatches_steady"] = eng.tracked_dispatches - td0
             out["coarse_passes_steady_delta"] = eng.coarse_passes - cp0
+            out["launches_steady_expected"] = _steady_launches(
+                cfg, dev, out["launches_cold"], out["coarse_passes_cold"],
+                out["tracked_dispatches_steady"],
+                out["coarse_passes_steady_delta"])
             out["expected_coarse_passes"] = len(served) - len(steady)
             out["tracked_dispatches"] = eng.tracked_dispatches
             out["recall"] = _percentiles(

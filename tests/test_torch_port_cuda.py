@@ -1458,7 +1458,7 @@ def test_stream_probe_launches_b8_and_b6_in_its_steady_segment(cuda):
                   for k, v in d["launches_cold"].items()}
     n_tracked = d["tracked_dispatches_steady"]
     n_coarse = d["coarse_passes_steady_delta"]
-    assert d["launches_steady"] == {
+    assert d["launches_steady"] == d["launches_steady_expected"] == {
         "gather_tile_corr_bf16": 2 * n_tracked
         + per_coarse["gather_tile_corr_bf16"] * n_coarse,
         "nc_conv4d_bf16": 6 * n_tracked

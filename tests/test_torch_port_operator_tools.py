@@ -394,25 +394,6 @@ def test_perf_regress_seed_is_refused_naming_a13(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def perturbed_copy(src, dst, shift=0.35):
-    """``src`` with every quality signal moved by ``shift`` (clipped)."""
-    with open(src, "rb") as f:
-        lines = f.read().split(b"\n")
-    out = []
-    for raw in lines:
-        try:
-            e = json.loads(raw)
-        except ValueError:
-            out.append(raw)
-            continue
-        if e.get("event") == "quality":
-            e["signals"] = {k: [min(1.0, v + shift) for v in vs]
-                            for k, vs in e["signals"].items()}
-        out.append(json.dumps(e).encode())
-    with open(dst, "wb") as f:
-        f.write(b"\n".join(out))
-
-
 @pytest.mark.parametrize("writer", PKGS)
 def test_quality_drift_agrees(writer, run_logs, tmp_path):
     jq, tq = tools("quality_drift")
@@ -425,7 +406,7 @@ def test_quality_drift_agrees(writer, run_logs, tmp_path):
     with open(refs["jax"], "rb") as a, open(refs["port"], "rb") as b:
         assert a.read() == b.read()
     bad = str(tmp_path / "perturbed.jsonl")
-    perturbed_copy(log, bad)
+    tq.perturbed_log(log, bad)
     for logs, code in (([log], 0), ([bad], 1)):
         for extra in ([], ["--json"]):
             argv = ["--check", *logs, "--ref", refs["port"], *extra]

@@ -109,6 +109,7 @@ def test_stream_probe_tiny_matches_jax(monkeypatch):
                              + doc["cold_frames"])
     # the CPU runs the plain twins: no kernel launch is counted
     assert set(td["launches_steady"].values()) == {0}
+    assert td["launches_steady_expected"] == td["launches_steady"]
     assert td["device"] == "cpu"
     # the probe's log replays the same under both packages' run_report,
     # and holds one stream_frame event a frame

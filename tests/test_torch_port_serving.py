@@ -465,6 +465,44 @@ def test_trace_ids_ride_every_event_of_a_request(pkg, tmp_path):
         assert {"serve_admit", "serve_result", "request_timeline"} <= names
 
 
+def test_timeline_ends_before_the_caller_holds_its_result(pkg, tmp_path):
+    """A request's ``request_timeline`` is the backend's slice in a
+    federated pod trace, and the router's slice ends when the reply
+    arrives.  The port ends the timeline where the request was settled,
+    before its caller can wake: with a slow result event (80 ms after its
+    append) the slice still ends before the ``serve_result`` stamp and
+    before the caller took the result.  The JAX service ends it after the
+    result event, 80 ms late here (ROADMAP C5)."""
+    class SlowResultLog(pkg.events.EventLog):
+        def emit(self, event, **fields):
+            super().emit(event, **fields)
+            if event == "serve_result":
+                time.sleep(0.08)
+
+    path = str(tmp_path / "events.jsonl")
+    held = []
+    with pkg.events.bound(SlowResultLog(path)):
+        svc, _ = fake_service(pkg)
+        svc.start()
+        for seed in range(3):
+            svc.submit(u8(seed=seed), u8(seed=seed)).result(timeout=30)
+            held.append(pkg.events.wall_now())
+        svc.stop()
+    _, events = pkg.events.replay_events(path)
+    result_t = {e["request"]: e["t"] for e in events
+                if e.get("event") == "serve_result"}
+    ends = {e["request"]: e["t0"] + e["total_ms"] * 1e-3 for e in events
+            if e.get("event") == "request_timeline"}
+    assert len(ends) == len(result_t) == len(held) == 3
+    rounding = 2e-6  # t0 to the µs, total_ms to the µs
+    for rid, held_t in zip(sorted(ends, key=ends.get), held):
+        if pkg.name == "torch":
+            assert ends[rid] <= result_t[rid] + rounding
+            assert ends[rid] <= held_t + rounding
+        else:
+            assert ends[rid] >= result_t[rid] + 0.08 - rounding
+
+
 # ---------------------------------------------------------------------------
 # failure handling (D4 cases stated)
 # ---------------------------------------------------------------------------

@@ -177,3 +177,31 @@ def test_clock_sync_sample_and_stamps(pkg, monkeypatch):
                                     "offset_s": 0.25, "rtt_s": 1.5})]
     stamps = wire.sync_stamps(5.0)
     assert stamps["recv_t"] == 5.0 and stamps["resp_t"] > 0
+
+
+def test_clock_sampler_emits_each_new_rtt_minimum(monkeypatch):
+    """The port's ``ClockSampler`` emits one round trip an interval and,
+    inside the interval, each round trip whose RTT is a new minimum: the
+    federation keeps a pair's minimum-RTT sample, so the log holds the
+    tightest one the client saw.  A throttle alone (the JAX client's)
+    keeps only the interval's first, here the 50 ms one (ROADMAP C5)."""
+    wire, _, events = load("torch")
+    seen = []
+    monkeypatch.setattr(events, "emit",
+                        lambda name, **f: seen.append((name, f["rtt_s"])))
+    monkeypatch.setattr(wire, "CLOCK_SYNC_INTERVAL_S", 3600.0)
+    sampler = wire.ClockSampler()
+    stamps = {"recv_t": 100.0, "resp_t": 100.0, "peer_run": "r"}
+
+    def round_trip(rtt, header=stamps):
+        sampler.observe("http://p:1", header, 100.0 - rtt / 2,
+                        100.0 + rtt / 2)
+
+    for rtt in (0.05, 0.06, 0.03, 0.04, 0.03, 0.02, 0.07):
+        round_trip(rtt)
+    round_trip(0.001, header={})  # no stamps: no sample
+    assert seen == [("clock_sync", 0.05), ("clock_sync", 0.03),
+                    ("clock_sync", 0.02)]
+    monkeypatch.setattr(wire, "CLOCK_SYNC_INTERVAL_S", 0.0)
+    round_trip(0.07)  # the interval has passed: a slower sample again
+    assert seen[-1] == ("clock_sync", 0.07) and len(seen) == 4
