@@ -331,6 +331,35 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (nothing lost; the dense bf16 400² stack takes the FFT tier, so no
      kernel launches); ``cli/point_transfer_demo --synthetic --device
      cuda`` (its points and PCK as JSON);
+  X. (after phase O) the ports of the root tools that had no counterpart
+     before (``ncnet_tpu_torch/tools``), each through its ``main`` in this
+     process with the kernels' counts set to 0 just before and read just
+     after, each printing its summary on a line of its own, any non-zero
+     exit ending the run: the kernel probes at full width
+     (``nc_resident_probe`` and ``nc_fused_lane_probe`` at 8 × 25⁴: B6
+     against the plain stack; ``nc_vjp_resident_probe`` for the PF-Pascal
+     and the IVD stacks: B3/B7 against its twin on the same activations;
+     ``sparse_corr_probe --tiny`` and at a 50² grid of 1024 channels for k
+     = 1, 2, 4, 8 with walls: B8 and the 6⁴ B6 tiles; ``eval_faults_probe``
+     at 25⁴: every tier within 0.1 of the plain stack and an injected device
+     failure retried on the same tier, bit-equal), ``train_probe`` at batch
+     16 of 400² bf16 (the ``base`` and ``fold`` combinations: the FFT
+     forward and B3), ``inloc_stage_probe`` at the InLoc shapes (the
+     tap-swap chain on B6), the formulation probes at the PF-Pascal shape
+     at batch 4 and at the InLoc and sharded shapes (``filter_stage``,
+     ``filter_combo``, ``xla_layer``, ``xla_conv``, ``inloc_filter``,
+     ``sharded_variant``; B5 where the chooser's auto route reaches it),
+     the gradient probes at their root tools' batch 8 of 25² features
+     (400² images), bf16 (``vjp``, ``vjp_sweep``, ``nc_grad_split``,
+     ``train_attr``), ``cp_fft_probe --tiny`` and its
+     ranks 4–32 at 25⁴ with walls; their measured memory rows in a ledger
+     of the phase; every timing cut to one differenced pair of 1 and 3
+     steps (``PROBE_TIMING_CAP``); then ``make_goldens --check`` (the
+     port's record against the committed goldens), ``parity_kit --all`` on
+     a reference ``.pth.tar`` written in the phase (the PF-Pascal
+     architecture, random weights; the reference twin on the CPU against
+     the port's forward on the card, PCK on 3 synthetic pairs) and
+     ``check_no_bare_print`` on the package;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -4703,7 +4732,9 @@ def inloc_matcher(torch, nc_fused_lane, conv4d_pallas, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nc_fused_lane.launches = 0
-    conv4d_pallas.launches = 0
+    # B5's count is read through the module's ``launches`` (a sum): reset
+    # the kernels' counts, not that name, which would hide them
+    conv4d_pallas.launches_by_kernel.update(tensor_core=0, cuda_core=0)
     # the eval loop's depth-2 pipeline: pair i+1 dispatched before pair i
     # is fetched; a pair's wall is the time between two fetches
     t0 = time.perf_counter()
@@ -6871,7 +6902,7 @@ def sharded_forward_check(torch, nc_fused_lane, conv4d_pallas, cfg, params,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         nc_fused_lane.launches = 0
-        conv4d_pallas.launches = 0
+        conv4d_pallas.launches_by_kernel.update(tensor_core=0, cuda_core=0)
         sharded = spatial_forward(cfg, params, src, tgt, mesh)
         torch.cuda.synchronize()
         launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
@@ -7087,13 +7118,20 @@ def leave(phase, facts=None, **files):
 
 
 def tool_run(module, argv):
-    """An operator tool's ``main(argv)`` in this process: (exit code, what
-    it printed)."""
+    """A tool's ``main(argv)`` in this process: (exit code, what it wrote
+    to stdout), through its ``_out`` writer too where it binds one."""
     import io
 
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = module.main(list(argv))
+    saved = getattr(module, "_out", None)
+    if saved is not None:
+        module._out = out.write
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = module.main(list(argv))
+    finally:
+        if saved is not None:
+            module._out = saved
     return rc, out.getvalue()
 
 
@@ -7409,6 +7447,156 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
     return {"stream_probe": stream_launches, "serve_probe": serve_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase X: the tier and stage probes, the goldens, the parity kit and the
+# print checker (ncnet_tpu_torch/tools, the root tools' counterparts)
+# ---------------------------------------------------------------------------
+
+# (n_long, reps) for every probe's differenced timing in phase X: the
+# probes' own (up to 8 and 3) would not fit the script's time
+PROBE_TIMING_CAP = (3, 1)
+# the training step's probe at the recipe's batch; the gradient probes at
+# their root tools' default batch (16 would not fit the script's time)
+TRAIN_BATCH_PROBES, GRAD_BATCH_PROBES = 16, 8
+# (module, argv, expected kernels: every one of them must launch)
+PROBE_RUNS = (
+    ("nc_resident_probe", ["8"], ("nc_conv4d_bf16",)),
+    ("nc_fused_lane_probe", ["8"], ("nc_conv4d_bf16",)),
+    ("nc_vjp_resident_probe", ["8", "pf"], ("nc_vjp",)),
+    ("nc_vjp_resident_probe", ["8", "ivd"], ("nc_vjp",)),
+    ("sparse_corr_probe", ["--tiny"], ("gather_tile_corr_bf16",)),
+    ("sparse_corr_probe", ["--k", "1,2,4,8", "--size", "50", "--c", "1024",
+                           "--time"],
+     ("gather_tile_corr_bf16", "nc_conv4d_bf16")),
+    ("eval_faults_probe", ["25"], ("nc_conv4d_bf16",)),
+    ("train_probe", [str(TRAIN_BATCH_PROBES), "bf16", "base=n,y,n,n",
+                     "fold=y,y,n,n"], ("nc_vjp",)),
+    ("inloc_stage_probe", [], ("nc_conv4d_bf16",)),
+    ("filter_stage_probe", ["4"], ()),
+    ("filter_combo_probe", ["4"], ()),
+    ("xla_layer_probe", ["4"], ()),
+    ("xla_conv_probe", ["4"], ()),
+    ("inloc_filter_probe", [], ("conv4d_small_cout",)),
+    ("sharded_variant_probe", [], ()),
+    ("vjp_probe", [str(GRAD_BATCH_PROBES), "bf16"], ()),
+    ("vjp_sweep_probe", [str(GRAD_BATCH_PROBES), "bf16"], ()),
+    ("nc_grad_split_probe", [str(GRAD_BATCH_PROBES), "bf16"], ()),
+    ("train_attr_probe", [str(GRAD_BATCH_PROBES), "bf16", "y"], ()),
+    ("cp_fft_probe", ["--tiny"], ()),
+    ("cp_fft_probe", ["--ranks", "4,8,16,32", "--size", "25", "--time"], ()),
+)
+
+
+def launch_total(n):
+    """A kernel's launches in a probe's counts (B3's: its three kernels)."""
+    return sum(n.values()) if isinstance(n, dict) else n
+
+
+def tool_summary(text):
+    """The ``summary {json}`` line a probe prints, or its one-line JSON
+    report."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("summary "):
+            return json.loads(line[len("summary "):])
+        if line.startswith("{"):
+            return json.loads(line)
+    return None
+
+
+def probes_phase(torch, nc_fused_lane, vjp, sparse_corr, conv4d_pallas, dev):
+    """Phase X: every port of a root tool without a counterpart before
+    this slice, through its ``main`` at full width, its counts set to 0
+    just before and read just after; returns the kernels' launches by
+    tool."""
+    import importlib
+    import tempfile
+
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.data.synthetic import write_pf_pascal_like
+    from ncnet_tpu_torch.models.ncnet import init_ncnet
+    from ncnet_tpu_torch.observability import memory as obs_memory
+    from ncnet_tpu_torch.tools import _probe
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probes_")
+    os.environ["NCNET_TPU_MEMORY_LEDGER"] = os.path.join(tmp, "ledger.json")
+    saved_store = os.environ.get("NCNET_TPU_PERF_STORE")
+    os.environ["NCNET_TPU_PERF_STORE"] = "off"  # the parity kit's PCK run
+    _probe.TIMING_CAP = PROBE_TIMING_CAP
+
+    def counts():
+        return {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "nc_vjp": dict(vjp.launches),
+                "gather_tile_corr_bf16": sparse_corr.launches,
+                "conv4d_small_cout": conv4d_pallas.launches}
+
+    def reset():
+        nc_fused_lane.launches = sparse_corr.launches = 0
+        for k in vjp.launches:
+            vjp.launches[k] = 0
+        for k in conv4d_pallas.launches_by_kernel:
+            conv4d_pallas.launches_by_kernel[k] = 0
+
+    # the parity kit's synthetic reference checkpoint (the PF-Pascal
+    # architecture, random weights from a seed) and a PF-Pascal-like split
+    kit_cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=(5, 5, 5),
+                          ncons_channels=(16, 16, 1))
+    ckpt = os.path.join(tmp, "synthetic_ncnet.pth.tar")
+    reference_checkpoint(torch, ckpt, kit_cfg, init_ncnet(kit_cfg, 5))
+    pf_root = os.path.join(tmp, "pf")
+    write_pf_pascal_like(pf_root, n_pairs=3, image_hw=(96, 96),
+                         shift=(16, 16))
+    runs = PROBE_RUNS + (
+        ("make_goldens", ["--check"], ()),
+        ("parity_kit", ["--all", "--pfpascal_checkpoint", ckpt,
+                        "--ivd_checkpoint", "", "--dataset", pf_root,
+                        "--image_size", "64", "--quiet"], ()),
+        ("check_no_bare_print", [], ()),
+    )
+    launches = {}
+    for name, argv, expected in runs:
+        module = importlib.import_module(f"ncnet_tpu_torch.tools.{name}")
+        key = (name if name not in launches
+               else f"{name}:{argv[-1].lstrip('-')}")
+        reset()
+        t0 = time.perf_counter()
+        rc, text = tool_run(module, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches[key] = counts()
+        summary = tool_summary(text)
+        print(f"probes: {key} {' '.join(argv)}: exit {rc} in {secs:.1f} s, "
+              f"launches {got}", flush=True)
+        if summary is None:  # the tiny modes and the repo tools
+            for line in text.strip().splitlines()[-12:]:
+                print(f"probes: {key}: {line}", flush=True)
+        else:
+            print("probes: " + key + " summary " + json.dumps(
+                summary, sort_keys=True, default=str), flush=True)
+        missing = [k for k in expected if not launch_total(got[k])]
+        if rc or missing:
+            print(text, flush=True)
+            raise SystemExit(f"probes: {key} exited {rc} or launched none of "
+                             f"{missing}")
+    rows = {r["program"]: r for r in obs_memory.ledger_rows()
+            if r["program"] in ("nc_vjp_resident_probe", "nc_vjp_xla_ad",
+                                "sparse_corr_probe", "cp_fft_probe")}
+    print(f"probes: measured memory rows {sorted(rows)} in the ledger",
+          flush=True)
+    if len(rows) != 4:
+        raise SystemExit("probes: a probe recorded no measured memory row")
+    _probe.TIMING_CAP = None
+    os.environ.pop("NCNET_TPU_MEMORY_LEDGER")
+    if saved_store is None:
+        os.environ.pop("NCNET_TPU_PERF_STORE")
+    else:
+        os.environ["NCNET_TPU_PERF_STORE"] = saved_store
+    shutil.rmtree(tmp)
+    print(f"probes: phase X in {time.perf_counter() - t_phase:.1f} s on "
+          f"{card_line()}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7502,6 +7690,15 @@ def main() -> int:
     mark("M")
     probe_launches = tools_phase(torch, nc_fused_lane, sparse_corr, dev)
     mark("O")
+    x_launches = probes_phase(torch, nc_fused_lane, nc_fused_lane_vjp,
+                              sparse_corr, conv4d_pallas, dev)
+    mark("X")
+
+    def x_paths(kernel):
+        # phase X: each probe that launched the kernel, read with its counts
+        # set to 0 just before it
+        return {f"probe:{k}": v[kernel] for k, v in x_launches.items()
+                if launch_total(v[kernel])}
     nc_by_path = {"serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
@@ -7525,12 +7722,13 @@ def main() -> int:
                   # the hB-sharded InLoc forward runs the conv4d formulations
                   "inloc_sharded": sharded_numbers["launches"]["nc_conv4d_bf16"],
                   # phase O: the operator tools' probes at full width
-                  **{k: v["nc_conv4d_bf16"] for k, v in probe_launches.items()}}
+                  **{k: v["nc_conv4d_bf16"] for k, v in probe_launches.items()},
+                  **x_paths("nc_conv4d_bf16")}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
                      for k, v in fit_launches.items()},
-                  **trunk_b3}
+                  **trunk_b3, **x_paths("nc_vjp")}
     gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
                       "serve_service": service_launches["gather_tile_corr_bf16"],
@@ -7540,7 +7738,8 @@ def main() -> int:
                          for k, v in loop_launches.items()},
                       **trunk_b4,
                       **{k: v["gather_tile_corr_bf16"]
-                         for k, v in probe_launches.items()}}
+                         for k, v in probe_launches.items()},
+                      **x_paths("gather_tile_corr_bf16")}
 
     kernels = [{
         "name": "nc_conv4d_bf16",
@@ -7598,10 +7797,13 @@ def main() -> int:
         "source": "ncnet_tpu_torch/csrc/conv4d_small_cout.cu",
         # _fwd_impl, the pallas_call behind conv4d_small_cout (:133)
         "replaces": "ncnet_tpu/ops/conv4d_pallas.py:146",
-        "launches": sum(b5_by_path.values()),
-        # the hB-sharded InLoc forward convolves valid along hB: never B5
+        "launches": sum(b5_by_path.values())
+        + sum(x_paths("conv4d_small_cout").values()),
+        # the hB-sharded InLoc forward convolves valid along hB: never B5;
+        # phase X's probes where the chooser's auto route reaches it
         "launches_by_path": {**b5_by_path, "inloc_sharded": sharded_numbers[
-            "launches"]["conv4d_small_cout"]},
+            "launches"]["conv4d_small_cout"],
+            **x_paths("conv4d_small_cout")},
         # k = 3, 5 on the tensor cores (f32 as three bf16 products)
         "design": "tensor-core, PR 8",
         # one launch at the fp32 800² path's shape (4, 50⁴, 16) -> 1 (its

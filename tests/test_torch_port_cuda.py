@@ -1501,3 +1501,42 @@ def test_perf_regress_check_on_the_cards_store(cuda, tmp_path):
     assert rc == (1 if any(f["status"] == "regression" for f in direct)
                   else 0)
     assert direct and direct[0]["device_kind"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_make_goldens_check_on_the_card(cuda, tmp_path, capsys):
+    """The port's golden record made on the card (TF32 off) against the
+    committed goldens at the JAX golden test's tolerances: every key
+    within them, as on the CPU."""
+    from ncnet_tpu_torch.tools import make_goldens
+
+    out = str(tmp_path / "record.npz")
+    assert make_goldens.main(["--out", out, "--check"]) == 0
+    text = capsys.readouterr().out
+    assert "17/17 keys within tolerance" in text
+    assert torch.cuda.get_device_name(0) in text
+    assert sorted(np.load(out).files) == sorted(
+        np.load(make_goldens.GOLDEN).files)
+
+
+@pytest.mark.cuda
+def test_eval_faults_probe_retries_on_the_same_tier(cuda):
+    """``eval_faults_probe`` at 25⁴ on the card: every tier within 0.1 of
+    the plain stack, B6 launched, and the injected device failure's retry
+    on the chooser's tier (FFT at 25⁴) bit-equal to the first call."""
+    from ncnet_tpu_torch.tools import _probe, eval_faults_probe
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = _probe.normal_stack(gen, eval_faults_probe.KERNELS,
+                                 eval_faults_probe.CHANNELS, cuda)
+    x = (torch.randn((1,) + (25,) * 4 + (1,), generator=gen, device=cuda)
+         * eval_faults_probe.X_SCALE).to(torch.bfloat16)
+    before = nc_fused_lane.launches
+    res = eval_faults_probe.run_tiers(params, x)
+    assert nc_fused_lane.launches - before == 6  # two B6 stacks of 3 layers
+    assert all(e < eval_faults_probe.TOLERANCE for e in res["errors"].values())
+    rc = eval_faults_probe.retry_check(params, x)
+    assert rc["failure_kinds"] == ["device"]
+    assert rc["start"] == rc["retry_tier"] == "fft"
+    assert rc["bit_equal"]
+    assert eval_faults_probe.main(["25"]) == 0

@@ -261,3 +261,31 @@ def test_compiled_layer_shapes_constant_is_the_sources():
     transposed = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_TRANSPOSE_SHAPES")
     assert FORWARD_LAYER_SHAPES == set(fwd)
     assert VJP_LAYER_SHAPES == set(bwd) == set(transposed)
+
+
+def test_b5_launch_count_is_never_shadowed():
+    """B5's ``launches`` is a module ``__getattr__`` summing
+    ``launches_by_kernel``: assigning the name would hide every later
+    launch (a phase reading 0 B5 whatever ran).  ``chip_smoke.py`` resets
+    the kernels' counts, never the name, and the sum follows them."""
+    import ast
+
+    from ncnet_tpu_torch.ops import conv4d_pallas
+
+    tree = ast.parse(Path(chip_smoke.__file__).read_text())
+    shadowing = [node.lineno for node in ast.walk(tree)
+                 if isinstance(node, (ast.Assign, ast.AugAssign))
+                 for t in (node.targets if isinstance(node, ast.Assign)
+                           else [node.target])
+                 for a in ast.walk(t)
+                 if isinstance(a, ast.Attribute) and a.attr == "launches"
+                 and isinstance(a.value, ast.Name)
+                 and a.value.id == "conv4d_pallas"]
+    assert shadowing == []
+    saved = dict(conv4d_pallas.launches_by_kernel)
+    try:
+        conv4d_pallas.launches_by_kernel.update(tensor_core=2, cuda_core=1)
+        assert "launches" not in vars(conv4d_pallas)
+        assert conv4d_pallas.launches == 3
+    finally:
+        conv4d_pallas.launches_by_kernel.update(saved)

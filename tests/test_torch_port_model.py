@@ -417,6 +417,18 @@ def test_port_imports_no_jax():
         "tools/rollout", "tools/stream_probe", "tools/serve_probe",
         "utils/plot", "localization/visualize",
         "cli/point_transfer_demo")} <= names
+    # the root tools without a counterpart before A15: the tier and stage
+    # probes, the goldens, the parity kit and its reference twin, the print
+    # checker
+    assert {f"ncnet_tpu_torch/tools/{m}.py" for m in (
+        "nc_resident_probe", "nc_fused_lane_probe", "nc_vjp_resident_probe",
+        "sparse_corr_probe", "eval_faults_probe", "train_probe",
+        "inloc_stage_probe", "filter_stage_probe", "filter_combo_probe",
+        "xla_layer_probe", "xla_conv_probe", "inloc_filter_probe",
+        "sharded_variant_probe", "vjp_probe", "vjp_sweep_probe",
+        "nc_grad_split_probe", "train_attr_probe", "cp_fft_probe",
+        "check_no_bare_print", "make_goldens", "parity_kit",
+        "reference_twin", "_probe")} <= names
     bad = []
     for path in files:
         # matplotlib (not on the card) only inside the functions that draw
@@ -428,8 +440,8 @@ def test_port_imports_no_jax():
         for name in _imported_modules(path):
             root = name.split(".")[0]
             if (root in ("jax", "jaxlib", "ncnet_tpu", "tools", "_timing",
-                         "pandas")
-                    or root.startswith("jax_")):
+                         "pandas", "tests", "conftest")
+                    or root.startswith(("jax_", "test_", "torch_port_"))):
                 bad.append(f"{path.relative_to(REPO)}: {name}")
             # PIL only in the JPEG converter, which imports it when it runs
             if root == "PIL" and path.name != "convert_images.py":
