@@ -319,7 +319,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (N's rollouts go through ``tools/rollout.py``: ``post_rollout`` and
      ``watch``); ``perf_regress --check`` on the stores L and F filled,
      its findings those of ``check_regressions`` called here, and
-     ``--seed`` refused; ``quality_drift`` green on L's log against a
+     ``--seed`` of a missing artefact refused; ``quality_drift`` green on L's log against a
      reference ``--seed-ref`` wrote from it, red (exit 1) against one from
      a perturbed copy.  Then ``stream_probe`` at full width (ResNet-101,
      the (5, 5, 5) / (16, 16, 1) bf16 stack, ``sparse_topk=4``; 2 streams
@@ -353,13 +353,23 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (400² images), bf16 (``vjp``, ``vjp_sweep``, ``nc_grad_split``,
      ``train_attr``), ``cp_fft_probe --tiny`` and its
      ranks 4–32 at 25⁴ with walls; their measured memory rows in a ledger
-     of the phase; every timing cut to one differenced pair of 1 and 3
+     of the phase; every timing cut to one differenced pair of 1 and 2
      steps (``PROBE_TIMING_CAP``); then ``make_goldens --check`` (the
      port's record against the committed goldens), ``parity_kit --all`` on
      a reference ``.pth.tar`` written in the phase (the PF-Pascal
      architecture, random weights; the reference twin on the CPU against
      the port's forward on the card, PCK on 3 synthetic pairs) and
      ``check_no_bare_print`` on the package;
+  Z. (after phase X) the port's bench as a user runs it: ``python -m
+     ncnet_tpu_torch.tools.bench --only forward,quality,stages,filter,
+     memory,corr,sparse`` in a process of its own at full width, recording
+     into a temporary perf store: exit 0, one JSON line whose envelope
+     names this card, every metric finite, every roofline share at most
+     100 %, the bf16 quality tier and the stage tier ``fft`` at 25⁴, B8 and
+     B6 launched as the sparse section's counted calls give them (2 and 6
+     a coarse-to-fine call, 3 B6 a dense 2× filter) and no kernel in the
+     other sections; then ``perf_regress --seed`` of that line into the
+     store (as many records as the run wrote) and ``--check`` exit 0;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -383,17 +393,21 @@ if not os.path.isdir(os.path.join(HERE, "ncnet_tpu_torch")):
     sys.exit("chip_smoke: run it from a checkout of the repository")
 sys.path.insert(0, HERE)
 
-from ncnet_tpu_torch.observability.metrics import (  # noqa: E402
-    PEAK_BF16_TFLOPS,
-    PEAK_HBM_GBPS,
+from ncnet_tpu_torch.models.ncnet import calibrate_trunk  # noqa: E402
+
+# the kernels' work and bounds: one copy, in the package
+from ncnet_tpu_torch.observability.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_F32_FLOPS,
+    b5_work,
+    bound,
+    chain_work,
+    dw_work,
+    gather_work,
+    l2_work,
+    stack_work,
 )
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W, from
-# the port's peak tables
-H100 = "NVIDIA H100 80GB HBM3"
-PEAK_BF16_FLOPS = PEAK_BF16_TFLOPS[H100] * 1e12
-PEAK_F32_FLOPS = 67e12    # float32 outside the tensor cores
-PEAK_HBM_BYTES_PER_S = PEAK_HBM_GBPS[H100] * 1e9
 TOLERANCE = 1e-2          # max|kernel − plain| / max|plain|, bf16 outputs
 # The filtered volume of the whole forward, kernel path vs plain path.  The
 # two stacks sum in different orders, so a few bf16 outputs round one ulp
@@ -635,78 +649,6 @@ def stack_params(kernels, channels, seed: int, device):
     return params
 
 
-def stack_work(shape, kernels, channels, c_in=1, backward=False,
-               need_dx=False):
-    """(FLOP, bytes) a stack of layers on a ``c_in``-channel volume needs:
-    multiply-adds only at taps inside the volume (same padding), each
-    input, weight and output byte once (bf16).
-
-    ``backward``: the stack's backward from its saved activations instead:
-    per layer dW (the forward's count of multiply-adds) and the input
-    gradient (the same count again), which layer 0 needs only with
-    ``need_dx``; it reads every saved activation, the cotangent and the
-    weights once and writes dW, db (and ``dx``) once."""
-    b, *dims = shape
-    cells = _prod(dims)
-    flops, nbytes = 0, 2 * b * cells * c_in
-    for li, (k, c_out) in enumerate(zip(kernels, channels)):
-        layer = 2 * b * _taps(dims, k) * c_in * c_out
-        if backward:
-            flops += layer * (2 if li > 0 or need_dx else 1)
-            nbytes += 2 * 2 * (k ** 4 * c_in * c_out + c_out)
-            nbytes += 2 * b * cells * c_out  # the saved output
-        else:
-            flops += layer
-            nbytes += 2 * (k ** 4 * c_in * c_out + c_out)
-        c_in = c_out
-    nbytes += 2 * b * cells * channels[-1]  # the output, or the cotangent
-    if backward and need_dx:
-        nbytes += 2 * b * cells
-    return flops, nbytes
-
-
-def chain_work(shape, k, c):
-    """(FLOP, bytes) the tap-swap chain (``models/ncnet.py::
-    tap_swap_chain``) of a two-layer (C, 1) stack of kernel ``k`` needs on
-    a 1-channel volume: the fused first layer (1 → 2C), and the second
-    layer and its tap-swapped twin (C → 1 each) on the two halves; the
-    zero blocks of the chain's block-diagonal 2C → 2 layer are no work.
-    Bytes: the input, those weights and the 2-channel output once (bf16)."""
-    b, *dims = shape
-    taps, cells = _taps(dims, k), b * _prod(dims)
-    flops = 2 * b * taps * 2 * c + 2 * (2 * b * taps * c)
-    nbytes = 2 * (cells + (k ** 4 * 2 * c + 2 * c) + 2 * (k ** 4 * c + 1)
-                  + 2 * cells)
-    return flops, nbytes
-
-
-def dw_work(shape, k, c_in, c_out):
-    """(FLOP, bytes) of one layer's dW and db (``nc_vjp_dw``): the
-    forward's multiply-adds at taps inside the volume; it reads the input,
-    the saved output and the cotangent (bf16) once and writes ``gz`` (bf16)
-    and dW, db (f32) once."""
-    b, *dims = shape
-    cells = b * _prod(dims)
-    flops = 2 * b * _taps(dims, k) * c_in * c_out
-    nbytes = 2 * cells * (c_in + 3 * c_out) + 4 * (k ** 4 * c_in * c_out + c_out)
-    return flops, nbytes
-
-
-def _taps(dims, k) -> int:
-    """(cell, tap) pairs of a same-padded size-``k`` conv on a volume of
-    ``dims`` whose tap lies inside the volume."""
-    d = k // 2
-    return _prod(sum(min(n - 1, x + d) - max(0, x - d) + 1 for x in range(n))
-                 for n in dims)
-
-
-def _prod(xs) -> int:
-    out = 1
-    for x in xs:
-        out *= int(x)
-    return out
-
-
 def normalized_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
@@ -779,20 +721,20 @@ def check_kernels(torch, nc_fused_lane, dev):
             raise SystemExit(f"kernel disagrees with its plain twin at {name}")
         flops, nbytes = stack_work(shape, kernels, channels)
         if main is None:
-            iters = 3
-            # in turns: kernel, plain, kernel, plain
+            # in turns: kernel, plain, kernel, plain; the plain twin (~1.8
+            # s a call) one call a turn
+            iters, plain_iters = 3, 1
             ms_k = [cuda_ms(lambda: nc_fused_lane.nc_stack_resident(params, x), iters)]
-            ms_p = [cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), iters)]
+            ms_p = [cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), plain_iters)]
             ms_k.append(cuda_ms(lambda: nc_fused_lane.nc_stack_resident(params, x), iters))
-            ms_p.append(cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), iters))
+            ms_p.append(cuda_ms(lambda: nc_fused_lane.nc_stack_reference(params, x), plain_iters))
             layer_times(torch, nc_fused_lane, name, shape, kernels, channels,
                         params, x, iters)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+            bound_ms, bound_by = bound(flops, nbytes)
             main = {
                 "max_abs_err": max_abs, "normalized_err": err,
                 "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound_ms, "bound_by": bound_by,
             }
             print(f"timing {name}: kernel {ms_k} ms, plain {ms_p} ms, "
                   f"{flops:.4g} FLOP, {nbytes:.4g} bytes, "
@@ -859,9 +801,10 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
             run_k = lambda: vjp.stack_vjp(params, acts, cot, need_dx=False)  # noqa: E731
             run_p = lambda: vjp.stack_vjp(params, acts, cot, need_dx=False,  # noqa: E731
                                           twin=True)
-            ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, iters)]
+            # the twin (~0.8 s a call) one call a turn
+            ms_k, ms_p = [cuda_ms(run_k, iters)], [cuda_ms(run_p, 1)]
             ms_k.append(cuda_ms(run_k, iters))
-            ms_p.append(cuda_ms(run_p, iters))
+            ms_p.append(cuda_ms(run_p, 1))
             gamma, dw_ms = cot, [0.0] * len(params)
             for li in reversed(range(len(params))):
                 w, k = params[li]["w"], int(params[li]["w"].shape[0])
@@ -870,11 +813,10 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
                     acts[li], acts[li + 1], gamma, k), iters)
                 red_ms = cuda_ms(lambda: vjp.nc_vjp_reduce(part), iters)
                 f, nb = dw_work(shape, k, int(w.shape[4]), int(w.shape[5]))
-                t_ops, t_bytes = f / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES_PER_S
+                bound_ms, bound_by = bound(f, nb)
                 line = (f"backward layer {li} {tuple(w.shape)}: dW/db "
                         f"{dw_ms[li]:.3f} ms ({f:.5g} FLOP, {nb:.4g} bytes, "
-                        f"bound {max(t_ops, t_bytes) * 1e3:.4f} ms by "
-                        f"{'operations' if t_ops >= t_bytes else 'bytes'}, "
+                        f"bound {bound_ms:.4f} ms by {bound_by}, "
                         f"{f / dw_ms[li] / 1e9:.2f} TFLOP/s; first design "
                         f"{FIRST_DESIGN_DW_MS[li]} ms), reduce {red_ms:.3f} ms")
                 if li > 0:
@@ -883,12 +825,11 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
                     gamma = vjp.nc_conv4d_transpose(gz, w)
                 print(line, flush=True)
             flops, nbytes = stack_work(shape, kernels, channels, backward=True)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+            bound_ms, bound_by = bound(flops, nbytes)
             main = {
                 "max_abs_err": max_abs, "normalized_err": err,
                 "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "dw_ms": dw_ms,
             }
             print(f"timing backward {name} (no dx): kernels {ms_k} ms, plain "
@@ -896,20 +837,6 @@ def check_backward(torch, nc_fused_lane, vjp, dev):
                   f"{flops / main['ms'] / 1e9:.2f} TFLOP/s (first design "
                   f"{FIRST_DESIGN_BACKWARD_MS} ms)", flush=True)
     return main
-
-
-def b5_work(shape, k, c_in, c_out, dtype):
-    """(FLOP, bytes, bf16 products) of one B5 launch: multiply-adds only at
-    taps inside the volume; the volume, weights and output once each; the
-    tensor-core kernel computes an f32 volume as three bf16 products (each
-    at the bf16 peak), a bf16 volume as one."""
-    b, *dims = shape
-    cells = _prod(dims)
-    size = 4 if dtype == "float32" else 2
-    flops = 2 * b * _taps(dims, k) * c_in * c_out
-    nbytes = size * (b * cells * c_in + k ** 4 * c_in * c_out
-                     + b * cells * c_out)
-    return flops, nbytes, 3 if dtype == "float32" else 1
 
 
 def b5_inputs(torch, shape, k, c_in, c_out, dtype, dev, positive=False):
@@ -972,28 +899,29 @@ def check_b5(torch, conv4d_pallas, dev):
         run_k = lambda: conv4d_pallas.conv4d_small_cout_cuda(x, w)  # noqa: E731
         run_c = lambda: conv4d_pallas._launch(x, w, tensor_core=False)  # noqa: E731
         run_p = lambda: conv4d_pallas.conv4d_small_cout_reference(x, w)  # noqa: E731
-        # in turns: plain, kernel, first design, first design, kernel, plain
-        ms_p = [cuda_ms(run_p, iters)]
+        # in turns: plain, kernel, first design, first design, kernel,
+        # plain; the plain twin (cuDNN f32 unroll, ~0.8 s a call at the
+        # main shape) one call a turn
+        ms_p = [cuda_ms(run_p, 1)]
         ms_k = [cuda_ms(run_k, iters)]
         ms_c = [cuda_ms(run_c, iters), cuda_ms(run_c, iters)]
         ms_k.append(cuda_ms(run_k, iters))
-        ms_p.append(cuda_ms(run_p, iters))
+        ms_p.append(cuda_ms(run_p, 1))
         w_x = w.to(x.dtype)
         fold_ms = cuda_ms(lambda: conv4d(x, w_x, variant="coutfold"), iters)
         flops, nbytes, products = b5_work(shape, k, c_in, c_out, dtype)
-        t_ops = products * flops / PEAK_BF16_FLOPS
-        t_bytes = nbytes / PEAK_HBM_BYTES_PER_S
+        bound_ms, bound_by = bound(flops, nbytes, products)
         numbers = {
             "max_abs_err": errs["kernel"][0], "normalized_err": errs["kernel"][1],
             "cuda_core_normalized_err": errs["first design"][1],
             "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
             "cuda_core_ms": sum(ms_c) / 2,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "coutfold_ms": fold_ms,
         }
         # the FLOP at the CUDA cores' f32 peak: context, printed only
-        cuda_core_bound_ms = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
+        cuda_core_bound_ms = bound(flops, nbytes,
+                                   peak_flops=PEAK_F32_FLOPS)[0]
         print(f"timing B5 {name} (one launch): kernel {ms_k} ms, first design "
               f"(CUDA cores) {ms_c} ms, plain (unroll, cuDNN f32) {ms_p} ms, "
               f"context: the coutfold formulation (cuDNN f32) {fold_ms:.4f} "
@@ -1331,34 +1259,6 @@ def step_check(loss_k, grads_k, loss_t, grads_t, control, scores):
         raise SystemExit("the training step disagrees with the twins' step")
 
 
-def calibrate_trunk(mc, params, images) -> None:
-    """Set every BatchNorm of the frozen trunk to the statistics of its
-    input on ``images``, layer after layer in one pass (a data-dependent
-    init; a trained trunk's running statistics are its data's).  With the
-    raw init (mean 0, variance 1) a random ResNet-101's layer3 features are
-    near-parallel from cell to cell (``feature_contrast``), every bf16 pair
-    score rounds to the same value, and the loss and its gradient are
-    rounding noise."""
-    import torch
-
-    from ncnet_tpu_torch.models import backbone
-    from ncnet_tpu_torch.models.ncnet import extract_features
-
-    real = backbone._bn
-
-    def bn(x, p):
-        p["mean"] = x.mean(dim=(0, 2, 3))
-        p["var"] = x.var(dim=(0, 2, 3), unbiased=False)
-        return real(x, p)
-
-    backbone._bn = bn
-    try:
-        with torch.no_grad():
-            extract_features(mc, params, images)
-    finally:
-        backbone._bn = real
-
-
 def feature_contrast(mc, params, batch):
     """(mean, mean of the row maxima) of the cosine between a source cell's
     trunk feature and every target cell's of its pair."""
@@ -1599,16 +1499,6 @@ def gather_call(torch, sparse_corr, b, side, c, factor, halo, k, dev, seed):
     return args, kw, want, tiles
 
 
-def gather_work(fa_p2, fb, rows, k):
-    """(FLOP, bytes) of one B4 launch: every output's C multiply-adds;
-    fa_p2, fb, the two index arrays and the bf16 output once each."""
-    b, n, p2, c = (int(d) for d in fa_p2.shape)
-    flops = 2 * b * n * k * p2 * p2 * c
-    nbytes = (2 * fa_p2.numel() + 2 * fb.numel() + 2 * 4 * rows.numel()
-              + 2 * b * n * k * p2 * p2)
-    return flops, nbytes
-
-
 def check_gather(torch, sparse_corr, dev):
     """Phase A: B4 against its twin at every shape, two launches
     bit-identical; the serving shape's times."""
@@ -1644,12 +1534,11 @@ def check_gather(torch, sparse_corr, dev):
             lib_ms = cuda_ms(lambda: torch.einsum("bnic,bnkjc->bnkij",
                                                   fa_p2, fb_p2), iters)
             flops, nbytes = gather_work(fa_p2, fb, rows, k)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+            bound_ms, bound_by = bound(flops, nbytes)
             main = {
                 "max_abs_err": max_abs, "normalized_err": err,
                 "ms": sum(ms_k) / 2, "plain_ms": sum(ms_p) / 2,
-                "bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms,
             }
             print(f"timing B4 {name} (one launch): kernel {ms_k} ms, plain "
@@ -1660,22 +1549,6 @@ def check_gather(torch, sparse_corr, dev):
                   f"TFLOP/s (first design "
                   f"{FIRST_DESIGN_MS['gather_tile_corr_bf16']} ms)", flush=True)
     return main
-
-
-def l2_work(batch):
-    """(FLOP, bytes, GEMM FLOP) of one T1 launch: multiply-adds only at taps
-    inside the 25⁴ volume (16 → 16, k = 5); the padded fused-lane input,
-    the weights, bias, mask and the output once each; and, as context, the
-    GEMM formulation's count (400 × 400 per 841-lane row)."""
-    from ncnet_tpu_torch.tools.pallas_l2_probe import C, K, KL, S, SP
-
-    taps = _prod(sum(min(S - 1, x + K // 2) - max(0, x - K // 2) + 1
-                     for x in range(S)) for _ in range(4))
-    flops = 2 * batch * taps * C * C
-    nbytes = (2 * batch * SP * SP * C * KL + 2 * (K * K * C) ** 2 + 2 * C
-              + 2 * KL + 2 * batch * S * S * C * KL)
-    gemm = 2 * batch * S * S * (K * K * C) ** 2 * KL
-    return flops, nbytes, gemm
 
 
 def probe_tools(torch, dev):
@@ -1761,11 +1634,10 @@ def probe_tools(torch, dev):
     coutfold_ms = cuda_ms(
         lambda: torch.relu(conv4d(x, w, bias, variant="coutfold")), 3)
     flops, nbytes, gemm = l2_work(L2_BATCH)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    bound_ms, bound_by = bound(flops, nbytes)
     main = dict(t1["bf16"])
     main.update({
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes, "gemm_flops": gemm,
         "gemm_bound_ms": gemm / PEAK_BF16_FLOPS * 1e3,
         "coutfold_ms": coutfold_ms, "f32_y": t1["f32"],
@@ -4601,12 +4473,11 @@ def check_chain(torch, nc_fused_lane, dev):
     flops, nbytes = chain_work(shape, 3, 16)
     # what the kernel computes: the block-diagonal layer's zero blocks too
     padded = stack_work(shape, (3, 3), (32, 2))[0]
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    bound_ms, bound_by = bound(flops, nbytes)
     numbers = {
         "shape": list(shape), "max_abs_err": max_abs, "normalized_err": err,
         "ms": sum(ms_c) / 2, "plain_ms": ms_p,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "two_pass_ms": sum(ms_t) / 2, "layer_ms": layers,
     }
     print(f"inloc chain: the chain on {shape} vs its twin: max_abs_err "
@@ -4655,9 +4526,9 @@ def check_unfused(torch, dev):
         del got, want
         ms_u, ms_t = [], []
         for _ in range(2):  # in turns: unfused, two-pass
-            ms_u.append(cuda_ms(run, 3))
+            ms_u.append(cuda_ms(run, 1))
             with routed(ncnet_mod, "tap_swap_fusable", lambda p: False):
-                ms_t.append(cuda_ms(run, 3))
+                ms_t.append(cuda_ms(run, 1))
     torch.cuda.empty_cache()
     print(f"inloc unfused: fp32 (16, 1) stack on {shape}: the unfused "
           f"tap-swap form ({len(swaps)} transposes) vs the two-pass form: "
@@ -6717,11 +6588,10 @@ def gather_at_channels(torch, sparse_corr, c, dev):
         fb, tiles.ib, tiles.jb).reshape(got.shape[:4] + (c,))
     lib = cuda_ms(lambda: torch.einsum("bnic,bnkjc->bnkij", fa_p2, fb_p2), 10)
     flops, nbytes = gather_work(fa_p2, fb, rows, k)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+    bound_ms, bound_by = bound(flops, nbytes)
     out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
            "normalized_err": err, "ms": sum(ms) / 2, "plain_ms": sum(plain) / 2,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": lib}
     print(f"timing B4 {name} at C={c} (one launch): kernel {ms} ms, plain "
           f"{plain} ms, library (einsum on pre-gathered patches) {lib:.4f} "
@@ -7344,8 +7214,8 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
                                           "--json"])
     found = json.loads(text)["findings"]
     direct = json.loads(json.dumps(perfstore.check_regressions(records)))
-    rc_seed, _ = tool_run(perf_regress, ["--seed", "BENCH.json",
-                                         "--store", store])
+    rc_seed, _ = tool_run(perf_regress, [
+        "--seed", os.path.join(tmp, "BENCH_missing.json"), "--store", store])
     log = LEFT["L"]["events"]
     green, red = (os.path.join(tmp, f"ref_{n}.jsonl") for n in ("green", "red"))
     bad = os.path.join(tmp, "perturbed.jsonl")
@@ -7357,9 +7227,10 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
     print(f"tools: perf_regress --check on {len(records)} records of "
           f"phases L and F: exit {rc_pr}, {len(found)} findings "
           f"({sorted({f['status'] for f in found})}), equal to "
-          f"check_regressions: {found == direct}; --seed refused with exit "
-          f"{rc_seed}; quality_drift on L's log: seeded {rc_g1}, checked "
-          f"{rc_g2} (green), against a perturbed copy's reference "
+          f"check_regressions: {found == direct}; --seed of a missing "
+          f"artefact refused with exit {rc_seed}; quality_drift on L's "
+          f"log: seeded {rc_g1}, checked {rc_g2} (green), against a "
+          f"perturbed copy's reference "
           f"{rc_r2} (red)", flush=True)
     if rc_pr not in (0, 1) or found != direct or rc_seed != 2 \
             or (rc_g1, rc_g2, rc_r1, rc_r2) != (0, 0, 0, 1):
@@ -7454,7 +7325,7 @@ def tools_phase(torch, nc_fused_lane, sparse_corr, dev):
 
 # (n_long, reps) for every probe's differenced timing in phase X: the
 # probes' own (up to 8 and 3) would not fit the script's time
-PROBE_TIMING_CAP = (3, 1)
+PROBE_TIMING_CAP = (2, 1)
 # the training step's probe at the recipe's batch; the gradient probes at
 # their root tools' default batch (16 would not fit the script's time)
 TRAIN_BATCH_PROBES, GRAD_BATCH_PROBES = 16, 8
@@ -7597,6 +7468,105 @@ def probes_phase(torch, nc_fused_lane, vjp, sparse_corr, conv4d_pallas, dev):
     return launches
 
 
+# phase Z: the bench's sections whose metrics it checks (the quality
+# section gives the bf16 tier, the stage section the stack's, the memory
+# section the D9 rows)
+BENCH_SECTIONS = ("forward", "quality", "stages", "filter", "memory",
+                  "corr", "sparse")
+# the roofline shares a bench line may not exceed 100 % of
+BENCH_SHARES = ("roofline_filter_pct_of_tensor_core_bound",
+                "filter_bf16_mfu_algorithmic_pct",
+                "forward_bf16_mfu_algorithmic_pct")
+
+
+def bench_phase(torch):
+    """Phase Z: ``python -m ncnet_tpu_torch.tools.bench`` at full width as a
+    user runs it, on ``BENCH_SECTIONS``, recording into a temporary store;
+    then ``perf_regress --seed`` of its line into that store and
+    ``--check``.  Returns the sparse section's kernel launches."""
+    import math
+    import tempfile
+
+    from ncnet_tpu_torch.observability import perfstore
+    from ncnet_tpu_torch.tools import perf_regress
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    store = os.path.join(tmp, "store.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ncnet_tpu_torch.tools.bench", "--only",
+         ",".join(BENCH_SECTIONS), "--store", store],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("bench:"):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        raise SystemExit(f"bench: exit {proc.returncode}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    artefact = os.path.join(tmp, "bench.json")
+    with open(artefact, "w") as f:
+        json.dump(doc, f)
+    extra, sections = doc["extra"], doc["sections"]
+    numbers = {k: v for k, v in extra.items() if not isinstance(v, str)}
+    finite = (isinstance(doc["value"], float) and math.isfinite(doc["value"])
+              and all(isinstance(v, (int, float)) and math.isfinite(v)
+                      for v in numbers.values()))
+    shares = {k: extra.get(k) for k in BENCH_SHARES}
+    tiers = (extra.get("quality_tier_bf16"), extra.get("filter_stage_tier"))
+    # the sparse section's structure: the coarse selection's 25⁴ volume
+    # takes FFT (no kernel); a coarse-to-fine call gathers each family's
+    # tiles (2 B8) and runs the 3-layer stack on both (6 B6); the dense 2×
+    # filter runs the stack once on the folded 50⁴ pair (3 B6); every other
+    # section's 25⁴ volumes take FFT
+    sp = sections["sparse"]
+    calls = sp["calls"]
+    want_sparse = {"nc_conv4d_bf16": 6 * calls["coarse2fine"]
+                   + 3 * calls["dense"],
+                   "gather_tile_corr_bf16": 2 * calls["coarse2fine"],
+                   "conv4d_small_cout": 0, "nc_vjp": 0}
+    others = {k: v["launches"] for k, v in sections.items() if k != "sparse"}
+    print(f"bench: {proc.stdout.count(chr(10))} stdout line, exit "
+          f"{proc.returncode} in {wall:.1f} s; device_kind "
+          f"{doc['envelope'].get('device_kind')!r}; headline "
+          f"{doc['value']} ms a pair; {len(numbers)} numbers all finite: "
+          f"{finite}; shares {shares}; tiers (quality bf16, stages) {tiers}; "
+          f"sparse calls {calls} launches {sp['launches']} (structure "
+          f"{want_sparse}); the other sections' launches {others}",
+          flush=True)
+    if set(sections) != set(BENCH_SECTIONS) or doc.get("failed"):
+        raise SystemExit(f"bench: sections {sorted(sections)}, failed "
+                         f"{doc.get('failed')}")
+    if doc["envelope"].get("device_kind") != torch.cuda.get_device_name(0):
+        raise SystemExit("bench: the envelope names another device")
+    if not finite:
+        raise SystemExit("bench: a metric is not finite")
+    if not all(isinstance(v, float) and 0 < v <= 100 for v in shares.values()):
+        raise SystemExit("bench: a roofline share is missing or above 100 %")
+    if tiers != ("fft", "fft"):
+        raise SystemExit("bench: the 25⁴ stack did not take the FFT tier")
+    if sp["launches"] != want_sparse or not calls["coarse2fine"] or any(
+            n for v in others.values() for n in v.values()):
+        raise SystemExit("bench: the kernels did not launch as the "
+                         "sections' structure says")
+    recorded = len(perfstore.PerfStore(store).records())
+    rc_seed, _ = tool_run(perf_regress, ["--seed", artefact, "--store", store])
+    seeded = len(perfstore.PerfStore(store).records()) - recorded
+    rc_check, text = tool_run(perf_regress, ["--check", "--store", store,
+                                             "--json"])
+    found = json.loads(text)["findings"]
+    print(f"bench: the run recorded {recorded} perf records; perf_regress "
+          f"--seed of its line exit {rc_seed} (+{seeded}), --check exit "
+          f"{rc_check} ({len(found)} findings: "
+          f"{sorted({f['status'] for f in found})})", flush=True)
+    if rc_seed != 0 or seeded != recorded or rc_check != 0:
+        raise SystemExit("bench: perf_regress did not seed and pass the "
+                         "bench's line")
+    shutil.rmtree(tmp)
+    return sp["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -7693,6 +7663,8 @@ def main() -> int:
     x_launches = probes_phase(torch, nc_fused_lane, nc_fused_lane_vjp,
                               sparse_corr, conv4d_pallas, dev)
     mark("X")
+    bench_launches = bench_phase(torch)
+    mark("Z")
 
     def x_paths(kernel):
         # phase X: each probe that launched the kernel, read with its counts
@@ -7723,7 +7695,9 @@ def main() -> int:
                   "inloc_sharded": sharded_numbers["launches"]["nc_conv4d_bf16"],
                   # phase O: the operator tools' probes at full width
                   **{k: v["nc_conv4d_bf16"] for k, v in probe_launches.items()},
-                  **x_paths("nc_conv4d_bf16")}
+                  **x_paths("nc_conv4d_bf16"),
+                  # phase Z: the bench's sparse section, in its own process
+                  "bench:sparse": bench_launches["nc_conv4d_bf16"]}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
@@ -7739,7 +7713,8 @@ def main() -> int:
                       **trunk_b4,
                       **{k: v["gather_tile_corr_bf16"]
                          for k, v in probe_launches.items()},
-                      **x_paths("gather_tile_corr_bf16")}
+                      **x_paths("gather_tile_corr_bf16"),
+                      "bench:sparse": bench_launches["gather_tile_corr_bf16"]}
 
     kernels = [{
         "name": "nc_conv4d_bf16",

@@ -427,6 +427,31 @@ def extract_features(config: ModelConfig, params, images: torch.Tensor
     return feats
 
 
+def calibrate_trunk(config: ModelConfig, params, images: torch.Tensor
+                    ) -> None:
+    """Set every BatchNorm of the trunk in ``params`` to the statistics of
+    its input on ``images``, layer after layer in one pass (a data-dependent
+    init; a trained trunk's running statistics are its data's).  With the
+    raw init (mean 0, variance 1) a random ResNet-101's layer3 features are
+    near-parallel from cell to cell, so every pair looks alike: every bf16
+    pair score rounds to the same value, and a scene cut leaves the match
+    quality unchanged.  Pass a config without ``backbone_bf16`` (that runs
+    the trunk on a cast copy)."""
+    real = bb._bn
+
+    def bn(x, p):
+        p["mean"] = x.mean(dim=(0, 2, 3))
+        p["var"] = x.var(dim=(0, 2, 3), unbiased=False)
+        return real(x, p)
+
+    bb._bn = bn
+    try:
+        with torch.no_grad():
+            extract_features(config, params, images)
+    finally:
+        bb._bn = real
+
+
 def ncnet_filter(config: ModelConfig, params, corr: torch.Tensor,
                  remat_nc_layers: bool = False, nc_custom_grad: bool = False,
                  nc_pallas: bool = True, nc_pallas_vjp: bool = False

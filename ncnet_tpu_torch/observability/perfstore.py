@@ -9,6 +9,10 @@ check, the port of ``ncnet_tpu/observability/perfstore.py``.
   * The store path: an explicit path, else ``NCNET_TPU_PERF_STORE``
     (``0``/``off``/``none`` disables ingestion), else
     ``<repo>/perf/history.jsonl``.
+  * :func:`ingest_bench_artifact`: one bench artefact (a bare stdout line
+    of ``tools/bench.py``, or a harness wrapper around one, as the
+    committed ``BENCH_r*.json`` are) into a store: the seed path of
+    ``tools/perf_regress.py --seed``.
   * :func:`check_regressions`: the newest value of each gated metric
     against a trailing window of its predecessors, by a median + MAD
     threshold with a relative floor.  The direction comes from the metric's
@@ -161,6 +165,68 @@ def maybe_record(metrics: Dict[str, float], *, source: str,
         )
     except (OSError, ValueError):
         return 0
+
+
+# ---------------------------------------------------------------------------
+# bench artefact ingestion (the seed path)
+# ---------------------------------------------------------------------------
+
+
+def _bench_metric_lines(doc: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The ``{"metric": ...}`` dicts inside one artefact: a bare bench
+    stdout line, or the harness wrapper (``{"n", "cmd", "parsed", "tail"}``),
+    falling back to scanning ``tail`` when ``parsed`` is null (a failed
+    round still yields whatever lines it printed)."""
+    if "metric" in doc:
+        return [doc]
+    lines: List[Dict[str, Any]] = []
+    if isinstance(doc.get("parsed"), dict):
+        lines.append(doc["parsed"])
+    elif isinstance(doc.get("tail"), str):
+        for line in doc["tail"].splitlines():
+            line = line.strip()
+            if line.startswith("{"):
+                try:
+                    cand = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(cand, dict) and "metric" in cand:
+                    lines.append(cand)
+    return lines
+
+
+def ingest_bench_artifact(store: PerfStore, path: str,
+                          source: Optional[str] = None) -> int:
+    """Ingest one bench artefact (bare line or harness wrapper) into the
+    store; returns the record count.  Metadata comes from the artefact's
+    envelope when present, else from the ``device_kind`` extra; the record
+    time falls back to the wrapper's round number, so seeding from the same
+    files is deterministic."""
+    with open(path) as f:
+        doc = json.load(f)
+    n_round = doc.get("n") if isinstance(doc.get("n"), (int, float)) else None
+    total = 0
+    for line in _bench_metric_lines(doc):
+        extra = line.get("extra") or {}
+        env = line.get("envelope") or {}
+        device_kind = env.get("device_kind") or extra.get("device_kind")
+        meta = dict(
+            device_kind=device_kind, git_rev=env.get("git_rev"),
+            run_id=env.get("run_id"),
+            source=source or f"bench:{os.path.basename(path)}",
+            t=env.get("time") if isinstance(env.get("time"), (int, float))
+            else (float(n_round) if n_round is not None else 0.0),
+        )
+        metrics: Dict[str, float] = {}
+        if isinstance(line.get("value"), (int, float)) and line.get("metric"):
+            metrics[line["metric"]] = line["value"]
+        if isinstance(line.get("vs_baseline"), (int, float)):
+            metrics["vs_baseline"] = line["vs_baseline"]
+        for k, v in extra.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                metrics[k] = v
+        total += store.append_many(metrics, **meta)
+    return total
 
 
 # ---------------------------------------------------------------------------

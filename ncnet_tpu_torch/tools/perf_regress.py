@@ -12,18 +12,21 @@ every fit/eval metric as an append-only JSONL history keyed by
     jump fails the job.  Metrics whose direction cannot be inferred from
     their name (MFU, TFLOP/s, vs_baseline, roofline constants) are
     report-only; ``--metrics`` focuses (and force-gates) an explicit list.
-  * ``--seed``: refused.  The JAX tool ingests the TPU bench's
-    ``BENCH_r*.json`` artefacts; the port's bench (A13 in ROADMAP.md) has
-    not been written, so there is nothing of the port's to seed from, and
-    a TPU artefact's numbers are not the port's.
+  * ``--seed``: ingest bench artefacts into the store
+    (``perfstore.ingest_bench_artifact``): the port's own
+    (``python -m ncnet_tpu_torch.tools.bench`` prints one), or any
+    ``BENCH_r*.json``.  Records keep the artefact's device kind, so a TPU
+    round's numbers never share a series with the card's.  Seeding an
+    existing store appends; pass a fresh ``--store`` to rebuild one.
 
 Usage::
 
+    python -m ncnet_tpu_torch.tools.perf_regress --seed BENCH.json ... [--store ...]
     python -m ncnet_tpu_torch.tools.perf_regress --check [--store ...] [--device-kind ...]
         [--window 8] [--mad-k 4.0] [--min-rel 0.10] [--metrics a,b,...] [--json]
 
-Exit codes: 0 = no regression, 1 = regression detected, 2 = usage/store
-error (``--seed`` included).
+Exit codes: 0 = no regression (or seed OK), 1 = regression detected,
+2 = usage/store error.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import List
 from ncnet_tpu_torch.observability.perfstore import (
     PerfStore,
     check_regressions,
+    ingest_bench_artifact,
     resolve_store_path,
 )
 
@@ -67,13 +71,12 @@ def _render(findings: List[dict]) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Gate the persistent perf history")
+        description="Seed and gate the persistent perf history")
     ap.add_argument("--store", default=None,
                     help="perf store path (default: $NCNET_TPU_PERF_STORE "
                          "or <repo>/perf/history.jsonl)")
     ap.add_argument("--seed", nargs="+", metavar="BENCH.json", default=None,
-                    help="refused: the port's bench artefacts come with "
-                         "A13 (ROADMAP.md)")
+                    help="ingest bench artifact file(s) into the store")
     ap.add_argument("--check", action="store_true",
                     help="judge newest values against the trailing baseline; "
                          "exit 1 on regression")
@@ -97,20 +100,33 @@ def main(argv=None) -> int:
                     help="emit findings as one JSON document")
     args = ap.parse_args(argv)
 
-    if args.seed:
-        sys.stderr.write("perf_regress: --seed is not ported: it ingests the "
-                         "TPU bench's BENCH_r*.json artefacts, and the port's "
-                         "bench is A13 (ROADMAP.md), not written yet\n")
-        return 2
-    if not args.check:
-        sys.stderr.write("perf_regress: nothing to do (pass --check)\n")
-        return 2
     store_path = resolve_store_path(args.store)
     if store_path is None:
         sys.stderr.write("perf_regress: store disabled "
                          "(NCNET_TPU_PERF_STORE=off) and no --store given\n")
         return 2
     store = PerfStore(store_path)
+
+    if args.seed:
+        total = 0
+        for path in args.seed:
+            try:
+                n = ingest_bench_artifact(store, path)
+            except (OSError, ValueError) as e:
+                sys.stderr.write(f"perf_regress: cannot ingest {path}: "
+                                 f"{e}\n")
+                return 2
+            sys.stderr.write(f"seeded {n} record(s) from {path}\n")
+            total += n
+        sys.stderr.write(f"store {store_path}: +{total} record(s), "
+                         f"{len(store.records())} total\n")
+        if not args.check:
+            return 0
+
+    if not args.check and not args.seed:
+        sys.stderr.write("perf_regress: nothing to do (pass --seed and/or "
+                         "--check)\n")
+        return 2
 
     records = store.records()
     if not records:

@@ -1,6 +1,7 @@
 """The work the port's kernel bounds rest on, checked on the CPU.
 
-``chip_smoke.py`` reads each kernel's time against a bound computed from
+``chip_smoke.py`` and ``tools/bench.py`` read each kernel's or filter's
+time against a bound computed from ``observability/roofline.py``:
 ``stack_work`` (the NC stack, B2, and its backward, B3), ``dw_work`` (one
 layer's dW/db, B7), ``gather_work`` (the tile correlation, B4),
 ``b5_work`` (the small-C_out conv4d, B5) and ``l2_work`` (the L2 layer
@@ -22,6 +23,7 @@ import torch
 
 import chip_smoke
 from ncnet_tpu_torch.config import ModelConfig
+from ncnet_tpu_torch.observability import roofline
 
 CSRC = Path(__file__).resolve().parent.parent / "ncnet_tpu_torch" / "csrc"
 
@@ -105,16 +107,16 @@ WEIGHT_BYTES_PF = 2 * ((625 * 16 + 16) + (625 * 256 + 16) + (625 * 16 + 1))
      2 * 2 * 8 * 50 ** 4 + WEIGHT_BYTES_PF),
 ])
 def test_stack_work(shape, flops, nbytes):
-    assert chip_smoke.stack_work(shape, *PF) == (flops, nbytes)
+    assert roofline.stack_work(shape, *PF) == (flops, nbytes)
 
 
 def test_stack_work_pins_the_bound():
-    flops, nbytes = chip_smoke.stack_work((20000, 6, 6, 6, 6), *PF)
+    flops, nbytes = roofline.stack_work((20000, 6, 6, 6, 6), *PF)
     assert taps_in_volume(6, 5) == 24
     assert flops == pytest.approx(3.82e12, rel=1e-3)
-    bound_ms = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    bound_ms = flops / roofline.PEAK_BF16_FLOPS * 1e3
     assert bound_ms == pytest.approx(3.865, abs=1e-3)
-    assert nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
+    assert nbytes / roofline.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
 
 
 def test_chain_work_counts_the_function_not_the_zero_blocks():
@@ -123,17 +125,17 @@ def test_chain_work_counts_the_function_not_the_zero_blocks():
     the chain's half-zero block-diagonal 32 → 2 layer makes the kernel
     compute; bound by operations, 0.572 ms."""
     shape = (1, 100, 75, 75, 100)
-    flops, nbytes = chip_smoke.chain_work(shape, 3, 16)
+    flops, nbytes = roofline.chain_work(shape, 3, 16)
     taps = taps_in_volume(100, 3) ** 2 * taps_in_volume(75, 3) ** 2
     assert flops == 2 * taps * 32 + 2 * (2 * taps * 16) == 565_265_166_848
-    padded, padded_bytes = chip_smoke.stack_work(shape, (3, 3), (32, 2))
+    padded, padded_bytes = roofline.stack_work(shape, (3, 3), (32, 2))
     assert 3 * flops == 2 * padded
     cells = 100 * 75 * 75 * 100
     assert nbytes == 2 * (3 * cells + 81 * 32 + 32 + 2 * (81 * 16 + 1))
     assert padded_bytes - nbytes == 2 * 81 * 32  # the zero blocks' weights
-    bound_ms = flops / chip_smoke.PEAK_BF16_FLOPS * 1e3
+    bound_ms = flops / roofline.PEAK_BF16_FLOPS * 1e3
     assert bound_ms == pytest.approx(0.572, abs=1e-3)
-    assert nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
+    assert nbytes / roofline.PEAK_HBM_BYTES_PER_S * 1e3 < bound_ms
 
 
 @pytest.mark.parametrize("li,flops", [
@@ -144,7 +146,7 @@ def test_chain_work_counts_the_function_not_the_zero_blocks():
 ])
 def test_layer_work(li, flops):
     c_in = (1, 16, 16)[li]
-    got, _ = chip_smoke.stack_work((20000, 6, 6, 6, 6), PF[0][li:li + 1],
+    got, _ = roofline.stack_work((20000, 6, 6, 6, 6), PF[0][li:li + 1],
                                    PF[1][li:li + 1], c_in=c_in)
     assert got == flops
 
@@ -159,14 +161,14 @@ def test_gather_work(b, n, k, p, c, side, flops, nbytes):
     fa_p2 = torch.empty((b, n, p * p, c), dtype=torch.bfloat16, device="meta")
     fb = torch.empty((b, side, side, c), dtype=torch.bfloat16, device="meta")
     rows = torch.empty((b, n, k), dtype=torch.int32, device="meta")
-    got_flops, got_bytes = chip_smoke.gather_work(fa_p2, fb, rows, k)
+    got_flops, got_bytes = roofline.gather_work(fa_p2, fb, rows, k)
     assert got_flops == 2 * b * n * k * p ** 4 * c
     assert got_bytes == (2 * b * n * p * p * c + 2 * b * side * side * c
                          + 2 * 4 * b * n * k + 2 * b * n * k * p ** 4)
     assert got_flops == pytest.approx(flops, rel=5e-3)
     assert got_bytes == pytest.approx(nbytes, rel=5e-3)
     if k == 4:
-        bound_ms = got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S * 1e3
+        bound_ms = got_bytes / roofline.PEAK_HBM_BYTES_PER_S * 1e3
         assert bound_ms == pytest.approx(0.0689, abs=1e-4)
 
 
@@ -182,24 +184,24 @@ CHUNK = (8, 25, 25, 25, 25)  # a training chunk: 4 pairs folded with their trans
     (16, 1, 5.1337e10, 118_790_004, "operations"),
 ])
 def test_dw_work(c_in, c_out, flops, nbytes, bound_by):
-    got, got_bytes = chip_smoke.dw_work(CHUNK, 5, c_in, c_out)
+    got, got_bytes = roofline.dw_work(CHUNK, 5, c_in, c_out)
     assert got == 2 * 8 * taps_in_volume(25, 5) ** 4 * c_in * c_out
     assert got == pytest.approx(flops, rel=1e-4)
     assert got_bytes == nbytes
-    t_ops = got / chip_smoke.PEAK_BF16_FLOPS
-    t_bytes = got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    t_ops = got / roofline.PEAK_BF16_FLOPS
+    t_bytes = got_bytes / roofline.PEAK_HBM_BYTES_PER_S
     assert ("operations" if t_ops >= t_bytes else "bytes") == bound_by
 
 
 def test_backward_work_pins_the_bound():
     """The chunk's backward without dx: the three dW and the input
     gradients of layers 2 and 1 (the forward's count each)."""
-    flops, _ = chip_smoke.stack_work(CHUNK, *PF, backward=True)
-    dw = [chip_smoke.dw_work(CHUNK, 5, c_in, c_out)[0]
+    flops, _ = roofline.stack_work(CHUNK, *PF, backward=True)
+    dw = [roofline.dw_work(CHUNK, 5, c_in, c_out)[0]
           for c_in, c_out in ((1, 16), (16, 16), (16, 1))]
     assert flops == sum(dw) + dw[1] + dw[2]
     assert flops == pytest.approx(1.797e12, rel=1e-3)
-    assert flops / chip_smoke.PEAK_BF16_FLOPS * 1e3 == pytest.approx(1.817, abs=1e-3)
+    assert flops / roofline.PEAK_BF16_FLOPS * 1e3 == pytest.approx(1.817, abs=1e-3)
 
 
 @pytest.mark.parametrize("shape,k,c_in,c_out,dtype,flops,nbytes,bound_ms,cuda_core_ms", [
@@ -216,7 +218,7 @@ def test_b5_work(shape, k, c_in, c_out, dtype, flops, nbytes, bound_ms,
     """B5's work and bound (PERF.md): the in-volume taps' multiply-adds, the
     volume, weights and output once each, the tensor-core kernel's bf16
     products at the bf16 peak."""
-    got, got_bytes, products = chip_smoke.b5_work(shape, k, c_in, c_out, dtype)
+    got, got_bytes, products = roofline.b5_work(shape, k, c_in, c_out, dtype)
     b, *dims = shape
     taps = 1
     for n in dims:
@@ -225,10 +227,10 @@ def test_b5_work(shape, k, c_in, c_out, dtype, flops, nbytes, bound_ms,
     assert got == pytest.approx(flops, rel=1e-4)
     assert got_bytes == nbytes
     assert products == (3 if dtype == "float32" else 1)
-    t_ops = products * got / chip_smoke.PEAK_BF16_FLOPS
-    assert t_ops >= got_bytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    t_ops = products * got / roofline.PEAK_BF16_FLOPS
+    assert t_ops >= got_bytes / roofline.PEAK_HBM_BYTES_PER_S
     assert t_ops * 1e3 == pytest.approx(bound_ms, rel=1e-3)
-    assert got / chip_smoke.PEAK_F32_FLOPS * 1e3 == pytest.approx(cuda_core_ms, rel=1e-3)
+    assert got / roofline.PEAK_F32_FLOPS * 1e3 == pytest.approx(cuda_core_ms, rel=1e-3)
 
 
 def test_l2_work():
@@ -236,12 +238,12 @@ def test_l2_work():
     layer at 25⁴ (PERF.md's 0.830 ms bound), the padded frame in, the
     weights, bias and mask and the output once each, and, as context, the
     GEMM formulation's 400 × 400 product for each 841-lane row."""
-    flops, nbytes, gemm = chip_smoke.l2_work(8)
+    flops, nbytes, gemm = roofline.l2_work(8)
     assert flops == 2 * 8 * taps_in_volume(25, 5) ** 4 * 16 * 16
     assert (flops, nbytes, gemm) == (821_386_940_416, 315_945_650,
                                      1_345_600_000_000)
-    t_ops = flops / chip_smoke.PEAK_BF16_FLOPS
-    assert t_ops > nbytes / chip_smoke.PEAK_HBM_BYTES_PER_S
+    t_ops = flops / roofline.PEAK_BF16_FLOPS
+    assert t_ops > nbytes / roofline.PEAK_HBM_BYTES_PER_S
     assert t_ops * 1e3 == pytest.approx(0.830, abs=1e-3)
 
 
@@ -289,3 +291,25 @@ def test_b5_launch_count_is_never_shadowed():
         assert conv4d_pallas.launches == 3
     finally:
         conv4d_pallas.launches_by_kernel.update(saved)
+
+
+@pytest.mark.parametrize("flops,nbytes,products,want_by", [
+    # B2's coarse-to-fine call: operations bind (PERF.md's 3.865 ms)
+    (3.82e12, 6.0e8, 1, "operations"),
+    # B4 at the serving shape: bytes bind (0.0689 ms)
+    (2.65e10, 2.30e8, 1, "bytes"),
+    # an f32 volume as three bf16 products triples the operations' time
+    (1.0e9, 1.0e7, 3, "operations"),
+    # a tie reads operations
+    (989e9, 3350e6, 1, "operations"),
+])
+def test_bound_is_the_larger_time(flops, nbytes, products, want_by):
+    """``roofline.bound``: the larger of FLOP over the bf16 peak (each
+    counted ``products`` times) and bytes over the HBM rate, in ms, and
+    which binds; other peaks when given."""
+    ms, by = roofline.bound(flops, nbytes, products)
+    t_ops = products * flops / roofline.PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / roofline.PEAK_HBM_BYTES_PER_S * 1e3
+    assert ms == pytest.approx(max(t_ops, t_bytes)) and by == want_by
+    ms32, _ = roofline.bound(flops, nbytes, peak_flops=roofline.PEAK_F32_FLOPS)
+    assert ms32 == pytest.approx(max(flops / 67e12 * 1e3, t_bytes))

@@ -9,8 +9,10 @@ the same answer: the same report dicts and text, trace documents,
 watchdog verdicts and exit codes, regression and drift findings, written
 reference records and ``serve_top`` frames; the rollout tool drives one
 port CPU service to COMPLETE (exit 0) and ROLLED_BACK (exit 2) beside the
-JAX tool watching the same rollout.  ``perf_regress --seed`` is refused by
-name (the port's bench is A13), and the port's synthetic quality reference
+JAX tool watching the same rollout.  ``perf_regress --seed`` refuses an
+artefact it cannot read as the JAX tool does (its agreement on the
+committed artefacts is in ``test_torch_port_bench.py``), and the port's
+synthetic quality reference
 run (``quality_drift --synthetic``) gates itself green and its perturbed
 twin red on the CPU.
 """
@@ -377,16 +379,28 @@ def test_perf_regress_check_agrees(writer, regress, tmp_path):
 
 
 def test_perf_regress_seed_is_refused_naming_a13(tmp_path):
-    tp = port_tool("perf_regress")
-    path = str(tmp_path / "history.jsonl")
-    rc, out, err = run_main(tp, ["--seed", os.path.join(REPO,
-                                                        "BENCH_r01.json"),
-                                 "--store", path, "--check"])
-    assert rc == 2 and out == ""
-    assert "A13" in err and "--seed" in err
+    """``--seed`` was refused until the port's bench (A13) existed; now it
+    ingests, and what it refuses is an artefact it cannot read: exit 2
+    naming the file, nothing written, as the JAX tool does.  Without
+    ``--seed`` or ``--check`` both tools exit 2 naming the flags."""
+    jp, tp = tools("perf_regress")
+    missing = str(tmp_path / "BENCH_missing.json")
+    torn = tmp_path / "BENCH_torn.json"
+    torn.write_text('{"metric": "pf_pascal_forward_ms_per_pair", "val')
+    for bad in (missing, str(torn)):
+        codes = []
+        for tool, name in ((jp, "jax"), (tp, "port")):
+            path = str(tmp_path / f"history_{name}.jsonl")
+            rc, out, err = run_main(tool, ["--seed", os.path.join(
+                REPO, "BENCH_r01.json"), bad, "--store", path, "--check"])
+            assert rc == 2 and out == "" and f"cannot ingest {bad}" in err
+            codes.append(rc)
+        assert codes == [2, 2]
+    path = str(tmp_path / "history_none.jsonl")
+    for tool in (jp, tp):
+        rc, _, err = run_main(tool, ["--store", path])
+        assert rc == 2 and "--seed" in err and "--check" in err
     assert not os.path.exists(path)
-    rc, _, err = run_main(tp, ["--store", path])
-    assert rc == 2 and "--check" in err
 
 
 # ---------------------------------------------------------------------------
