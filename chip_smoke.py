@@ -368,8 +368,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      100 %, the bf16 quality tier and the stage tier ``fft`` at 25⁴, B8 and
      B6 launched as the sparse section's counted calls give them (2 and 6
      a coarse-to-fine call, 3 B6 a dense 2× filter) and no kernel in the
-     other sections; then ``perf_regress --seed`` of that line into the
-     store (as many records as the run wrote) and ``--check`` exit 0;
+     other sections; the whole bf16 forward's ``forward_bf16_tflops``,
+     ``forward_bf16_mfu_pct`` and ``forward_bf16_mfu_executed_pct`` present
+     with ``device_kind`` this card, and both shares at most 100 %; then
+     ``perf_regress --seed`` of that line into the store (as many records
+     as the run wrote) and ``--check`` exit 0; and in this process the
+     executed count (``tools/_work.py``) of the bench's dense 2× filter
+     (the folded 50⁴ pair, B6's route): the library ops a separate
+     ``FlopCounterMode`` run counts plus ``stack_work`` times the stack
+     calls its 3 launches make, and nothing spectral;
   6. a ``kernels`` JSON line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -7476,14 +7483,63 @@ BENCH_SECTIONS = ("forward", "quality", "stages", "filter", "memory",
 # the roofline shares a bench line may not exceed 100 % of
 BENCH_SHARES = ("roofline_filter_pct_of_tensor_core_bound",
                 "filter_bf16_mfu_algorithmic_pct",
-                "forward_bf16_mfu_algorithmic_pct")
+                "forward_bf16_mfu_algorithmic_pct",
+                "forward_bf16_mfu_pct", "forward_bf16_mfu_executed_pct")
+
+
+def executed_check(torch) -> int:
+    """Phase Z's executed count on a route that launches B6: the bench's
+    dense bf16 filter at the 2× feature grid (800² images, the folded 50⁴
+    pair), warm.  Its count (``tools/_work.py``) must be the library ops
+    that a separate ``FlopCounterMode`` run of the same call counts, plus
+    ``stack_work`` of the folded pair times the stack calls its launches
+    make, and nothing spectral.  Returns B6's launches."""
+    import math
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ncnet_tpu_torch.ops import nc_fused_lane
+    from ncnet_tpu_torch.tools import _work, bench
+
+    t0 = time.perf_counter()
+    bx = bench.Bench(dev=torch.device("cuda", 0), sizes=bench.Sizes())
+    s2 = 2 * bx.feat_side
+    fa, fb = bench.feature_pair_input((1, s2, s2, bx.feat_channels), 0.05,
+                                      bx.dev)(
+        torch.Generator(device=bx.dev).manual_seed(3))
+    filt = bench.filter_fn(bx)
+    with torch.no_grad():
+        filt(fa, fb)
+        with FlopCounterMode(display=False) as fc:
+            filt(fa, fb)
+        nc_fused_lane.launches = 0
+        _, ex = _work.executed_work(lambda: filt(fa, fb))
+        torch.cuda.synchronize()
+    launches = nc_fused_lane.launches
+    layers = len(bench.KERNELS)
+    stack = stack_work((2,) + (s2,) * 4, bench.KERNELS, bench.CHANNELS)[0]
+    want = fc.get_total_flops() + stack * launches / layers
+    print(f"bench: executed count of the dense 2x filter (2 x {s2}^4, B6): "
+          f"{ex.total / 1e9:.4f} GFLOP (library {ex.library / 1e9:.4f}, "
+          f"spectral {ex.spectral / 1e9:.4f}, kernels "
+          f"{ {k: v / 1e9 for k, v in ex.kernels.items()} }, launches "
+          f"{ex.launches}); stack_work x {launches}/{layers} + the library "
+          f"ops: {want / 1e9:.4f} GFLOP; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if (launches != layers or ex.launches["nc_conv4d_bf16"] != launches
+            or sum(ex.launches.values()) != launches or ex.spectral != 0
+            or not math.isclose(ex.total, want, rel_tol=1e-12)):
+        raise SystemExit("bench: the executed count is not the kernels' "
+                         "roofline work plus the library ops")
+    return launches
 
 
 def bench_phase(torch):
     """Phase Z: ``python -m ncnet_tpu_torch.tools.bench`` at full width as a
     user runs it, on ``BENCH_SECTIONS``, recording into a temporary store;
     then ``perf_regress --seed`` of its line into that store and
-    ``--check``.  Returns the sparse section's kernel launches."""
+    ``--check``; then :func:`executed_check`.  Returns the sparse section's
+    kernel launches and the executed check's B6 launches."""
     import math
     import tempfile
 
@@ -7542,8 +7598,19 @@ def bench_phase(torch):
         raise SystemExit("bench: the envelope names another device")
     if not finite:
         raise SystemExit("bench: a metric is not finite")
+    print(f"bench: the whole bf16 forward: forward_bf16_tflops "
+          f"{extra.get('forward_bf16_tflops')}, forward_bf16_mfu_pct "
+          f"{extra.get('forward_bf16_mfu_pct')}, "
+          f"forward_bf16_mfu_executed_pct "
+          f"{extra.get('forward_bf16_mfu_executed_pct')} (device_kind "
+          f"{extra.get('device_kind')!r}) on {card_line()}", flush=True)
     if not all(isinstance(v, float) and 0 < v <= 100 for v in shares.values()):
         raise SystemExit("bench: a roofline share is missing or above 100 %")
+    if not (isinstance(extra.get("forward_bf16_tflops"), float)
+            and extra["forward_bf16_tflops"] > 0
+            and extra.get("device_kind") == torch.cuda.get_device_name(0)):
+        raise SystemExit("bench: the whole forward's rate or the card's "
+                         "name is missing")
     if tiers != ("fft", "fft"):
         raise SystemExit("bench: the 25⁴ stack did not take the FFT tier")
     if sp["launches"] != want_sparse or not calls["coarse2fine"] or any(
@@ -7564,7 +7631,7 @@ def bench_phase(torch):
         raise SystemExit("bench: perf_regress did not seed and pass the "
                          "bench's line")
     shutil.rmtree(tmp)
-    return sp["launches"]
+    return sp["launches"], executed_check(torch)
 
 
 def main() -> int:
@@ -7663,7 +7730,7 @@ def main() -> int:
     x_launches = probes_phase(torch, nc_fused_lane, nc_fused_lane_vjp,
                               sparse_corr, conv4d_pallas, dev)
     mark("X")
-    bench_launches = bench_phase(torch)
+    bench_launches, executed_launches = bench_phase(torch)
     mark("Z")
 
     def x_paths(kernel):
@@ -7697,7 +7764,8 @@ def main() -> int:
                   **{k: v["nc_conv4d_bf16"] for k, v in probe_launches.items()},
                   **x_paths("nc_conv4d_bf16"),
                   # phase Z: the bench's sparse section, in its own process
-                  "bench:sparse": bench_launches["nc_conv4d_bf16"]}
+                  "bench:sparse": bench_launches["nc_conv4d_bf16"],
+                  "bench:executed_dense_800": executed_launches}
     b3_by_path = {"train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}

@@ -34,7 +34,9 @@ def filter_flops(feat_side: int, kernels: Sequence[int],
                  channels: Sequence[int]) -> float:
     """FLOPs a pair of the symmetric NC filter (both volume directions) at
     a square ``feat_side``, counting every tap (same padding): ~281.2 GFLOP
-    at the PF-Pascal arch (25⁴, k = 5³, channels 16/16/1)."""
+    at the PF-Pascal arch (25⁴, k = 5³, channels 16/16/1).  Not the
+    roofline's count: ``roofline.filter_work`` counts only the taps inside
+    the volume, 231.0 GFLOP a pair there."""
     cells = (feat_side * feat_side) ** 2
     chans = list(zip((1,) + tuple(channels[:-1]), channels))
     return 2 * cells * sum(

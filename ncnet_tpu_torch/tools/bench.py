@@ -31,7 +31,8 @@ The sections, in order (``--only`` picks some; the optional ones also need
 their ``NCNET_BENCH_*`` variable, which is on by default on a CUDA device,
 off elsewhere, ``1`` forces it and ``0`` skips it):
 
-   1. ``forward``: the fp32 and bf16 forward at batch 4 (``ncnet_forward``);
+   1. ``forward``: the fp32 and bf16 forward at batch 4 (``ncnet_forward``),
+      and on a card of known peak the bf16 forward's rate and shares of it;
    2. ``quality``: the match-quality signals of one seeded pair in each
       precision, and the tier that produced them;
    3. ``stages``: the bf16 NC stack's layer prefixes on the tier the chooser
@@ -94,10 +95,19 @@ Where the port departs from the root bench, on purpose:
     value.  The ``*_mfu_algorithmic_pct`` series keep
     ``metrics.filter_flops`` (every tap) as their numerator, as ``fit``'s
     telemetry does.
-  * ``forward_bf16_mfu_pct``, ``forward_bf16_mfu_executed_pct`` and
-    ``forward_bf16_tflops`` are not emitted: they read XLA's cost analysis
-    of the compiled program, and no PyTorch counter sees the hand-written
-    kernels' work.
+  * ``forward_bf16_tflops`` and ``forward_bf16_mfu_pct`` divide the whole
+    bf16 forward's ALGORITHMIC work a pair (``roofline.forward_work``: the
+    trunk on both images, the correlation and the NC filter on both
+    directions, multiply-adds only at taps inside the image or the volume)
+    by its time; ``forward_bf16_mfu_executed_pct`` divides the work the
+    route ran (``tools/_work.py``: the library ops under
+    ``FlopCounterMode``, the FFT tier's transforms, each hand-written
+    kernel's launches at its roofline count) by the same time.  The root
+    reads both from XLA's cost analysis, so its two are equal; here they
+    are split, so that a tier or kernel change moves the executed share and
+    never the yardstick.  Both, and ``device_kind``, are emitted only where
+    the card's peak is known (``metrics.PEAK_BF16_TFLOPS``): not on the
+    CPU, not on an unknown card.
   * The stream section runs a copy of the weights with the trunk's
     BatchNorm statistics from its reference frames
     (``models/ncnet.py::calibrate_trunk``) and the NC kernels
@@ -152,7 +162,7 @@ from ncnet_tpu_torch.ops import (
     sparse_corr,
 )
 from ncnet_tpu_torch.ops.correlation import correlation_4d
-from ncnet_tpu_torch.tools import _probe, _timing
+from ncnet_tpu_torch.tools import _probe, _timing, _work
 
 BATCH = 4
 IMAGE = 400
@@ -245,6 +255,12 @@ class Bench:
         if self._params is None:
             self._params = params_to(init_params(self.cfg, 0), self.dev)
         return self._params
+
+    @property
+    def kind(self) -> Optional[str]:
+        """The CUDA device's name; None on the CPU."""
+        return (torch.cuda.get_device_name(self.dev)
+                if self.dev.type == "cuda" else None)
 
     @property
     def feat_side(self) -> int:
@@ -377,7 +393,8 @@ def results_ms(futures, timeout: float = 300.0) -> List[float]:
 
 
 def section_forward(bx: Bench) -> None:
-    """The headline: fp32 forward ms a pair at batch 4; and bf16."""
+    """The headline: fp32 forward ms a pair at batch 4; and bf16, with its
+    rate and shares of the peak where the card's peak is known."""
     s = bx.sizes
 
     def fwd_step(cfg):
@@ -388,6 +405,22 @@ def section_forward(bx: Bench) -> None:
                       ("forward_ms_per_pair_bf16", bx.cfg16)):
         bx.res[name] = bx.time_ms(fwd_step(cfg), image_pair_input(
             s.batch, s.image, bx.dev), per=s.batch, n_long=12)
+    peak = obs_metrics.PEAK_BF16_TFLOPS.get(bx.kind)
+    if not peak:
+        return
+    src, tgt = image_pair_input(s.batch, s.image, bx.dev)(
+        torch.Generator(device=bx.dev).manual_seed(1))
+    _, executed = _work.executed_work(
+        lambda: ncnet_forward(bx.cfg16, bx.params, src, tgt).corr)
+    algorithmic, _ = roofline.forward_work(bx.cfg16, s.batch, s.image)
+    # the batch's work over the batch's time
+    seconds = bx.res["forward_ms_per_pair_bf16"] * 1e-3 * s.batch
+    tflops = algorithmic / seconds / 1e12
+    bx.res.update({"forward_bf16_tflops": tflops,
+                   "forward_bf16_mfu_pct": 100 * tflops / peak,
+                   "forward_bf16_mfu_executed_pct":
+                       100 * executed.total / seconds / 1e12 / peak,
+                   "device_kind": bx.kind})
 
 
 def quality_values(cfg: ModelConfig, params, src: torch.Tensor,
@@ -508,10 +541,8 @@ def section_filter(bx: Bench) -> None:
     ms = bx.time_ms(chain_step(filter_fn(bx)),
                     feature_pair_input(shape, 0.03, bx.dev), per=b, n_long=8)
     bx.res["filter_ms_per_pair_bf16"] = ms
-    kind = torch.cuda.get_device_name(bx.dev) if bx.dev.type == "cuda" \
-        else None
-    peak_f = obs_metrics.PEAK_BF16_TFLOPS.get(kind)
-    peak_b = obs_metrics.PEAK_HBM_GBPS.get(kind)
+    peak_f = obs_metrics.PEAK_BF16_TFLOPS.get(bx.kind)
+    peak_b = obs_metrics.PEAK_HBM_GBPS.get(bx.kind)
     if peak_f and peak_b:
         bx.res.update(roofline_metrics(
             ms, bx.res.get("forward_ms_per_pair_bf16"), b, s,
@@ -1118,8 +1149,7 @@ def section_train(bx: Bench) -> None:
     bx.res["train_fwd_ms_bf16"] = fwd_ms
     bx.res["train_bwd_ms_bf16"] = max(grads_ms - fwd_ms, 0.0)
     bx.res["train_update_ms_bf16"] = max(step - grads_ms, 0.0)
-    peak = obs_metrics.PEAK_BF16_TFLOPS.get(
-        torch.cuda.get_device_name(bx.dev) if bx.dev.type == "cuda" else None)
+    peak = obs_metrics.PEAK_BF16_TFLOPS.get(bx.kind)
     if peak:
         flops = obs_metrics.train_step_flops(
             feature_side(sz.backbone, sz.train_image), KERNELS, CHANNELS)

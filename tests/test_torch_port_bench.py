@@ -6,7 +6,11 @@ bench-artefact ingestion against the JAX package's.
     is given, and never touches the committed ``perf/history.jsonl``;
   * every ``extra`` name is one of the root ``bench.py``'s (read from its
     source), or one of the documented renames; every root name is in the
-    port's source but the left-out MFU block's;
+    port's source;
+  * the forward section on a card of known peak emits the whole forward's
+    rate and shares (``forward_bf16_tflops``, ``forward_bf16_mfu_pct``,
+    ``forward_bf16_mfu_executed_pct``) and ``device_kind`` from the shared
+    work functions, and on the CPU or an unknown card none of them;
   * the quality section on a numpy-seeded tiny pair, with the JAX weights
     carried across (``models/convert.py::params_from_numpy``), gives the
     JAX ``quality_table`` values (rtol 1e-5, atol 1e-7: the eval step's
@@ -43,7 +47,7 @@ from ncnet_tpu_torch.models.convert import params_from_numpy
 from ncnet_tpu_torch.observability import metrics as tmetrics
 from ncnet_tpu_torch.observability import perfstore as tps
 from ncnet_tpu_torch.observability import roofline
-from ncnet_tpu_torch.tools import bench
+from ncnet_tpu_torch.tools import _work, bench
 from torch_port_tool_twins import REPO, jax_tool, port_tool
 
 HISTORY = os.path.join(REPO, "perf", "history.jsonl")
@@ -55,10 +59,10 @@ RENAMES = {"roofline_filter_mxu_bound_ms":
            "roofline_filter_tensor_core_bound_ms",
            "roofline_filter_pct_of_mxu_bound":
            "roofline_filter_pct_of_tensor_core_bound"}
-# the MFU block of XLA's cost analysis, and the device kind it set (the
-# envelope carries it)
-LEFT_OUT = {"forward_bf16_mfu_pct", "forward_bf16_mfu_executed_pct",
-            "forward_bf16_tflops", "device_kind"}
+# the whole forward's rate and shares, and the card's name beside them:
+# emitted only on a card whose peak the port knows
+FORWARD_MFU = ("forward_bf16_tflops", "forward_bf16_mfu_pct",
+               "forward_bf16_mfu_executed_pct", "device_kind")
 # keys of the JSON line and of run_eval's result, not metrics
 NOT_METRICS = {"metric", "value", "unit", "vs_baseline", "extra",
                "envelope", "timing", "total"}
@@ -119,6 +123,7 @@ def test_core_sections_print_the_roots_line(core_run):
             "nc_conv4d_bf16": 0, "gather_tile_corr_bf16": 0,
             "conv4d_small_cout": 0, "nc_vjp": 0}
     assert "device_kind" not in line["envelope"]  # no card in use
+    assert not set(FORWARD_MFU) & set(extra)  # no peak on the CPU
 
 
 def test_bench_records_into_the_named_store_only(core_run, tmp_path,
@@ -177,15 +182,16 @@ def test_extra_names_are_the_roots(core_run):
     # appears there (a template by its fixed head)
     with open(bench.__file__) as f:
         port_src = f.read()
-    for name in sorted(names - LEFT_OUT):
+    for name in sorted(names):
         name = RENAMES.get(name, name)
         head = name.split("{")[0]
         assert (f'"{name}"' in port_src if "{" not in name
                 else f'f"{head}' in port_src), name
     body = port_src.split('"""', 2)[2]  # the code, past the docstring
-    for name in LEFT_OUT:
-        assert f'res["{name}"]' not in body and (
-            name == "device_kind" or name not in body), name
+    # the four names the root's MFU block sets are emitted in the code
+    assert set(FORWARD_MFU) <= names
+    for name in FORWARD_MFU:
+        assert f'"{name}"' in body, name
     assert "roofline_verdict" in body and "mxu" not in body
 
 
@@ -288,6 +294,40 @@ def test_roofline_block_counts_are_the_work_functions():
         100 * every_tap / 16e-3 / 989e12)
     assert "forward_bf16_mfu_algorithmic_pct" not in bench.roofline_metrics(
         8.0, None, 4, 25, 1024, 989.0, 3350.0)
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3", "Other GPU"])
+def test_forward_section_emits_the_shares_on_a_known_card(kind, monkeypatch):
+    """The tiny forward section on the CPU with the device's name stubbed
+    and its timer fixed at 50 ms a pair: on the H100 the four names, the
+    rate and share of ``roofline.forward_work`` and the executed share of
+    ``_work.executed_work`` over the same inputs; on a card the peak table
+    lacks, none of them."""
+    monkeypatch.setattr(bench.Bench, "kind", property(lambda self: kind))
+    monkeypatch.setattr(bench.Bench, "time_ms", lambda self, *a, **kw: 50.0)
+    bx = bench.Bench(dev=torch.device("cpu"), sizes=bench.TINY)
+    with torch.no_grad():
+        bench.section_forward(bx)
+    peak = tmetrics.PEAK_BF16_TFLOPS.get(kind)
+    if peak is None:
+        assert not set(FORWARD_MFU) & set(bx.res)
+        return
+    b, side = bench.TINY.batch, bench.TINY.image
+    src, tgt = bench.image_pair_input(b, side, bx.dev)(
+        torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        _, ex = _work.executed_work(lambda: bench.ncnet_forward(
+            bx.cfg16, bx.params, src, tgt).corr)
+    algorithmic = roofline.forward_work(bx.cfg16, b, side)[0] / b
+    assert bx.res["device_kind"] == kind
+    assert bx.res["forward_bf16_tflops"] == pytest.approx(
+        algorithmic / 50e-3 / 1e12, rel=1e-12)
+    assert bx.res["forward_bf16_mfu_pct"] == pytest.approx(
+        100 * algorithmic / 50e-3 / 1e12 / peak, rel=1e-12)
+    assert bx.res["forward_bf16_mfu_executed_pct"] == pytest.approx(
+        100 * ex.total / b / 50e-3 / 1e12 / peak, rel=1e-12)
+    # the tiny 8⁴ volume takes FFT, which runs less than the direct count
+    assert 0 < ex.spectral and ex.total < algorithmic * b
 
 
 @pytest.mark.parametrize("path", ARTEFACTS,

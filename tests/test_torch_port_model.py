@@ -429,9 +429,11 @@ def test_port_imports_no_jax():
         "nc_grad_split_probe", "train_attr_probe", "cp_fft_probe",
         "check_no_bare_print", "make_goldens", "parity_kit",
         "reference_twin", "_probe")} <= names
-    # the bench (A13) and the roofline arithmetic it shares with chip_smoke
+    # the bench (A13), the roofline arithmetic it shares with chip_smoke,
+    # and its executed count
     assert {"ncnet_tpu_torch/tools/bench.py",
-            "ncnet_tpu_torch/observability/roofline.py"} <= names
+            "ncnet_tpu_torch/observability/roofline.py",
+            "ncnet_tpu_torch/tools/_work.py"} <= names
     bad = []
     for path in files:
         # matplotlib (not on the card) only inside the functions that draw

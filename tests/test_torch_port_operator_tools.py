@@ -37,7 +37,6 @@ from torch_port_tool_twins import (
     jax_tool,
     port_tool,
     same,
-    without_ages,
 )
 
 PKGS = ("ncnet_tpu", "ncnet_tpu_torch")
@@ -303,21 +302,60 @@ def test_stall_watchdog_heartbeat_agrees(writer, run_logs, tmp_path,
     assert run_main(tw, missing)[0] == 2
 
 
+class _StoppedClock:
+    """The ``time`` module as a tool reads it, its ``time()`` stopped at
+    one instant."""
+
+    def __init__(self, now):
+        self._now = now
+
+    def time(self):
+        return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def one_snapshot(monkeypatch, *tool_modules):
+    """Every judgment after this call reads the same evidence: each URL's
+    first fetch goes over HTTP and its body is replayed to every later
+    fetch (a failed fetch is not kept: it fails again), and the tools'
+    clock stands still.  Two judgments of a live plane a moment apart can
+    differ: its ``activity.age_s`` moves (``--min-age 0 --factor 0``
+    turns any age above 0 into "stalled"), and a run log replica's
+    ``recent`` flips when its last batch turns 60 s old."""
+    import urllib.request
+
+    real, bodies = urllib.request.urlopen, {}
+
+    def urlopen(url, *args, **kwargs):
+        if url not in bodies:
+            with real(url, *args, **kwargs) as r:
+                bodies[url] = r.read()
+        return io.BytesIO(bodies[url])
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+    clock = _StoppedClock(time.time())
+    for tool in tool_modules:
+        monkeypatch.setattr(tool, "time", clock)
+
+
 @pytest.mark.parametrize("writer", PKGS)
-def test_stall_watchdog_url_and_pod_agree(writer, run_logs):
+def test_stall_watchdog_url_and_pod_agree(writer, run_logs, monkeypatch):
     jw, tw = tools("stall_watchdog")
     svc = fake_service(writer, introspect_port=0).start()
     dead = "http://127.0.0.1:9"
     try:
         svc.submit(u8(1), u8(2)).result(timeout=60)
         url = svc.introspect_url
+        one_snapshot(monkeypatch, jw, tw)
         vj = jw.judge_url(url, events_path=run_logs[writer])
         vt = tw.judge_url(url, events_path=run_logs[writer])
         assert vt["status"] == vj["status"] == "alive"
-        assert canon(without_ages(vt)) == canon(without_ages(vj))
+        assert canon(vt) == canon(vj)
         pj, pt = (t.judge_pod([url, dead]) for t in (jw, tw))
         assert pt["status"] == pj["status"] == "missing"
-        assert canon(without_ages(pt)) == canon(without_ages(pj))
+        assert canon(pt) == canon(pj)
         assert tw.render_pod_table(pj) == jw.render_pod_table(pj)
         for argv, code in ((["--url", url], 0),
                            (["--url", url, "--min-age", "0",
