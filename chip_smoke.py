@@ -131,8 +131,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   T. (run right after phase A) the two probe tools' entry points, each
      with its counts set to 0 just before and read just after:
      ``tools.mosaic_probes.run()`` builds the toolchain
-     probes (one source each in ``csrc/probes/``, all at once, with every
-     port source built anew beside them), launches each on seeded inputs
+     probes (one source each in ``csrc/probes/``, all at once; every
+     port source was built anew in step 2, whose build the port_kernels
+     probe reads, else anew beside them), launches each on seeded inputs
      against its plain twin, and prints a ``probes`` line (any FAIL ends
      the run); ``tools.pallas_l2_probe.main`` runs T1 (``csrc/
      conv_l2_fused_lane.cu``, the 16→16 k = 5 layer at 25⁴ in the padded
@@ -145,6 +146,25 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      to the twin of its Y dtype and fewer to the other's (the Y rounding,
      which the tolerances cannot see), and kernel, plain, bound and
      ``coutfold`` times; each probe once more against its twin, timed;
+  W. (run right after phase T) the NC kernels over the JAX kernels' whole
+     shape class: the route's gate (``nc_fused_lane.layer_held``) against
+     the libraries' own ``nc_conv4d_supported`` / ``nc_vjp_supported`` at
+     every kernel size and width; each layer of ``W_WIDTHS`` at k = 1, 3,
+     5, 7 and of ``W_PLANES`` (B6 forward and transposed within 1e-2
+     normalized of the twin, B7's dW and db within 1e-2 relative L2, two
+     launches bit-identical); then three paths, each with its counts set
+     to 0 just before and read just after: (a) coarse-to-fine serving at
+     800², B = 4, ``sparse_topk=4``, NC (3, 3, 3) / (32, 32, 1), 3
+     requests, the coarse 25⁴ pass and the fine 6⁴ tiles both "resident"
+     (9 B6 and 2 B4 launches a request), both stack calls against the
+     twin, their stack and layer ms; (b) ``make_train_step`` at batch 16
+     of 400² with NC (5, 5, 5) / (8, 8, 1), a warm-up and 3 timed steps,
+     the forward on FFT and phase 5's launch formula for B7 and the
+     transposed launches, B3 on a chunk against its twin and B7's ms a
+     layer; (c) one training step of the IVD stack (3, 3) / (16, 1) on
+     400×304 sources and 304×400 targets: the training gate takes the
+     tap-swap chain, B7 at (3, 1, 32) and (3, 32, 2), the step's NC
+     gradients within 1e-2 relative L2 of the twins' step;
   E. the PF-Pascal eval step at full width: ``make_eval_step`` with the
      PF-Pascal NCNet in bf16 (trunk BatchNorm calibrated, NC kernels
      centre-peaked) on a warm-up and 3 batches of 4 pairs at 400² (seeded
@@ -1691,6 +1711,422 @@ def probe_tools(torch, dev):
               "launches": probe_launches, "results": results,
               "port_kernel_spills": spills}
     return main, probes
+
+
+# Phase W: the NC kernels over the JAX kernels' whole shape class (any odd
+# k <= 7, widths up to 32).  The layer shapes of the classes this brought
+# in, each a forward, its transposed launch and B7's dW/db on a small
+# volume against the twins: (C_in, C_out) at every kernel size
+W_WIDTHS = ((1, 8), (8, 8), (8, 1), (1, 32), (32, 32), (32, 1), (32, 4),
+            (3, 17), (24, 9))
+W_VOLUME = (2, 5, 6, 7, 6)
+# planes wider than one block's cells: row and column bands (B6, B7)
+W_PLANES = (((1, 3, 4, 50, 50), 7, 32, 32), ((1, 3, 4, 50, 50), 5, 32, 4),
+            ((1, 3, 3, 40, 40), 7, 1, 32))
+# the paths: (a) coarse-to-fine serving with 32-channel layers, (b) the
+# training step with 8-channel layers at k = 5, (c) one rectangular
+# training step of the IVD stack, which takes its tap-swap chain
+W_SERVE_NC = ((3, 3, 3), (32, 32, 1))
+W_TRAIN_NC = ((5, 5, 5), (8, 8, 1))
+W_RECT_NC = ((3, 3), (16, 1))
+W_RECT_HW = ((400, 304), (304, 400))   # source, target (H, W)
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def check_layer_class(torch, nc_fused_lane, vjp, shape, k, c_in, c_out, gen,
+                      dev):
+    """One layer shape on ``shape``: B6's forward and transposed launches
+    (normalized error) and B7's dW and db (relative L2) against the twins,
+    each run twice bit-identical.  Returns (forward err, dx err, dW/db
+    err, bit-identical)."""
+    x = (torch.randn(shape + (c_in,), generator=gen) * 0.5).to(dev, torch.bfloat16)
+    w = (torch.randn((k,) * 4 + (c_in, c_out), generator=gen) * 0.1
+         ).to(dev, torch.bfloat16)
+    b = (torch.randn((c_out,), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    y = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    y2 = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    g = (torch.randn(tuple(y.shape), generator=gen) * 0.5).to(dev, torch.bfloat16)
+    got, again = (vjp.layer_vjp(x, y, g, w) for _ in range(2))
+    twin = vjp.layer_vjp_reference(x, y, g, w)
+    torch.cuda.synchronize()
+    f_err = normalized_err(y, nc_fused_lane.layer_reference(x, w, b))
+    dx_err = normalized_err(got[2], twin[2])
+    d_err = max(rel_l2(got[0], twin[0]), rel_l2(got[1], twin[1]))
+    same = torch.equal(y, y2) and all(torch.equal(a, c)
+                                      for a, c in zip(got, again))
+    return f_err, dx_err, d_err, same
+
+
+def shape_class_checks(torch, nc_fused_lane, vjp, dev):
+    """The gate against the libraries' own limits, then every class layer
+    of ``W_WIDTHS`` (at each kernel size) and ``W_PLANES``."""
+    mismatches = 0
+    for k in nc_fused_lane.KERNEL_SIZES:
+        fwd, bwd = nc_fused_lane._library(k), vjp._library(k)
+        for c_in in range(0, nc_fused_lane.MAX_WIDTH + 2):
+            for c_out in range(0, nc_fused_lane.MAX_WIDTH + 2):
+                held = c_in > 0 and c_out > 0 and nc_fused_lane.layer_held(
+                    k, c_in, c_out)
+                mismatches += held != bool(
+                    fwd.nc_conv4d_supported(k, c_in, c_out)
+                    and bwd.nc_vjp_supported(k, c_in, c_out))
+        mismatches += bool(fwd.nc_conv4d_supported(k + 2, 1, 1))
+    print(f"W: the gate (nc_fused_lane.layer_held) against the libraries' "
+          f"nc_conv4d_supported and nc_vjp_supported at k = "
+          f"{nc_fused_lane.KERNEL_SIZES}, widths 0..{nc_fused_lane.MAX_WIDTH + 1}: "
+          f"{mismatches} mismatches", flush=True)
+    if mismatches:
+        raise SystemExit("W: the route's gate and the kernels' limits differ")
+    gen = torch.Generator().manual_seed(23)
+    cases = [(W_VOLUME, k, c_in, c_out) for k in nc_fused_lane.KERNEL_SIZES
+             for c_in, c_out in W_WIDTHS] + list(W_PLANES)
+    worst = [0.0, 0.0, 0.0]
+    for shape, k, c_in, c_out in cases:
+        errs = check_layer_class(torch, nc_fused_lane, vjp, shape, k, c_in,
+                                 c_out, gen, dev)
+        ok = (errs[0] <= TOLERANCE and errs[1] <= TOLERANCE
+              and errs[2] <= STEP_TOLERANCE and errs[3])
+        worst = [max(a, e) for a, e in zip(worst, errs[:3])]
+        if not ok or shape != W_VOLUME:
+            print(f"W: class k={k} {c_in}->{c_out} on {shape}: forward "
+                  f"{errs[0]:.3e}, transposed {errs[1]:.3e} (normalized, "
+                  f"tolerance {TOLERANCE}), dW/db relative L2 {errs[2]:.3e} "
+                  f"(tolerance {STEP_TOLERANCE}); two launches bit-identical: "
+                  f"{errs[3]}", flush=True)
+        if not ok:
+            raise SystemExit(f"W: the kernels disagree with the twins at k={k} "
+                             f"{c_in}->{c_out}")
+    print(f"W: {len(cases)} class layers (forward, transposed, dW/db) within "
+          f"tolerance, two launches bit-identical; largest errors forward "
+          f"{worst[0]:.3e}, transposed {worst[1]:.3e}, dW/db relative L2 "
+          f"{worst[2]:.3e}", flush=True)
+    return {"layers_checked": len(cases), "forward_normalized_err": worst[0],
+            "transposed_normalized_err": worst[1], "dw_db_rel_l2": worst[2]}
+
+
+def w_serve(torch, nc_fused_lane, sparse_corr, dev):
+    """Path (a): coarse-to-fine serving at 800², B = 4, ``sparse_topk`` 4,
+    NC ``W_SERVE_NC``: the coarse 25⁴ pass and the fine 6⁴ tiles both on
+    B6 (the FFT gate refuses both), 3 B6 launches a stack call."""
+    from ncnet_tpu_torch.config import ModelConfig
+    from ncnet_tpu_torch.serving.engine import BatchMatchEngine
+
+    kernels, channels = W_SERVE_NC
+    cfg = ModelConfig(backbone="resnet101", ncons_kernel_sizes=kernels,
+                      ncons_channels=channels, half_precision=True,
+                      backbone_bf16=True, sparse_topk=C2F_TOPK, sparse_factor=2)
+    params = serving_params(torch, cfg, dev, C2F_SIDE)
+    requests = c2f_requests(seed=2, shift=TRAIN_SHIFT)
+    engine = BatchMatchEngine(cfg, params)
+    engine.fetch(engine.dispatch(*requests[-1]))  # warm-up, not counted
+    torch.cuda.synchronize()
+    decisions = []
+    walls, tables = [], []
+    nc_fused_lane.launches = 0
+    sparse_corr.launches = 0
+    with routed(nc_fused_lane, "choose_fused_stack",
+                nc_fused_lane.choose_fused_stack, decisions):
+        for src, tgt in requests[:C2F_REQUESTS]:
+            t0 = time.perf_counter()
+            tables.append(engine.fetch(engine.dispatch(src, tgt)))
+            walls.append(round((time.perf_counter() - t0) * 1e3, 2))
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches,
+                "gather_tile_corr_bf16": sparse_corr.launches}
+    tiers = sorted({(a[:4], y) for a, _, y in decisions})
+    check_tables(tables, (C2F_SIDE // 16) ** 2, "W serve")
+    # a request: the coarse pass one stack call on [x, xᵀ] (3 launches),
+    # the fine tiles two (6), B4 twice
+    want = {"nc_conv4d_bf16": 9 * C2F_REQUESTS,
+            "gather_tile_corr_bf16": 2 * C2F_REQUESTS}
+    print(f"W serve (a): {C2F_REQUESTS} coarse-to-fine requests of "
+          f"{SERVE_BATCH} pairs at {C2F_SIDE}x{C2F_SIDE}, NC {kernels}/"
+          f"{channels}: walls {walls} ms, launches {launches} (expected "
+          f"{want}), tier decisions {tiers}", flush=True)
+    shapes = {s for s, _ in tiers}
+    if (launches != want or {t for _, t in tiers} != {"resident"}
+            or not {(25, 25, 25, 25), (6, 6, 6, 6)} <= shapes):
+        raise SystemExit("W serve: the path did not run the kernels as expected")
+    calls = []
+    with routed(nc_fused_lane, "nc_stack_resident",
+                nc_fused_lane.nc_stack_resident, calls):
+        engine.fetch(engine.dispatch(*requests[0]))
+    numbers = {"request_wall_ms": walls}
+    for (nc, x), _, y in calls[:2]:
+        part = slice(0, 512)   # the twin on the first 512 volumes of a call
+        err = normalized_err(y[part], nc_fused_lane.nc_stack_reference(nc, x[part]))
+        name = "coarse" if x.shape[1] == 25 else "fine"
+        layers = layer_times(torch, nc_fused_lane, f"W serve {name}",
+                             tuple(x.shape[:5]), kernels, channels, nc, x, 3)
+        ms = cuda_ms(lambda: nc_fused_lane.nc_stack_resident(nc, x), 3)
+        print(f"W serve: {name} stack call on {tuple(x.shape)}: kernel vs twin "
+              f"normalized {err:.3e} (tolerance {TOLERANCE}); stack {ms:.3f} ms",
+              flush=True)
+        if not err <= TOLERANCE:
+            raise SystemExit(f"W serve: the {name} NC stack disagrees with its twin")
+        numbers[f"{name}_{tuple(x.shape[:5])}"] = {
+            "stack_ms": round(ms, 4), "layer_ms": [round(v, 4) for v in layers],
+            "normalized_err": err}
+    return launches, numbers
+
+
+def w_train_state(torch, nc, batch, dev):
+    """A full-width bf16 training state with NC ``nc`` (kernels,
+    channels): calibrated trunk on ``batch``'s sources, centre-peaked NC
+    kernels, as phase 5; and its step."""
+    from ncnet_tpu_torch.config import ModelConfig, TrainConfig
+    from ncnet_tpu_torch.training import create_train_state, make_train_step
+
+    cfg = TrainConfig(model=ModelConfig(
+        backbone="resnet101", ncons_kernel_sizes=nc[0], ncons_channels=nc[1],
+        half_precision=True))
+    state, optimizer, mc, _ = create_train_state(cfg, seed=0)
+    calibrate_trunk(mc, state.params, batch["source_image"])
+    for layer in state.params["nc"]:
+        d = layer["w"].shape[0] // 2
+        layer["w"][d, d, d, d] += 1.0 / layer["w"].shape[4]
+        layer["b"] = layer["b"] + 0.05
+    step = make_train_step(mc, optimizer, stop_backbone_grad=True,
+                           accum_chunks=cfg.accum_chunks,
+                           nan_guard=cfg.nan_guard)
+    return cfg, state, mc, step
+
+
+def reset_counts(nc_fused_lane, vjp):
+    nc_fused_lane.launches = 0
+    for key in vjp.launches:
+        vjp.launches[key] = 0
+
+
+def b7_layer_times(torch, vjp, params, acts, g, where):
+    """Each layer's dW/db, reduction and transposed launch (CUDA events)
+    on a saved chunk, last layer first."""
+    dw_ms, t_ms = [0.0] * len(params), [0.0] * len(params)
+    gamma = g
+    for li in reversed(range(len(params))):
+        w, k = params[li]["w"], int(params[li]["w"].shape[0])
+        gz, part = vjp.nc_vjp_dw(acts[li], acts[li + 1], gamma, k)
+        dw_ms[li] = round(cuda_ms(lambda: vjp.nc_vjp_dw(
+            acts[li], acts[li + 1], gamma, k), 3), 4)
+        red = cuda_ms(lambda: vjp.nc_vjp_reduce(part, k), 3)
+        line = (f"{where}: B7 layer {li} {tuple(w.shape)} on "
+                f"{tuple(acts[li].shape)}: dW/db {dw_ms[li]:.3f} ms, reduce "
+                f"{red:.3f} ms")
+        if li > 0:
+            t_ms[li] = round(cuda_ms(lambda: vjp.nc_conv4d_transpose(gz, w), 3), 4)
+            line += f", transposed launch {t_ms[li]:.3f} ms"
+            gamma = vjp.nc_conv4d_transpose(gz, w)
+        print(line, flush=True)
+    return dw_ms, t_ms[1:]
+
+
+def w_train(torch, nc_fused_lane, vjp, dev):
+    """Path (b): ``make_train_step`` at batch 16 of 400², NC ``W_TRAIN_NC``,
+    3 steps: the forward on FFT, the backward on B7 and the transposed B6,
+    the launches of phase 5's structure."""
+    import numpy as np
+
+    from ncnet_tpu_torch.ops.conv4d_fft import fft_stack_activations
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.training import auto_accum_chunks, weak_loss_and_grads
+
+    rng = np.random.default_rng(1)
+
+    def pair(n):
+        src = rng.integers(0, 256, (n, 400, 400, 3), dtype=np.uint8)
+        return {"source_image": src,
+                "target_image": np.roll(src, TRAIN_SHIFT, axis=(1, 2))}
+
+    cfg, state, mc, step = w_train_state(
+        torch, W_TRAIN_NC, {k: normalize_imagenet(torch.as_tensor(v).to(dev))
+                            for k, v in pair(16).items()}, dev)
+    batches = [{k: normalize_imagenet(torch.as_tensor(v).to(dev))
+                for k, v in pair(cfg.batch_size).items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    chunks = auto_accum_chunks(cfg.batch_size)
+    n_layers = len(W_TRAIN_NC[1])
+    state, loss = step(state, batches[-1])  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts(nc_fused_lane, vjp)
+    walls = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batches[i])
+        loss = float(loss)
+        torch.cuda.synchronize()
+        walls.append(round((time.perf_counter() - t0) * 1e3, 2))
+        if not np.isfinite(loss):
+            raise SystemExit(f"W train: step {i + 1}: non-finite loss")
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches, **vjp.launches}
+    tier = nc_fused_lane.last_selected_tier()
+    want = {"nc_conv4d_bf16": 0,
+            "nc_vjp_dw": TRAIN_STEPS * chunks * n_layers,
+            "nc_vjp_reduce": TRAIN_STEPS * chunks * n_layers,
+            "nc_conv4d_transpose": TRAIN_STEPS * chunks * (n_layers - 1)}
+    print(f"W train (b): {TRAIN_STEPS} steps at batch {cfg.batch_size} of "
+          f"400², NC {W_TRAIN_NC}: walls {walls} ms, last loss {loss:.9g}, "
+          f"launches {launches} (expected {want}), the forward's tier "
+          f"{tier!r}", flush=True)
+    if launches != want or tier != "fft":
+        raise SystemExit("W train: the path did not launch the kernels as expected")
+    calls = []
+    with routed_fused_stack(nc_fused_lane.nc_stack_fused, calls):
+        weak_loss_and_grads(mc, state.params, batches[0])
+    params, x, _, g = calls[-1]
+    params = [{k: v.detach() for k, v in p.items()} for p in params]
+    acts = fft_stack_activations(params, x.to(torch.bfloat16))
+    got = vjp.stack_vjp(params, acts, g, need_dx=False)
+    twin = vjp.stack_vjp(params, acts, g, need_dx=False, twin=True)
+    torch.cuda.synchronize()
+    err = max(rel_l2(a[k], b[k]) for a, b in zip(got[0], twin[0])
+              for k in ("w", "b"))
+    print(f"W train: B3 on a chunk's volume {tuple(x.shape)}: NC gradients "
+          f"relative L2 {err:.3e} (tolerance {STEP_TOLERANCE})", flush=True)
+    if not err <= STEP_TOLERANCE:
+        raise SystemExit("W train: B7 disagrees with its twin on the chunk")
+    dw_ms, t_ms = b7_layer_times(torch, vjp, params, acts, g, "W train")
+    return launches, {"step_wall_ms": walls, "dw_ms": dw_ms,
+                      "transpose_ms": t_ms, "rel_l2": err}
+
+
+def w_train_rect(torch, nc_fused_lane, vjp, dev):
+    """Path (c): one rectangular training step of the IVD stack: the
+    training gate takes its tap-swap chain, (3, 1, 32) and (3, 32, 2), on
+    B6 forward and B7 with the transposed B6 backward; the step's NC
+    gradients against the twins' step."""
+    import numpy as np
+
+    from ncnet_tpu_torch.ops.image import normalize_imagenet
+    from ncnet_tpu_torch.training import auto_accum_chunks, weak_loss_and_grads
+
+    rng = np.random.default_rng(4)
+    (hs, ws), (ht, wt) = W_RECT_HW
+    # two crops of one image, the target's shifted by whole cells, so the
+    # positives match where they overlap and the rolled negatives do not
+    base = rng.integers(0, 256, (16, max(hs, ht), max(ws, wt), 3),
+                        dtype=np.uint8)
+    src = base[:, :hs, :ws]
+    tgt = np.roll(base, TRAIN_SHIFT, axis=(1, 2))[:, :ht, :wt]
+    batch = {k: normalize_imagenet(torch.as_tensor(
+        np.ascontiguousarray(v)).to(dev))
+        for k, v in (("source_image", src), ("target_image", tgt))}
+    cfg, state, mc, step = w_train_state(torch, W_RECT_NC, batch, dev)
+    chunks = auto_accum_chunks(cfg.batch_size)
+    dw_shapes = []
+    reset_counts(nc_fused_lane, vjp)
+    t0 = time.perf_counter()
+    with routed(vjp, "nc_vjp_dw", vjp.nc_vjp_dw, dw_shapes):
+        state, loss = step(state, batch)
+        loss = float(loss)
+    torch.cuda.synchronize()
+    wall = round((time.perf_counter() - t0) * 1e3, 2)
+    launches = {"nc_conv4d_bf16": nc_fused_lane.launches, **vjp.launches}
+    tier = nc_fused_lane.last_selected_tier()
+    layers = sorted({(a[3], int(a[0].shape[5]), int(a[1].shape[5]))
+                     for a, _, _ in dw_shapes})
+    # a chunk: the chain forward (2 launches), dW/db and the reduction a
+    # layer, the transposed launch of its second layer (the volume needs
+    # no gradient)
+    want = {"nc_conv4d_bf16": 2 * chunks, "nc_vjp_dw": 2 * chunks,
+            "nc_vjp_reduce": 2 * chunks, "nc_conv4d_transpose": chunks}
+    print(f"W train rect (c): one step at batch {cfg.batch_size}, source "
+          f"{hs}x{ws}, target {ht}x{wt}, NC {W_RECT_NC}: wall {wall} ms (its "
+          f"first), loss {loss:.9g}, launches {launches} (expected {want}), "
+          f"B7 layers {layers}, tier {tier!r}", flush=True)
+    if (launches != want or layers != [(3, 1, 32), (3, 32, 2)]
+            or tier != "resident" or not np.isfinite(loss)):
+        raise SystemExit("W train rect: the step did not run the chain's kernels")
+    calls = []
+    with routed_fused_stack(nc_fused_lane.nc_stack_fused, calls):
+        loss_k, grads_k = weak_loss_and_grads(mc, state.params, batch)
+    with routed_fused_stack(twin_stack_fused):
+        loss_t, grads_t = weak_loss_and_grads(mc, state.params, batch)
+    torch.cuda.synchronize()
+    flat = [torch.cat([t.float().flatten() for layer in g["nc"]
+                       for t in (layer["w"], layer["b"])])
+            for g in (grads_k, grads_t)]
+    err = rel_l2(*flat)
+    print(f"W train rect: NC gradients of the step, kernels vs twins, "
+          f"relative L2 {err:.3e} (tolerance {STEP_TOLERANCE}); loss "
+          f"{float(loss_k):.9g} vs {float(loss_t):.9g}", flush=True)
+    if not err <= STEP_TOLERANCE:
+        raise SystemExit("W train rect: the chain's gradients disagree with the twins'")
+    params, x, _, g = calls[-1]
+    params = [{k: v.detach() for k, v in p.items()} for p in params]
+    acts = nc_fused_lane.stack_activations(params, x)
+    dw_ms, t_ms = b7_layer_times(torch, vjp, params, acts, g, "W train rect")
+    return launches, {"step_wall_ms": wall, "dw_ms": dw_ms,
+                      "transpose_ms": t_ms, "rel_l2": err}
+
+
+class FailingLibrary:
+    """A kernel library whose every launch fails with ``code``."""
+
+    def __init__(self, real, code):
+        self.real, self.code = real, code
+
+    def __getattr__(self, name):
+        if name.endswith("_bf16") or name.endswith("_f32"):
+            return lambda *args: self.code
+        return getattr(self.real, name)
+
+
+def w_forced_failures(torch, nc_fused_lane, vjp, dev):
+    """A stack inside the gate whose build or launch fails raises, on the
+    serving route and in the backward: nothing falls back to the
+    formulations or to the CPU."""
+    from ncnet_tpu_torch.models.ncnet import neigh_consensus
+
+    params = stack_params((3, 3), (8, 1), seed=5, device=dev)
+    corr = torch.rand((1, 6, 6, 6, 6), generator=torch.Generator().manual_seed(6)
+                      ).to(dev, torch.bfloat16)
+
+    def build_fails(k):
+        raise RuntimeError("forced build failure")
+
+    def launch_fails(module):
+        real = module._library
+        return lambda k: FailingLibrary(real(k), 719)
+
+    for module, where in ((nc_fused_lane, "forward"), (vjp, "backward")):
+        for how, fake in (("build", build_fails), ("launch", launch_fails(module))):
+            leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                      for p in params]
+            real = module._library
+            module._library = fake
+            try:
+                out = neigh_consensus(leaves, corr, require_vjp=True)
+                out.float().sum().backward()
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                print(f"W: a forced {how} failure of the {where} kernels on "
+                      f"the held stack (3, 3) / (8, 1) raised: {err}", flush=True)
+            else:
+                raise SystemExit(f"W: a forced {how} failure of the {where} "
+                                 "kernels did not raise")
+            finally:
+                module._library = real
+
+
+def shape_class_phase(torch, nc_fused_lane, vjp, sparse_corr, dev):
+    """Phase W: the gate, the class layers, and paths (a)-(c), each path
+    read with its counts set to 0 just before it."""
+    t0 = time.perf_counter()
+    numbers = {"classes": shape_class_checks(torch, nc_fused_lane, vjp, dev)}
+    w_forced_failures(torch, nc_fused_lane, vjp, dev)
+    launches = {}
+    launches["w_serve_c2f_32ch"], numbers["serve_c2f_32ch"] = w_serve(
+        torch, nc_fused_lane, sparse_corr, dev)
+    launches["w_train_8ch"], numbers["train_8ch"] = w_train(
+        torch, nc_fused_lane, vjp, dev)
+    launches["w_train_rect_ivd"], numbers["train_rect_ivd"] = w_train_rect(
+        torch, nc_fused_lane, vjp, dev)
+    numbers["seconds"] = round(time.perf_counter() - t0, 1)
+    print(f"W: phase in {numbers['seconds']} s", flush=True)
+    return numbers, launches
 
 
 def check_path_calls(torch, nc_fused_lane, sparse_corr, forward, fft_stacks,
@@ -7675,6 +8111,13 @@ def main() -> int:
         print(f"build {src}: {len(regs)} kernels; registers/smem: {regs}; "
               f"spilling: {spills or 'none'}", flush=True)
 
+    if set(logs) == set(kernel_build.SOURCES):
+        # every port source was just built anew by this toolchain: phase T's
+        # port_kernels probe reads this build instead of repeating it
+        from ncnet_tpu_torch.tools import mosaic_probes
+
+        mosaic_probes._port_build = (True, "\n".join(
+            f"== {src}\n{log}" for src, log in logs.items()))
     dev = torch.device("cuda", 0)
     main_numbers = check_kernels(torch, nc_fused_lane, dev)
     backward_numbers = check_backward(torch, nc_fused_lane, nc_fused_lane_vjp, dev)
@@ -7683,6 +8126,9 @@ def main() -> int:
     gather_numbers = check_gather(torch, sparse_corr, dev)
     l2_numbers, probe_numbers = probe_tools(torch, dev)
     mark("A, T")
+    w_numbers, w_launches = shape_class_phase(
+        torch, nc_fused_lane, nc_fused_lane_vjp, sparse_corr, dev)
+    mark("W")
     serve_launches = serve(torch, nc_fused_lane, dev)
     train_launches, train_start, train_walls = train(
         torch, nc_fused_lane, nc_fused_lane_vjp, dev)
@@ -7738,7 +8184,8 @@ def main() -> int:
         # set to 0 just before it
         return {f"probe:{k}": v[kernel] for k, v in x_launches.items()
                 if launch_total(v[kernel])}
-    nc_by_path = {"serve": serve_launches,
+    nc_by_path = {**{k: v["nc_conv4d_bf16"] for k, v in w_launches.items()},
+                  "serve": serve_launches,
                   "train": train_launches["nc_conv4d_bf16"],
                   "serve_coarse2fine": c2f_launches["nc_conv4d_bf16"],
                   "serve_tracked": tracked_launches["nc_conv4d_bf16"],
@@ -7766,12 +8213,17 @@ def main() -> int:
                   # phase Z: the bench's sparse section, in its own process
                   "bench:sparse": bench_launches["nc_conv4d_bf16"],
                   "bench:executed_dense_800": executed_launches}
-    b3_by_path = {"train": {k: train_launches[k]
+    b3_by_path = {**{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
+                     for k, v in w_launches.items()
+                     if "nc_vjp_dw" in v},
+                  "train": {k: train_launches[k]
                             for k in nc_fused_lane_vjp.launches},
                   **{k: {n: v[n] for n in nc_fused_lane_vjp.launches}
                      for k, v in fit_launches.items()},
                   **trunk_b3, **x_paths("nc_vjp")}
-    gather_by_path = {"serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
+    gather_by_path = {"w_serve_c2f_32ch": w_launches["w_serve_c2f_32ch"][
+                          "gather_tile_corr_bf16"],
+                      "serve_coarse2fine": c2f_launches["gather_tile_corr_bf16"],
                       "serve_tracked": tracked_launches["gather_tile_corr_bf16"],
                       "serve_service": service_launches["gather_tile_corr_bf16"],
                       "serve_stream": stream_launches["gather_tile_corr_bf16"],
@@ -7787,7 +8239,7 @@ def main() -> int:
     kernels = [{
         "name": "nc_conv4d_bf16",
         "route": "cuda",
-        "source": "ncnet_tpu_torch/csrc/nc_conv4d.cu",
+        "source": "ncnet_tpu_torch/csrc/nc_conv4d.cuh",
         # nc_stack_resident, the whole-stack kernel the bf16 path takes; the
         # per-layer _conv_fused_lane is one launch of the same kernel
         "replaces": "ncnet_tpu/ops/nc_fused_lane.py:606",
@@ -7800,13 +8252,17 @@ def main() -> int:
         # the InLoc tap-swap chain (3, 1, 32), (3, 32, 2) on the full pooled
         # volume (phase I), beside the two-pass (16, 1) route on it
         "inloc_chain": chain_numbers,
+        # phase W: the gate against the libraries, the class layers' largest
+        # errors, and path (a)'s request walls and stack and layer ms
+        "shape_class": {"classes": w_numbers["classes"],
+                        "serve_c2f_32ch": w_numbers["serve_c2f_32ch"]},
         # no single PyTorch call computes a 4D convolution
         "library_ms": None,
     }, {
         "name": "nc_vjp (nc_vjp_dw_bf16, nc_vjp_reduce_f32, nc_conv4d_transpose_bf16)",
         "route": "cuda",
-        "source": "ncnet_tpu_torch/csrc/nc_conv4d_vjp.cu",
-        "also_source": "ncnet_tpu_torch/csrc/nc_conv4d.cu",
+        "source": "ncnet_tpu_torch/csrc/nc_conv4d_vjp.cuh",
+        "also_source": "ncnet_tpu_torch/csrc/nc_conv4d.cuh",
         "replaces": "ncnet_tpu/ops/nc_fused_lane_vjp.py:490",
         # the three kernels' launches in the timed training steps (phase
         # 5) and in phase F's fit runs, each path read with its counts set
@@ -7819,6 +8275,9 @@ def main() -> int:
         # B6's kernel
         "design": "tensor-core, PR 7",
         **backward_numbers,
+        # phase W: paths (b) and (c), their step walls and B7's ms a layer
+        "shape_class": {"train_8ch": w_numbers["train_8ch"],
+                        "train_rect_ivd": w_numbers["train_rect_ivd"]},
         # no single PyTorch call computes a conv4d backward
         "library_ms": None,
     }, {

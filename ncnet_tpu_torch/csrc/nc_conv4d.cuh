@@ -17,7 +17,15 @@
 // ncnet_tpu/ops/nc_fused_lane_vjp.py::_vjp_stage: conv4d_same of the masked
 // cotangent with the layer's weights flipped in all four tap dims and C_in,
 // C_out swapped (ncnet_tpu_torch/ops/nc_fused_lane_vjp.py flips them).  It
-// runs through the same kernels with the bias and ReLU compiled out.
+// runs through the same kernels with a null bias: no bias, no ReLU.
+//
+// The layer shapes served are the TPU kernels' whole shape class: any odd
+// k <= kMaxK and any widths 1 <= C_in, C_out <= kMaxWidth, in both
+// directions.  The kernels are templated on k and on a padded channel class
+// and take the true widths at run time: the staging zero-fills a cell or a
+// weight row past them, loads and stores use them.  One translation unit a
+// k (nc_conv4d_k<k>.cu defines NC_K and includes this file), so the builds
+// run in parallel.
 //
 // Bound: operations.  The PF-Pascal stack, kernels (5, 5, 5) and channels
 // (16, 16, 1), counts at its in-volume taps 3.82e12 FLOP on the coarse-to-
@@ -33,15 +41,18 @@
 // test uniform in the block: the others are skipped whole).  For each it
 // stages, double-buffered with cp.async, the input box (G x (R + 2d) x
 // (Wc + 2d) cells, zero-filled outside the volume, so no tap is ever
-// tested) and the (p, q) weight slab as bf16.  In the padded box the
-// (r, s) tap of every output cell is the same constant offset, so each
-// lane computes its rows' addresses once.  Three ways to fill the tensor
-// cores, by layer shape:
+// tested) and the (p, q) weight slab as bf16; where a slab would not fit
+// twice beside the boxes (wide layers at k >= 5), it is staged RC tap rows
+// r at a time, each chunk a step of the pipeline, the box once a (p, q).
+// In the padded box the (r, s) tap of every output cell is the same
+// constant offset, so each lane computes its rows' addresses once.  Three
+// ways to fill the tensor cores, by layer shape:
 //   - channels (C_in > 1, C_out > 4; the 16->16 layer): each (r, s) tap is
-//     one k-step of the 16 channels (C_in below 16 is zero-padded), A is
-//     ldmatrix of 16 shifted cells (48-byte pitch: the 8 rows of a matrix
-//     fall on distinct banks), B the tap's (C_in, C_out) weights through
-//     ldmatrix.trans; 8 warps x 2 m-tiles x C_out / 8 n-tiles;
+//     one k-step of 16 channels, two for C_in > 16 (C_in is zero-padded to
+//     16 or 32), A is ldmatrix of 16 shifted cells (a 48- or 80-byte pitch:
+//     the 8 rows of a matrix fall on distinct banks), B the tap's (C_in,
+//     C_out) weights through ldmatrix.trans; 8 warps x 2 m-tiles x C_out / 8
+//     n-tiles (C_out padded to 8, 16 or 32);
 //   - taps in K (C_in = 1; the 1->16 layer, and the tap-swap chain's
 //     1->32): the (r, s) taps are the
 //     contraction, not C_in padded to 16 (16x its FLOP): an expanded box
@@ -49,15 +60,19 @@
 //     16-byte row, so a k-step is two tap rows r and one ldmatrix; a
 //     thread loads its row segment into registers before a (p, q) is
 //     computed and stores it after, hiding the loads behind the product;
-//     C_out = 32 is 4 n-tiles, its weight rows at an 80-byte pitch;
+//     C_out = 32 is 4 n-tiles, its weight rows at an 80-byte pitch.  Eight
+//     shift slots hold a tap row of k <= 7: k = 9 would need a second row;
 //   - taps in N (C_out <= 4; the 16->1 layer, and the chain's block-
 //     diagonal 32->2): per (p, q) one product of
 //     every box cell's 16 channels with the (C_in, k^2 C_out) tap weights
 //     gives each cell's partial for every (r, s) tap; the partials stay f32
 //     in shared memory, and each output cell sums its k^2 shifted partials.
-//     Padding N = C_out to 8 would cost 8x its FLOP.  C_in = 32 is two
+//     Padding N = C_out to 8 would cost 8x its FLOP.  C_in > 16 is two
 //     k-steps of 16 channels, its cells staged at an 80-byte pitch (the 8
-//     rows of a matrix still fall on distinct banks).
+//     rows of a matrix still fall on distinct banks).  Where k^2 C_out
+//     passes 100 columns (k = 7, C_out >= 3) the partials of RC tap rows
+//     are formed and summed a chunk at a time, so their B fragments stay in
+//     registers and their slab in shared memory.
 // Every output is summed in a fixed order in one block, with no atomics and
 // no split of the contraction across blocks, so two launches give bit-
 // identical results.  Like the plain twin, and unlike the TPU kernel, the
@@ -72,8 +87,16 @@
 
 #include "tensor_core.cuh"
 
+#ifndef NC_K
+#error "define NC_K, the kernel size of this translation unit"
+#endif
+
 namespace {
 
+// The limits of the design; ncnet_tpu_torch/ops/nc_fused_lane.py's gate
+// (kernels_hold) repeats them.
+constexpr int kMaxK = 7;       // taps in K: a tap row's k shifts fill 8 slots
+constexpr int kMaxWidth = 32;  // two 16-channel k-steps a cell; 4 n-tiles
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMTW = 2;                       // m-tiles a warp holds
@@ -81,48 +104,73 @@ constexpr int kMaxOut = kWarps * kMTW * 16;   // output cells a block
 constexpr int kOutPerThread = 4;              // taps in N: kMaxOut * 4 / kThreads
 constexpr size_t kSmemBudget = 112 * 1024;    // two blocks an SM
 constexpr int kShifts = 8;                    // taps in K: s slots a cell
+constexpr int kSlabBudget = 24 * 1024;        // channels: a weight stage
+constexpr int kMaxPartials = 100;             // taps in N: columns a chunk
+
+static_assert(NC_K % 2 == 1 && NC_K <= kMaxK, "an odd k of the shape class");
 
 enum Mode { kChannels, kTapsK, kTapsN };
 
-template <int K, int CIN, int COUT>
+__host__ __device__ constexpr Mode mode_of(int c_in, int c_out) {
+  return c_in == 1 ? kTapsK : (c_out <= 4 ? kTapsN : kChannels);
+}
+
+// The class of a layer shape: CW, the staged input cell's channels (C_in
+// padded to 16 or 32; 16 for the taps in K); OW, C_out padded to 8, 16 or
+// 32 (channels, taps in K) or C_out itself (taps in N, 1..4).
+__host__ __device__ constexpr int cw_of(int c_in) { return c_in > 16 ? 32 : 16; }
+__host__ __device__ constexpr int ow_of(Mode m, int c_out) {
+  return m == kTapsN ? c_out : (c_out > 16 ? 32 : (c_out > 8 ? 16 : 8));
+}
+
+template <int K, Mode MODE, int CW, int OW>
 struct Layer {
   static constexpr int D = K / 2;
-  static constexpr Mode kMode =
-      CIN == 1 ? kTapsK : (COUT <= 4 ? kTapsN : kChannels);
-  static_assert(kMode != kChannels || (CIN <= 16 && COUT <= 16),
-                "the channels mode stages 16 channels a cell");
-  static_assert(kMode != kTapsK || COUT <= 32, "taps in K: C_out <= 32");
-  static_assert(kMode != kTapsN || CIN <= 32, "taps in N: C_in <= 32");
-  static constexpr int NT = (COUT + 7) / 8;     // n-tiles of C_out (rows modes)
-  // bf16 a staged row holds: a cell's channels (channels, taps in N) or a
-  // weight row's C_out columns (taps in K), padded to 16 or 32
-  static constexpr int kWidth =
-      (kMode == kTapsK ? COUT : CIN) > 16 ? 32 : 16;
-  // the row pitch: 8 bf16 past the width (48 or 80 bytes), so the 8 rows of
-  // an ldmatrix fall on distinct banks
-  static constexpr int kPitch = kWidth + 8;
-  static constexpr int KSTEPS = kWidth / 16;    // taps in N: k-steps of C_in
+  static constexpr Mode kMode = MODE;
+  static_assert(K % 2 == 1 && K <= kMaxK, "taps in K: a tap row fills 8 slots");
+  static_assert(CW == 16 || CW == 32, "a staged cell is 16 or 32 channels");
+  static constexpr int NT = (OW + 7) / 8;      // n-tiles of C_out (rows modes)
+  static constexpr int KSTEPS = CW / 16;        // k-steps of C_in a tap
+  // the input cell's pitch, 8 bf16 past its width (48 or 80 bytes), so the
+  // 8 rows of an ldmatrix fall on distinct banks
+  static constexpr int kInPitch = CW + 8;
+  // a weight row: C_out columns padded to 16 or 32 (rows modes), C_in
+  // padded to CW (taps in N); its pitch 8 bf16 past that
+  static constexpr int kWWidth = MODE == kTapsN ? CW : (OW > 16 ? 32 : 16);
+  static constexpr int kWPitch = kWWidth + 8;
   // taps in K: a k-step is two tap rows r of 8 columns s (s >= K zero)
   static constexpr int KS = (K + 1) / 2;
-  // weight rows staged a (p, q), kPitch bf16 each: (r, s, ci) with ci
-  // padded to 16, or (k-step, r % 2, s) for the taps in K
-  static constexpr int kWRows = kMode == kTapsK ? 16 * KS : K * K * 16;
-  // taps in N: the columns n = (r, s, co), padded to 8; weights staged as
-  // rows n of kWidth ci at kPitch
-  static constexpr int NPAD = (K * K * COUT + 7) / 8 * 8;
+  // RC tap rows r a weight stage holds, NRC stages a (p, q)
+  static constexpr int kRowBytes = K * CW * kWPitch * 2;  // channels
+  static constexpr int RC =
+      MODE == kTapsK ? K
+      : MODE == kChannels
+          ? (K * kRowBytes <= kSlabBudget
+                 ? K
+                 : (kSlabBudget / kRowBytes > 0 ? kSlabBudget / kRowBytes : 1))
+          : (K * K * OW <= kMaxPartials ? K : kMaxPartials / (K * OW));
+  static constexpr int NRC = (K + RC - 1) / RC;
+  // taps in N: the partial columns n = (r of the chunk, s, co), padded to
+  // 8; weights staged as rows n of CW ci at kInPitch
+  static constexpr int kPRows = RC * K * OW;
+  static constexpr int NPAD = (kPRows + 7) / 8 * 8;
   static constexpr int NTN = NPAD / 8;
-  static constexpr int kPRows = K * K * COUT;  // the columns P keeps
+  // weight rows staged a step, kWPitch bf16 each: (r, s, ci) with ci padded
+  // to CW, (k-step, r % 2, s) for the taps in K, n for the taps in N
+  static constexpr int kWRows =
+      MODE == kTapsK ? 16 * KS : (MODE == kChannels ? RC * K * CW : NPAD);
   // box m-tiles a warp loads ahead (taps in N): 2 while its B fragments
   // are few enough to stay in registers beside them
   static constexpr int kBoxMTW = NTN > 4 ? 1 : 2;
   // blocks an SM: the taps in K need little shared memory, and three
   // blocks while their C_out sums fit the registers
-  static constexpr int kMinBlocks = kMode == kTapsK && NT <= 2 ? 3 : 2;
+  static constexpr int kMinBlocks = MODE == kTapsK && NT <= 2 ? 3 : 2;
 };
 
 // the block tiling of one launch (host-chosen, uniform in the grid)
 struct Geo {
   int B, hA, wA, hB, wB;
+  int cin, cout;   // the true widths
   int G, R, Wc;    // a block: G volumes x R rows x Wc columns of one plane
   int n_rb, n_cb;  // row and column bands of a plane
   int Hp, Wp;      // the staged box: R + 2d rows of Wc + 2d cells
@@ -190,31 +238,32 @@ __device__ __forceinline__ void box_offsets(long long* boff, const Geo& g,
   }
 }
 
-// Stage the input box of plane (ii, jj) into `sin`: CIN channels a cell at
-// PITCH (zeros to WIDTH; 16-byte cp.async copies when CIN = WIDTH); zeros
-// outside the volume.
-template <int CIN, int WIDTH, int PITCH>
+// Stage the input box of plane (ii, jj) into `sin`: cin channels a cell
+// at PITCH (zeros to WIDTH; 16-byte cp.async copies of 8-channel chunks
+// when cin is a multiple of 8); zeros outside the volume.
+template <int WIDTH, int PITCH>
 __device__ __forceinline__ void stage_box(const __nv_bfloat16* __restrict__ x,
                                           __nv_bfloat16* sin,
                                           const long long* boff, const Geo& g,
-                                          int ii, int jj) {
+                                          int ii, int jj, int cin) {
   const long long po =
       (static_cast<long long>(ii) * g.wA + jj) * g.hB * g.wB;
-  if constexpr (CIN == WIDTH) {
-    constexpr int kChunks = CIN / 8, kShift = log2_of(kChunks);
+  if (cin % 8 == 0) {
+    constexpr int kChunks = WIDTH / 8, kShift = log2_of(kChunks);
     for (int e = threadIdx.x; e < kChunks * g.box; e += kThreads) {
       const int cell = e >> kShift, h = e & (kChunks - 1);
       const long long o = boff[cell];
+      const bool ok = o >= 0 && 8 * h < cin;
       tc::cp_async16(sin + cell * PITCH + 8 * h,
-                     o >= 0 ? x + (o + po) * CIN + 8 * h : x, o >= 0 ? 16 : 0);
+                     ok ? x + (o + po) * cin + 8 * h : x, ok ? 16 : 0);
     }
   } else {
     constexpr int kShift = log2_of(WIDTH);
     for (int e = threadIdx.x; e < WIDTH * g.box; e += kThreads) {
       const int cell = e >> kShift, c = e & (WIDTH - 1);
       const long long o = boff[cell];
-      sin[cell * PITCH + c] = (c < CIN && o >= 0)
-                                  ? x[(o + po) * CIN + c]
+      sin[cell * PITCH + c] = (c < cin && o >= 0)
+                                  ? x[(o + po) * cin + c]
                                   : __float2bfloat16_rn(0.f);
     }
   }
@@ -274,27 +323,28 @@ struct Segment {
   }
 };
 
-// Stage `rows` weight rows of WIDTH bf16 at PITCH from a (rows_in, COLS)
-// matrix: row n, column c is src[n * COLS + c] for n < rows_in and c <
-// cols_used, else 0.  16-byte copies when a row is exactly WIDTH bf16.
-template <int COLS, int WIDTH, int PITCH>
+// Stage `rows` weight rows of WIDTH bf16 at PITCH from a (rows_in, cols)
+// matrix: row n, column c is src[n * cols + c] for n < rows_in and c <
+// cols, else 0.  16-byte copies of 8-column chunks when cols is a multiple
+// of 8.
+template <int WIDTH, int PITCH>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src, int rows,
-                                           int rows_in, int cols_used) {
-  if constexpr (COLS == WIDTH) {
-    constexpr int kChunks = COLS / 8, kShift = log2_of(kChunks);
+                                           int rows_in, int cols) {
+  if (cols % 8 == 0) {
+    constexpr int kChunks = WIDTH / 8, kShift = log2_of(kChunks);
     for (int e = threadIdx.x; e < kChunks * rows; e += kThreads) {
       const int n = e >> kShift, h = e & (kChunks - 1);
-      const bool ok = n < rows_in;
+      const bool ok = n < rows_in && 8 * h < cols;
       tc::cp_async16(dst + n * PITCH + 8 * h,
-                     ok ? src + n * COLS + 8 * h : src, ok ? 16 : 0);
+                     ok ? src + n * cols + 8 * h : src, ok ? 16 : 0);
     }
   } else {
     constexpr int kShift = log2_of(WIDTH);
     for (int e = threadIdx.x; e < WIDTH * rows; e += kThreads) {
       const int n = e >> kShift, c = e & (WIDTH - 1);
-      dst[n * PITCH + c] = (n < rows_in && c < cols_used)
-                               ? src[n * COLS + c]
+      dst[n * PITCH + c] = (n < rows_in && c < cols)
+                               ? src[n * cols + c]
                                : __float2bfloat16_rn(0.f);
     }
   }
@@ -315,18 +365,24 @@ struct Taps {
 
 // The channels and taps-in-K modes: each warp holds kMTW m-tiles of output
 // cells x NT n-tiles of C_out in f32 registers across every (p, q), staged
-// one (p, q) at a time, double-buffered (the taps in K build their expanded
-// box from registers loaded a (p, q) ahead).
-template <int K, int CIN, int COUT, bool BIAS_RELU>
-__global__ void __launch_bounds__(kThreads, (Layer<K, CIN, COUT>::kMinBlocks))
+// one (p, q) (or one chunk of its tap rows) at a time, double-buffered (the
+// taps in K build their expanded box from registers loaded a (p, q) ahead).
+// FULL: the widths are the class's own (C_in = CW, or 1 for the taps in K;
+// C_out = OW), compiled in as constants; otherwise they are read from g.
+// A null bias is the transposed launch: no bias, no ReLU.
+template <int K, Mode MODE, int CW, int OW, bool FULL>
+__global__ void __launch_bounds__(kThreads,
+                                  (Layer<K, MODE, CW, OW>::kMinBlocks))
 nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
                       const __nv_bfloat16* __restrict__ w,
                       const __nv_bfloat16* __restrict__ bias,
                       __nv_bfloat16* __restrict__ out, const Geo g) {
-  using L = Layer<K, CIN, COUT>;
-  constexpr int D = L::D, NT = L::NT, P = L::kPitch;
-  constexpr bool kTaps = L::kMode == kTapsK;
+  using L = Layer<K, MODE, CW, OW>;
+  constexpr int D = L::D, NT = L::NT, P = L::kInPitch, WP = L::kWPitch;
+  constexpr int RC = L::RC, NRC = L::NRC;
+  constexpr bool kTaps = MODE == kTapsK;
   static_assert(NT == 1 || NT % 2 == 0, "B fragments load n-tiles in pairs");
+  static_assert(!kTaps || NRC == 1, "taps in K: one weight stage a (p, q)");
   extern __shared__ __align__(16) unsigned char smem[];
   long long* boff = reinterpret_cast<long long*>(smem);
   unsigned char* stages = smem + round16(g.box * 8);
@@ -335,53 +391,81 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, t4 = lane % 4;
   const int n_out = g.G * g.R * g.Wc;
+  const int cin = FULL ? (kTaps ? 1 : CW) : g.cin;
+  const int cout = FULL ? OW : g.cout;
   box_offsets<D>(boff, g, blk);
   __syncthreads();
 
-  // stage (p, q) number t into slot `slot` (taps in K: its weights; the
-  // expanded box comes from the Segment)
-  auto stage = [&](int t, int slot) {
+  auto box_at = [&](int slot) {
+    return reinterpret_cast<__nv_bfloat16*>(stages + slot * g.stage_bytes);
+  };
+  auto w_at = [&](int slot) {
+    return reinterpret_cast<__nv_bfloat16*>(stages + slot * g.stage_bytes +
+                                            g.in_bytes);
+  };
+  // the input box of (p, q) number t into box slot `slot` (not the taps
+  // in K: their expanded box comes from the Segment)
+  auto stage_in = [&](int t, int slot) {
+    stage_box<CW, P>(x, box_at(slot), boff, g, blk.i + taps.p(t) - D,
+                     blk.j + taps.q(t) - D, cin);
+  };
+  // the weights of (p, q) number t, tap-row chunk c, into weight slot `slot`
+  auto stage_w = [&](int t, int c, int slot) {
     const int p = taps.p(t), q = taps.q(t);
-    unsigned char* base = stages + slot * g.stage_bytes;
-    auto* sin = reinterpret_cast<__nv_bfloat16*>(base);
-    auto* sw = reinterpret_cast<__nv_bfloat16*>(base + g.in_bytes);
-    if constexpr (!kTaps)
-      stage_box<CIN, L::kWidth, P>(x, sin, boff, g, blk.i + p - D,
-                                   blk.j + q - D);
+    __nv_bfloat16* sw = w_at(slot);
     const __nv_bfloat16* slab =
-        w + static_cast<int64_t>(p * K + q) * (K * K * CIN * COUT);
+        w + static_cast<int64_t>(p * K + q) * (K * K * cin * cout);
     if constexpr (kTaps) {
       // rows (k-step j, half h, s): tap (2 j + h, s), columns C_out
       auto tap = [](int row) {
         const int r = 2 * (row >> 4) + ((row >> 3) & 1), sc = row & 7;
         return r < K && sc < K ? r * K + sc : -1;
       };
-      if constexpr (COUT == L::kWidth) {
-        constexpr int kChunks = COUT / 8, kShift = log2_of(kChunks);
+      if (cout % 8 == 0) {
+        constexpr int kChunks = L::kWWidth / 8, kShift = log2_of(kChunks);
         for (int e = threadIdx.x; e < L::kWRows * kChunks; e += kThreads) {
           const int row = e >> kShift, h = e & (kChunks - 1), rs = tap(row);
-          tc::cp_async16(sw + row * P + 8 * h,
-                         rs >= 0 ? slab + rs * COUT + 8 * h : slab,
-                         rs >= 0 ? 16 : 0);
+          const bool ok = rs >= 0 && 8 * h < cout;
+          tc::cp_async16(sw + row * WP + 8 * h,
+                         ok ? slab + rs * cout + 8 * h : slab, ok ? 16 : 0);
         }
       } else {
-        for (int e = threadIdx.x; e < L::kWRows * L::kWidth; e += kThreads) {
-          const int row = e / L::kWidth, co = e % L::kWidth, rs = tap(row);
-          sw[row * P + co] = (rs >= 0 && co < COUT)
-                                 ? slab[rs * COUT + co]
-                                 : __float2bfloat16_rn(0.f);
+        constexpr int kShift = log2_of(L::kWWidth);
+        for (int e = threadIdx.x; e < L::kWRows * L::kWWidth; e += kThreads) {
+          const int row = e >> kShift, co = e & (L::kWWidth - 1), rs = tap(row);
+          sw[row * WP + co] = (rs >= 0 && co < cout)
+                                  ? slab[rs * cout + co]
+                                  : __float2bfloat16_rn(0.f);
         }
       }
-    } else if constexpr (CIN == 16 && COUT == 16) {
-      // rows (r, s, ci), columns C_out
-      stage_rows<16, 16, P>(sw, slab, L::kWRows, L::kWRows, 16);
     } else {
-      for (int e = threadIdx.x; e < L::kWRows * 16; e += kThreads) {
-        const int row = e / 16, co = e % 16;
-        const int rs = row / 16, ci = row % 16;
-        sw[row * P + co] = (ci < CIN && co < COUT)
-                               ? slab[(rs * CIN + ci) * COUT + co]
-                               : __float2bfloat16_rn(0.f);
+      // rows (r of the chunk, s, ci), ci padded to CW; columns C_out
+      const int r0 = c * RC;
+      const int rows_in = (K - r0 < RC ? K - r0 : RC) * K;
+      const __nv_bfloat16* src = slab + static_cast<int64_t>(r0) * K * cin * cout;
+      if (cin == CW) {
+        stage_rows<L::kWWidth, WP>(sw, src, L::kWRows, rows_in * CW, cout);
+      } else if (cin % 8 == 0 && cout % 8 == 0) {
+        // rows (r, s, ci) of cin ci: each 8-channel chunk of C_out a copy,
+        // the rows past cin zeros
+        constexpr int kChunks = L::kWWidth / 8, kShift = log2_of(kChunks);
+        for (int e = threadIdx.x; e < L::kWRows * kChunks; e += kThreads) {
+          const int row = e >> kShift, h = e & (kChunks - 1);
+          const int rs = row / CW, ci = row % CW;
+          const bool ok = rs < rows_in && ci < cin && 8 * h < cout;
+          tc::cp_async16(sw + row * WP + 8 * h,
+                         ok ? src + (rs * cin + ci) * cout + 8 * h : src,
+                         ok ? 16 : 0);
+        }
+      } else {
+        constexpr int kShift = log2_of(L::kWWidth);
+        for (int e = threadIdx.x; e < L::kWRows * L::kWWidth; e += kThreads) {
+          const int row = e >> kShift, co = e & (L::kWWidth - 1);
+          const int rs = row / CW, ci = row % CW;
+          sw[row * WP + co] = (rs < rows_in && ci < cin && co < cout)
+                                  ? src[(rs * cin + ci) * cout + co]
+                                  : __float2bfloat16_rn(0.f);
+        }
       }
     }
   };
@@ -416,7 +500,7 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
   // pairs of 16 columns
   auto load_b = [&](const __nv_bfloat16* sw, int row0, uint32_t* bw) {
     const __nv_bfloat16* at =
-        sw + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P;
+        sw + (row0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * WP;
     if constexpr (NT == 1) {
       tc::ldmatrix_x2_trans(bw, at);
     } else {
@@ -426,10 +510,8 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  auto compute = [&](int slot) {
-    const unsigned char* base = stages + slot * g.stage_bytes;
-    const auto* sin = reinterpret_cast<const __nv_bfloat16*>(base);
-    const auto* sw = reinterpret_cast<const __nv_bfloat16*>(base + g.in_bytes);
+  auto compute = [&](const __nv_bfloat16* sin, const __nv_bfloat16* sw,
+                     int c) {
     if constexpr (kTaps) {
       // k-step j: matrices 0, 1 the tap row 2 j of the 16 rows' expanded
       // cells, 2, 3 the row 2 j + 1 (clamped to a real row past K - 1:
@@ -450,19 +532,24 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
       }
     } else {
 #pragma unroll
-      for (int r = 0; r < K; ++r) {
+      for (int rr = 0; rr < RC; ++rr) {
+        const int r = c * RC + rr;
+        if (NRC > 1 && r >= K) break;
 #pragma unroll
         for (int s = 0; s < K; ++s) {
-          const int tap = (r * g.Wp + s) * P;
-          uint32_t bw[2 * NT];
-          load_b(sw, (r * K + s) * 16, bw);
 #pragma unroll
-          for (int u = 0; u < kMTW; ++u) {
-            if (!active[u]) continue;
-            uint32_t a[4];
-            tc::ldmatrix_x4(a, sin + a_at[u] + tap);
+          for (int ks = 0; ks < L::KSTEPS; ++ks) {
+            const int tap = (r * g.Wp + s) * P + 16 * ks;
+            uint32_t bw[2 * NT];
+            load_b(sw, (rr * K + s) * CW + 16 * ks, bw);
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt) tc::mma_bf16(acc[u][nt], a, bw + 2 * nt);
+            for (int u = 0; u < kMTW; ++u) {
+              if (!active[u]) continue;
+              uint32_t a[4];
+              tc::ldmatrix_x4(a, sin + a_at[u] + tap);
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) tc::mma_bf16(acc[u][nt], a, bw + 2 * nt);
+            }
           }
         }
       }
@@ -475,34 +562,40 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
       return (static_cast<long long>(blk.i + taps.p(t) - D) * g.wA + blk.j +
               taps.q(t) - D) * g.hB * g.wB;
     };
-    auto expanded = [&](int slot) {
-      return reinterpret_cast<__nv_bfloat16*>(stages + slot * g.stage_bytes);
-    };
-    stage(0, 0);
+    stage_w(0, 0, 0);
     tc::cp_async_commit();
     seg.load(x, boff, plane(0));
-    seg.store(expanded(0));
+    seg.store(box_at(0));
     for (int t = 0; t < taps.n; ++t) {
       tc::cp_async_wait_all();
       __syncthreads();  // (p, q) landed; the previous one is no longer read
       const bool next = t + 1 < taps.n;
       if (next) {
-        stage(t + 1, (t + 1) & 1);
+        stage_w(t + 1, 0, (t + 1) & 1);
         seg.load(x, boff, plane(t + 1));
       }
       tc::cp_async_commit();
-      compute(t & 1);
-      if (next) seg.store(expanded((t + 1) & 1));
+      compute(box_at(t & 1), w_at(t & 1), 0);
+      if (next) seg.store(box_at((t + 1) & 1));
     }
   } else {
-    stage(0, 0);
+    // step st = (p, q) number t, tap-row chunk c: the box lives in slot
+    // t % 2 for the NRC steps of t, the weights in slot st % 2
+    const int n_steps = taps.n * NRC;
+    stage_in(0, 0);
+    stage_w(0, 0, 0);
     tc::cp_async_commit();
-    for (int t = 0; t < taps.n; ++t) {
+    for (int st = 0; st < n_steps; ++st) {
+      const int t = st / NRC, c = st % NRC;
       tc::cp_async_wait_all();
-      __syncthreads();  // (p, q) landed; the previous one is no longer read
-      if (t + 1 < taps.n) stage(t + 1, (t + 1) & 1);
+      __syncthreads();  // step landed; the previous one is no longer read
+      if (st + 1 < n_steps) {
+        const int t1 = (st + 1) / NRC, c1 = (st + 1) % NRC;
+        stage_w(t1, c1, (st + 1) & 1);
+        if (c == 0 && t + 1 < taps.n) stage_in(t + 1, (t + 1) & 1);
+      }
       tc::cp_async_commit();
-      compute(t & 1);
+      compute(box_at(t & 1), w_at(st & 1), c);
     }
   }
 
@@ -515,39 +608,42 @@ nc_conv4d_rows_kernel(const __nv_bfloat16* __restrict__ x,
       if (m >= n_out) continue;
       const int64_t cell = out_cell(g, blk, m);
       if (cell < 0) continue;
-      __nv_bfloat16* o = out + cell * COUT;
+      __nv_bfloat16* o = out + cell * cout;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int co = nt * 8 + 2 * t4;
         float v[2] = {acc[u][nt][2 * h], acc[u][nt][2 * h + 1]};
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          if (BIAS_RELU && co + c < COUT)
+          if (bias != nullptr && co + c < cout)
             v[c] = fmaxf(v[c] + __bfloat162float(bias[co + c]), 0.f);
-        if (COUT % 2 == 0 && co + 1 < COUT) {
+        if (cout % 2 == 0 && co + 1 < cout) {
           *reinterpret_cast<uint32_t*>(o + co) = tc::pack_f32(v[0], v[1]);
         } else {
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            if (co + c < COUT) o[co + c] = __float2bfloat16_rn(v[c]);
+            if (co + c < cout) o[co + c] = __float2bfloat16_rn(v[c]);
         }
       }
     }
   }
 }
 
-// The taps-in-N mode (C_out <= 4): per (p, q), P (n, cell) = the box cells'
-// channels times the (n = (r, s, co), ci) weights, f32 in shared memory;
-// then every output (cell, co) adds P ((r, s, co), cell + (r, s)) over the
-// k^2 taps into its f32 register.
-template <int K, int CIN, int COUT, bool BIAS_RELU>
+// The taps-in-N mode (C_out <= 4): per (p, q) and tap-row chunk, P (n,
+// cell) = the box cells' channels times the (n = (r, s, co), ci) weights,
+// f32 in shared memory; then every output (cell, co) adds P ((r, s, co),
+// cell + (r, s)) over the chunk's taps into its f32 register.
+// BIAS: the forward (bias + ReLU); without, the transposed launch.  A
+// compile-time flag here: as a run-time test it cost the 32 -> 2 layer 5 %.
+template <int K, Mode MODE, int CW, int OW, bool FULL, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 2)
 nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ w,
                         const __nv_bfloat16* __restrict__ bias,
                         __nv_bfloat16* __restrict__ out, const Geo g) {
-  using L = Layer<K, CIN, COUT>;
-  constexpr int D = L::D, PITCH = L::kPitch, KST = L::KSTEPS;
+  using L = Layer<K, MODE, CW, OW>;
+  constexpr int D = L::D, PITCH = L::kInPitch, KST = L::KSTEPS;
+  constexpr int RC = L::RC, NRC = L::NRC, COUT = OW;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* boff = reinterpret_cast<long long*>(smem);
   unsigned char* stages = smem + round16(g.box * 8);
@@ -558,28 +654,39 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
   const int gq = lane / 4, t4 = lane % 4;
   const int n_out = g.G * g.R * g.Wc;
   const int box_mt = (g.box + 15) / 16;
+  const int cin = FULL ? CW : g.cin;
   box_offsets<D>(boff, g, blk);
   __syncthreads();
 
-  auto stage = [&](int t) {
+  auto box_at = [&](int slot) {
+    return reinterpret_cast<__nv_bfloat16*>(stages + slot * g.stage_bytes);
+  };
+  auto w_at = [&](int slot) {
+    return reinterpret_cast<__nv_bfloat16*>(stages + slot * g.stage_bytes +
+                                            g.in_bytes);
+  };
+  auto stage_in = [&](int t, int slot) {
+    stage_box<CW, PITCH>(x, box_at(slot), boff, g, blk.i + taps.p(t) - D,
+                         blk.j + taps.q(t) - D, cin);
+  };
+  // rows n = (r of chunk c, s, co) of (p, q) number t, C_in columns
+  auto stage_w = [&](int t, int c, int slot) {
     const int p = taps.p(t), q = taps.q(t);
-    unsigned char* base = stages + (t & 1) * g.stage_bytes;
-    auto* sin = reinterpret_cast<__nv_bfloat16*>(base);
-    auto* sw = reinterpret_cast<__nv_bfloat16*>(base + g.in_bytes);
-    stage_box<CIN, L::kWidth, PITCH>(x, sin, boff, g, blk.i + p - D,
-                                     blk.j + q - D);
+    __nv_bfloat16* sw = w_at(slot);
+    const int r0 = c * RC;
+    const int n_in = (K - r0 < RC ? K - r0 : RC) * K * COUT;
     const __nv_bfloat16* slab =
-        w + static_cast<int64_t>(p * K + q) * (K * K * CIN * COUT);
+        w + (static_cast<int64_t>(p * K + q) * K + r0) * K * cin * COUT;
     if constexpr (COUT == 1) {
       // the slab (r, s, ci) is already (n, ci)
-      stage_rows<CIN, L::kWidth, PITCH>(sw, slab, L::NPAD, K * K, CIN);
+      stage_rows<CW, PITCH>(sw, slab, L::NPAD, n_in, cin);
     } else {
-      constexpr int kShift = log2_of(L::kWidth);
-      for (int e = threadIdx.x; e < L::kWidth * L::NPAD; e += kThreads) {
-        const int n = e >> kShift, ci = e & (L::kWidth - 1);
+      constexpr int kShift = log2_of(CW);
+      for (int e = threadIdx.x; e < CW * L::NPAD; e += kThreads) {
+        const int n = e >> kShift, ci = e & (CW - 1);
         const int rs = n / COUT, co = n % COUT;
-        sw[n * PITCH + ci] = (ci < CIN && n < K * K * COUT)
-                                 ? slab[(rs * CIN + ci) * COUT + co]
+        sw[n * PITCH + ci] = (ci < cin && n < n_in)
+                                 ? slab[(rs * cin + ci) * COUT + co]
                                  : __float2bfloat16_rn(0.f);
       }
     }
@@ -597,16 +704,21 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
                 : -1;
   }
 
-  stage(0);
+  const int n_steps = taps.n * NRC;
+  stage_in(0, 0);
+  stage_w(0, 0, 0);
   tc::cp_async_commit();
-  for (int t = 0; t < taps.n; ++t) {
+  for (int st = 0; st < n_steps; ++st) {
+    const int t = st / NRC, c = st % NRC;
     tc::cp_async_wait_all();
-    __syncthreads();  // (p, q) landed; P and the previous stage are free
-    if (t + 1 < taps.n) stage(t + 1);
+    __syncthreads();  // step landed; P and the previous step are free
+    if (st + 1 < n_steps) {
+      stage_w((st + 1) / NRC, (st + 1) % NRC, (st + 1) & 1);
+      if (c == 0 && t + 1 < taps.n) stage_in(t + 1, (t + 1) & 1);
+    }
     tc::cp_async_commit();
-    const unsigned char* base = stages + (t & 1) * g.stage_bytes;
-    const auto* sin = reinterpret_cast<const __nv_bfloat16*>(base);
-    const auto* sw = reinterpret_cast<const __nv_bfloat16*>(base + g.in_bytes);
+    const __nv_bfloat16* sin = box_at(t & 1);
+    const __nv_bfloat16* sw = w_at(st & 1);
     // B fragments per k-step of 16 channels and n-tile
     uint32_t bw[KST][L::NTN][2];
 #pragma unroll
@@ -642,10 +754,10 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
           const int n = nt * 8 + 2 * t4;
           float* col = P + n * g.p_pitch;
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            if (n + c >= L::kPRows) continue;
-            if (r0 < g.box) col[c * g.p_pitch + r0] = d[c];
-            if (r1 < g.box) col[c * g.p_pitch + r1] = d[2 + c];
+          for (int c2 = 0; c2 < 2; ++c2) {
+            if (n + c2 >= L::kPRows) continue;
+            if (r0 < g.box) col[c2 * g.p_pitch + r0] = d[c2];
+            if (r1 < g.box) col[c2 * g.p_pitch + r1] = d[2 + c2];
           }
         }
       }
@@ -655,10 +767,13 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
     for (int u = 0; u < kOutPerThread; ++u) {
       if (at[u] < 0) continue;
 #pragma unroll
-      for (int r = 0; r < K; ++r)
+      for (int rr = 0; rr < RC; ++rr) {
+        const int r = c * RC + rr;
+        if (NRC > 1 && r >= K) break;
 #pragma unroll
         for (int s = 0; s < K; ++s)
-          acc[u] += P[(r * K + s) * COUT * g.p_pitch + at[u] + r * g.Wp + s];
+          acc[u] += P[(rr * K + s) * COUT * g.p_pitch + at[u] + r * g.Wp + s];
+      }
     }
   }
 
@@ -670,7 +785,7 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
     const int64_t cell = out_cell(g, blk, o / COUT);
     if (cell < 0) continue;
     float v = acc[u];
-    if (BIAS_RELU) v = fmaxf(v + __bfloat162float(bias[co]), 0.f);
+    if (BIAS) v = fmaxf(v + __bfloat162float(bias[co]), 0.f);
     out[cell * COUT + co] = __float2bfloat16_rn(v);
   }
 }
@@ -678,51 +793,50 @@ nc_conv4d_taps_n_kernel(const __nv_bfloat16* __restrict__ x,
 // Shared memory of a tiling (filling in its box and stage sizes): the box
 // offsets, then two stages (P after them for the taps in N); SIZE_MAX for
 // a tiling the mode's per-thread arrays cannot cover.
-template <int K, int CIN, int COUT>
+template <int K, Mode MODE, int CW, int OW>
 size_t smem_bytes(Geo& g) {
-  using L = Layer<K, CIN, COUT>;
+  using L = Layer<K, MODE, CW, OW>;
   g.Hp = g.R + 2 * L::D;
   g.Wp = g.Wc + 2 * L::D;
   g.box = g.G * g.Hp * g.Wp;
   const size_t offsets = round16(g.box * 8);
   g.p_pitch = 0;
-  if (L::kMode == kTapsN) {
-    g.in_bytes = round16(g.box * L::kPitch * 2);
-    g.stage_bytes = g.in_bytes + L::NPAD * L::kPitch * 2;
+  if (MODE == kTapsN) {
+    g.in_bytes = round16(g.box * L::kInPitch * 2);
+    g.stage_bytes = g.in_bytes + L::NPAD * L::kInPitch * 2;
     // the smallest pitch >= box that is 4 mod 32 words, so the fragment
     // stores of 8 rows x 4 columns fall on distinct banks
     g.p_pitch = (g.box + 27) / 32 * 32 + 4;
     return offsets + 2 * static_cast<size_t>(g.stage_bytes) +
            static_cast<size_t>(L::kPRows) * g.p_pitch * sizeof(float);
   }
-  if (L::kMode == kTapsK) {
+  if (MODE == kTapsK) {
     // one row segment of the expanded box a thread
     if (g.G * g.Hp * ((g.Wc + 7) / 8) > kThreads) return SIZE_MAX;
     g.in_bytes = round16(g.G * g.Hp * g.Wc * kShifts * 2);
   } else {
-    g.in_bytes = round16(g.box * L::kPitch * 2);
+    g.in_bytes = round16(g.box * L::kInPitch * 2);
   }
-  g.stage_bytes = g.in_bytes + L::kWRows * L::kPitch * 2;
+  g.stage_bytes = g.in_bytes + L::kWRows * L::kWPitch * 2;
   return offsets + 2 * static_cast<size_t>(g.stage_bytes);
 }
 
-// the kernel of a layer shape (only that one is instantiated)
-template <int K, int CIN, int COUT, bool BIAS_RELU>
-auto kernel_of() {
-  if constexpr (Layer<K, CIN, COUT>::kMode == kTapsN)
-    return nc_conv4d_taps_n_kernel<K, CIN, COUT, BIAS_RELU>;
+// the kernel of a layer class (only that one is instantiated)
+template <int K, Mode MODE, int CW, int OW, bool FULL>
+auto kernel_of(bool bias) {
+  if constexpr (MODE == kTapsN)
+    return bias ? nc_conv4d_taps_n_kernel<K, MODE, CW, OW, FULL, true>
+                : nc_conv4d_taps_n_kernel<K, MODE, CW, OW, FULL, false>;
   else
-    return nc_conv4d_rows_kernel<K, CIN, COUT, BIAS_RELU>;
+    return nc_conv4d_rows_kernel<K, MODE, CW, OW, FULL>;
 }
 
-template <int K, int CIN, int COUT, bool BIAS_RELU>
-cudaError_t launch(const void* x, const void* w, const void* b, void* out,
-                   int B, int hA, int wA, int hB, int wB,
-                   cudaStream_t stream) {
-  if (static_cast<int64_t>(B) * hA * wA * hB * wB <= 0) return cudaSuccess;
-  // the block: whole planes of as many volumes as kMaxOut cells hold, else
-  // bands of rows, else of columns; shrunk until two blocks fit an SM
-  Geo g{B, hA, wA, hB, wB};
+// The tiling of a launch: whole planes of as many volumes as kMaxOut
+// cells hold, else bands of rows, else of columns; shrunk until two blocks
+// fit an SM.  Returns the shared memory, or 0 when no tiling fits.
+template <int K, Mode MODE, int CW, int OW>
+size_t tile(Geo& g) {
+  const int hB = g.hB, wB = g.wB, B = g.B;
   g.Wc = wB < kMaxOut ? wB : kMaxOut;
   g.R = hB < kMaxOut / g.Wc ? hB : (kMaxOut / g.Wc > 0 ? kMaxOut / g.Wc : 1);
   g.G = 1;
@@ -731,7 +845,7 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
     g.G = B < fit ? B : (fit > 0 ? fit : 1);
   }
   size_t smem;
-  while ((smem = smem_bytes<K, CIN, COUT>(g)) > kSmemBudget) {
+  while ((smem = smem_bytes<K, MODE, CW, OW>(g)) > kSmemBudget) {
     if (g.G > 1)
       --g.G;
     else if (g.R > 1)
@@ -739,14 +853,22 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
     else if (g.Wc > 1)
       g.Wc = (g.Wc + 1) / 2;
     else
-      return cudaErrorInvalidValue;
+      return 0;
   }
-  g.n_rb = (hB + g.R - 1) / g.R;
-  g.n_cb = (wB + g.Wc - 1) / g.Wc;
-  const int64_t blocks = static_cast<int64_t>((B + g.G - 1) / g.G) * hA * wA *
-                         g.n_rb * g.n_cb;
+  return smem;
+}
+
+template <int K, Mode MODE, int CW, int OW, bool FULL>
+cudaError_t launch(const void* x, const void* w, const void* b, void* out,
+                   Geo g, cudaStream_t stream) {
+  const size_t smem = tile<K, MODE, CW, OW>(g);
+  if (smem == 0) return cudaErrorInvalidValue;
+  g.n_rb = (g.hB + g.R - 1) / g.R;
+  g.n_cb = (g.wB + g.Wc - 1) / g.Wc;
+  const int64_t blocks = static_cast<int64_t>((g.B + g.G - 1) / g.G) * g.hA *
+                         g.wA * g.n_rb * g.n_cb;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = kernel_of<K, CIN, COUT, BIAS_RELU>();
+  auto kernel = kernel_of<K, MODE, CW, OW, FULL>(b != nullptr);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -759,72 +881,127 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out,
   return cudaGetLastError();
 }
 
+// Calls f.template run<MODE, CW, OW>() for the class of a layer shape
+// (c_in, c_out) within the limits: the one dispatch of the launches and of
+// the shared-memory check.
+template <typename F>
+auto with_class(int c_in, int c_out, const F& f) {
+  const Mode m = mode_of(c_in, c_out);
+  const int cw = cw_of(c_in), ow = ow_of(m, c_out);
+  if (m == kTapsK) {
+    if (ow == 8) return f.template run<kTapsK, 16, 8>();
+    if (ow == 16) return f.template run<kTapsK, 16, 16>();
+    return f.template run<kTapsK, 16, 32>();
+  }
+  if (m == kTapsN) {
+    if (cw == 16) {
+      if (ow == 1) return f.template run<kTapsN, 16, 1>();
+      if (ow == 2) return f.template run<kTapsN, 16, 2>();
+      if (ow == 3) return f.template run<kTapsN, 16, 3>();
+      return f.template run<kTapsN, 16, 4>();
+    }
+    if (ow == 1) return f.template run<kTapsN, 32, 1>();
+    if (ow == 2) return f.template run<kTapsN, 32, 2>();
+    if (ow == 3) return f.template run<kTapsN, 32, 3>();
+    return f.template run<kTapsN, 32, 4>();
+  }
+  if (cw == 16) {
+    if (ow == 8) return f.template run<kChannels, 16, 8>();
+    if (ow == 16) return f.template run<kChannels, 16, 16>();
+    return f.template run<kChannels, 16, 32>();
+  }
+  if (ow == 8) return f.template run<kChannels, 32, 8>();
+  if (ow == 16) return f.template run<kChannels, 32, 16>();
+  return f.template run<kChannels, 32, 32>();
+}
+
+bool in_limits(int k, int c_in, int c_out) {
+  return k == NC_K && c_in >= 1 && c_in <= kMaxWidth && c_out >= 1 &&
+         c_out <= kMaxWidth;
+}
+
+// the shared memory of the smallest block (one cell of one volume) of a
+// launch whose input has c_in channels and output c_out
+struct MinSmem {
+  template <Mode MODE, int CW, int OW>
+  size_t run() const {
+    Geo g{};
+    g.G = g.R = g.Wc = 1;
+    return smem_bytes<NC_K, MODE, CW, OW>(g);
+  }
+};
+
+size_t min_smem(int c_in, int c_out) {
+  return with_class(c_in, c_out, MinSmem{});
+}
+
+struct LaunchLayer {
+  const void *x, *w, *b;
+  void* out;
+  Geo g;
+  cudaStream_t stream;
+  template <Mode MODE, int CW, int OW>
+  cudaError_t run() const {
+    // the class's own widths take the build with them compiled in
+    if ((MODE == kTapsK || g.cin == CW) && g.cout == OW)
+      return launch<NC_K, MODE, CW, OW, true>(x, w, b, out, g, stream);
+    return launch<NC_K, MODE, CW, OW, false>(x, w, b, out, g, stream);
+  }
+};
+
+// b null: the transposed launch (no bias, no ReLU)
+cudaError_t launch_layer(const void* x, const void* w, const void* b,
+                         void* out, int B, int hA, int wA, int hB, int wB,
+                         int c_in, int c_out, cudaStream_t stream) {
+  if (static_cast<int64_t>(B) * hA * wA * hB * wB <= 0) return cudaSuccess;
+  Geo g{};
+  g.B = B;
+  g.hA = hA;
+  g.wA = wA;
+  g.hB = hB;
+  g.wB = wB;
+  g.cin = c_in;
+  g.cout = c_out;
+  return with_class(c_in, c_out, LaunchLayer{x, w, b, out, g, stream});
+}
+
 }  // namespace
-
-// The (k, C_in, C_out) layer shapes whose forward and transposed variant
-// (the backward's input gradient, of the transpose (k, C_out, C_in)) are
-// compiled in: the PF-Pascal stack (5: 1->16, 16->16, 16->1), the
-// IVD/InLoc stack (3: 1->16, 16->1), the default ModelConfig stack
-// (3: 1->10, 10->10, 10->1) and the thin test stacks (channels 1, 2 and 4
-// at k = 3 and 5); csrc/nc_conv4d_vjp.cu repeats the list.
-#define NC_CONV4D_TRANSPOSE_SHAPES(X)                                        \
-  X(5, 1, 16) X(5, 16, 16) X(5, 16, 1)                                       \
-  X(3, 1, 16) X(3, 16, 16) X(3, 16, 1)                                       \
-  X(3, 1, 10) X(3, 10, 10) X(3, 10, 1)                                       \
-  X(3, 1, 1) X(3, 1, 2) X(3, 1, 4) X(3, 2, 1) X(3, 2, 2) X(3, 4, 1)          \
-  X(3, 4, 2) X(3, 4, 4)                                                      \
-  X(5, 1, 1) X(5, 1, 2) X(5, 1, 4) X(5, 2, 1) X(5, 2, 2) X(5, 4, 1)          \
-  X(5, 4, 2) X(5, 4, 4)
-
-// The layer shapes the forward is compiled for: those above and, forward
-// only, the IVD stack's tap-swap chain (3: 1->32, 32->2; ncnet_tpu_torch/
-// models/ncnet.py::tap_swap_chain) that filters a rectangular symmetric
-// volume.
-#define NC_CONV4D_SHAPES(X)                                                  \
-  NC_CONV4D_TRANSPOSE_SHAPES(X) X(3, 1, 32) X(3, 32, 2)
 
 extern "C" {
 
-// 1 when the forward layer shape is compiled in, else 0
+// 1 when this library serves the forward layer (k, c_in, c_out) and its
+// transposed launch: k is this library's, both widths within the limits,
+// and the smallest block of either launch within the shared-memory budget
 int nc_conv4d_supported(int k, int c_in, int c_out) {
-#define NC_SUPPORTED(K, CI, CO) \
-  if (k == K && c_in == CI && c_out == CO) return 1;
-  NC_CONV4D_SHAPES(NC_SUPPORTED)
-#undef NC_SUPPORTED
-  return 0;
+  return in_limits(k, c_in, c_out) && min_smem(c_in, c_out) <= kSmemBudget &&
+         min_smem(c_out, c_in) <= kSmemBudget;
 }
 
 // Enqueues one layer on `stream`; returns the cudaError_t of the launch
-// (0 on success), or -1 for a shape that is not compiled in.  x and w must
-// start on 16 bytes.
+// (0 on success), or -1 for a shape this library does not serve.  x and w
+// must start on 16 bytes.
 int nc_conv4d_bf16(const void* x, const void* w, const void* b, void* out,
                    int B, int hA, int wA, int hB, int wB, int k, int c_in,
                    int c_out, void* stream) {
-#define NC_LAUNCH(K, CI, CO)                                              \
-  if (k == K && c_in == CI && c_out == CO)                                \
-    return static_cast<int>(launch<K, CI, CO, true>(                      \
-        x, w, b, out, B, hA, wA, hB, wB, static_cast<cudaStream_t>(stream)));
-  NC_CONV4D_SHAPES(NC_LAUNCH)
-#undef NC_LAUNCH
-  return -1;
+  if (!nc_conv4d_supported(k, c_in, c_out)) return -1;
+  if (b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_layer(x, w, b, out, B, hA, wA, hB, wB, c_in,
+                                       c_out,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // The input gradient of a forward layer (k, c_in, c_out): enqueues
 // out = bf16(conv4d_same(gz, wt)) with no bias and no ReLU, gz (B, hA, wA,
 // hB, wB, c_out) bf16, wt (k, k, k, k, c_out, c_in) the flipped, channel-
 // swapped weights, out (B, hA, wA, hB, wB, c_in).  Returns the cudaError_t
-// of the launch, or -1 for a shape that is not compiled in.
+// of the launch, or -1 for a shape this library does not serve.
 int nc_conv4d_transpose_bf16(const void* gz, const void* wt, void* out, int B,
                              int hA, int wA, int hB, int wB, int k, int c_in,
                              int c_out, void* stream) {
-#define NC_LAUNCH_T(K, CI, CO)                                            \
-  if (k == K && c_in == CI && c_out == CO)                                \
-    return static_cast<int>(launch<K, CO, CI, false>(                     \
-        gz, wt, nullptr, out, B, hA, wA, hB, wB,                          \
-        static_cast<cudaStream_t>(stream)));
-  NC_CONV4D_TRANSPOSE_SHAPES(NC_LAUNCH_T)
-#undef NC_LAUNCH_T
-  return -1;
+  if (!nc_conv4d_supported(k, c_in, c_out)) return -1;
+  return static_cast<int>(launch_layer(gz, wt, nullptr, out, B, hA, wA, hB,
+                                       wB, c_out, c_in,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 const char* nc_conv4d_error_string(int code) {

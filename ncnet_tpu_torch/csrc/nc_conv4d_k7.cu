@@ -1,0 +1,4 @@
+// The k = 7 layers of the NC forward kernel and its transposed launch
+// (nc_conv4d.cuh): one translation unit a kernel size, built in parallel.
+#define NC_K 7
+#include "nc_conv4d.cuh"

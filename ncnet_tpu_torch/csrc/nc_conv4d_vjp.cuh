@@ -59,9 +59,16 @@
 //     dW[(r, s), ci] = sum_c' x[c', ci] gz[c' - (r, s)]: A is the unshifted
 //     x, B an expanded box of gz with its 8 horizontal shifts (one n-tile
 //     of 8 a tap row r).
-// Thinner channel counts (1, 2, 4, 10) take the same modes, zero-padded by
-// the staging.  The centre (p, q) block of each part also writes gz (for
-// the input gradient) and sums db.
+// Any widths 1 <= C_in, C_out <= kMaxWidth take the same modes: a block
+// stages one 16-channel tile of C_in and one of C_out (the grid's third
+// dimension runs over the tile pairs; thinner tiles zero-padded by the
+// staging), or for the taps in N CB output channels (two at k = 7 with
+// C_out > 2, where k C_out sums would not fit the registers).  The kernels
+// are templated on k and on that class and take the true widths at run
+// time; one translation unit a k (nc_conv4d_vjp_k<k>.cu defines NC_K and
+// includes this file), so the builds run in parallel.  The centre (p, q)
+// block of the first C_in tile of each part also writes gz (for the input
+// gradient) and sums db.
 //
 // No float atomics: each block sums its items in a fixed order, combines
 // its warps in a fixed order and writes its f32 partial slab (and db) to
@@ -77,39 +84,59 @@
 
 #include "tensor_core.cuh"
 
+#ifndef NC_K
+#error "define NC_K, the kernel size of this translation unit"
+#endif
+
 namespace {
 
+// The limits of the design; ncnet_tpu_torch/ops/nc_fused_lane.py's gate
+// (kernels_hold) repeats them.
+constexpr int kMaxK = 7;       // an expanded cell's 8 shift slots: k <= 8
+constexpr int kMaxWidth = 32;  // two 16-channel tiles of C_in and of C_out
 constexpr int kCell = 16;                   // bf16 a staged cell: 16 channels
 constexpr int kShifts = 8;                  // s slots of an expanded cell
 constexpr size_t kSmemBudget = 113 * 1024;  // two blocks an SM
 
+static_assert(NC_K % 2 == 1 && NC_K <= kMaxK, "an odd k of the shape class");
+
 enum Mode { kChannels, kTapsM, kTapsN };
 
-template <int K, int CIN, int COUT>
+__host__ __device__ constexpr Mode mode_of(int c_in, int c_out) {
+  return c_in == 1 ? kTapsM : (c_out <= 4 ? kTapsN : kChannels);
+}
+
+// W: the n-tiles of a block's 16-channel C_out tile (channels, taps in M:
+// 1 for C_out <= 8, else 2), or CB, its output channels (taps in N)
+template <int K, Mode MODE, int W>
 struct Layer {
   static constexpr int D = K / 2;
-  static constexpr Mode kMode =
-      CIN == 1 ? kTapsM : (COUT <= 4 ? kTapsN : kChannels);
-  static constexpr int NT = COUT > 8 ? 2 : 1;  // n-tiles of C_out
+  static constexpr Mode kMode = MODE;
+  static_assert(K % 2 == 1 && K <= kMaxK, "a tap row fills 8 shift slots");
+  static constexpr int NT = MODE == kTapsN ? 1 : W;  // n-tiles of C_out
+  static constexpr int CB = MODE == kTapsN ? W : 16;  // C_out a block
   static constexpr int KS = (K + 1) / 2;       // pairs of tap rows r
   static constexpr int kWarps = kMode == kChannels ? 2 * K : 8;
   static constexpr int kThreads = 32 * kWarps;
   // f32 accumulators a lane: channels, the k taps (r, s) of its row x NT;
-  // taps in M, KS m-tiles x NT; taps in N, C_out x k n-tiles
+  // taps in M, KS m-tiles x NT; taps in N, CB x k n-tiles
   static constexpr int kAcc =
-      4 * (kMode == kChannels ? K * NT : kMode == kTapsM ? KS * NT : COUT * K);
+      4 * (kMode == kChannels ? K * NT : kMode == kTapsM ? KS * NT : CB * K);
   // warps whose accumulators the combine stages in shared memory
   static constexpr int kCombineWarps = kMode == kChannels ? K : kWarps;
   // row segments of an expanded box a thread
-  static constexpr int kSegs = (kMode == kTapsN && COUT > 1) ? 1 : 2;
-  static constexpr int kMinBlocks = (kMode == kTapsN && COUT > 1) ? 1 : 2;
+  static constexpr int kSegs = (kMode == kTapsN && CB > 1) ? 1 : 2;
+  // blocks an SM: one where the accumulators need the registers
+  static constexpr int kMinBlocks =
+      (kMode == kTapsN && CB > 1) || (kMode == kChannels && kAcc > 40) ? 1 : 2;
   static constexpr int kWin = K + kShifts - 1;  // raw values a segment
-  static constexpr int NW = K * K * K * K * CIN * COUT;
 };
 
 // the tiling of one launch (host-chosen, uniform in the grid)
 struct Geo {
   int B, hA, wA, hB, wB;
+  int cin, cout;          // the true widths
+  int n_ci_t;             // C_in tiles: blockIdx.z = co tile * n_ci_t + ci tile
   int R, Wc, n_rb, n_cb;  // bands of R rows x Wc columns
   int n_items;            // B * hA * wA * n_rb * n_cb
   int yoff, xoff;         // the x box's halo rows and columns (d, or 0 for
@@ -173,47 +200,54 @@ __device__ __forceinline__ __nv_bfloat16 relu_mask1(__nv_bfloat16 y,
   return (v > 0 && v < 0x7F81) ? g : __float2bfloat16_rn(0.f);
 }
 
-// Stage n cells of C channels (channels past C zero): cell c is the cell
-// cell_of(c) of the plane at src, or zeros where cell_of gives -1.  16-byte
-// cp.async copies for C = 16, plain loads otherwise.
-template <int C, int T, typename F>
+// Stage n cells of the 16 channels c0 .. c0 + 15 of a C-channel volume
+// (channels past C zero): cell c is the cell cell_of(c) of the plane at
+// src, or zeros where cell_of gives -1.  16-byte cp.async copies of
+// 8-channel halves where a cell starts on 16 bytes (C a multiple of 8),
+// plain loads otherwise.
+template <int T, typename F>
 __device__ __forceinline__ void stage_cells(__nv_bfloat16* dst,
                                             const __nv_bfloat16* __restrict__ src,
-                                            int n, F cell_of) {
-  if constexpr (C == 16) {
+                                            int n, int C, int c0, F cell_of) {
+  if (C % 8 == 0) {
     for (int e = threadIdx.x; e < 2 * n; e += T) {
       const int c = e >> 1, h = e & 1;
-      const int o = cell_of(c);
+      const int o = c0 + 8 * h < C ? cell_of(c) : -1;
       tc::cp_async16(dst + cell_at(c, h),
-                     o >= 0 ? src + static_cast<long long>(o) * 16 + 8 * h : src,
+                     o >= 0 ? src + static_cast<long long>(o) * C + c0 + 8 * h
+                            : src,
                      o >= 0 ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < 16 * n; e += T) {
       const int c = e >> 4, ch = e & 15;
       __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-      if (ch < C) {
+      if (c0 + ch < C) {
         const int o = cell_of(c);
-        if (o >= 0) v = src[static_cast<long long>(o) * C + ch];
+        if (o >= 0) v = src[static_cast<long long>(o) * C + c0 + ch];
       }
       dst[cell_at(c, ch >> 3) + (ch & 7)] = v;
     }
   }
 }
 
-template <int K, int CIN, int COUT>
-__global__ void __launch_bounds__(Layer<K, CIN, COUT>::kThreads,
-                                  Layer<K, CIN, COUT>::kMinBlocks)
+// FULL: one tile of the class's own widths (C_in = 16, or 1 for the taps
+// in M; C_out = 8 NT, or CB for the taps in N), compiled in as constants;
+// otherwise the widths and tiles are read from g.
+template <int K, Mode MODE, int W, bool FULL>
+__global__ void __launch_bounds__(Layer<K, MODE, W>::kThreads,
+                                  Layer<K, MODE, W>::kMinBlocks)
 nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ y,
                  const __nv_bfloat16* __restrict__ gr,
                  __nv_bfloat16* __restrict__ gz, float* __restrict__ partial,
                  const Geo g) {
-  using L = Layer<K, CIN, COUT>;
+  using L = Layer<K, MODE, W>;
   constexpr int D = L::D, T = L::kThreads, NT = L::NT, KS = L::KS;
+  constexpr int CB = L::CB;
   constexpr Mode kMode = L::kMode;
   constexpr bool kSegMode = kMode != kChannels;
-  constexpr int kSegCh = kMode == kTapsN ? COUT : 1;
+  constexpr int kSegCh = kMode == kTapsN ? CB : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   int* tbl_band = reinterpret_cast<int*>(smem);  // band cell -> (row, col)
   int* tbl_box = reinterpret_cast<int*>(smem + g.tbl_box);  // x box cell
@@ -222,7 +256,13 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int pq = blockIdx.x, part = blockIdx.y, n_parts = gridDim.y;
   const int p = pq / K, q = pq % K;
-  const bool centre = p == D && q == D;
+  const int cin = FULL ? (kMode == kTapsM ? 1 : 16) : g.cin;
+  const int cout = FULL ? (kMode == kTapsN ? CB : 8 * NT) : g.cout;
+  // this block's tiles: C_in channels ci0 .. ci0 + 15, C_out co0 .. co0 +
+  // CB - 1; the first C_in tile's centre block writes gz and db
+  const int ci0 = FULL ? 0 : 16 * (static_cast<int>(blockIdx.z) % g.n_ci_t);
+  const int co0 = FULL ? 0 : CB * (static_cast<int>(blockIdx.z) / g.n_ci_t);
+  const bool centre = p == D && q == D && ci0 == 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, t4 = lane & 3;
 
@@ -259,12 +299,14 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
   auto stage_async = [&](const Item& it, int slot) {
     unsigned char* base = slot_base(slot);
     if constexpr (kMode != kTapsM)
-      stage_cells<CIN, T>(bf(base), x + it.xcell * CIN, g.n_box,
-                          [&](int c) { return box_cell(it, c); });
+      stage_cells<T>(bf(base), x + it.xcell * cin, g.n_box, cin, ci0,
+                     [&](int c) { return box_cell(it, c); });
     if constexpr (kMode != kTapsN) {
       auto cell = [&](int m) { return band_cell(it, m); };
-      stage_cells<COUT, T>(bf(base + g.y_off), y + it.gcell * COUT, g.n_band, cell);
-      stage_cells<COUT, T>(bf(base + g.g_off), gr + it.gcell * COUT, g.n_band, cell);
+      stage_cells<T>(bf(base + g.y_off), y + it.gcell * cout, g.n_band, cout,
+                     co0, cell);
+      stage_cells<T>(bf(base + g.g_off), gr + it.gcell * cout, g.n_band, cout,
+                     co0, cell);
     }
   };
 
@@ -273,9 +315,9 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
   // (EG[(kr + d + yoff, c)][s] = gz band (kr, c - s + d - xoff), c a
   // column of the x box).
   __nv_bfloat16 raw[L::kSegs][kSegCh][L::kWin];
-  float dbacc[kMode == kTapsN ? COUT : 1];
+  float dbacc[kMode == kTapsN ? CB : 1];
 #pragma unroll
-  for (int c = 0; c < (kMode == kTapsN ? COUT : 1); ++c) dbacc[c] = 0.f;
+  for (int c = 0; c < (kMode == kTapsN ? CB : 1); ++c) dbacc[c] = 0.f;
 
   auto seg_load = [&](const Item& it) {
 #pragma unroll
@@ -300,11 +342,12 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
           const int bc = c8 - D - g.xoff + u, ll = it.c0 + bc;
           const bool ok = kk < g.hB && bc >= 0 && bc < g.Wc && ll < g.wB;
           const long long o =
-              (it.gcell + static_cast<long long>(kk) * g.wB + ll) * COUT;
+              (it.gcell + static_cast<long long>(kk) * g.wB + ll) * cout + co0;
 #pragma unroll
-          for (int co = 0; co < COUT; ++co)
-            raw[z][co][u] = ok ? relu_mask1(y[o + co], gr[o + co])
-                               : __float2bfloat16_rn(0.f);
+          for (int co = 0; co < CB; ++co)
+            raw[z][co][u] = ok && co0 + co < cout
+                                ? relu_mask1(y[o + co], gr[o + co])
+                                : __float2bfloat16_rn(0.f);
         }
       }
     }
@@ -332,7 +375,7 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
         }
       } else if constexpr (kMode == kTapsN) {
 #pragma unroll
-        for (int co = 0; co < COUT; ++co) {
+        for (int co = 0; co < CB; ++co) {
           __nv_bfloat16* e = bf(base + g.x_bytes) + co * g.eg_plane +
                              ((row + D + g.yoff) * g.Wb + c8) * kShifts;
 #pragma unroll
@@ -357,9 +400,10 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
             const int bc = c8 + v, ll = it.c0 + bc;
             if (bc >= g.Wc || kk >= g.hB || ll >= g.wB) continue;
             const long long o =
-                (it.gcell + static_cast<long long>(kk) * g.wB + ll) * COUT;
+                (it.gcell + static_cast<long long>(kk) * g.wB + ll) * cout + co0;
 #pragma unroll
-            for (int co = 0; co < COUT; ++co) {
+            for (int co = 0; co < CB; ++co) {
+              if (co0 + co >= cout) continue;
               // raw[z][co][u] is band column c8 - d - xoff + u
               const __nv_bfloat16 val =
                   g.xoff == 0 ? raw[z][co][v + D] : raw[z][co][v + 2 * D];
@@ -395,11 +439,11 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
         reinterpret_cast<const __nv_bfloat16*>(slot_base(slot) + g.g_off);
     for (int e = tid; e < 16 * g.n_band; e += T) {
       const int m = e >> 4, co = e & 15;
-      if (co >= COUT) continue;
+      if (co0 + co >= cout) continue;
       const int o = band_cell(it, m);
       if (o < 0) continue;
       const __nv_bfloat16 val = gs[cell_at(m, co >> 3) + (co & 7)];
-      gz[(it.gcell + o) * COUT + co] = val;
+      gz[(it.gcell + o) * cout + co0 + co] = val;
       dbacc[0] += __bfloat162float(val);
     }
   };
@@ -467,7 +511,7 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
             a, xs + cell_at(ks * 16 + (lane & 7) + 8 * (lane >> 4), (lane >> 3) & 1));
         const int cell = ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-        for (int co = 0; co < COUT; ++co) {
+        for (int co = 0; co < CB; ++co) {
 #pragma unroll
           for (int j = 0; j < KS; ++j) {
             const int r = min(2 * j + roff, K - 1);
@@ -526,10 +570,13 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();  // the stages are free for the combine
 
   // the warps' sums combined in a fixed order, then this block's partial row
-  float* out = partial + static_cast<long long>(part) * (L::NW + COUT);
+  const long long nw = static_cast<long long>(K * K * K * K) * cin * cout;
+  float* out = partial + static_cast<long long>(part) * (nw + cout);
   float* red = reinterpret_cast<float*>(stages);
+  // dW's element (r, s, ci0 + ci, co0 + co) of this block's (p, q)
   auto w_at = [&](int r, int s, int ci, int co) {
-    return ((((p * K + q) * K + r) * K + s) * CIN + ci) * COUT + co;
+    return ((((p * K + q) * K + r) * K + s) * static_cast<long long>(cin) +
+            ci0 + ci) * cout + co0 + co;
   };
   if constexpr (kMode == kChannels) {
     const int r = warp % K, half = warp / K;
@@ -547,7 +594,7 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
           for (int c4 = 0; c4 < 4; ++c4) {
             const int v = (s * NT + nt) * 4 + c4;
             const int ci = gq + 8 * (c4 >> 1), co = nt * 8 + 2 * t4 + (c4 & 1);
-            if (ci < CIN && co < COUT)
+            if (ci0 + ci < cin && co0 + co < cout)
               out[w_at(r, s, ci, co)] = acc[v] + red[(r * L::kAcc + v) * 32 + lane];
           }
     }
@@ -564,31 +611,32 @@ nc_vjp_dw_kernel(const __nv_bfloat16* __restrict__ x,
         // m = (r % 2, s), n = co
         const int nt = tile % NT, r = 2 * (tile / NT) + (c4 >> 1), s = lg;
         const int co = nt * 8 + 2 * lt + (c4 & 1);
-        if (r < K && s < K && co < COUT) out[w_at(r, s, 0, co)] = sum;
+        if (r < K && s < K && co0 + co < cout) out[w_at(r, s, 0, co)] = sum;
       } else {
         // m = ci, n = s of tap row r, channel co
         const int r = tile % K, co = tile / K;
         const int ci = lg + 8 * (c4 >> 1), s = 2 * lt + (c4 & 1);
-        if (ci < CIN && s < K) out[w_at(r, s, ci, co)] = sum;
+        if (ci0 + ci < cin && s < K && co0 + co < cout)
+          out[w_at(r, s, ci, co)] = sum;
       }
     }
   }
   if (centre) {
     if constexpr (kMode == kTapsN) {
 #pragma unroll
-      for (int co = 0; co < COUT; ++co) dbs[tid * COUT + co] = dbacc[co];
+      for (int co = 0; co < CB; ++co) dbs[tid * CB + co] = dbacc[co];
     } else {
       dbs[tid] = dbacc[0];
     }
     __syncthreads();
-    if (tid < COUT) {
+    if (tid < CB && co0 + tid < cout) {
       float sum = 0.f;
       if constexpr (kMode == kTapsN) {
-        for (int t = 0; t < T; ++t) sum += dbs[t * COUT + tid];
+        for (int t = 0; t < T; ++t) sum += dbs[t * CB + tid];
       } else {
         for (int u = 0; u < T / 16; ++u) sum += dbs[tid + 16 * u];
       }
-      out[L::NW + tid] = sum;
+      out[nw + co0 + tid] = sum;
     }
   }
 }
@@ -607,9 +655,9 @@ __global__ void nc_vjp_reduce_kernel(const float* __restrict__ partial,
 // Shared memory of a tiling (filling in its sizes and offsets): the band
 // and box tables, the db partials, then two stages (the combine reuses
 // them); SIZE_MAX where the segments would not cover the expanded box.
-template <int K, int CIN, int COUT>
+template <int K, Mode MODE, int W>
 size_t smem_bytes(Geo& g) {
-  using L = Layer<K, CIN, COUT>;
+  using L = Layer<K, MODE, W>;
   constexpr int d = L::D;
   // the taps in N read the unshifted x: a band that spans the plane's
   // rows (columns) needs no halo there, the volume's zeros add nothing
@@ -624,7 +672,7 @@ size_t smem_bytes(Geo& g) {
   g.tbl_box = static_cast<int>(off);
   off += round16(4 * g.n_box);
   g.dbs = static_cast<int>(off);
-  off += round16(4 * L::kThreads * (n_mode ? COUT : 1));
+  off += round16(4 * L::kThreads * (n_mode ? L::CB : 1));
   g.stages = static_cast<int>(off);
   g.n_segs = 0;
   g.spr = 1;
@@ -639,7 +687,7 @@ size_t smem_bytes(Geo& g) {
     // stay zero
     g.eg_plane = ((g.Hx + 2 * d) * g.Wb + 16) * kShifts;
     g.y_off = g.g_off = 0;
-    g.stage_bytes = g.x_bytes + COUT * g.eg_plane * 2;
+    g.stage_bytes = g.x_bytes + L::CB * g.eg_plane * 2;
   } else {
     g.n_k = round16(g.n_band);
     if (L::kMode == kTapsM) {
@@ -659,20 +707,20 @@ size_t smem_bytes(Geo& g) {
   return off + (stages > red ? stages : red);
 }
 
-template <int K, int CIN, int COUT>
+template <int K, Mode MODE, int W, bool FULL>
 cudaError_t launch_dw(const void* x, const void* y, const void* g, void* gz,
-                      void* partial, int B, int hA, int wA, int hB, int wB,
-                      int n_parts, cudaStream_t stream) {
-  using L = Layer<K, CIN, COUT>;
-  if (static_cast<int64_t>(B) * hA * wA * hB * wB <= 0 || n_parts <= 0 ||
-      n_parts > 65535)
+                      void* partial, Geo geo, int n_parts,
+                      cudaStream_t stream) {
+  using L = Layer<K, MODE, W>;
+  const int hB = geo.hB, wB = geo.wB;
+  if (static_cast<int64_t>(geo.B) * geo.hA * geo.wA * hB * wB <= 0 ||
+      n_parts <= 0 || n_parts > 65535)
     return cudaErrorInvalidValue;
   // the band: whole planes where they fit, else fewer rows, else fewer
   // columns; then the bands evened out
-  Geo geo{B, hA, wA, hB, wB};
   geo.R = hB;
   geo.Wc = wB;
-  while (smem_bytes<K, CIN, COUT>(geo) > kSmemBudget) {
+  while (smem_bytes<K, MODE, W>(geo) > kSmemBudget) {
     if (geo.R > 1)
       --geo.R;
     else if (geo.Wc > 1)
@@ -684,18 +732,21 @@ cudaError_t launch_dw(const void* x, const void* y, const void* g, void* gz,
   geo.R = (hB + geo.n_rb - 1) / geo.n_rb;
   geo.n_cb = (wB + geo.Wc - 1) / geo.Wc;
   geo.Wc = (wB + geo.n_cb - 1) / geo.n_cb;
-  const size_t smem = smem_bytes<K, CIN, COUT>(geo);
+  const size_t smem = smem_bytes<K, MODE, W>(geo);
   const long long n_items =
-      static_cast<long long>(B) * hA * wA * geo.n_rb * geo.n_cb;
+      static_cast<long long>(geo.B) * geo.hA * geo.wA * geo.n_rb * geo.n_cb;
   if (n_items > INT_MAX || static_cast<long long>(hB) * wB > INT_MAX)
     return cudaErrorInvalidValue;
   geo.n_items = static_cast<int>(n_items);
-  auto kernel = nc_vjp_dw_kernel<K, CIN, COUT>;
+  geo.n_ci_t = MODE == kTapsM ? 1 : (geo.cin + 15) / 16;
+  const int n_co_t = (geo.cout + L::CB - 1) / L::CB;
+  auto kernel = nc_vjp_dw_kernel<K, MODE, W, FULL>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(K * K, n_parts), L::kThreads, smem, stream>>>(
+  kernel<<<dim3(K * K, n_parts, geo.n_ci_t * n_co_t), L::kThreads, smem,
+           stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(y),
       static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(gz),
@@ -703,46 +754,98 @@ cudaError_t launch_dw(const void* x, const void* y, const void* g, void* gz,
   return cudaGetLastError();
 }
 
-}  // namespace
+// Calls f.template run<MODE, W>() for the class of a layer shape (c_in,
+// c_out) within the limits: the one dispatch of the launch and of the
+// shared-memory check
+template <typename F>
+auto with_class(int c_in, int c_out, const F& f) {
+  const Mode m = mode_of(c_in, c_out);
+  if (m == kTapsN) {
+    // C_out a block: all of them while k C_out sums fit the registers
+    const int cb = NC_K * c_out <= 20 ? c_out : 2;
+    if (cb == 1) return f.template run<kTapsN, 1>();
+    if (cb == 2) return f.template run<kTapsN, 2>();
+    if (cb == 3) return f.template run<kTapsN, 3>();
+    return f.template run<kTapsN, 4>();
+  }
+  if (m == kTapsM) {
+    if (c_out <= 8) return f.template run<kTapsM, 1>();
+    return f.template run<kTapsM, 2>();
+  }
+  if (c_out <= 8) return f.template run<kChannels, 1>();
+  return f.template run<kChannels, 2>();
+}
 
-// The (k, C_in, C_out) layer shapes compiled in: the list of forward shapes
-// with a transposed variant in csrc/nc_conv4d.cu (NC_CONV4D_TRANSPOSE_SHAPES),
-// kept the same by hand.
-#define NC_VJP_SHAPES(X)                                                     \
-  X(5, 1, 16) X(5, 16, 16) X(5, 16, 1)                                       \
-  X(3, 1, 16) X(3, 16, 16) X(3, 16, 1)                                       \
-  X(3, 1, 10) X(3, 10, 10) X(3, 10, 1)                                       \
-  X(3, 1, 1) X(3, 1, 2) X(3, 1, 4) X(3, 2, 1) X(3, 2, 2) X(3, 4, 1)          \
-  X(3, 4, 2) X(3, 4, 4)                                                      \
-  X(5, 1, 1) X(5, 1, 2) X(5, 1, 4) X(5, 2, 1) X(5, 2, 2) X(5, 4, 1)          \
-  X(5, 4, 2) X(5, 4, 4)
+bool in_limits(int k, int c_in, int c_out) {
+  return k == NC_K && c_in >= 1 && c_in <= kMaxWidth && c_out >= 1 &&
+         c_out <= kMaxWidth;
+}
+
+// the shared memory of the smallest band (one cell, haloed on both sides)
+struct MinSmem {
+  template <Mode MODE, int W>
+  size_t run() const {
+    Geo g{};
+    g.hB = g.wB = 2;
+    g.R = g.Wc = 1;
+    return smem_bytes<NC_K, MODE, W>(g);
+  }
+};
+
+struct LaunchDw {
+  const void *x, *y, *g;
+  void *gz, *partial;
+  Geo geo;
+  int n_parts;
+  cudaStream_t stream;
+  template <Mode MODE, int W>
+  cudaError_t run() const {
+    // one tile of the class's own widths takes the build with them
+    // compiled in
+    using L = Layer<NC_K, MODE, W>;
+    const bool full = (MODE == kTapsM || geo.cin == 16) &&
+                      geo.cout == (MODE == kTapsN ? L::CB : 8 * L::NT);
+    if (full)
+      return launch_dw<NC_K, MODE, W, true>(x, y, g, gz, partial, geo,
+                                            n_parts, stream);
+    return launch_dw<NC_K, MODE, W, false>(x, y, g, gz, partial, geo, n_parts,
+                                           stream);
+  }
+};
+
+}  // namespace
 
 extern "C" {
 
-// 1 when the layer shape is compiled in, else 0
+// 1 when this library serves the layer (k, c_in, c_out): k is this
+// library's, both widths within the limits, and the smallest band within
+// the shared-memory budget
 int nc_vjp_supported(int k, int c_in, int c_out) {
-#define NC_SUPPORTED(K, CI, CO) \
-  if (k == K && c_in == CI && c_out == CO) return 1;
-  NC_VJP_SHAPES(NC_SUPPORTED)
-#undef NC_SUPPORTED
-  return 0;
+  return in_limits(k, c_in, c_out) &&
+         with_class(c_in, c_out, MinSmem{}) <= kSmemBudget;
 }
 
 // Enqueues the mask + dW/db partials of one layer on `stream`: writes gz
 // (B, hA, wA, hB, wB, C_out) bf16 and partial (n_parts, k^4*C_in*C_out +
 // C_out) f32.  x, y and g must start on 16 bytes.  Returns the launch's
-// cudaError_t (0 on success), or -1 for a shape that is not compiled in.
+// cudaError_t (0 on success), or -1 for a shape this library does not
+// serve.
 int nc_vjp_dw_bf16(const void* x, const void* y, const void* g, void* gz,
                    void* partial, int B, int hA, int wA, int hB, int wB, int k,
                    int c_in, int c_out, int n_parts, void* stream) {
-#define NC_LAUNCH(K, CI, CO)                                                  \
-  if (k == K && c_in == CI && c_out == CO)                                    \
-    return static_cast<int>(launch_dw<K, CI, CO>(                             \
-        x, y, g, gz, partial, B, hA, wA, hB, wB, n_parts,                     \
-        static_cast<cudaStream_t>(stream)));
-  NC_VJP_SHAPES(NC_LAUNCH)
-#undef NC_LAUNCH
-  return -1;
+  if (!nc_vjp_supported(k, c_in, c_out)) return -1;
+  Geo geo{};
+  geo.B = B;
+  geo.hA = hA;
+  geo.wA = wA;
+  geo.hB = hB;
+  geo.wB = wB;
+  geo.cin = c_in;
+  geo.cout = c_out;
+  return static_cast<int>(with_class(
+      c_in, c_out,
+      LaunchDw{x, y, g, gz, partial, geo, n_parts,
+               static_cast<cudaStream_t>(stream)}));
 }
 
 // Enqueues out[e] = sum over part of partial[part][e], e < n, in part order.

@@ -1,0 +1,5 @@
+// The k = 5 layers of the NC backward's dW/db kernel and its reduction
+// (nc_conv4d_vjp.cuh): one translation unit a kernel size, built in
+// parallel.
+#define NC_K 5
+#include "nc_conv4d_vjp.cuh"

@@ -243,18 +243,22 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
       that arithmetic tier unconditionally; ``'cp'`` needs factors on every
       layer.
     * ``require_vjp`` (the training gate, with ``allow_pallas``): a bf16
-      stack in B2's shape class with the B3 backward (every layer in
-      ``nc_fused_lane.VJP_LAYER_SHAPES``) runs
-      ``nc_fused_lane.nc_stack_fused``, whose forward asks the tier chooser
-      (the FFT tier at the PF-Pascal 25⁴ volume) and whose backward is B3.
+      stack the kernels hold (``nc_fused_lane.kernels_hold``: B2's shape
+      class within the kernels' limits, forward and B3 backward alike)
+      runs ``nc_fused_lane.nc_stack_fused``, whose forward asks the tier
+      chooser (the FFT tier at the PF-Pascal 25⁴ volume) and whose
+      backward is B3.  On a rectangular volume a tap-swap-fusable stack
+      takes its chain (:func:`tap_swap_chain`) the same way when the
+      chooser gives the chain the kernel tier and the gate holds it
+      (``ncnet_tpu/models/ncnet.py:513-523``).
     * Otherwise, with ``allow_pallas`` and neither ``remat_layers`` nor
       ``custom_grad``, ``nc_fused_lane.choose_fused_stack`` decides for
       every orientation the call runs: an arithmetic tier that wins them
       all runs the whole stack; a bf16 stack whose decisions are all
       kernel tiers runs B2 (``nc_stack_fused`` when autograd records, which
       needs the backward's shapes too).
-      The chooser takes the kernel tier only for compiled layer shapes, so
-      any other stack falls to the line below before any launch.
+      The chooser takes the kernel tier only for stacks the kernels hold,
+      so any other stack falls to the line below before any launch.
     * Everything else runs layer by layer through ``conv4d``'s formulation
       chooser (``"pallas"``, B5, for a small-C_out layer): through
       :func:`~ncnet_tpu_torch.ops.conv4d.conv4d_same` when ``custom_grad``,
@@ -269,12 +273,12 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
     ``x``, and the two first layers fuse into one 1 → 2C layer.  Where the
     chooser gives the kernel tier for :func:`tap_swap_chain` (bf16, a
     rectangular volume), that chain is one stack call whose two output
-    channels are summed; where no tier runs the stack (fp32, or layers
-    not compiled), the fused first layer runs once and the second layer
-    and its tap-swapped twin run on its two channel halves, through the
-    formulations.  Deeper stacks, and a stack on the kernel tier whose
-    chain is not compiled (or not in the backward's list while autograd
-    records), run the two passes one after the other.
+    channels are summed; where no tier runs the stack (fp32, or a stack
+    outside the kernels' gate), the fused first layer runs once and the
+    second layer and its tap-swapped twin run on its two channel halves,
+    through the formulations.  Deeper stacks, and a stack on the kernel
+    tier whose chain the chooser does not give the kernel tier, run the
+    two passes one after the other.
     """
     conv = conv4d_same if custom_grad else conv4d
 
@@ -291,8 +295,8 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
             f"volume {x.dtype} and NC weights "
             f"{[layer['w'].dtype for layer in nc_params]} differ: cast both "
             "(ncnet_filter does under half_precision)")
-    # whether autograd records this call: the kernel tier then needs the
-    # backward's compiled shapes too
+    # whether autograd records this call: the kernel tier then runs the
+    # backward kernels too
     records_grad = torch.is_grad_enabled() and (x.requires_grad or any(
         t.requires_grad for layer in nc_params for t in (layer["w"], layer["b"])))
     tier_eligible = allow_pallas and not remat_layers and not custom_grad
@@ -322,15 +326,18 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
         arith_tier = force_tier
         nc_fused_lane.note_forced_tier(force_tier)
     elif tier_eligible and require_vjp:
-        # the training gate fuses only where the B3 backward exists: B2's
-        # shape class with every layer compiled into both directions (the
-        # arithmetic tiers are never auto-selected here; the fused stack's
-        # own forward may still take one); any other stack runs the
-        # formulations per layer with autograd through them, reported as
-        # "xla".  The tap-swap chain has no backward, so a rectangular
-        # fused stack runs the two passes.
-        use_fused = bf16 and nc_fused_lane.fused_shape_class(
-            kernels, channels, nc_fused_lane.VJP_LAYER_SHAPES)
+        # the training gate fuses only where the kernels hold the stack,
+        # forward and B3 backward alike (the arithmetic tiers are never
+        # auto-selected here; the fused stack's own forward may still take
+        # one); any other stack runs the formulations per layer with
+        # autograd through them, reported as "xla".  A rectangular
+        # tap-swap-fusable stack takes its chain where the chooser gives
+        # the chain the kernel tier (the JAX gate: choose_fused_stack ==
+        # "resident" and choose_fused_vjp), else the two passes.
+        use_fused = bf16 and nc_fused_lane.kernels_hold(kernels, channels)
+        if use_fused and rect and tap_swap:
+            fused_tap_swap = nc_fused_lane.choose_fused_stack(
+                ha, wa, hb, wb, kernels, chain) == "resident"
         if not use_fused:
             nc_fused_lane.note_forced_tier("xla")
     elif tier_eligible:
@@ -342,16 +349,14 @@ def neigh_consensus(nc_params: List[Dict[str, torch.Tensor]],
                 and all(d == decisions[0] for d in decisions):
             arith_tier = decisions[0]
         else:
+            # an arithmetic tier's decision still needs B3 when autograd
+            # records
             use_fused = bf16 and all(d is not None for d in decisions) and (
                 not records_grad
-                or nc_fused_lane.fused_shape_class(
-                    kernels, channels, nc_fused_lane.VJP_LAYER_SHAPES))
+                or nc_fused_lane.kernels_hold(kernels, channels))
         if bf16 and arith_tier is None and rect and tap_swap:
             fused_tap_swap = nc_fused_lane.choose_fused_stack(
-                ha, wa, hb, wb, kernels, chain) == "resident" and (
-                    not records_grad
-                    or nc_fused_lane.fused_shape_class(
-                        kernels, chain, nc_fused_lane.VJP_LAYER_SHAPES))
+                ha, wa, hb, wb, kernels, chain) == "resident"
             if not fused_tap_swap:
                 # the chain's decision is not the route: record the one
                 # that runs (two passes on the kernel, or the formulations)

@@ -29,8 +29,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 PROBE_DIR = CSRC_DIR / "probes"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("nc_conv4d.cu", "nc_conv4d_vjp.cu", "gather_tile_corr.cu",
-           "conv4d_small_cout.cu", "conv_l2_fused_lane.cu")
+# the NC kernels one library a kernel size (k = 1, 3, 5, 7), so their
+# builds run in parallel
+SOURCES = tuple(f"nc_conv4d{vjp}_k{k}.cu" for vjp in ("", "_vjp")
+                for k in (1, 3, 5, 7)) + (
+    "gather_tile_corr.cu", "conv4d_small_cout.cu", "conv_l2_fused_lane.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",

@@ -4,8 +4,9 @@ Ports the two Pallas entry points of ``ncnet_tpu/ops/nc_fused_lane.py``:
 ``nc_stack_resident`` (the whole ``[conv4d_same + bias + ReLU]×L`` stack in
 one TPU program) and ``nc_stack_fused_lane`` (one TPU program per layer).
 Both keep their JAX signatures' tensors and shape-class checks; on a CUDA
-tensor both launch the hand-written kernel ``csrc/nc_conv4d.cu`` once per
-layer, with bf16 activations between layers and f32 sums inside each layer.
+tensor both launch the hand-written kernel ``csrc/nc_conv4d.cuh`` (one
+library a kernel size, ``csrc/nc_conv4d_k<k>.cu``) once per layer, with
+bf16 activations between layers and f32 sums inside each layer.
 On a CPU tensor they run the plain twin :func:`nc_stack_reference`, and on a
 CUDA tensor they never do: a kernel that cannot build or launch raises.
 
@@ -20,14 +21,17 @@ layer outputs.
 :func:`choose_fused_stack` is the tier authority
 (``ncnet_tpu/ops/nc_fused_lane.py:838-976``): the arithmetic tiers first
 (``"cp"``, ``"fft"``; any device, any dtype), then, for bf16 volumes and
-weights, ``"resident"`` (B2's shape class, for the layer shapes the
-forward kernel is compiled for: :data:`FORWARD_LAYER_SHAPES`), else None
-(the conv4d formulations).  The training gate (:func:`fused_shape_class`)
-reads the shorter list of shapes the backward also has
-(:data:`VJP_LAYER_SHAPES`).  The TPU's VMEM gates and compile probes bind
-no CUDA kernel and are not carried; the runtime demotion registry, the
-persistent tier cache and the tier events are not ported (ROADMAP D4: the
-route is decided from shapes before any launch).
+weights, ``"resident"`` (B2's shape class within the kernels' limits:
+:func:`kernels_hold`), else None (the conv4d formulations).
+:func:`kernels_hold` is the card's counterpart of the JAX VMEM gates
+(``fused_resident_feasible``, ``fused_vjp_feasible``): plain arithmetic on
+the stack's kernel sizes and widths, from the kernels' own limits, read
+by the serving chooser, the training gate and the kernels' wrappers alike
+(a stack it holds runs the forward, the transposed launch and B7's dW/db
+at every layer).  The TPU's compile probes bind no CUDA kernel and are not
+carried; the runtime demotion registry, the persistent tier cache and the
+tier events are not ported (ROADMAP D4: the route is decided from shapes
+before any launch).
 :func:`last_selected_tier` reads the most recent decision per stage.
 
 ``launches`` counts the forward kernel's launches in this process (one per
@@ -55,8 +59,6 @@ from ncnet_tpu_torch.ops.conv4d_fft import (
     fft_stack_activations,
     nc_stack_fft,
 )
-
-SOURCE = "nc_conv4d.cu"
 
 #: kernel launches since the process started (or the caller last reset it)
 launches = 0
@@ -107,50 +109,136 @@ def note_forced_tier(tier) -> None:
     _last_selected["forward"] = tier
 
 
-#: The ``(k, C_in, C_out)`` layer shapes that B3, the backward, is compiled
-#: for: the ``NC_VJP_SHAPES`` list of ``csrc/nc_conv4d_vjp.cu`` (dW/db) and
-#: the ``NC_CONV4D_TRANSPOSE_SHAPES`` list of ``csrc/nc_conv4d.cu`` (the
-#: input gradient, B6's transposed launch), which repeat each other.  The
-#: training gate reads it before any launch.
-VJP_LAYER_SHAPES = frozenset({
-    (5, 1, 16), (5, 16, 16), (5, 16, 1),
-    (3, 1, 16), (3, 16, 16), (3, 16, 1),
-    (3, 1, 10), (3, 10, 10), (3, 10, 1),
-    (3, 1, 1), (3, 1, 2), (3, 1, 4), (3, 2, 1), (3, 2, 2), (3, 4, 1),
-    (3, 4, 2), (3, 4, 4),
-    (5, 1, 1), (5, 1, 2), (5, 1, 4), (5, 2, 1), (5, 2, 2), (5, 4, 1),
-    (5, 4, 2), (5, 4, 4),
-})
+# The kernels' limits, the constants of their sources (a test holds them
+# equal): ``kMaxK`` and ``kMaxWidth`` of ``csrc/nc_conv4d.cuh`` and
+# ``csrc/nc_conv4d_vjp.cuh``, and each one's ``kSmemBudget``.
 
-#: The layer shapes the forward kernel B6 is compiled for: the
-#: ``NC_CONV4D_SHAPES`` list of ``csrc/nc_conv4d.cu``, the backward's and
-#: the InLoc (IVD) stack's tap-swap chain (``models/ncnet.py::
-#: tap_swap_chain``: 1 → 32, 32 → 2 at k = 3), which serving alone runs.
-#: The serving chooser reads it before any launch.
-FORWARD_LAYER_SHAPES = VJP_LAYER_SHAPES | {(3, 1, 32), (3, 32, 2)}
+#: the largest kernel size: the taps-in-K layouts give a tap row's k
+#: horizontal shifts the 8 bf16 slots of one 16-byte ldmatrix row, so k = 9
+#: would need a second row
+MAX_K = 7
+#: the widest layer: a staged cell holds C_in as one or two 16-channel
+#: k-steps, C_out is at most 4 n-tiles of 8 (the forward), and B7 stages one
+#: 16-channel tile of each a block, two tiles at most
+MAX_WIDTH = 32
+#: the final layer's channels: the resident class's thin final volume (1,
+#: or 2 for the tap-swap chain), the taps-in-N mode's C_out <= 4
+MAX_FINAL = 4
+#: shared memory a block of the forward (two an SM) and of B7's dW/db
+FORWARD_SMEM_BUDGET = 112 * 1024
+VJP_SMEM_BUDGET = 113 * 1024
+#: the kernel sizes, one library each (``csrc/nc_conv4d_k<k>.cu``,
+#: ``csrc/nc_conv4d_vjp_k<k>.cu``)
+KERNEL_SIZES = tuple(range(1, MAX_K + 1, 2))
 
-
-def stack_compiled(kernels, channels, shapes) -> bool:
-    """Whether every ``(k, C_in, C_out)`` layer of the stack (a 1-channel
-    input) is in ``shapes``: :data:`FORWARD_LAYER_SHAPES` or
-    :data:`VJP_LAYER_SHAPES`."""
-    c_in, layers = 1, []
-    for k, c_out in zip(kernels, channels):
-        layers.append((int(k), c_in, int(c_out)))
-        c_in = int(c_out)
-    return all(s in shapes for s in layers)
+# the forward's staging limits (``kSlabBudget``, ``kMaxPartials``): the
+# tap rows a weight stage holds
+_SLAB_BUDGET = 24 * 1024
+_MAX_PARTIALS = 100
 
 
-def fused_shape_class(kernels, channels, shapes) -> bool:
-    """B2's shape class, from the stack's kernel sizes and channels: one
-    odd kernel size for the whole stack, a final layer of at most 4
-    channels (the whole-volume checks are ``_check_stack``'s), and every
-    layer in ``shapes``: :data:`FORWARD_LAYER_SHAPES` for the serving
-    chooser, :data:`VJP_LAYER_SHAPES` for the training gate (the class B3
-    serves too)."""
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def forward_min_smem(k: int, c_in: int, c_out: int) -> int:
+    """Shared memory of the forward's smallest block (one output cell of
+    one volume) for a launch of ``c_in`` → ``c_out`` channels at kernel
+    ``k``: ``smem_bytes`` of ``csrc/nc_conv4d.cuh`` at G = R = Wc = 1."""
+    mode = "taps_k" if c_in == 1 else ("taps_n" if c_out <= 4 else "channels")
+    cw = 32 if c_in > 16 else 16
+    ow = c_out if mode == "taps_n" else (32 if c_out > 16 else
+                                         16 if c_out > 8 else 8)
+    side = 1 + 2 * (k // 2)
+    box = side * side
+    offsets = _round16(box * 8)
+    in_pitch = cw + 8
+    w_pitch = (cw if mode == "taps_n" else (32 if ow > 16 else 16)) + 8
+    if mode == "taps_k":
+        rc = k
+    elif mode == "channels":
+        row_bytes = k * cw * w_pitch * 2
+        rc = k if k * row_bytes <= _SLAB_BUDGET else max(
+            _SLAB_BUDGET // row_bytes, 1)
+    else:
+        rc = k if k * k * ow <= _MAX_PARTIALS else _MAX_PARTIALS // (k * ow)
+    p_rows = rc * k * ow
+    npad = (p_rows + 7) // 8 * 8
+    if mode == "taps_n":
+        stage = _round16(box * in_pitch * 2) + npad * in_pitch * 2
+        p_pitch = (box + 27) // 32 * 32 + 4
+        return offsets + 2 * stage + p_rows * p_pitch * 4
+    if mode == "taps_k":
+        w_rows, in_bytes = 16 * ((k + 1) // 2), _round16(side * 8 * 2)
+    else:
+        w_rows, in_bytes = rc * k * cw, _round16(box * in_pitch * 2)
+    return offsets + 2 * (in_bytes + w_rows * w_pitch * 2)
+
+
+def vjp_min_smem(k: int, c_in: int, c_out: int) -> int:
+    """Shared memory of B7's smallest band (one cell, haloed on both
+    sides) for the layer ``c_in`` → ``c_out`` at kernel ``k``:
+    ``smem_bytes`` of ``csrc/nc_conv4d_vjp.cuh`` at R = Wc = 1."""
+    mode = "taps_m" if c_in == 1 else ("taps_n" if c_out <= 4 else "channels")
+    d = k // 2
+    side = 1 + 2 * d
+    n_box = 0 if mode == "taps_m" else side * side
+    cb = (c_out if k * c_out <= 20 else 2) if mode == "taps_n" else 16
+    nt = 1 if mode == "taps_n" else (2 if c_out > 8 else 1)
+    warps = 2 * k if mode == "channels" else 8
+    threads = 32 * warps
+    off = (_round16(4) + _round16(4 * n_box)
+           + _round16(4 * threads * (cb if mode == "taps_n" else 1)))
+    if mode == "taps_n":
+        n_segs = (side + 7) // 8
+        eg_plane = ((side + 2 * d) * side + 16) * 8
+        stage = _round16(n_box) * 32 + cb * eg_plane * 2
+    else:
+        n_segs = side if mode == "taps_m" else 0
+        x_bytes = (_round16(side * 8 * 2) if mode == "taps_m"
+                   else _round16(n_box * 32))
+        stage = x_bytes + 2 * 16 * 32
+    if n_segs > threads * (1 if mode == "taps_n" and cb > 1 else 2):
+        return float("inf")
+    acc = 4 * (k * nt if mode == "channels" else
+               (k + 1) // 2 * nt if mode == "taps_m" else cb * k)
+    red = (k if mode == "channels" else warps) * acc * 32 * 4
+    return off + max(2 * stage, red)
+
+
+def layer_held(k: int, c_in: int, c_out: int) -> bool:
+    """Whether the kernels serve the layer ``(k, C_in, C_out)``: its
+    forward, its transposed launch (``C_out`` → ``C_in``) and B7's dW/db.
+    An odd k up to :data:`MAX_K`, widths 1 to :data:`MAX_WIDTH`, and the
+    smallest block of each launch within its shared-memory budget (the
+    ``nc_conv4d_supported`` and ``nc_vjp_supported`` of the sources)."""
+    k, c_in, c_out = int(k), int(c_in), int(c_out)
+    return (k % 2 == 1 and 1 <= k <= MAX_K
+            and 1 <= c_in <= MAX_WIDTH and 1 <= c_out <= MAX_WIDTH
+            and forward_min_smem(k, c_in, c_out) <= FORWARD_SMEM_BUDGET
+            and forward_min_smem(k, c_out, c_in) <= FORWARD_SMEM_BUDGET
+            and vjp_min_smem(k, c_in, c_out) <= VJP_SMEM_BUDGET)
+
+
+def kernels_hold(kernels, channels) -> bool:
+    """The gate of the kernel tier: B2's shape class (one odd kernel size
+    for the whole stack on a 1-channel input, a final layer of at most
+    :data:`MAX_FINAL` channels; the whole-volume checks are
+    ``_check_stack``'s) with every layer held by the kernels
+    (:func:`layer_held`), forward and backward alike.  Where it holds,
+    every layer launches the hand-written kernels; elsewhere the stack runs
+    the conv4d formulations, decided before any launch."""
     kernels, channels = tuple(kernels), tuple(channels)
-    return (len(set(kernels)) == 1 and kernels[0] % 2 == 1
-            and channels[-1] <= 4 and stack_compiled(kernels, channels, shapes))
+    if (not kernels or len(kernels) != len(channels)
+            or len(set(kernels)) != 1 or kernels[0] % 2 == 0
+            or channels[-1] > MAX_FINAL):
+        return False
+    c_in = 1
+    for k, c_out in zip(kernels, channels):
+        if not layer_held(k, c_in, c_out):
+            return False
+        c_in = c_out
+    return True
 
 
 def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
@@ -158,12 +246,12 @@ def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
     """The stack's tier at a shape class, the first that applies: ``"cp"``
     (every layer carries factors and ``conv4d_cp.cp_feasible`` passes),
     ``"fft"`` (``conv4d_fft.fft_feasible``), then, only when ``pallas_ok``
-    (a bf16 volume and weights), ``"resident"`` (B2's shape class, whose
-    layers the forward kernel is compiled for: :func:`fused_shape_class`
-    with :data:`FORWARD_LAYER_SHAPES`); else None (the conv4d formulations
-    layer by layer, reported as ``"xla"``).  The JAX ladder's
+    (a bf16 volume and weights), ``"resident"`` (B2's shape class within
+    the kernels' limits: :func:`kernels_hold`); else None (the conv4d
+    formulations layer by layer, reported as ``"xla"``).  The JAX ladder's
     ``"perlayer"`` (a 1-channel final layer) lies inside B2's shape class,
-    so without the VMEM gates it is never reached."""
+    so it is never reached: the kernels' gate holds the same stacks for
+    both."""
     kernels, channels = tuple(kernels), tuple(channels)
     tier = None
     if cp_ranks and cp_feasible(ha, wa, hb, wb, kernels, channels,
@@ -171,8 +259,7 @@ def choose_fused_stack(ha, wa, hb, wb, kernels, channels, cp_ranks=None,
         tier = "cp"
     elif fft_feasible(ha, wa, hb, wb, kernels, channels):
         tier = "fft"
-    elif pallas_ok and fused_shape_class(kernels, channels,
-                                         FORWARD_LAYER_SHAPES):
+    elif pallas_ok and kernels_hold(kernels, channels):
         tier = "resident"
     _last_selected["forward"] = tier or "xla"
     return tier
@@ -198,9 +285,14 @@ def nc_stack_reference(nc_params: List[dict], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def source(k: int) -> str:
+    """The forward's source at kernel size ``k``, relative to ``csrc/``."""
+    return f"nc_conv4d_k{int(k)}.cu"
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = kernel_build.load(SOURCE)
+def _library(k: int) -> ctypes.CDLL:
+    lib = kernel_build.load(source(k))
     lib.nc_conv4d_bf16.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.nc_conv4d_bf16.restype = ctypes.c_int
@@ -221,9 +313,12 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
-    """Launch one layer of ``csrc/nc_conv4d.cu``: with bias ``b`` the
-    forward (bias + ReLU), with ``b=None`` the transposed variant (``w``
-    the flipped, channel-swapped weights; no bias, no ReLU)."""
+    """Launch one layer of ``csrc/nc_conv4d.cuh`` (the library of its
+    kernel size): with bias ``b`` the forward (bias + ReLU), with
+    ``b=None`` the transposed variant (``w`` the flipped, channel-swapped
+    weights; no bias, no ReLU).  A layer outside the kernels' limits
+    (:func:`layer_held`) is refused before anything is built or launched;
+    a build or launch that fails raises."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{name} runs on CUDA tensors, got {x.device}")
     ts = (x, w) if b is None else (x, w, b)
@@ -237,14 +332,14 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
         raise ValueError(f"{name}: volume {tuple(x.shape)} and weights "
                          f"{tuple(w.shape)} (bias "
                          f"{None if b is None else tuple(b.shape)}) disagree")
-    # the library is compiled per forward layer shape; a transposed launch
-    # of forward shape (k, c_out, c_in) runs with these weights
+    # the entries take the forward layer's shape; a transposed launch of
+    # forward shape (k, c_out, c_in) runs with these weights
     fwd = (k, c_in, c_out) if b is not None else (k, c_out, c_in)
-    lib = _library()
-    if b is not None and not lib.nc_conv4d_supported(*fwd):
+    if not layer_held(*fwd):
         raise NotImplementedError(
-            f"nc_conv4d is not compiled for k={fwd[0]}, {fwd[1]}->{fwd[2]} "
-            f"channels (add the shape to NC_CONV4D_SHAPES in csrc/{SOURCE})")
+            f"{name}: the kernels do not serve k={fwd[0]}, {fwd[1]}->{fwd[2]} "
+            f"channels (odd k <= {MAX_K}, widths <= {MAX_WIDTH})")
+    lib = _library(k)
     x, w = (_aligned16(t.contiguous()) for t in (x, w))
     out = torch.empty(x.shape[:5] + (c_out,), dtype=torch.bfloat16,
                       device=x.device)
@@ -260,11 +355,10 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b, name: str) -> torch.Tensor:
             rc = lib.nc_conv4d_bf16(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz,
                 ha, wa, hb, wb, *fwd, stream)
-    if rc == -1:  # a transposed variant that is not compiled in
+    if rc == -1:  # the library's own limits refused the shape
         raise NotImplementedError(
-            f"nc_conv4d's transposed variant is not compiled for forward "
-            f"k={fwd[0]}, {fwd[1]}->{fwd[2]} channels (add the shape to "
-            f"NC_CONV4D_TRANSPOSE_SHAPES in csrc/{SOURCE})")
+            f"{name}: {source(k)} does not serve forward k={fwd[0]}, "
+            f"{fwd[1]}->{fwd[2]} channels")
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.nc_conv4d_error_string(rc).decode())

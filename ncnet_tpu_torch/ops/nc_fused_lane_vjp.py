@@ -17,18 +17,23 @@ cotangent ``Γ_l`` of ``y_l``:
 On CUDA tensors three hand-written kernels do this, each with its own
 launch count in ``launches``:
 
-  * ``nc_vjp_dw`` (``csrc/nc_conv4d_vjp.cu``, on the tensor cores): the
-    mask, ``gz``, and f32 per-block partials of dW and db, over bands of
-    the (hB, wB) plane, so any plane size runs;
+  * ``nc_vjp_dw`` (``csrc/nc_conv4d_vjp.cuh``, on the tensor cores; one
+    library a kernel size, ``csrc/nc_conv4d_vjp_k<k>.cu``): the mask,
+    ``gz``, and f32 per-block partials of dW and db, over bands of the
+    (hB, wB) plane and 16-channel tiles of C_in and C_out, so any plane
+    size and any width up to ``nc_fused_lane.MAX_WIDTH`` runs;
   * ``nc_vjp_reduce`` (same source): the partials summed in a fixed order,
     so two runs give bit-identical gradients (no float atomics);
-  * ``nc_conv4d_transpose`` (``csrc/nc_conv4d.cu``, the forward kernel's
+  * ``nc_conv4d_transpose`` (``csrc/nc_conv4d.cuh``, the forward kernel's
     transposed variant): ``Γ_{l−1}``.
 
 Per layer that is one launch of each, except that ``Γ_{−1}`` (``dx``) is
-skipped when the input needs no gradient.  On CPU tensors the plain twin
-runs instead (:func:`layer_vjp_reference`, with the kernels' rounding
-points); on a CUDA tensor a kernel that cannot build or launch raises.
+skipped when the input needs no gradient.  They serve every layer that
+``nc_fused_lane.layer_held`` holds (the training gate's
+``nc_fused_lane.kernels_hold``) and refuse any other before a launch.  On
+CPU tensors the plain twin runs instead (:func:`layer_vjp_reference`,
+with the kernels' rounding points); on a CUDA tensor a kernel that cannot
+build or launch raises.
 
 Unlike the TPU kernel, which replays the forward in VMEM rings, the port
 keeps the forward's bf16 layer outputs (``nc_fused_lane.NCStackFused``
@@ -47,7 +52,6 @@ import torch
 from ncnet_tpu_torch.ops import kernel_build, nc_fused_lane
 from ncnet_tpu_torch.ops.conv4d import conv4d
 
-SOURCE = "nc_conv4d_vjp.cu"
 #: partial rows of the dW/db reduction: bounds its buffer at
 #: DW_PARTIALS · (k⁴·C_in·C_out + C_out) f32 (41 MB for a 16→16 k=5 layer)
 DW_PARTIALS = 64
@@ -99,9 +103,14 @@ def layer_vjp_reference(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def source(k: int) -> str:
+    """B7's source at kernel size ``k``, relative to ``csrc/``."""
+    return f"nc_conv4d_vjp_k{int(k)}.cu"
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = kernel_build.load(SOURCE)
+def _library(k: int) -> ctypes.CDLL:
+    lib = kernel_build.load(source(k))
     lib.nc_vjp_dw_bf16.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.nc_vjp_dw_bf16.restype = ctypes.c_int
@@ -115,10 +124,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _raise_on(rc: int, name: str, k: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           + _library().nc_vjp_error_string(rc).decode())
+                           + _library(k).nc_vjp_error_string(rc).decode())
 
 
 def nc_vjp_dw(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
@@ -143,11 +152,12 @@ def nc_vjp_dw(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
         raise ValueError("nc_vjp_dw takes contiguous tensors")
     c_in, c_out = int(x.shape[5]), int(y.shape[5])
     bsz, ha, wa, hb, wb = (int(d) for d in x.shape[:5])
-    lib = _library()
-    if not lib.nc_vjp_supported(k, c_in, c_out):
+    if not nc_fused_lane.layer_held(k, c_in, c_out):
         raise NotImplementedError(
-            f"nc_vjp_dw is not compiled for k={k}, {c_in}->{c_out} channels "
-            f"(add the shape to NC_VJP_SHAPES in csrc/{SOURCE})")
+            f"nc_vjp_dw: the kernels do not serve k={k}, {c_in}->{c_out} "
+            f"channels (odd k <= {nc_fused_lane.MAX_K}, widths <= "
+            f"{nc_fused_lane.MAX_WIDTH})")
+    lib = _library(k)
     x, y, g = (nc_fused_lane._aligned16(t) for t in (x, y, g))
     n_parts = min(DW_PARTIALS, bsz * ha * wa)
     gz = torch.empty_like(y)
@@ -158,14 +168,19 @@ def nc_vjp_dw(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
         rc = lib.nc_vjp_dw_bf16(x.data_ptr(), y.data_ptr(), g.data_ptr(),
                                 gz.data_ptr(), partial.data_ptr(), bsz, ha,
                                 wa, hb, wb, k, c_in, c_out, n_parts, stream)
-    _raise_on(rc, "nc_vjp_dw")
+    if rc == -1:  # the library's own limits refused the shape
+        raise NotImplementedError(
+            f"nc_vjp_dw: {source(k)} does not serve k={k}, {c_in}->{c_out}")
+    _raise_on(rc, "nc_vjp_dw", k)
     launches["nc_vjp_dw"] += 1
     return gz, partial
 
 
-def nc_vjp_reduce(partial: torch.Tensor) -> torch.Tensor:
+def nc_vjp_reduce(partial: torch.Tensor, k: int = 5) -> torch.Tensor:
     """``partial.sum(0)`` in f32 through ``nc_vjp_reduce_kernel``, the rows
-    added in order 0, 1, …: ``partial`` (P, n) f32 contiguous on the card."""
+    added in order 0, 1, …: ``partial`` (P, n) f32 contiguous on the card.
+    Every kernel size's library holds the same reduction: ``k`` names the
+    one that runs it (the layer's, so no other library is built)."""
     if partial.device.type != "cuda":
         raise RuntimeError(f"nc_vjp_reduce runs on CUDA tensors, got {partial.device}")
     if (partial.dtype != torch.float32 or partial.dim() != 2
@@ -176,9 +191,9 @@ def nc_vjp_reduce(partial: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.float32, device=partial.device)
     with torch.cuda.device(partial.device):
         stream = torch.cuda.current_stream(partial.device).cuda_stream
-        rc = _library().nc_vjp_reduce_f32(partial.data_ptr(), out.data_ptr(),
-                                          n, n_parts, stream)
-    _raise_on(rc, "nc_vjp_reduce")
+        rc = _library(k).nc_vjp_reduce_f32(partial.data_ptr(),
+                                           out.data_ptr(), n, n_parts, stream)
+    _raise_on(rc, "nc_vjp_reduce", k)
     launches["nc_vjp_reduce"] += 1
     return out
 
@@ -202,7 +217,7 @@ def layer_vjp(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     k, c_in, c_out = int(w.shape[0]), int(w.shape[4]), int(w.shape[5])
     gz, partial = nc_vjp_dw(x.contiguous(), y.contiguous(),
                             g.to(torch.bfloat16).contiguous(), k)
-    sums = nc_vjp_reduce(partial)
+    sums = nc_vjp_reduce(partial, k)
     dw = sums[:-c_out].reshape(w.shape)
     db = sums[-c_out:]
     dx = nc_conv4d_transpose(gz, w) if need_dx else None

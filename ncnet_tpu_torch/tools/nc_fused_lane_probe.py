@@ -7,10 +7,10 @@ Usage::
 
 The port of ``tools/nc_fused_lane_probe.py``: ``ops/nc_fused_lane.py::
 nc_stack_fused_lane`` (the per-layer form's shape class, a 1-channel
-final layer) launches ``csrc/nc_conv4d.cu`` once a layer; the plain stack
-is ``relu(conv4d(...))`` with the chooser's formulation per layer.  A
-stack whose layers are not compiled into the kernel is refused with
-``NotImplementedError`` (exit 1).  Parity: within 5 % of the plain
+final layer) launches ``csrc/nc_conv4d.cuh`` once a layer; the plain
+stack is ``relu(conv4d(...))`` with the chooser's formulation per layer.
+A stack outside the kernels' gate (``nc_fused_lane.kernels_hold``) is
+refused with ``NotImplementedError`` (exit 1).  Parity: within 5 % of the plain
 stack's largest value; then ms a volume of each, every step consuming its
 output.
 """
@@ -53,12 +53,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     dev = resolve_device(args.device)
     b = args.batch
     print(f"device={_probe.card_line(dev)} n_volumes={b}")
-    compiled = nc_fused_lane.stack_compiled(
-        KERNELS, CHANNELS, nc_fused_lane.FORWARD_LAYER_SHAPES)
-    print(f"compiled: {compiled}")
-    if not compiled:
-        print(f"NotImplementedError: nc_conv4d is not compiled for the stack "
-              f"{KERNELS}/{CHANNELS} (NC_CONV4D_SHAPES)")
+    held = nc_fused_lane.kernels_hold(KERNELS, CHANNELS)
+    print(f"kernels hold the stack: {held}")
+    if not held:
+        print(f"NotImplementedError: the NC kernels do not serve the stack "
+              f"{KERNELS}/{CHANNELS} (nc_fused_lane.kernels_hold)")
         return 1
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -89,7 +88,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"fused-lane stack: {_probe.fmt_ms(ms['fused_lane'])} ms/volume")
     print(f"plain stack     : {_probe.fmt_ms(ms['plain'])} ms/volume")
     _probe.summary({"tool": "nc_fused_lane_probe", "batch": b,
-                    "compiled": compiled, "rel": res["rel"],
+                    "held": held, "rel": res["rel"],
                     "ms_per_volume": ms})
     return 0
 

@@ -9,12 +9,12 @@ Usage::
 The port of ``tools/nc_resident_probe.py``.  The resident stack
 (``ops/nc_fused_lane.py::nc_stack_resident``) and the per-layer chain
 (``nc_stack_fused_lane``) both run the hand-written B6 kernel
-(``csrc/nc_conv4d.cu``), one launch a layer; the plain stack is
+(``csrc/nc_conv4d.cuh``), one launch a layer; the plain stack is
 ``relu(conv4d(...))`` per layer with the formulation chooser's pick (B5
-for the 16 → 1 layer).  The compiled-shape verdict replaces the TPU
-tool's compile probe: a stack whose layers are not in the kernel's
-``NC_CONV4D_SHAPES`` is refused with ``NotImplementedError`` (exit 1)
-before anything runs.  Parity: both kernel stacks within 5 % of the
+for the 16 → 1 layer).  The kernels' gate (``nc_fused_lane.kernels_hold``,
+arithmetic on the kernel sizes and widths) replaces the TPU tool's
+compile probe: a stack outside it is refused with
+``NotImplementedError`` (exit 1) before anything runs.  Parity: both kernel stacks within 5 % of the
 plain stack's largest value.  Timing: ms a volume, each step consuming
 its output; the prefixes ``[:n]`` run the same kernel over the first n
 layers, so consecutive differences are the layers' composed costs.
@@ -60,11 +60,7 @@ def check(params: List[dict], x: torch.Tensor) -> dict:
 
 
 def shape_verdict() -> dict:
-    compiled = nc_fused_lane.stack_compiled(
-        KERNELS, CHANNELS, nc_fused_lane.FORWARD_LAYER_SHAPES)
-    return {"compiled": compiled,
-            "shape_class": nc_fused_lane.fused_shape_class(
-                KERNELS, CHANNELS, nc_fused_lane.FORWARD_LAYER_SHAPES),
+    return {"held": nc_fused_lane.kernels_hold(KERNELS, CHANNELS),
             "chooser": nc_fused_lane.choose_fused_stack(
                 S, S, S, S, KERNELS, CHANNELS) or "xla"}
 
@@ -86,11 +82,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     b = args.batch
     print(f"device={_probe.card_line(dev)} n_volumes={b}")
     verdict = shape_verdict()
-    print(f"compiled: {verdict['compiled']}  shape class: "
-          f"{verdict['shape_class']}  chooser at {S}^4: {verdict['chooser']}")
-    if not verdict["compiled"]:
-        print(f"NotImplementedError: nc_conv4d is not compiled for the stack "
-              f"{KERNELS}/{CHANNELS} (NC_CONV4D_SHAPES)")
+    print(f"kernels hold the stack: {verdict['held']}  chooser at {S}^4: "
+          f"{verdict['chooser']}")
+    if not verdict["held"]:
+        print(f"NotImplementedError: the NC kernels do not serve the stack "
+              f"{KERNELS}/{CHANNELS} (nc_fused_lane.kernels_hold)")
         return 1
 
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -7,14 +7,14 @@ Usage::
     python -m ncnet_tpu_torch.tools.nc_vjp_resident_probe [batch_volumes] [pf|ivd] [--device cpu]
 
     arch pf: 25⁴, k = 5, channels (16, 16, 1) (default); ivd: 25⁴, k = 3,
-    channels (16, 1).  Both are in ``NC_VJP_SHAPES``
-    (``csrc/nc_conv4d_vjp.cu``).
+    channels (16, 1).  The kernels hold both
+    (``nc_fused_lane.kernels_hold``; ``csrc/nc_conv4d_vjp.cuh``).
 
 The port of ``tools/nc_vjp_resident_probe.py``.  In place of the TPU
 tool's per-stage VMEM accounting and compile probes it prints each
-layer's ``(k, C_in, C_out)`` and whether the backward is compiled for it
-(``nc_fused_lane.VJP_LAYER_SHAPES``), and the training gate's verdict
-(``fused_shape_class``); a stack outside the tables is refused with
+layer's ``(k, C_in, C_out)`` and whether the kernels serve it
+(``nc_fused_lane.layer_held``), and the training gate's verdict
+(``kernels_hold``); a stack outside the gate is refused with
 ``NotImplementedError`` (exit 1).
 
   * Parity: the kernels' backward (``nc_fused_lane_vjp.stack_vjp``) against
@@ -111,16 +111,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"device={_probe.card_line(dev)} n_volumes={b} arch={args.arch}")
     shapes = layer_shapes(kernels, channels)
     for li, shape in enumerate(shapes):
-        print(f"  stage {li}: (k, C_in, C_out)={shape} compiled: "
-              f"{shape in nc_fused_lane.VJP_LAYER_SHAPES}")
-    gate = nc_fused_lane.fused_shape_class(kernels, channels,
-                                           nc_fused_lane.VJP_LAYER_SHAPES)
+        print(f"  stage {li}: (k, C_in, C_out)={shape} held: "
+              f"{nc_fused_lane.layer_held(*shape)}")
+    gate = nc_fused_lane.kernels_hold(kernels, channels)
     chooser = nc_fused_lane.choose_fused_stack(S, S, S, S, kernels, channels)
     print(f"training gate (B3 serves the stack): {gate}  forward chooser at "
           f"{S}^4: {chooser or 'xla'}")
     if not gate:
-        print(f"NotImplementedError: the NC backward is not compiled for the "
-              f"stack {kernels}/{channels} (NC_VJP_SHAPES)")
+        print(f"NotImplementedError: the NC kernels do not serve the stack "
+              f"{kernels}/{channels} (nc_fused_lane.kernels_hold)")
         return 1
 
     gen = torch.Generator(device=dev).manual_seed(0)

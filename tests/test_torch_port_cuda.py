@@ -31,7 +31,7 @@ The relocalization pooling is exact, so the card's is bit-equal to the
 CPU's; the device resize (two f32 contractions) stays within 1e-6 of the
 image's largest value of the CPU's; the eval step's PCK may differ from the CPU readout of the same
 volume by one keypoint a sample (softmax on two devices may round a
-near-tie otherwise).  A bf16 stack the kernels are not compiled for runs
+near-tie otherwise).  A bf16 stack outside the kernels' gate runs
 the conv4d formulations per layer, within 1e-2 normalized of the twin
 (its layers round to bf16 at other points); ``run_eval`` on the card keeps
 each pair's PCK within one keypoint of the same run on the CPU; the eval
@@ -148,16 +148,17 @@ def test_kernel_matches_twin(cuda, shape, kernels, channels):
 
 @pytest.mark.cuda
 def test_uncompiled_stack_runs_per_layer(cuda):
-    """A bf16 (5, 5, 5) / (8, 8, 1) stack is not compiled into B6 or B3
-    (ROADMAP §C, C1): on 40 coarse-to-fine 6⁴ tiles the route is 'xla'
-    before any launch, the conv4d formulations run layer by layer with no
-    B2 launch, and the symmetric filtered volume matches the twin's
-    ``NC(x) + NC(xᵀ)ᵀ`` within 1e-2 normalized (each layer rounds to bf16
-    at other points than the twin); in training the gradients come back
-    through the formulations, with no B3 launch."""
+    """A bf16 (3, 3, 3) / (48, 48, 1) stack lies outside the kernels' gate
+    (widths past 32; ROADMAP §C, C1): on 40 coarse-to-fine 6⁴ tiles the
+    route is 'xla' before any launch, the conv4d formulations run layer by
+    layer with no B2 launch, and the symmetric filtered volume matches the
+    twin's ``NC(x) + NC(xᵀ)ᵀ`` within 1e-2 normalized (each layer rounds
+    to bf16 at other points than the twin); in training the gradients come
+    back through the formulations, with no B3 launch."""
     from ncnet_tpu_torch.models.ncnet import neigh_consensus
 
-    kernels, channels = (5, 5, 5), (8, 8, 1)
+    kernels, channels = (3, 3, 3), (48, 48, 1)
+    assert not nc_fused_lane.kernels_hold(kernels, channels)
     params, x = random_stack(np.random.default_rng(5), (40, 6, 6, 6, 6),
                              kernels, channels, cuda)
     swap = lambda v: v.permute(0, 3, 4, 1, 2, 5)  # noqa: E731
@@ -178,6 +179,58 @@ def test_uncompiled_stack_runs_per_layer(cuda):
     assert nc_fused_lane_vjp.launches == vjp_before
     assert all(torch.isfinite(p["w"].grad).all() and p["w"].grad.abs().max() > 0
                for p in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("c_in,c_out", [(1, 8), (8, 8), (32, 32), (32, 3),
+                                        (24, 9)])
+def test_shape_class_layer_matches_twin(cuda, k, c_in, c_out):
+    """Every kernel size and width of the shape class: B6's forward and
+    transposed launches and B7's dW/db against the twins (1e-2 normalized),
+    two launches bit-identical."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 5, 6, 7, 6, c_in)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (k,) * 4 + (c_in, c_out)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(0, 0.1, (c_out,)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    y = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    assert torch.equal(y, nc_fused_lane.nc_conv4d_layer(x, w, b))
+    assert normalized_err(y, nc_fused_lane.layer_reference(x, w, b)) <= 1e-2
+    g = torch.from_numpy(rng.normal(0, 0.5, tuple(y.shape)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    got = nc_fused_lane_vjp.layer_vjp(x, y, g, w)
+    again = nc_fused_lane_vjp.layer_vjp(x, y, g, w)
+    want = nc_fused_lane_vjp.layer_vjp_reference(x, y, g, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for a, c in zip(got, want):
+        assert normalized_err(a, c) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["forward", "backward"])
+def test_forced_kernel_failure_raises(cuda, monkeypatch, module):
+    """A held stack whose kernel library fails to build raises through the
+    training route: no fallback to the formulations or to the CPU."""
+    from ncnet_tpu_torch.models.ncnet import neigh_consensus
+
+    target = nc_fused_lane if module == "forward" else nc_fused_lane_vjp
+    params, x = random_stack(np.random.default_rng(17), (1, 6, 6, 6, 6),
+                             (3, 3), (8, 1), cuda)
+    assert nc_fused_lane.kernels_hold((3, 3), (8, 1))
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+              for p in params]
+
+    def fails(k):
+        raise RuntimeError("forced build failure")
+
+    monkeypatch.setattr(target, "_library", fails)
+    with pytest.raises(RuntimeError, match="forced build failure"):
+        neigh_consensus(leaves, x[..., 0], require_vjp=True).float().sum(
+        ).backward()
 
 
 @pytest.mark.cuda
@@ -786,12 +839,34 @@ def test_b6_matches_twin_on_rectangular_volumes(cuda, shape, k, c_in, c_out):
 
 @pytest.mark.cuda
 def test_chain_transposed_launch_is_not_compiled(cuda):
-    """The chain's layers are forward only: B3's input gradient refuses
-    them before any launch."""
+    """The chain's layers have their backward now: B3's input gradient of
+    the block-diagonal 32 → 2 layer (a 2 → 32 transposed launch) and B7's
+    dW/db at both layers run and match the twin, two launches
+    bit-identical; a layer past the widths is refused before any launch."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(0, 0.5, (1, 5, 4, 6, 5, 32)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(0, 0.1, (3, 3, 3, 3, 32, 2)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(0, 0.1, (2,)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    y = nc_fused_lane.nc_conv4d_layer(x, w, b)
+    g = torch.from_numpy(rng.normal(0, 0.5, tuple(y.shape)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = dict(nc_fused_lane_vjp.launches)
+    got = nc_fused_lane_vjp.layer_vjp(x, y, g, w)
+    again = nc_fused_lane_vjp.layer_vjp(x, y, g, w)
+    want = nc_fused_lane_vjp.layer_vjp_reference(x, y, g, w)
+    torch.cuda.synchronize()
+    assert {k: nc_fused_lane_vjp.launches[k] - before[k] for k in before} == {
+        "nc_vjp_dw": 2, "nc_vjp_reduce": 2, "nc_conv4d_transpose": 2}
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for a, c in zip(got, want):
+        assert normalized_err(a, c) <= 1e-2
+    wide = torch.zeros((3, 3, 3, 3, 48, 2), dtype=torch.bfloat16, device=cuda)
     gz = torch.zeros((1, 3, 3, 3, 3, 2), dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros((3, 3, 3, 3, 32, 2), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="transposed"):
-        nc_fused_lane_vjp.nc_conv4d_transpose(gz, w)
+    with pytest.raises(NotImplementedError, match="do not serve"):
+        nc_fused_lane_vjp.nc_conv4d_transpose(gz, wide)
 
 
 @pytest.mark.cuda

@@ -8,11 +8,11 @@ layer's dW/db, B7), ``gather_work`` (the tile correlation, B4),
 probe, T1: its 0.830 ms bound at B = 8); a
 redesigned kernel must be read against the same work,
 so these counts are pinned here to the numbers PERF.md's bounds use.  The
-layer shapes compiled into ``csrc/nc_conv4d.cu`` are read from the source:
-its forward list is the backward's (``csrc/nc_conv4d_vjp.cu``, and the
-transposed launches of ``nc_conv4d.cu``) plus the InLoc stack's tap-swap
-chain, and every stack a ``ModelConfig`` of the repository builds must be
-in them.
+NC kernels' limits are read from their sources (``csrc/nc_conv4d.cuh``,
+``csrc/nc_conv4d_vjp.cuh``): both serve the same shapes, the route's gate
+(``nc_fused_lane.kernels_hold``) repeats their limits, and every stack a
+``ModelConfig`` of the repository builds, and its tap-swap chain, lies
+inside it.
 """
 
 import re
@@ -28,36 +28,33 @@ from ncnet_tpu_torch.observability import roofline
 CSRC = Path(__file__).resolve().parent.parent / "ncnet_tpu_torch" / "csrc"
 
 
-def compiled_shapes(source, macro):
-    """The (k, C_in, C_out) triples of the X-macro list ``macro``, in
-    order, with the lists it names (``OTHER_LIST(X)``) expanded."""
+def source_limits(source):
+    """The ``constexpr`` limits of an NC kernel header: kMaxK, kMaxWidth
+    and the shared-memory budget in bytes."""
     text = (CSRC / source).read_text()
-    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", text, re.S).group(1)
-    shapes = []
-    for name, *triple in re.findall(
-            r"(\w+)\(X\)|X\((\d+), (\d+), (\d+)\)", body):
-        shapes += (compiled_shapes(source, name) if name
-                   else [tuple(int(v) for v in triple)])
-    return shapes
-
-
-# the IVD stack's tap-swap chain (models/ncnet.py::tap_swap_chain), whose
-# layers the forward alone is compiled for (serving only)
-CHAIN_SHAPES = {(3, 1, 32), (3, 32, 2)}
+    k = int(re.search(r"constexpr int kMaxK = (\d+);", text).group(1))
+    width = int(re.search(r"constexpr int kMaxWidth = (\d+);", text).group(1))
+    budget = re.search(r"constexpr size_t kSmemBudget = (\d+) \* (\d+);", text)
+    return k, width, int(budget.group(1)) * int(budget.group(2))
 
 
 def test_forward_and_backward_compile_the_same_shapes():
-    """The backward (dW/db and the transposed launch) is compiled for the
-    same shapes as the forward, but for the chain's two forward-only
-    layers."""
-    fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
-    bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
-    transposed = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_TRANSPOSE_SHAPES")
-    assert len(fwd) == len(set(fwd)) == 27
-    assert len(bwd) == len(set(bwd)) == 25
-    assert transposed == bwd
-    assert set(fwd) == set(bwd) | CHAIN_SHAPES
-    assert not CHAIN_SHAPES & set(bwd)
+    """The forward (and its transposed launch) and the backward's dW/db
+    serve the same layer shapes: the same kernel-size and width limits in
+    both sources, and one library of each for every odd k up to the
+    limit, all in the build's list."""
+    from ncnet_tpu_torch.ops import kernel_build
+
+    (fk, fw, _), (bk, bw, _) = (source_limits("nc_conv4d.cuh"),
+                                source_limits("nc_conv4d_vjp.cuh"))
+    assert (fk, fw) == (bk, bw) == (7, 32)
+    for head in ("nc_conv4d", "nc_conv4d_vjp"):
+        for k in range(1, fk + 1, 2):
+            src = f"{head}_k{k}.cu"
+            assert src in kernel_build.SOURCES
+            assert f"#define NC_K {k}\n#include \"{head}.cuh\"" in (
+                CSRC / src).read_text()
+        assert not (CSRC / f"{head}_k{fk + 2}.cu").exists()
 
 
 @pytest.mark.parametrize("name,cfg", [
@@ -68,21 +65,20 @@ def test_forward_and_backward_compile_the_same_shapes():
     ("default", ModelConfig()),
 ])
 def test_model_stacks_are_compiled(name, cfg):
-    shapes = set(compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES"))
-    transposed = set(compiled_shapes("nc_conv4d.cu",
-                                     "NC_CONV4D_TRANSPOSE_SHAPES"))
+    from ncnet_tpu_torch.ops import nc_fused_lane
+
+    kernels, channels = cfg.ncons_kernel_sizes, cfg.ncons_channels
+    assert nc_fused_lane.kernels_hold(kernels, channels), name
     c_in = 1
-    for k, c_out in zip(cfg.ncons_kernel_sizes, cfg.ncons_channels):
-        # the forward launch, and the transposed one of the backward, which
-        # the kernel serves under the same forward shape
-        assert (k, c_in, c_out) in shapes, (name, k, c_in, c_out)
-        assert (k, c_in, c_out) in transposed, (name, k, c_in, c_out)
+    for k, c_out in zip(kernels, channels):
+        # the forward launch, its transposed one and B7's dW/db
+        assert nc_fused_lane.layer_held(k, c_in, c_out), (name, k, c_in, c_out)
         c_in = c_out
-    if len(cfg.ncons_channels) == 2 and len(set(cfg.ncons_kernel_sizes)) == 1:
+    if len(channels) == 2 and len(set(kernels)) == 1:
         # a two-layer stack of one kernel size is in the tap-swap class: its
         # chain [1 -> 2C, 2C -> 2] filters a rectangular volume
-        k, c = cfg.ncons_kernel_sizes[0], cfg.ncons_channels[0]
-        assert {(k, 1, 2 * c), (k, 2 * c, 2)} <= shapes, name
+        c = channels[0]
+        assert nc_fused_lane.kernels_hold(kernels, (2 * c, 2)), name
 
 
 def taps_in_volume(n, k):
@@ -248,21 +244,31 @@ def test_l2_work():
 
 
 def test_compiled_layer_shapes_constant_is_the_sources():
-    """The routes' lists of compiled layer shapes are the sources' X-macro
-    lists, shape for shape: the serving chooser's
-    (``nc_fused_lane.FORWARD_LAYER_SHAPES``) the forward's, the training
-    gate's (``nc_fused_lane.VJP_LAYER_SHAPES``) the backward's and the
-    transposed launch's."""
-    from ncnet_tpu_torch.ops.nc_fused_lane import (
-        FORWARD_LAYER_SHAPES,
-        VJP_LAYER_SHAPES,
-    )
+    """The route's gate (``nc_fused_lane.kernels_hold``) holds the sources'
+    limits, constant for constant: the largest k and width of both
+    kernels, each one's shared-memory budget, and the staging limits its
+    smallest-block arithmetic repeats; inside the limits every layer shape
+    fits its smallest block, so the gate is the limits themselves."""
+    from ncnet_tpu_torch.ops import nc_fused_lane as lane
 
-    fwd = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_SHAPES")
-    bwd = compiled_shapes("nc_conv4d_vjp.cu", "NC_VJP_SHAPES")
-    transposed = compiled_shapes("nc_conv4d.cu", "NC_CONV4D_TRANSPOSE_SHAPES")
-    assert FORWARD_LAYER_SHAPES == set(fwd)
-    assert VJP_LAYER_SHAPES == set(bwd) == set(transposed)
+    fk, fw, fbudget = source_limits("nc_conv4d.cuh")
+    bk, bw, bbudget = source_limits("nc_conv4d_vjp.cuh")
+    assert (lane.MAX_K, lane.MAX_WIDTH) == (fk, fw) == (bk, bw)
+    assert (lane.FORWARD_SMEM_BUDGET, lane.VJP_SMEM_BUDGET) == (fbudget,
+                                                               bbudget)
+    assert lane.KERNEL_SIZES == tuple(range(1, fk + 1, 2))
+    text = (CSRC / "nc_conv4d.cuh").read_text()
+    slab = re.search(r"constexpr int kSlabBudget = (\d+) \* (\d+);", text)
+    assert lane._SLAB_BUDGET == int(slab.group(1)) * int(slab.group(2))
+    assert lane._MAX_PARTIALS == int(re.search(
+        r"constexpr int kMaxPartials = (\d+);", text).group(1))
+    for k in lane.KERNEL_SIZES:
+        for c_in in range(1, fw + 1):
+            for c_out in range(1, fw + 1):
+                assert lane.layer_held(k, c_in, c_out), (k, c_in, c_out)
+    for k, c_in, c_out in [(9, 1, 16), (8, 1, 16), (3, 33, 1), (3, 1, 48),
+                           (5, 0, 1)]:
+        assert not lane.layer_held(k, c_in, c_out)
 
 
 def test_b5_launch_count_is_never_shadowed():

@@ -156,21 +156,19 @@ def test_stack_probes_match_the_jax_kernels(monkeypatch):
 
 def test_chooser_decisions_match_jax():
     """The probes' tier decisions at the PF-Pascal 25⁴ stack and the
-    compiled-shape verdicts."""
+    kernels' gate's verdicts."""
     from ncnet_tpu.ops import nc_fused_lane as jlane
 
     verdict = port_tool("nc_resident_probe").shape_verdict()
     want = jlane.choose_fused_stack(25, 25, 25, 25, (5, 5, 5), (16, 16, 1))
-    assert verdict == {"compiled": True, "shape_class": True,
-                       "chooser": want} and want == "fft"
+    assert verdict == {"held": True, "chooser": want} and want == "fft"
     from ncnet_tpu_torch.ops import nc_fused_lane as tlane
 
     for arch in ("pf", "ivd"):
         kernels, channels = port_tool("nc_vjp_resident_probe").ARCHS[arch]
-        assert tlane.fused_shape_class(kernels, channels,
-                                       tlane.VJP_LAYER_SHAPES)
+        assert tlane.kernels_hold(kernels, channels)
         # the arithmetic decisions agree; the JAX kernel tier needs a TPU,
-        # the port's a compiled shape (both archs' layers are)
+        # the port's the kernels' gate (both archs are inside it)
         assert tlane.choose_fused_stack(
             25, 25, 25, 25, kernels, channels, pallas_ok=False) \
             == jlane.choose_fused_stack(25, 25, 25, 25, kernels, channels,
@@ -181,7 +179,8 @@ def test_chooser_decisions_match_jax():
 
 def test_uncompiled_stack_is_refused(monkeypatch, capsys):
     tool = port_tool("nc_resident_probe")
-    monkeypatch.setattr(tool, "KERNELS", (3, 3))
+    # k = 9: outside the kernels' gate
+    monkeypatch.setattr(tool, "KERNELS", (9, 9))
     monkeypatch.setattr(tool, "CHANNELS", (7, 1))
     assert tool.main(["1", "--device", "cpu"]) == 1
     assert "NotImplementedError" in capsys.readouterr().out

@@ -580,38 +580,42 @@ def spy_stack_routes(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("kernels,channels,side", [
-    ((5, 5, 5), (8, 8, 1), 6),     # 8 channels: no compiled layer shape
-    ((7, 7, 7), (16, 16, 1), 50),  # k = 7: no compiled layer shape
+@pytest.mark.parametrize("kernels,channels,side,inside", [
+    # k = 9: a tap row's shifts do not fit the taps-in-K row; the same
+    # widths at k = 7 are inside the gate
+    ((9, 9, 9), (16, 16, 1), 50, ((7, 7, 7), (16, 16, 1))),
+    # 48 channels: past the kernels' widths; 8 channels are inside
+    ((5, 5, 5), (48, 48, 1), 50, ((5, 5, 5), (8, 8, 1))),
 ])
 def test_uncompiled_bf16_stacks_take_no_kernel_tier(fresh_chooser, kernels,
-                                                     channels, side):
-    """A bf16 stack of one odd k with a thin final layer is B2's shape
-    class only where every layer is compiled into the kernels; any other
-    stack is None ('xla') before any launch, where the JAX package falls
-    to its XLA tier."""
-    assert not tlane.stack_compiled(kernels, channels,
-                                    tlane.FORWARD_LAYER_SHAPES)
-    assert not tlane.fused_shape_class(kernels, channels,
-                                       tlane.VJP_LAYER_SHAPES)
+                                                     channels, side, inside):
+    """A bf16 stack of one odd k with a thin final layer takes the kernel
+    tier only inside the kernels' gate (odd k <= 7, widths <= 32); any
+    other stack is None ('xla') before any launch, where the JAX package
+    runs its Pallas kernel (its shape class has no such limit) or falls to
+    its XLA tier."""
+    from ncnet_tpu.ops import nc_fused_lane as jlane
+
+    assert jlane._resident_shape_class(kernels, channels)
+    assert not tlane.kernels_hold(kernels, channels)
     assert tlane.choose_fused_stack(side, side, side, side, kernels, channels) is None
     assert tlane.last_selected_tier() == "xla"
-    assert tlane.stack_compiled((5, 5, 5), (16, 16, 1),
-                                tlane.FORWARD_LAYER_SHAPES)
-    assert tlane.choose_fused_stack(side, side, side, side, (5, 5, 5),
-                                    (16, 16, 1)) == "resident"
-    assert tlane.last_selected_tier() == "resident"
+    for held in (inside, ((5, 5, 5), (16, 16, 1))):
+        assert tlane.kernels_hold(*held)
+        assert tlane.choose_fused_stack(side, side, side, side,
+                                        *held) == "resident"
+        assert tlane.last_selected_tier() == "resident"
 
 
-@pytest.mark.parametrize("kernels,channels", [((5, 5, 5), (8, 8, 1)),
-                                              ((7, 7, 7), (16, 16, 1))])
+@pytest.mark.parametrize("kernels,channels", [((9, 9), (4, 1)),
+                                              ((3, 3, 3), (48, 48, 1))])
 def test_uncompiled_bf16_stacks_route_per_layer(fresh_chooser, monkeypatch,
                                                 kernels, channels):
-    """Forward and the training gate (``require_vjp``) of an uncompiled
-    bf16 stack on a 5⁴ volume: no kernel-tier entry point runs, the tier
-    reads 'xla', and the value (and, in training, the gradients through
-    the formulations) equals the per-layer route's with the kernel tier
-    off."""
+    """Forward and the training gate (``require_vjp``) of a bf16 stack
+    outside the kernels' gate (k = 9; 48 channels) on a 5⁴ volume: no
+    kernel-tier entry point runs, the tier reads 'xla', and the value
+    (and, in training, the gradients through the formulations) equals the
+    per-layer route's with the kernel tier off."""
     calls = spy_stack_routes(monkeypatch)
     layers = as_torch(make_stack(31, kernels, channels), torch.bfloat16)
     x = torch.from_numpy(rng(32).uniform(0, 1, (1, 5, 5, 5, 5)).astype(
@@ -662,26 +666,39 @@ IVD_CHAIN = ((3, 3), (32, 2))
 
 @pytest.mark.parametrize("volume", [(100, 75, 75, 100), (6, 5, 5, 6)])
 def test_tap_swap_chain_routes_to_the_kernel_tier(fresh_chooser, volume):
-    """The chain of the IVD stack, (3, 1, 32) and (3, 32, 2), is compiled
-    into the forward kernel: the serving chooser takes "resident" at the
-    full InLoc volume and at a small rectangular one, as for the plain
-    (16, 1) stack."""
-    assert tlane.stack_compiled(*IVD_CHAIN, tlane.FORWARD_LAYER_SHAPES)
-    assert tlane.fused_shape_class(*IVD_CHAIN, tlane.FORWARD_LAYER_SHAPES)
+    """The chain of the IVD stack, (3, 1, 32) and (3, 32, 2), lies inside
+    the kernels' gate: the serving chooser takes "resident" at the full
+    InLoc volume and at a small rectangular one, as for the plain (16, 1)
+    stack."""
+    assert tlane.layer_held(3, 1, 32) and tlane.layer_held(3, 32, 2)
+    assert tlane.kernels_hold(*IVD_CHAIN)
     assert tlane.choose_fused_stack(*volume, *IVD_CHAIN) == "resident"
     assert tlane.last_selected_tier() == "resident"
     assert tlane.choose_fused_stack(*volume, (3, 3), (16, 1)) == "resident"
 
 
-def test_training_gate_refuses_the_chain_shapes(fresh_chooser):
-    """The chain's layers have no backward kernel: the training gate
-    (``fused_shape_class`` with the backward's list) refuses them, while
-    the plain IVD stack keeps B2 and B3."""
-    assert not tlane.stack_compiled(*IVD_CHAIN, tlane.VJP_LAYER_SHAPES)
-    assert not tlane.fused_shape_class(*IVD_CHAIN, tlane.VJP_LAYER_SHAPES)
-    assert tlane.fused_shape_class((3, 3), (16, 1), tlane.VJP_LAYER_SHAPES)
-    assert tlane.FORWARD_LAYER_SHAPES - tlane.VJP_LAYER_SHAPES == {
-        (3, 1, 32), (3, 32, 2)}
+def test_training_gate_refuses_the_chain_shapes(fresh_chooser, monkeypatch):
+    """The training gate no longer refuses the chain's shapes: B7 and the
+    transposed launch serve (3, 1, 32) and (3, 32, 2), so the gate holds
+    the chain as it holds the plain IVD stack, and a rectangular training
+    call of the IVD stack takes the chain in one fused call, as the JAX
+    gate does (``ncnet_tpu/models/ncnet.py:513-523``).  A chain past the
+    widths (C = 20: 40 channels) is refused while its stack is held."""
+    assert tlane.kernels_hold(*IVD_CHAIN)
+    assert tlane.kernels_hold((3, 3), (16, 1))
+    assert not tlane.kernels_hold((3, 3), (40, 2))
+    assert tlane.kernels_hold((3, 3), (20, 1))
+    calls = spy_stack_routes(monkeypatch)
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+              for p in as_torch(make_stack(39, (3, 3), (16, 1)),
+                                torch.bfloat16)]
+    x = torch.from_numpy(rng(40).uniform(0, 1, (1, 7, 5, 5, 7)).astype(
+        np.float32)).to(torch.bfloat16)
+    tnet.neigh_consensus(leaves, x, require_vjp=True).float().sum().backward()
+    assert calls == ["nc_stack_fused"]
+    assert tlane.last_selected_tier() == "resident"
+    assert all(p["w"].grad is not None and p["b"].grad is not None
+               for p in leaves)
 
 
 @pytest.mark.parametrize("dtype,tier", [("bfloat16", "resident"),
@@ -714,20 +731,21 @@ def test_rectangular_ivd_stack_routes_to_the_tap_swap(fresh_chooser,
 
 
 @pytest.mark.parametrize("kernels,require_vjp", [
-    ((5, 5), False),  # the chain (5, 1, 32), (5, 32, 2) is not compiled
-    ((3, 3), True),   # the chain has no backward
+    ((5, 5), False),  # serving: the chain (5, 1, 40), (5, 40, 2) is too wide
+    ((3, 3), True),   # the training gate: (3, 1, 40), (3, 40, 2) likewise
 ])
 def test_rectangular_stack_without_its_chain_keeps_two_kernel_passes(
         fresh_chooser, monkeypatch, kernels, require_vjp):
-    """A rectangular bf16 (16, 1) stack the kernel tier runs but whose
-    tap-swap chain it does not (k = 5 in serving; the IVD stack while the
-    training gate records gradients) runs the two passes on the kernel, as
-    before the tap-swap form: one kernel-tier call on the volume and one
-    on its transpose, equal to the two twins' sum; the tier reads
-    'resident'."""
+    """A rectangular bf16 (20, 1) stack the kernel tier runs but whose
+    tap-swap chain it does not (its fused first layer is 40 channels wide,
+    past the kernels' widths) runs the two passes on the kernel, as before
+    the tap-swap form: one kernel-tier call on the volume and one on its
+    transpose, equal to the two twins' sum; the tier reads 'resident'."""
     calls = spy_stack_routes(monkeypatch)
     b5 = spy_b5(monkeypatch)
-    layers = as_torch(make_stack(37, kernels, (16, 1)), torch.bfloat16)
+    assert tlane.kernels_hold(kernels, (20, 1))
+    assert not tlane.kernels_hold(kernels, (40, 2))
+    layers = as_torch(make_stack(37, kernels, (20, 1)), torch.bfloat16)
     x = torch.from_numpy(rng(38).uniform(0, 1, (1, 7, 5, 5, 7)).astype(
         np.float32)).to(torch.bfloat16)
     if require_vjp:
